@@ -1,0 +1,1 @@
+"""Subpackage of sheep_tpu_torch."""

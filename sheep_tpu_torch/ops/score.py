@@ -1,0 +1,65 @@
+"""Edge-cut scoring (counterpart of ``score_chunk`` and the comm-volume keys
+of ``sheep_tpu/ops/score.py``).
+
+Per chunk: part lookups for both endpoints and predicated counts under the
+validity mask (endpoints in [0, n), no self-loop). Comm volume is the
+number of distinct (vertex, foreign part) pairs over cut edges, encoded as
+int64 keys ``vertex * k + foreign_part`` and uniqued on the device (the
+reference pulls them to the host and uniques there; the count is the
+same).
+"""
+
+from __future__ import annotations
+
+import torch
+
+# pending keys are compacted (sort + unique) once the accumulator holds
+# more than this many (1 GiB of int64 keys)
+CV_COMPACT_ENTRIES = 1 << 27
+
+
+def _endpoint_parts(edges: torch.Tensor, assign: torch.Tensor, n: int):
+    e = edges.to(torch.int32)
+    u, v = e[:, 0], e[:, 1]
+    valid = (u >= 0) & (u < n) & (v >= 0) & (v < n) & (u != v)
+    pu = assign[u.clamp(0, n).long()]
+    pv = assign[v.clamp(0, n).long()]
+    return u, v, valid, pu, pv
+
+
+def score_chunk(edges: torch.Tensor, assign: torch.Tensor, n: int):
+    """(cut, total) counts of one (C, 2) chunk as 0-d int64 tensors.
+    ``assign`` is int32[n+1]; padding is any endpoint outside [0, n)."""
+    _, _, valid, pu, pv = _endpoint_parts(edges, assign, n)
+    return (valid & (pu != pv)).sum(), valid.sum()
+
+
+def cut_pair_keys(edges: torch.Tensor, assign: torch.Tensor, n: int,
+                  k: int) -> torch.Tensor:
+    """The chunk's distinct comm-volume keys (int64, on the chunk's
+    device)."""
+    u, v, valid, pu, pv = _endpoint_parts(edges, assign, n)
+    cut = valid & (pu != pv)
+    keys = torch.cat([u[cut].long() * k + pv[cut].long(),
+                      v[cut].long() * k + pu[cut].long()])
+    return torch.unique(keys)
+
+
+def accumulate_cv_keys(cv_chunks: list, keys: torch.Tensor) -> list:
+    """Append a chunk's keys; compact in place (sort + unique on the keys'
+    device) once the pending tail after the compacted head exceeds the
+    cap, bounding memory at O(distinct + cap)."""
+    cv_chunks.append(keys)
+    if len(cv_chunks) > 1 and \
+            sum(len(c) for c in cv_chunks[1:]) > CV_COMPACT_ENTRIES:
+        merged = torch.unique(torch.cat(cv_chunks))
+        cv_chunks.clear()
+        cv_chunks.append(merged)
+    return cv_chunks
+
+
+def comm_volume(cv_chunks: list) -> int:
+    """Number of distinct keys over all accumulated chunks."""
+    if not cv_chunks:
+        return 0
+    return int(torch.unique(torch.cat(cv_chunks)).numel())

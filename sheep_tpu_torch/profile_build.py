@@ -1,0 +1,82 @@
+"""Where the device time of one build goes, by kernel name.
+
+    python -m sheep_tpu_torch.profile_build [--input SPEC] [--k K]
+        [--out DIR]
+
+Runs one partition on CUDA under ``torch.profiler`` and prints one JSON
+line: wall and per-phase seconds, the summed device time by kernel name
+(top entries, with their call counts), the device-busy share of the
+profiled wall, the card's name and power limit. The full table goes to
+``DIR/profile_build.txt`` when ``--out`` is given. Needs a GPU; the
+profiler itself slows the host side, so phase times here are not the
+unprofiled ones.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--input", default="rmat-hash:22:16:42")
+    p.add_argument("--k", type=int, default=64)
+    p.add_argument("--chunk-edges", type=int, default=1 << 23)
+    p.add_argument("--dispatch-batch", type=int, default=8)
+    p.add_argument("--top", type=int, default=12)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("profile_build: no CUDA device", file=sys.stderr)
+        return 2
+    _build.build_all()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = sheep_tpu_torch.partition(
+            args.input, args.k, device="cuda", chunk_edges=args.chunk_edges,
+            dispatch_batch=args.dispatch_batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: -e.device_time_total)
+    device_us = sum(e.device_time_total for e in events)
+    top = [{"name": e.key[:90], "calls": e.count,
+            "device_ms": e.device_time_total / 1e3,
+            "share": e.device_time_total / device_us if device_us else 0.0}
+           for e in events[:args.top]]
+    line = {"input": args.input, "k": args.k, "wall_s": wall,
+            "phase_s": res.phase_times,
+            "device_rounds": res.diagnostics["device_rounds"],
+            "device_ms": device_us / 1e3,
+            "device_busy_share": device_us / 1e6 / wall if wall else 0.0,
+            "top_kernels": top, "card": card}
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "profile_build.txt"), "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="device_time_total", row_limit=60))
+    print(json.dumps(line))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

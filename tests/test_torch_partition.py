@@ -1,0 +1,172 @@
+"""The whole slice: ``sheep_tpu_torch.partition(..., device="cpu")`` against
+the JAX ``tpu`` backend (batched dispatch, inflight=1) under
+JAX_PLATFORMS=cpu. The forest, assignment, scores and the fixpoint's round
+count are integers (balance is the same numpy formula), so every
+comparison is exact."""
+
+import ast
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import sheep_tpu_torch
+from sheep_tpu.backends.tpu_backend import TpuBackend, pad_chunk
+from sheep_tpu.io import edgestream as jes
+from sheep_tpu.io import formats as jformats
+from sheep_tpu.io import generators as jgen
+from sheep_tpu.ops import degrees as jdeg
+from sheep_tpu.ops import elim as jelim
+from sheep_tpu.ops import order as jorder
+from sheep_tpu_torch import cli, state
+from sheep_tpu_torch.ops import elim
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _jax(spec, k, cs, batch):
+    be = TpuBackend(chunk_edges=cs, dispatch_batch=batch, inflight=1)
+    with jes.open_input(spec) as s:
+        return be.partition(s, k, keep_tree=True)
+
+
+def _assert_equal(res, ref):
+    assert np.array_equal(res.tree["parent"], ref.tree["parent"])
+    assert np.array_equal(res.tree["pos"], ref.tree["pos"])
+    assert np.array_equal(res.tree["deg"], ref.tree["deg"])
+    assert np.array_equal(res.assignment, ref.assignment)
+    for key in ("edge_cut", "total_edges", "balance", "comm_volume"):
+        assert getattr(res, key) == getattr(ref, key), key
+    assert res.diagnostics["device_rounds"] == \
+        ref.diagnostics["device_rounds"]
+    assert res.diagnostics["fixpoint_rounds"] == \
+        ref.diagnostics["fixpoint_rounds"]
+
+
+@pytest.fixture(scope="module")
+def karate_path(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("g") / "karate.edges")
+    jformats.write_edges(path, jgen.karate_club())
+    return path
+
+
+@pytest.mark.parametrize("batch", [2, 3])
+def test_karate_k2(karate_path, batch):
+    ref = _jax(karate_path, 2, 1 << 13, batch)
+    res = sheep_tpu_torch.partition(karate_path, 2, device="cpu",
+                                    chunk_edges=1 << 13,
+                                    dispatch_batch=batch, keep_tree=True)
+    _assert_equal(res, ref)
+
+
+@pytest.mark.parametrize("spec", ["rmat-hash:12:8:1", "rmat-hash:14:8:3"])
+@pytest.mark.parametrize("k", [2, 64])
+@pytest.mark.parametrize("batch", [2, 3])
+def test_rmat_matches_tpu_backend(spec, k, batch):
+    cs = 1 << 13
+    ref = _jax(spec, k, cs, batch)
+    res = sheep_tpu_torch.partition(spec, k, device="cpu", chunk_edges=cs,
+                                    dispatch_batch=batch, keep_tree=True)
+    _assert_equal(res, ref)
+    assert res.diagnostics["gather_launches"] == 0  # CPU: the plain gather
+
+
+def test_degree_weights_match(karate_path):
+    be = TpuBackend(chunk_edges=1 << 13, dispatch_batch=2, inflight=1)
+    with jes.open_input(karate_path) as s:
+        ref = be.partition(s, 3, weights="degree")
+    res = sheep_tpu_torch.partition(karate_path, 3, device="cpu",
+                                    chunk_edges=1 << 13, dispatch_batch=2,
+                                    weights="degree")
+    assert np.array_equal(res.assignment, ref.assignment)
+    assert (res.edge_cut, res.balance) == (ref.edge_cut, ref.balance)
+
+
+def test_state_carry_from_jax():
+    """JAX folds the first half of the chunks; state_from_jax hands the
+    state over; the port folds the rest. The forest equals a one-shot
+    build, and state_to_numpy gives the JAX payload back."""
+    n, cs = 1 << 12, 1 << 11
+    e = jgen.rmat_hash_range(12, 0, 8 << 12, seed=11)
+    deg = jdeg.degree_chunk(jdeg.init_degrees(n), pad_chunk(e, len(e), n), n)
+    pos_j, order_j = jorder.elimination_order(deg, n)
+    chunks = [pad_chunk(e[off:off + cs], cs, n)
+              for off in range(0, len(e), cs)]
+    half = len(chunks) // 2
+
+    def staged_jax(cs_list):
+        return iter([jelim.orient_chunks_batch_pos(
+            jnp.asarray(np.stack(cs_list[i:i + 2])), pos_j, n)
+            for i in range(0, len(cs_list), 2)])
+
+    P_all, _ = jelim.fold_segments_pipelined(
+        jnp.full(n + 1, n, jnp.int32), staged_jax(chunks), n, inflight=1,
+        donate=False)
+    P_half, _ = jelim.fold_segments_pipelined(
+        jnp.full(n + 1, n, jnp.int32), staged_jax(chunks[:half]), n,
+        inflight=1, donate=False)
+    payload = {"deg": np.asarray(deg[:n], np.int64),
+               "minp": np.asarray(P_half[pos_j])}
+
+    cpu = torch.device("cpu")
+    pos = torch.from_numpy(np.array(pos_j))
+    P = state.state_from_jax(payload, pos, np.asarray(order_j)[:n], cpu)
+    staged = (elim.orient_chunks_batch_pos(
+        torch.from_numpy(np.stack(chunks[i:i + 2])), pos, n)
+        for i in range(half, len(chunks), 2))
+    P, _ = elim.fold_segments_pipelined(P, staged, n)
+    back = state.state_to_numpy(P, pos, payload["deg"])
+    assert np.array_equal(back["minp"], np.asarray(P_all[pos_j]))
+    assert np.array_equal(back["deg"], payload["deg"])
+    assert np.array_equal(
+        elim.minp_to_parent(back["minp"], np.asarray(order_j), n),
+        jelim.minp_to_parent(P_all[pos_j], order_j, n))
+
+
+def test_device_none_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sheep_tpu_torch.partition("rmat-hash:8", 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sheep_tpu_torch.partition("rmat-hash:8", 2, device="cuda")
+
+
+def test_cli_json_line(capsys, tmp_path):
+    out = str(tmp_path / "p.parts")
+    assert cli.main(["--input", "rmat-hash:10:4:2", "--k", "4",
+                     "--device", "cpu", "--chunk-edges", "2048",
+                     "--dispatch-batch", "2", "--output", out,
+                     "--json"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref = _jax("rmat-hash:10:4:2", 4, 2048, 2)
+    assert line["edge_cut"] == ref.edge_cut
+    assert line["total_edges"] == ref.total_edges
+    assert line["n_vertices"] == 1 << 10
+    parts = np.loadtxt(out, dtype=np.int32)
+    assert np.array_equal(parts, ref.assignment)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax():
+    # _build/ holds generated kernel libraries, not package sources
+    files = sorted(p for p in (REPO / "sheep_tpu_torch").rglob("*.py")
+                   if "_build" not in p.relative_to(REPO).parts)
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "sheep_tpu"), \
+                f"{path.relative_to(REPO)} imports {mod}"
