@@ -46,15 +46,25 @@ extern "C" int sheep_gather_clip(const void* table, long long table_len,
                                  void* stream) {
   if (m <= 0) return 0;
   if (table_len <= 0 || table_len > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  // one wave: the grid is capped at the blocks the card holds resident
+  // (8 per SM on an H100 at 256 threads), queried once per device
+  static int cached_dev = -1;
+  static long long cap = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
   const int threads = 256;
+  if (dev != cached_dev) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gather_clip_kernel, threads, 0);
+    if (err != cudaSuccess) return (int)err;
+    cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    cached_dev = dev;
+  }
   long long blocks = (m + threads - 1) / threads;
-  const long long cap = (long long)sms * 16;  // 16 resident blocks per SM
   if (blocks > cap) blocks = cap;
   gather_clip_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)table, (int32_t)(table_len - 1), (const int32_t*)idx,

@@ -76,24 +76,27 @@ def orient_chunks_batch_pos(chunks: torch.Tensor, pos: torch.Tensor, n: int):
     return orient_edges_pos(chunks, pos, n)
 
 
+def dead_slot_spread(C: int, n: int, device) -> torch.Tensor:
+    """int64[C] scatter targets for dead slots, built once per build.
+
+    Dead slots are (n, n): all of them aiming the atomic min at P[n]
+    serializes the atomics on one address (measured: most of a round's
+    device time at RMAT-22). Their min with n is a no-op wherever it
+    lands, since every entry of P is <= n, so slot i aims at i % (n+1)."""
+    return torch.arange(C, device=device) % (n + 1)
+
+
 def _pos_round_body(n: int, lift_levels: int, descent: str):
     """One fixpoint round over position-space state (lo, hi, P).
 
-    Returns ``body(lo, hi, P) -> (out_lo, out_hi, P, changed)``; P is
-    updated in place and ``changed`` is a 0-d bool tensor on P's device."""
-    spread: dict = {}
+    Returns ``body(lo, hi, P, spread) -> (out_lo, out_hi, P, changed)``;
+    ``spread`` is :func:`dead_slot_spread` for the row length. P is updated
+    in place and ``changed`` is a 0-d bool tensor on P's device."""
 
-    def body(lo, hi, P):
+    def body(lo, hi, P, spread):
         old_at_lo = gather_clip(P, lo)  # parent position BEFORE the round
-        # a min is order-independent, so the atomic scatter is bit-exact.
-        # Dead slots are (n, n): all of them aiming at P[n] serializes the
-        # atomics on one address (measured: most of a round's device time
-        # at RMAT-22). Their min with n is a no-op wherever it lands, since
-        # every entry of P is <= n, so they are spread over the table.
-        key = (len(lo), lo.device)
-        if key not in spread:
-            spread[key] = torch.arange(len(lo), device=lo.device) % (n + 1)
-        target = torch.where(lo == n, spread[key], lo.long())
+        # a min is order-independent, so the atomic scatter is bit-exact
+        target = torch.where(lo == n, spread, lo.long())
         P.scatter_reduce_(0, target, hi, reduce="amin", include_self=True)
         now = gather_clip(P, lo)
 
@@ -130,13 +133,14 @@ def _pos_round_body(n: int, lift_levels: int, descent: str):
 
 
 def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
-                           hiB: torch.Tensor, n: int, lift_levels: int = 0,
-                           descent: str = "auto", batch_rounds: int = 0,
-                           stats=None):
+                           hiB: torch.Tensor, n: int, spread: torch.Tensor,
+                           lift_levels: int = 0, descent: str = "auto",
+                           batch_rounds: int = 0, stats=None):
     """Advance through the rows of the [N, C] blocks, one round per step:
     a row is done when a round changes nothing, and is then stored
     all-sentinel; the call returns when every row is done or
     ``batch_rounds`` rounds are spent, leaving the blocks resumable.
+    ``spread`` is :func:`dead_slot_spread` for the row length.
 
     Returns ``(loB, hiB, P, sv)`` with ``sv`` int32[4] = (segments_done,
     rounds, live, retired), as the reference. P, loB and hiB are updated
@@ -152,7 +156,7 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
     i = rounds = 0
     lo, hi = loB[0], hiB[0]
     while i < N and rounds < batch_rounds:
-        lo2, hi2, P, changed = body(lo, hi, P)
+        lo2, hi2, P, changed = body(lo, hi, P, spread)
         retired += ((lo2 == n) & (lo != n)).sum(dtype=torch.int32)
         rounds += 1
         seg_done = not bool(changed)  # the one read of the round
@@ -188,26 +192,27 @@ def _resolve_batch_rounds(batch_rounds: int, segment_rounds: int,
 def fold_segments_pipelined(P: torch.Tensor, staged, n: int,
                             lift_levels: int = 0, segment_rounds: int = 2,
                             descent: str = "auto", batch_rounds: int = 0,
-                            max_rounds: int = 1 << 20, stats=None,
-                            on_confirm=None):
+                            stats=None):
     """Fold a stream of staged [N, C] blocks at depth 1: the reference's
     ``fold_segments_pipelined`` with ``inflight=1`` and no donation. Each
     group is issued, its stats word confirmed, and a group whose round
     budget ran out is re-queued on the current table until it drains;
-    leftovers go before the next group. ``staged`` yields ``(loB, hiB)``
-    or ``(loB, hiB, tag)``; ``on_confirm(tag, rounds)`` fires after each
-    confirmation (tag None for a re-dispatch). Returns ``(P, rounds)``."""
+    leftovers go before the next group. ``staged`` yields ``(loB, hiB)``.
+    Returns ``(P, rounds)``."""
     if stats is None:
         stats = {}
     t_start = time.perf_counter()
     total = 0
-    for item in staged:
-        queue = [(item[0], item[1], item[2] if len(item) > 2 else None)]
-        while queue:
-            loB, hiB, tag = queue.pop(0)
-            N = int(loB.shape[0])
+    spread = None
+    for loB, hiB in staged:
+        if spread is None:  # every staged block has the same row length
+            spread = dead_slot_spread(loB.shape[1], n, P.device)
+        N = int(loB.shape[0])
+        done = 0
+        while done < N:
             loB, hiB, P, sv = batch_segment_fixpoint(
-                P, loB, hiB, n, lift_levels=lift_levels, descent=descent,
+                P, loB, hiB, n, spread, lift_levels=lift_levels,
+                descent=descent,
                 batch_rounds=_resolve_batch_rounds(batch_rounds,
                                                    segment_rounds, N),
                 stats=stats)
@@ -217,15 +222,6 @@ def fold_segments_pipelined(P: torch.Tensor, staged, n: int,
             stats["batch_retired"] = stats.get("batch_retired", 0) + retired
             stats["device_rounds"] = stats.get("device_rounds", 0) + r
             total += r
-            if done < N:
-                queue.append((loB, hiB, None))
-            if on_confirm is not None:
-                on_confirm(tag, r)
-            if total >= max_rounds:
-                stats["batch_incomplete_segments"] = len(queue) + 1
-                stats["t_batch_s"] = stats.get("t_batch_s", 0.0) + \
-                    time.perf_counter() - t_start
-                return P, total
     stats["t_batch_s"] = stats.get("t_batch_s", 0.0) + \
         time.perf_counter() - t_start
     return P, total

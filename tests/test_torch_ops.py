@@ -127,7 +127,8 @@ def test_round_body_exact_and_stream(monkeypatch, budget):
                                        jnp.asarray(P), jnp.asarray(True),
                                        jnp.asarray(0, jnp.int32)))
         lo2, hi2, P2, ch = elim._pos_round_body(n, L, descent)(
-            _t(lo), _t(hi), _t(P).clone())
+            _t(lo), _t(hi), _t(P).clone(),
+            elim.dead_slot_spread(len(lo), n, torch.device("cpu")))
         assert np.array_equal(lo2.numpy(), np.asarray(lo_j))
         assert np.array_equal(hi2.numpy(), np.asarray(hi_j))
         assert np.array_equal(P2.numpy(), np.asarray(P_j))
@@ -155,7 +156,9 @@ def test_batch_segment_fixpoint(batch_rounds):
         batch_rounds=batch_rounds)
     stats = {}
     loB2, hiB2, P2, sv = elim.batch_segment_fixpoint(
-        _t(P0), _t(loB), _t(hiB), n, batch_rounds=batch_rounds, stats=stats)
+        _t(P0), _t(loB), _t(hiB), n,
+        elim.dead_slot_spread(C, n, torch.device("cpu")),
+        batch_rounds=batch_rounds, stats=stats)
     assert np.array_equal(sv.numpy(), np.asarray(sv_j))
     assert np.array_equal(P2.numpy(), np.asarray(P_j))
     assert np.array_equal(loB2.numpy(), np.asarray(loB_j))
