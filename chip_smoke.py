@@ -7,19 +7,30 @@ Phases, one result line each; any failure exits non-zero before the last
 line is printed:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the port from ``sheep_tpu_torch/csrc``;
+  2. build every native library of the port from ``sheep_tpu_torch/csrc``
+     (the CUDA kernels with nvcc, the host split with the C++ compiler);
   3. kernel K1 (``gather_clip``) against its plain PyTorch version on the
      card, exactly, at the build path's shapes (T = 2^22+1 tables, M = 2^23
      climb and M = T squaring gathers) and a ragged out-of-range case, with
      its time, the plain version's, ``torch.take``'s (timed only, as a
-     yardstick) and the bytes bound;
+     yardstick) and the bytes bound (``gather_smoke.Probe``);
+  3b. gather forms: what the probe tool lacks, in the same way: K3's L2
+     branch past the shared-memory limit, and ragged out-of-range cases of
+     K2 and K3 on their scalar paths; K3 on axis 1 through each of its two
+     paths, forced, at every width that can stage (exact, and timed against
+     each other); then the port's probe tool ``gather_smoke``, variants 1-3
+     with ``--perf``, in-process, with the kernels' launches counted: each
+     of its records (forms A-E, the P2 legs, the eight P3 widths) holds its
+     kernel exactly against the plain version and is timed, and every
+     record must be ok;
   4. the port on CUDA against the port on the CPU at rmat-hash:16:16:7,
      k=64: forest, assignment and scores exactly equal;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
-     the card: the gather launches of the run are counted, and edge cut,
-     total edges and comm volume must equal the JAX package's values;
-  6. one JSON line listing every kernel of the path with its numbers;
+     the card, with the native split: the gather launches of the run are
+     counted, and edge cut, total edges and comm volume must equal the JAX
+     package's values;
+  6. one JSON line listing every kernel with its numbers;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -40,60 +51,119 @@ S22_EDGE_CUT = 62191637
 S22_TOTAL_EDGES = 67107073
 S22_COMM_VOLUME = 18440186
 
-# H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound
-HBM_BYTES_PER_S = 3.35e12
-
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls
-    after a warm-up call."""
+def gathers(card):
+    """Phases 3 and 3b: every gather kernel against its plain version on
+    the card, exactly, each case timed (``gather_smoke.Probe``); the two
+    paths of K3 on axis 1 against each other; then the probe tool, its
+    launches counted. Returns the records by case and the tool's launches
+    by kernel."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from sheep_tpu_torch.ops import gather, gather2d
+    from sheep_tpu_torch.tools import gather_smoke as gs
 
+    p = gs.Probe("cuda")
+    g = torch.Generator().manual_seed(11)
 
-def gather_case(name, T, M, lo, hi, seed):
-    """K1 vs the plain version on (T, M), exact; returns the numbers."""
-    import torch
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int32).cuda()
 
-    from sheep_tpu_torch.ops import gather
+    def passed(rec, path=None):
+        check(rec["built"] and rec["ok"],
+              f"{rec['kernel']} {rec['form']} did not launch or disagrees "
+              f"with its plain version: {rec}")
+        check(path is None or rec["path"] == path,
+              f"K3 {rec['form']} took the {rec.get('path')} path, "
+              f"expected {path}")
+        return rec
 
-    g = torch.Generator().manual_seed(seed)
-    table = torch.randint(0, T, (T,), generator=g,
-                          dtype=torch.int32).cuda()
-    idx = torch.randint(lo, hi, (M,), generator=g, dtype=torch.int32).cuda()
-    out = gather.gather_clip(table, idx)
-    ref = gather.gather_clip_plain(table, idx)
-    torch.cuda.synchronize()
-    err = int((out.long() - ref.long()).abs().max())
-    check(err == 0, f"K1 disagrees with the plain gather on {name}")
-    ms = time_ms(lambda: gather.gather_clip(table, idx))
-    plain_ms = time_ms(lambda: gather.gather_clip_plain(table, idx))
-    library_ms = None
-    if lo >= 0 and hi <= T:  # torch.take does not clip
-        idx64 = idx.long()
-        library_ms = time_ms(lambda: torch.take(table, idx64))
-    bound_bytes = 4 * M + 4 * M + 4 * T  # idx in, out back, table once
-    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
-    rec = {"case": name, "T": T, "M": M, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": "bytes"}
-    print("gather " + json.dumps(rec), flush=True)
-    return rec
+    def k1(name, T, M, lo, hi):
+        table, idx = ints(0, T, (T,)), ints(lo, hi, (M,))
+        lib = None
+        if lo >= 0 and hi <= T:  # torch.take does not clip
+            idx64 = idx.long()
+            lib = lambda: torch.take(table, idx64)  # noqa: E731
+        return passed(p.case(
+            name, lambda: gather.gather_clip(table, idx),
+            lambda: gather.gather_clip_plain(table, idx), None,
+            gs.take_bytes(T, idx), M, library=lib, kernel="K1", T=T, M=M))
+
+    def k3(name, xshape, ishape, axis, shift, lo, hi, path=None):
+        x, i = ints(0, 1 << 30, xshape), ints(lo, hi, ishape)
+        lib = None
+        if lo >= 0 and hi <= xshape[axis] and not shift:  # gather: no clip
+            i64 = i.long()
+            lib = lambda: torch.gather(x, axis, i64)  # noqa: E731
+        return passed(p.case(
+            name, lambda: gather2d.take_along(x, i, axis, shift),
+            lambda: gather2d.take_along_plain(x, i, axis, shift), None,
+            gs.along_bytes(x, i, axis, shift), i.numel(), library=lib,
+            kernel="K3", axis=axis, shift=shift), path)
+
+    # 3. K1 at the build path's shapes
+    T = (1 << 22) + 1
+    k1("climb", T, 1 << 23, 0, T)
+    k1("square", T, T, 0, T)
+    k1("K1-ragged-out-of-range", 1_000_003, 3_000_001, -500_000, 1_500_000)
+
+    # 3b. what the probe tool does not run: K3's L2 branch past the shared
+    # memory limit, and ragged out-of-range cases on the scalar paths
+    t, i = ints(0, 1 << 30, (1001, 37)), ints(-500, 1500, (3001,))
+    passed(p.case("K2-ragged-out-of-range", lambda: gather2d.take_rows(t, i),
+                  lambda: gather2d.take_rows_plain(t, i), None,
+                  gs.rows_bytes(t, i), i.numel() * 37, kernel="K2"))
+    k3("P3_lane_R65536_past_shared", (8, 65536), (8, 65536), 1, 0, 0,
+       65536, path="l2")
+    k3("K3-axis0-ragged-out-of-range", (1001, 37), (513, 37), 0, 3, -8000,
+       16000)
+    k3("K3-axis1-ragged-out-of-range", (7, 999), (7, 1001), 1, 0, -300,
+       1300, path="staged")
+    k3("K3-axis1-l2-ragged-out-of-range", (5, 60001), (5, 1003), 1, 0,
+       -300, 70000, path="l2")
+
+    # K3 on axis 1 through each path at every width that can stage
+    widths = []
+    for w in gs.P3_WIDTHS + (57344,):
+        x, i = ints(0, 1 << 30, (8, w)), ints(0, w, (8, w))
+        ref = gather2d.take_along_plain(x, i, 1)
+        by_path = {}
+        for path, staged in (("staged", True), ("l2", False)):
+            def run(staged=staged):
+                return gather2d._take_along1_path(x, i, staged)
+            check(torch.equal(run(), ref),
+                  f"K3 {path} path disagrees at R={w}")
+            by_path[f"{path}_ms"] = gs.time_ms(run)
+        widths.append({"R": w, **by_path,
+                       "bound_ms": gs.bound_ms(gs.along_bytes(x, i, 1))})
+    print("K3_axis1_paths " + json.dumps({"widths": widths, "card": card}),
+          flush=True)
+
+    # the probe tool, the path of K2 and K3: its launches are counted
+    gather.reset_launches()
+    gather2d.reset_launches()
+    t0 = time.perf_counter()
+    records = []
+    for variant in (1, 2, 3):
+        records += gs.run(variant, perf=True, device="cuda")
+    launches = {"K1": gather.LAUNCHES["gather_clip"],
+                "K2": gather2d.LAUNCHES["take_rows"],
+                "K3": gather2d.LAUNCHES["take_along"],
+                "K3_staged": gather2d.LAUNCHES["take_along_staged"]}
+    bad = [r["form"] for r in records if not (r["ok"] and r["built"])]
+    check(not bad, f"gather_smoke records not ok: {bad}")
+    for name in ("K1", "K2", "K3"):
+        check(launches[name] > 0, f"gather_smoke launched no {name}")
+    print("gather_smoke " + json.dumps({
+        "records": len(records), "all_ok": True, "launches": launches,
+        "s": time.perf_counter() - t0, "card": card}), flush=True)
+    return {r["form"]: r for r in p.records + records}, launches
 
 
 def same_result(a, b, what: str) -> None:
@@ -136,12 +206,9 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f}s "
           f"({_build.build_dir()})", flush=True)
 
-    # 3. K1 against its plain version at the build path's shapes
-    T = (1 << 22) + 1
-    climb = gather_case("climb", T, 1 << 23, 0, T, 1)
-    square = gather_case("square", T, T, 0, T, 2)
-    gather_case("ragged-out-of-range", 1_000_003, 3_000_001, -500_000,
-                1_500_000, 3)
+    # 3, 3b. the gather kernels against their plain versions, and the
+    # probe tool
+    cases, tool_launches = gathers(card)
 
     # 4. the port on CUDA against the port on the CPU
     spec16 = "rmat-hash:16:16:7"
@@ -189,18 +256,41 @@ def main() -> int:
         "balance": res.balance, "device_rounds": d["device_rounds"],
         "host_syncs": d["host_syncs"], "batch_execs": d["batch_execs"],
         "gather_launches": launches, "peak_mem_bytes": peak,
+        "split": "native", "split_s": res.phase_times["split"],
         "card": card}), flush=True)
 
-    # 6. every kernel of the path
-    kernels = [{
-        "name": "gather_clip", "route": "cuda",
-        "source": "sheep_tpu_torch/csrc/gather.cu",
-        "replaces": "sheep_tpu/ops/pallas_gather.py:70",
-        "launches": launches, "max_abs_err": climb["max_abs_err"],
-        "ms": climb["ms"], "plain_ms": climb["plain_ms"],
-        "bound_ms": climb["bound_ms"], "bound_by": "bytes",
-        "library_ms": climb["library_ms"],
-        "square_ms": square["ms"], "square_bound_ms": square["bound_ms"]}]
+    # 6. every kernel: K1's launches are the main path's (phase 5), K2's
+    # and K3's the probe tool's (phase 3b), their only path
+    def entry(name, source, replaces, rec, launches, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": "bytes", "library_ms": rec["library_ms"],
+                "case": rec["form"], **extra}
+
+    def max_err(kernel):
+        return max(r["max_abs_err"] for r in cases.values()
+                   if r["kernel"] == kernel)
+
+    square = cases["square"]
+    kernels = [
+        entry("gather_clip", "sheep_tpu_torch/csrc/gather.cu",
+              "sheep_tpu/ops/pallas_gather.py:70", cases["climb"], launches,
+              also_replaces=["tools/pallas_smoke.py:166 (form D)"],
+              square_ms=square["ms"], square_bound_ms=square["bound_ms"],
+              tool_launches=tool_launches["K1"],
+              cases_max_abs_err=max_err("K1")),
+        entry("take_rows", "sheep_tpu_torch/csrc/gather2d.cu",
+              "tools/pallas_smoke.py:166", cases["A_row_take"],
+              tool_launches["K2"], cases_max_abs_err=max_err("K2")),
+        entry("take_along", "sheep_tpu_torch/csrc/gather2d.cu",
+              "tools/pallas_smoke.py:336", cases["P2_E_kernel_only"],
+              tool_launches["K3"],
+              also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
+                             "tools/pallas_smoke.py:420"],
+              staged_launches=tool_launches["K3_staged"],
+              cases_max_abs_err=max_err("K3"))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

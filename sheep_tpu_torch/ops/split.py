@@ -1,9 +1,11 @@
 """Tree split on the host (counterpart of ``sheep_tpu/ops/split.py``).
 
-The split runs over O(V) tree state. The reference dispatches to its native
-C++ split when built; the port has no native split yet and runs its copy
-of the numpy/heapq reference, which the reference's native split matches
-bit for bit.
+The split runs over O(V) tree state. Like the reference on every backend
+that has its native core, the port runs the native C++ split
+(``csrc/sheep_core.cpp``, through ``core/native.py``), always: a library
+that fails to build or load raises. The numpy/heapq copy in
+``core/pure.py`` is the executable spec the tests hold it to; the two are
+bit-identical.
 """
 
 from __future__ import annotations
@@ -12,14 +14,10 @@ from typing import Optional
 
 import numpy as np
 
-from sheep_tpu_torch.core import pure
-from sheep_tpu_torch.types import ElimTree
+from sheep_tpu_torch.core import native
 
 
 def tree_split_host(parent: np.ndarray, pos: np.ndarray, k: int,
                     weights: Optional[np.ndarray] = None,
                     alpha: float = 1.0) -> np.ndarray:
-    parent64 = np.asarray(parent, dtype=np.int64)
-    pos64 = np.asarray(pos, dtype=np.int64)
-    tree = ElimTree(parent=parent64, pos=pos64, n=len(parent64))
-    return pure.tree_split(tree, k, weights=weights, alpha=alpha)
+    return native.tree_split(parent, pos, k, weights=weights, alpha=alpha)

@@ -1,0 +1,1 @@
+"""Probe tools of the port (counterparts of the JAX package's ``tools/``)."""
