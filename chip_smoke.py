@@ -14,15 +14,14 @@ line is printed:
      climb and M = T squaring gathers) and a ragged out-of-range case, with
      its time, the plain version's, ``torch.take``'s (timed only, as a
      yardstick) and the bytes bound (``gather_smoke.Probe``);
-  3b. gather forms: what the probe tool lacks, in the same way: K3's L2
-     branch past the shared-memory limit, and ragged out-of-range cases of
-     K2 and K3 on their scalar paths; K3 on axis 1 through each of its two
-     paths, forced, at every width that can stage (exact, and timed against
-     each other); then the port's probe tool ``gather_smoke``, variants 1-3
-     with ``--perf``, in-process, with the kernels' launches counted: each
-     of its records (forms A-E, the P2 legs, the eight P3 widths) holds its
-     kernel exactly against the plain version and is timed, and every
-     record must be ok;
+  3b. gather forms: what the probe tool lacks, in the same way: K3 on a
+     row wider than a block's shared memory (R = 65,536), and ragged
+     out-of-range cases of K2 and K3 on their scalar paths; then the
+     port's probe tool ``gather_smoke``, variants 1-3 with ``--perf``,
+     in-process, with the kernels' launches counted: each of its records
+     (forms A-E, the P2 legs, the eight P3 widths) holds its kernel
+     exactly against the plain version and is timed, and every record
+     must be ok;
   4. the port on CUDA against the port on the CPU at rmat-hash:16:16:7,
      k=64: forest, assignment and scores exactly equal;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
@@ -59,10 +58,9 @@ def check(cond: bool, msg: str) -> None:
 
 def gathers(card):
     """Phases 3 and 3b: every gather kernel against its plain version on
-    the card, exactly, each case timed (``gather_smoke.Probe``); the two
-    paths of K3 on axis 1 against each other; then the probe tool, its
-    launches counted. Returns the records by case and the tool's launches
-    by kernel."""
+    the card, exactly, each case timed (``gather_smoke.Probe``); then the
+    probe tool, its launches counted. Returns the records by case and the
+    tool's launches by kernel."""
     import torch
 
     from sheep_tpu_torch.ops import gather, gather2d
@@ -75,13 +73,10 @@ def gathers(card):
         return torch.randint(lo, hi, shape, generator=g,
                              dtype=torch.int32).cuda()
 
-    def passed(rec, path=None):
+    def passed(rec):
         check(rec["built"] and rec["ok"],
               f"{rec['kernel']} {rec['form']} did not launch or disagrees "
               f"with its plain version: {rec}")
-        check(path is None or rec["path"] == path,
-              f"K3 {rec['form']} took the {rec.get('path')} path, "
-              f"expected {path}")
         return rec
 
     def k1(name, T, M, lo, hi):
@@ -95,7 +90,7 @@ def gathers(card):
             lambda: gather.gather_clip_plain(table, idx), None,
             gs.take_bytes(T, idx), M, library=lib, kernel="K1", T=T, M=M))
 
-    def k3(name, xshape, ishape, axis, shift, lo, hi, path=None):
+    def k3(name, xshape, ishape, axis, shift, lo, hi):
         x, i = ints(0, 1 << 30, xshape), ints(lo, hi, ishape)
         lib = None
         if lo >= 0 and hi <= xshape[axis] and not shift:  # gather: no clip
@@ -105,7 +100,7 @@ def gathers(card):
             name, lambda: gather2d.take_along(x, i, axis, shift),
             lambda: gather2d.take_along_plain(x, i, axis, shift), None,
             gs.along_bytes(x, i, axis, shift), i.numel(), library=lib,
-            kernel="K3", axis=axis, shift=shift), path)
+            kernel="K3", axis=axis, shift=shift))
 
     # 3. K1 at the build path's shapes
     T = (1 << 22) + 1
@@ -113,37 +108,20 @@ def gathers(card):
     k1("square", T, T, 0, T)
     k1("K1-ragged-out-of-range", 1_000_003, 3_000_001, -500_000, 1_500_000)
 
-    # 3b. what the probe tool does not run: K3's L2 branch past the shared
-    # memory limit, and ragged out-of-range cases on the scalar paths
+    # 3b. what the probe tool does not run: K3 on a row wider than a
+    # block's shared memory holds (232,448 bytes on an H100), and ragged
+    # out-of-range cases on the scalar paths
     t, i = ints(0, 1 << 30, (1001, 37)), ints(-500, 1500, (3001,))
     passed(p.case("K2-ragged-out-of-range", lambda: gather2d.take_rows(t, i),
                   lambda: gather2d.take_rows_plain(t, i), None,
                   gs.rows_bytes(t, i), i.numel() * 37, kernel="K2"))
-    k3("P3_lane_R65536_past_shared", (8, 65536), (8, 65536), 1, 0, 0,
-       65536, path="l2")
+    k3("P3_lane_R65536", (8, 65536), (8, 65536), 1, 0, 0, 65536)
     k3("K3-axis0-ragged-out-of-range", (1001, 37), (513, 37), 0, 3, -8000,
        16000)
     k3("K3-axis1-ragged-out-of-range", (7, 999), (7, 1001), 1, 0, -300,
-       1300, path="staged")
-    k3("K3-axis1-l2-ragged-out-of-range", (5, 60001), (5, 1003), 1, 0,
-       -300, 70000, path="l2")
-
-    # K3 on axis 1 through each path at every width that can stage
-    widths = []
-    for w in gs.P3_WIDTHS + (57344,):
-        x, i = ints(0, 1 << 30, (8, w)), ints(0, w, (8, w))
-        ref = gather2d.take_along_plain(x, i, 1)
-        by_path = {}
-        for path, staged in (("staged", True), ("l2", False)):
-            def run(staged=staged):
-                return gather2d._take_along1_path(x, i, staged)
-            check(torch.equal(run(), ref),
-                  f"K3 {path} path disagrees at R={w}")
-            by_path[f"{path}_ms"] = gs.time_ms(run)
-        widths.append({"R": w, **by_path,
-                       "bound_ms": gs.bound_ms(gs.along_bytes(x, i, 1))})
-    print("K3_axis1_paths " + json.dumps({"widths": widths, "card": card}),
-          flush=True)
+       1300)
+    k3("K3-axis1-wide-ragged-out-of-range", (5, 60001), (5, 1003), 1, 0,
+       -300, 70000)
 
     # the probe tool, the path of K2 and K3: its launches are counted
     gather.reset_launches()
@@ -154,8 +132,7 @@ def gathers(card):
         records += gs.run(variant, perf=True, device="cuda")
     launches = {"K1": gather.LAUNCHES["gather_clip"],
                 "K2": gather2d.LAUNCHES["take_rows"],
-                "K3": gather2d.LAUNCHES["take_along"],
-                "K3_staged": gather2d.LAUNCHES["take_along_staged"]}
+                "K3": gather2d.LAUNCHES["take_along"]}
     bad = [r["form"] for r in records if not (r["ok"] and r["built"])]
     check(not bad, f"gather_smoke records not ok: {bad}")
     for name in ("K1", "K2", "K3"):
@@ -289,7 +266,6 @@ def main() -> int:
               tool_launches["K3"],
               also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
                              "tools/pallas_smoke.py:420"],
-              staged_launches=tool_launches["K3_staged"],
               cases_max_abs_err=max_err("K3"))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",

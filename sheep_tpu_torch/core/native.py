@@ -13,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-ABI_VERSION = 1
+ABI_VERSION = 2
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
@@ -49,7 +49,7 @@ def load() -> ctypes.CDLL:
         c_i64 = ctypes.c_int64
         lib.sheep_tree_split.argtypes = [_i64p, _i64p, _f64p_or_null, c_i64,
                                          c_i64, ctypes.c_double, _i32p]
-        lib.sheep_tree_split.restype = None
+        lib.sheep_tree_split.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -60,8 +60,9 @@ def tree_split(parent: np.ndarray, pos: np.ndarray, k: int,
     """The greedy k-way split of the forest (``parent``, ``pos``), bit-equal
     to :func:`sheep_tpu_torch.core.pure.tree_split`. ``pos`` must be a
     permutation of ``range(len(parent))``, and each vertex's parent (a
-    negative parent marks a root) must come after it in ``pos``; the C
-    code indexes by both, so arguments that break this raise here."""
+    negative parent marks a root) must come after it in ``pos``. The C
+    code checks both as it goes, since it indexes by them; arguments that
+    break this raise ValueError."""
     lib = load()
     parent = np.ascontiguousarray(parent, dtype=np.int64)
     pos = np.ascontiguousarray(pos, dtype=np.int64)
@@ -71,20 +72,17 @@ def tree_split(parent: np.ndarray, pos: np.ndarray, k: int,
                          f"{len(pos)}")
     if k < 1:
         raise ValueError(f"tree_split: k must be >= 1, got {k}")
-    if n and (pos.min() < 0 or pos.max() >= n
-              or np.bincount(pos, minlength=n).max() != 1):
-        raise ValueError("tree_split: pos is not a permutation of "
-                         f"range({n})")
-    child = np.flatnonzero(parent >= 0)
-    if len(child) and (parent[child].max() >= n
-                       or (pos[parent[child]] <= pos[child]).any()):
-        raise ValueError("tree_split: parent is not a forest in pos order "
-                         f"(a parent >= {n}, or not after its child)")
     # weights=None -> NULL: unit weights without an O(n) array of ones
     w = None if weights is None \
         else np.ascontiguousarray(weights, dtype=np.float64)
     if w is not None and len(w) != n:
         raise ValueError(f"tree_split: {len(w)} weights for {n} vertices")
     assign = np.empty(n, dtype=np.int32)
-    lib.sheep_tree_split(parent, pos, w, n, k, alpha, assign)
+    rc = lib.sheep_tree_split(parent, pos, w, n, k, alpha, assign)
+    if rc == -1:
+        raise ValueError(f"tree_split: pos is not a permutation of "
+                         f"range({n})")
+    if rc == -2:
+        raise ValueError(f"tree_split: parent is not a forest in pos order "
+                         f"(a parent >= {n}, or not after its child)")
     return assign

@@ -20,27 +20,25 @@
 //
 // Design. The TPU kernels stage the whole table in VMEM (megabytes) and
 // gather from there with the vector unit's sublane/lane shuffles. Hopper
-// has 227 KB of shared memory a block and a 50 MB L2, so:
+// has a 50 MB L2 in front of its memory, so the kernels read the table
+// through the read-only path (__ldg) and let L2 hold what is reused:
 //  - K2 gives one warp to each 128-element segment of an output row: the
 //    row index is read once for the warp, and the segment moves as one
 //    16-byte load and store a lane (W % 4 == 0 and 16-byte aligned
 //    pointers) or as four coalesced 4-byte ones otherwise.
-//  - K3 on axis 0 reads the table through the read-only path (__ldg), with
-//    neighbouring threads on neighbouring columns, so each warp's reads of
-//    one table row fall into the same 128-byte lines.
-//  - K3 on axis 1 is the Hopper form of the TPU's VMEM lane gather: a block
-//    stages the row x[r, :] in dynamic shared memory, where the random
-//    reads cost no DRAM sectors, and gathers its tile of out[r, :] from
-//    there. A row fits when 4*W bytes fit the opt-in shared memory limit
-//    (232,448 bytes on an H100, so W <= 58,112); a wider row is read
-//    through __ldg from L2. Which path ran is reported to the caller;
-//    sheep_take_along1_path runs either one at a width, so the two can
-//    be timed against each other.
+//  - K3 on axis 0 puts neighbouring threads on neighbouring columns, so
+//    each warp's reads of one table row fall into the same 128-byte lines.
+//  - K3 on axis 1 (the TPU's VMEM lane gather) puts neighbouring threads
+//    on neighbouring outputs of one row: idx and out move coalesced, and
+//    the random reads stay within the row, which L2 holds. Staging the row
+//    in shared memory, the literal counterpart of VMEM, was slower at every
+//    width from 128 to 57,344 int32 on an H100 (each block of a wide row
+//    stages all of it), so there is no staged path.
 //
 // Bound to PyTorch through plain C functions loaded with ctypes: the
 // caller passes device pointers and its CUDA stream, and gets back
-// cudaGetLastError() of the launch, so a refused launch (too much shared
-// memory, say) is an error and never a silent no-op.
+// cudaGetLastError() of the launch, so a refused launch is an error and
+// never a silent no-op.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,9 +46,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSeg = 128;           // K2: elements of a row segment a warp moves
-constexpr int kStagedThreads = 512;
-constexpr int kTile = 4096;         // K3 axis 1: outputs a staged block writes
+constexpr int kSeg = 128;  // K2: elements of a row segment a warp moves
 
 __device__ __forceinline__ int32_t clip(int32_t j, int32_t last) {
   return j < 0 ? 0 : (j > last ? last : j);
@@ -99,11 +95,10 @@ __global__ void take_along0_kernel(const int32_t* __restrict__ x,
   }
 }
 
-__global__ void take_along1_l2_kernel(const int32_t* __restrict__ x,
-                                      int64_t wx,
-                                      const int32_t* __restrict__ idx,
-                                      int32_t* __restrict__ out, int64_t wi,
-                                      int64_t n, int shift) {
+__global__ void take_along1_kernel(const int32_t* __restrict__ x, int64_t wx,
+                                   const int32_t* __restrict__ idx,
+                                   int32_t* __restrict__ out, int64_t wi,
+                                   int64_t n, int shift) {
   const int32_t last = (int32_t)(wx - 1);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -113,43 +108,13 @@ __global__ void take_along1_l2_kernel(const int32_t* __restrict__ x,
   }
 }
 
-// one block per (row, tile of kTile outputs); the row goes to shared memory
-__global__ void take_along1_staged_kernel(const int32_t* __restrict__ x,
-                                          int64_t wx,
-                                          const int32_t* __restrict__ idx,
-                                          int32_t* __restrict__ out,
-                                          int64_t wi, int64_t tiles,
-                                          int shift) {
-  extern __shared__ int32_t row[];
-  const int64_t r = blockIdx.x / tiles;
-  const int64_t c0 = (blockIdx.x - r * tiles) * (int64_t)kTile;
-  const int32_t* xr = x + r * wx;
-  if ((wx & 3) == 0 && (reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
-    const int4* x4 = reinterpret_cast<const int4*>(xr);
-    int4* row4 = reinterpret_cast<int4*>(row);
-    for (int64_t c = threadIdx.x; c < wx / 4; c += blockDim.x)
-      row4[c] = __ldg(x4 + c);
-  } else {
-    for (int64_t c = threadIdx.x; c < wx; c += blockDim.x)
-      row[c] = __ldg(xr + c);
-  }
-  __syncthreads();
-  const int32_t last = (int32_t)(wx - 1);
-  const int64_t c1 = c0 + kTile < wi ? c0 + kTile : wi;
-  const int32_t* ir = idx + r * wi;
-  int32_t* orow = out + r * wi;
-  for (int64_t c = c0 + threadIdx.x; c < c1; c += blockDim.x)
-    orow[c] = row[clip(ir[c] >> shift, last)];
-}
-
-// The blocks the current device holds resident at once (one wave), and
-// its opt-in shared memory limit; queried once per device.
+// The blocks the current device holds resident at once (one wave), by
+// kernel; queried once per device.
 struct DeviceCaps {
   int dev = -1;
   long long wave_rows = 0;
   long long wave_along0 = 0;
   long long wave_along1 = 0;
-  int smem_optin = 0;
 };
 
 cudaError_t caps(DeviceCaps** out) {
@@ -161,10 +126,6 @@ cudaError_t caps(DeviceCaps** out) {
     int sms = 0, a = 0, b = 0, d = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&c.smem_optin,
-                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                   dev);
-    if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &a, take_rows_kernel<true>, kThreads, 0);
     if (err == cudaSuccess)
@@ -172,12 +133,7 @@ cudaError_t caps(DeviceCaps** out) {
           &b, take_along0_kernel, kThreads, 0);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &d, take_along1_l2_kernel, kThreads, 0);
-    // the staged kernel may take up to the whole opt-in limit
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(take_along1_staged_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 c.smem_optin);
+          &d, take_along1_kernel, kThreads, 0);
     if (err != cudaSuccess) return err;
     c.wave_rows = (long long)sms * (a > 0 ? a : 1);
     c.wave_along0 = (long long)sms * (b > 0 ? b : 1);
@@ -191,27 +147,6 @@ cudaError_t caps(DeviceCaps** out) {
 long long grid_for(long long threads_needed, long long wave) {
   long long blocks = (threads_needed + kThreads - 1) / kThreads;
   return blocks > wave ? wave : blocks;
-}
-
-// K3 on axis 1 through one path: the row staged in shared memory, or read
-// from L2. The staged path needs 4*xc bytes within the opt-in limit.
-cudaError_t launch_along1(const DeviceCaps* c, const int32_t* xp,
-                          long long xc, const int32_t* ip, int32_t* op,
-                          long long ir, long long ic, int shift, bool staged,
-                          cudaStream_t s) {
-  if (staged) {
-    if (4 * xc > c->smem_optin) return cudaErrorInvalidValue;
-    const long long tiles = (ic + kTile - 1) / kTile;
-    if (ir * tiles > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-    take_along1_staged_kernel<<<(unsigned)(ir * tiles), kStagedThreads,
-                                (size_t)(4 * xc), s>>>(xp, xc, ip, op, ic,
-                                                       tiles, shift);
-  } else {
-    const long long n = ir * ic;
-    take_along1_l2_kernel<<<(unsigned)grid_for(n, c->wave_along1), kThreads,
-                            0, s>>>(xp, xc, ip, op, ic, n, shift);
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -244,13 +179,11 @@ extern "C" int sheep_take_rows(const void* t, long long rows, long long w,
 }
 
 // K3. x is (xr, xc), idx and out are (ir, ic); on axis 0 ic == xc, on
-// axis 1 ir == xr. *staged is set to 1 when the axis-1 shared memory path
-// ran, 0 otherwise.
+// axis 1 ir == xr.
 extern "C" int sheep_take_along(const void* x, long long xr, long long xc,
                                 const void* idx, void* out, long long ir,
                                 long long ic, int axis, int shift,
-                                int* staged, void* stream) {
-  *staged = 0;
+                                void* stream) {
   const long long n = ir * ic;
   if (n <= 0) return 0;
   if (axis != 0 && axis != 1) return (int)cudaErrorInvalidValue;
@@ -267,29 +200,11 @@ extern "C" int sheep_take_along(const void* x, long long xr, long long xc,
   if (axis == 0) {
     take_along0_kernel<<<(unsigned)grid_for(n, c->wave_along0), kThreads, 0,
                          s>>>(xp, (int32_t)(xr - 1), xc, ip, op, n, shift);
-    return (int)cudaGetLastError();
+  } else {
+    take_along1_kernel<<<(unsigned)grid_for(n, c->wave_along1), kThreads, 0,
+                         s>>>(xp, xc, ip, op, ic, n, shift);
   }
-  const bool fits = 4 * xc <= c->smem_optin;
-  err = launch_along1(c, xp, xc, ip, op, ir, ic, shift, fits, s);
-  *staged = fits && err == cudaSuccess;
-  return (int)err;
-}
-
-// K3 on axis 1 through the path asked for (staged != 0: shared memory),
-// for comparing the two paths at one width; the library's own choice is
-// sheep_take_along's. A row too wide to stage is cudaErrorInvalidValue.
-extern "C" int sheep_take_along1_path(const void* x, long long xr,
-                                      long long xc, const void* idx,
-                                      void* out, long long ic, int staged,
-                                      void* stream) {
-  if (xr * ic <= 0) return 0;
-  if (xc <= 0 || xc > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  DeviceCaps* c = nullptr;
-  cudaError_t err = caps(&c);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_along1(c, (const int32_t*)x, xc, (const int32_t*)idx,
-                            (int32_t*)out, xr, ic, 0, staged != 0,
-                            (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* sheep_gather2d_error_string(int code) {

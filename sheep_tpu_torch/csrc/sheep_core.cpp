@@ -28,16 +28,26 @@ extern "C" {
 // elimination order accumulating un-assigned subtree weight; at capacity,
 // first-fit-pack child subtrees (descending) into <=cap bags handed to the
 // least-loaded part. See that docstring for the invariants.
-void sheep_tree_split(const i64* parent, const i64* pos, const double* w,
-                      i64 n, i64 k, double alpha, i32* assign) {
+//
+// Unlike the JAX package's copy, it checks the two arguments it indexes
+// by, in the O(n) passes it makes anyway, and writes nothing to assign
+// when one is bad: it returns -1 when pos is not a permutation of [0, n),
+// -2 when parent is not a forest in pos order (a parent >= n, or one that
+// does not come after its child), and 0 otherwise.
+int sheep_tree_split(const i64* parent, const i64* pos, const double* w,
+                     i64 n, i64 k, double alpha, i32* assign) {
   // w == nullptr means unit weights — callers need not materialize an
   // O(n) array of ones (8 GB at n = 2^30)
   auto W = [&](i64 v) { return w ? w[v] : 1.0; };
 
   // pos is a permutation of [0, n), so the position-order walk is its
   // inverse — O(n) fill instead of an O(n log n) comparator sort
-  std::vector<i64> order(n);
-  for (i64 v = 0; v < n; ++v) order[pos[v]] = v;
+  std::vector<i64> order(n, -1);
+  for (i64 v = 0; v < n; ++v) {
+    const i64 p = pos[v];
+    if (p < 0 || p >= n || order[p] >= 0) return -1;
+    order[p] = v;
+  }
 
   double total = 0;
   for (i64 v = 0; v < n; ++v) total += W(v);
@@ -51,8 +61,11 @@ void sheep_tree_split(const i64* parent, const i64* pos, const double* w,
   // vector-of-vectors (whose 24 B/vertex of headers alone was 26 GB
   // at n = 2^30, the RMAT-30 class this split must handle).
   std::vector<i64> kid_off(n + 1, 0);
-  for (i64 v = 0; v < n; ++v)
-    if (parent[v] >= 0) ++kid_off[parent[v] + 1];
+  for (i64 v = 0; v < n; ++v) {
+    if (parent[v] < 0) continue;
+    if (parent[v] >= n || pos[parent[v]] <= pos[v]) return -2;
+    ++kid_off[parent[v] + 1];
+  }
   for (i64 v = 0; v < n; ++v) kid_off[v + 1] += kid_off[v];
   std::vector<i64> kid_list(kid_off[n]);
   {
@@ -124,10 +137,11 @@ void sheep_tree_split(const i64* parent, const i64* pos, const double* w,
     assign[v] = cut_part[v] >= 0 ? cut_part[v]
                                  : (parent[v] >= 0 ? assign[parent[v]] : 0);
   }
+  return 0;
 }
 
 // ------------------------------------------------------------- utilities
 
-i64 sheep_core_abi_version() { return 1; }
+i64 sheep_core_abi_version() { return 2; }
 
 }  // extern "C"

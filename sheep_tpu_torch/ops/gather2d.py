@@ -16,9 +16,7 @@ Out-of-range indices are clipped to the gathered axis after the shift, as
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
 the plain PyTorch versions :func:`take_rows_plain` and
 :func:`take_along_plain`. Anything else raises. ``LAUNCHES`` counts the
-kernel launches; ``take_along_staged`` counts the K3 launches that staged
-their rows in shared memory (axis 1, rows of at most the card's opt-in
-shared memory).
+kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"take_rows": 0, "take_along": 0, "take_along_staged": 0}
+LAUNCHES = {"take_rows": 0, "take_along": 0}
 
 
 def reset_launches() -> None:
@@ -79,12 +77,8 @@ def _lib():
         lib.sheep_take_rows.argtypes = [vp, ll, ll, vp, vp, ll, vp]
         lib.sheep_take_rows.restype = ctypes.c_int
         lib.sheep_take_along.argtypes = [
-            vp, ll, ll, vp, vp, ll, ll, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), vp]
+            vp, ll, ll, vp, vp, ll, ll, ctypes.c_int, ctypes.c_int, vp]
         lib.sheep_take_along.restype = ctypes.c_int
-        lib.sheep_take_along1_path.argtypes = [vp, ll, ll, vp, vp, ll,
-                                               ctypes.c_int, vp]
-        lib.sheep_take_along1_path.restype = ctypes.c_int
         lib.sheep_gather2d_error_string.argtypes = [ctypes.c_int]
         lib.sheep_gather2d_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -148,34 +142,13 @@ def take_along(x: torch.Tensor, idx: torch.Tensor, axis: int,
     if out.numel() == 0:
         return out
     lib = _lib()
-    staged = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.sheep_take_along(x.data_ptr(), x.shape[0], x.shape[1],
                                   idx.data_ptr(), out.data_ptr(),
                                   idx.shape[0], idx.shape[1], axis, shift,
-                                  ctypes.byref(staged), stream)
+                                  stream)
     _raise_on(lib, rc, "take_along")
     LAUNCHES["take_along"] += 1
-    LAUNCHES["take_along_staged"] += staged.value
     return out
 
-
-def _take_along1_path(x: torch.Tensor, idx: torch.Tensor,
-                      staged: bool) -> torch.Tensor:
-    """K3 on axis 1 (shift 0) through the path asked for, on CUDA tensors:
-    the row staged in shared memory, or read from L2. Only for timing the
-    two paths against each other at one width; counts no launch."""
-    _check("take_along", (("x", x), ("idx", idx)), (2, 2))
-    if x.device.type != "cuda" or idx.shape[0] != x.shape[0]:
-        raise ValueError("_take_along1_path: CUDA x and idx with x's rows")
-    out = torch.empty_like(idx)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.sheep_take_along1_path(x.data_ptr(), x.shape[0],
-                                        x.shape[1], idx.data_ptr(),
-                                        out.data_ptr(), idx.shape[1],
-                                        int(staged), stream)
-    _raise_on(lib, rc, "take_along")
-    return out

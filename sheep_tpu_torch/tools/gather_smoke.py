@@ -19,8 +19,8 @@ checked exactly against the kernel's plain PyTorch version and numpy:
    E with its router (a stable argsort by ``i & 127``) and E with router
    and un-route;
 3. the lane gather (K3, axis 1) on (8, R) at the reference's eight widths.
-   Every width runs; the record says whether K3 staged the row in shared
-   memory (``staged``) or read it from L2 (``l2``).
+   Every width runs: K3 reads the row through L2 at any width, where the
+   reference stopped at the first width Mosaic rejected.
 
 One JSON line per form or width: ``form``, ``built`` (the kernel was
 built and launched), ``ok``, ``max_abs_err`` (against the plain version),
@@ -151,12 +151,8 @@ class Probe:
              **extra) -> dict:
         """Run ``port``, check it exactly against ``plain`` and the numpy
         ``expect`` (None: ``plain`` only); on CUDA time it, ``plain`` and
-        ``library``; print the record. A K3 case on ``axis=1`` records
-        which path ran."""
-        from sheep_tpu_torch.ops import gather2d
-
+        ``library``; print the record."""
         rec = {"form": form, "n": n, **extra}
-        staged0 = gather2d.LAUNCHES["take_along_staged"]
         try:
             out = port()
             if self.cuda:
@@ -166,10 +162,6 @@ class Probe:
                        error=f"{type(e).__name__}: {e}"[:800])
             self._emit(rec)
             return rec
-        if extra.get("axis") == 1:  # a lane gather: which K3 path ran
-            staged = gather2d.LAUNCHES["take_along_staged"] > staged0
-            rec["path"] = ("plain" if not self.cuda
-                           else "staged" if staged else "l2")
         ref = plain()
         rec["built"] = self.cuda
         rec["ok"] = bool(out.shape == ref.shape and torch.equal(out, ref) and

@@ -260,7 +260,7 @@ def test_gather_smoke_records():
     assert [r["lane_extent"] for r in recs] == list(gather_smoke.P3_WIDTHS)
     for r in recs:
         assert r["ok"] and r["built"] is False and r["ms"] is None
-        assert r["path"] == "plain" and r["max_abs_err"] == 0
+        assert r["axis"] == 1 and r["max_abs_err"] == 0
         assert r["plain_ms"] is None
     # the bytes bound at R = 32768: idx in, out back, and each element of
     # the table that the lookups reach once (the tool's own inputs)
@@ -294,11 +294,6 @@ def test_bytes_bounds_count_reached_elements():
     full = torch.arange(4096, dtype=torch.int32).repeat(3)
     assert gather_smoke.take_bytes(4096, full) == 8 * full.numel() + 4 * 4096
 
-
-def test_forced_path_needs_cuda():
-    x = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        gather2d._take_along1_path(x, x, True)
 
 
 def test_gather_smoke_without_gpu_raises(monkeypatch):
