@@ -22,13 +22,22 @@ line is printed:
      (forms A-E, the P2 legs, the eight P3 widths) holds its kernel
      exactly against the plain version and is timed, and every record
      must be ok;
+  3c. the round's lifting kernels (``ops/lift.py``): ``lift_stack`` and
+     ``climb_tail`` against their plain PyTorch versions on the card,
+     exactly (stack levels, depth, outputs and the control word), at the
+     s22 shapes (T = 2^22+1, C = 2^23) on synthetic position-space
+     forests (P[p] in (p, n]; one random, one with a chain through half
+     the positions) with live-slot shares of 100%, 10% and 1%, each timed
+     beside its plain version, ``torch.take(t, t)`` for one squaring
+     level, and its bytes bound;
   4. the port on CUDA against the port on the CPU at rmat-hash:16:16:7,
      k=64: forest, assignment and scores exactly equal;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
-     the card, with the native split: the gather launches of the run are
-     counted, and edge cut, total edges and comm volume must equal the JAX
-     package's values;
+     the card, with the native split: the launches of K1, ``lift_stack``
+     and ``climb_tail`` in the run are counted (K1 at most once a round),
+     the rounds' live-slot share and depth are summarized, and edge cut,
+     total edges and comm volume must equal the JAX package's values;
   6. one JSON line listing every kernel with its numbers;
   7. the last line, {"ok": true, "device": {...}}.
 
@@ -143,6 +152,112 @@ def gathers(card):
     return {r["form"]: r for r in p.records + records}, launches
 
 
+def climb_bytes(lo, hi, P, st, d: int, n: int) -> int:
+    """The bytes one climb pass must move on these inputs: lo, hi and
+    old_at_lo in and two outputs back (20 bytes a slot), and one 32-byte
+    sector for each distinct sector of a table that its live slots read at
+    each level (P at lo, then levels d-1 .. 0 for the slots that climb)."""
+    import torch
+
+    live = lo != n
+    now = P[lo.long()]
+    up = live & (hi != now)
+    cur, h = lo[up], hi[up]
+    sectors = 0
+    for k in range(d - 1, 0, -1):
+        sectors += torch.unique(cur >> 3).numel()
+        cand = st[k - 1][cur.long()]
+        cur = torch.where(cand < h, cand, cur)
+    sectors += torch.unique(torch.cat([lo[live], cur]) >> 3).numel()
+    return 20 * lo.numel() + 32 * sectors
+
+
+def lifts(card, n: int = 1 << 22, C: int = 1 << 23, dev: str = "cuda"):
+    """Phase 3c: ``lift_stack`` and ``climb_tail`` against their plain
+    versions on the card, exactly, at the s22 shapes (the defaults), each
+    case timed with its bound. Returns the records."""
+    import torch
+
+    from sheep_tpu_torch.ops import lift
+    from sheep_tpu_torch.ops.gather import gather_clip_plain
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    T, L = n + 1, n.bit_length()
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def forest(kind):
+        p = torch.arange(n, device=dev)
+        step = torch.empty(n, device=dev).geometric_(1 / 50, generator=g)
+        P = torch.minimum(p + step.long(), torch.tensor(n, device=dev))
+        P[torch.rand(n, device=dev, generator=g) < 0.1] = n
+        if kind == "chain":  # a path through half the positions
+            half = n // 2
+            P[:half - 1] = torch.arange(1, half, device=dev)
+        return torch.cat([P, torch.tensor([n], device=dev)]).int()
+
+    def slots(share):
+        lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
+        u = torch.rand(C, device=dev, generator=g, dtype=torch.float64)
+        hi = lo + 1 + (u * (n - 1 - lo)).long()
+        dead = torch.rand(C, device=dev, generator=g) >= share
+        lo[dead] = n
+        hi[dead] = n
+        return lo.int(), hi.int()
+
+    records = []
+    for kind in ("random", "chain"):
+        P0 = forest(kind)
+        for share in (1.0, 0.1, 0.01):
+            lo, hi = slots(share)
+            old = gather_clip_plain(P0, lo)
+            P = P0.clone()
+            P.scatter_reduce_(0, lo.long(), hi, reduce="amin",
+                              include_self=True)
+            st, d = lift.lift_stack_plain(P, L)
+            p_lo, p_hi, ch, ret, live = lift.climb_tail_plain(
+                lo, hi, old, P, st, d)
+            want_ctl = [d, int(ch), int(ret), int(live)]
+            rec = {"case": f"{kind}-live{share:g}", "T": T, "C": C, "L": L,
+                   "depth": d, "live": int(live), "retired": int(ret)}
+            rec["max_abs_err"] = 0
+            for layout, em in (("rows", False), ("entries", True)):
+                stack = lift.new_stack(T, L, dev, em)
+                ctl = lift.new_ctl(dev)
+                lift.lift_stack(P, stack, ctl, em, L)
+                out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl,
+                                                 em)
+                torch.cuda.synchronize()
+                got = (stack.T if em else stack)[:d - 1, :T]
+                errs = [int((got.long() - st[:d - 1].long()).abs().max())
+                        if d > 1 else 0,
+                        int((out_lo.long() - p_lo.long()).abs().max()),
+                        int((out_hi.long() - p_hi.long()).abs().max())]
+                rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
+                check(max(errs) == 0 and ctl.tolist() == want_ctl,
+                      f"{rec['case']} {layout}: kernels disagree with their "
+                      f"plain versions (errors {errs}, ctl {ctl.tolist()} "
+                      f"!= {want_ctl})")
+                rec[f"lift_ms_{layout}"] = gs.time_ms(
+                    lambda: lift.lift_stack(P, stack, ctl, em, L))
+                rec[f"climb_ms_{layout}"] = gs.time_ms(
+                    lambda: lift.climb_tail(lo, hi, old, P, stack, ctl, em))
+                del stack
+            rec["lift_plain_ms"] = gs.time_ms(
+                lambda: lift.lift_stack_plain(P, L), iters=3)
+            rec["climb_plain_ms"] = gs.time_ms(
+                lambda: lift.climb_tail_plain(lo, hi, old, P, st, d), iters=5)
+            P64 = P.long()
+            rec["take_level_ms"] = gs.time_ms(lambda: torch.take(P, P64))
+            rec["lift_bound_ms"] = gs.bound_ms(4 * T * (1 + min(d, L - 1)))
+            rec["climb_bound_ms"] = gs.bound_ms(
+                climb_bytes(lo, hi, P, st, d, n))
+            rec["card"] = card
+            print("lift " + json.dumps(rec), flush=True)
+            records.append(rec)
+    return records
+
+
 def same_result(a, b, what: str) -> None:
     import numpy as np
 
@@ -164,7 +279,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import sheep_tpu_torch
-    from sheep_tpu_torch.ops import _build, gather
+    from sheep_tpu_torch.ops import _build, gather, lift
 
     t_all = time.perf_counter()
     # 1. the card
@@ -187,6 +302,9 @@ def main() -> int:
     # probe tool
     cases, tool_launches = gathers(card)
 
+    # 3c. the round's lifting kernels against their plain versions
+    lift_cases = lifts(card)
+
     # 4. the port on CUDA against the port on the CPU
     spec16 = "rmat-hash:16:16:7"
     opts = dict(chunk_edges=1 << 17, dispatch_batch=3, keep_tree=True)
@@ -197,8 +315,8 @@ def main() -> int:
     on_cpu = sheep_tpu_torch.partition(spec16, 64, device="cpu", **opts)
     t_cpu = time.perf_counter() - t0
     same_result(on_gpu, on_cpu, spec16)
-    check(on_gpu.diagnostics["gather_launches"] > 0,
-          "the CUDA run launched no K1")
+    for key in ("gather_launches", "lift_launches", "climb_launches"):
+        check(on_gpu.diagnostics[key] > 0, f"the CUDA run has no {key}")
     print(f"parity {spec16} k=64: cuda == cpu (edge_cut {on_gpu.edge_cut}, "
           f"device_rounds {on_gpu.diagnostics['device_rounds']:.0f}; "
           f"wall cuda {t_gpu:.2f}s cpu {t_cpu:.2f}s)", flush=True)
@@ -207,15 +325,24 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gather.reset_launches()
+    lift.reset_launches()
     t0 = time.perf_counter()
     res = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
                                     chunk_edges=1 << 23, dispatch_batch=8)
     wall = time.perf_counter() - t0
-    launches = gather.LAUNCHES["gather_clip"]
+    launches = {"gather_clip": gather.LAUNCHES["gather_clip"],
+                **lift.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    check(launches > 0, "the main path launched no K1")
-    check(launches == res.diagnostics["gather_launches"],
-          "launch counter and diagnostics disagree")
+    d = res.diagnostics
+    rounds = int(d["device_rounds"])
+    for name, key in (("gather_clip", "gather_launches"),
+                      ("lift_stack", "lift_launches"),
+                      ("climb_tail", "climb_launches")):
+        check(launches[name] > 0, f"the main path launched no {name}")
+        check(launches[name] == d[key],
+              f"{name}: launch counter and diagnostics disagree")
+    check(launches["gather_clip"] <= rounds,
+          f"K1 launched {launches['gather_clip']} times in {rounds} rounds")
     check(len(res.assignment) == 1 << 22, "assignment has the wrong shape")
     check(int(res.assignment.min()) >= 0 and
           int(res.assignment.max()) < S22_K, "part id out of range")
@@ -225,16 +352,35 @@ def main() -> int:
           f"total_edges {res.total_edges} != JAX {S22_TOTAL_EDGES}")
     check(res.comm_volume == S22_COMM_VOLUME,
           f"comm_volume {res.comm_volume} != JAX {S22_COMM_VOLUME}")
-    d = res.diagnostics
+    slots = 1 << 23
     print("s22 " + json.dumps({
         "spec": S22_SPEC, "k": S22_K, "wall_s": wall,
         "phase_s": res.phase_times, "edge_cut": res.edge_cut,
         "total_edges": res.total_edges, "comm_volume": res.comm_volume,
         "balance": res.balance, "device_rounds": d["device_rounds"],
         "host_syncs": d["host_syncs"], "batch_execs": d["batch_execs"],
-        "gather_launches": launches, "peak_mem_bytes": peak,
+        "launches": launches, "peak_mem_bytes": peak,
+        "live_share_mean": d["live_sum"] / (rounds * slots),
+        "live_share_max": d["live_max"] / slots,
+        "depth_mean": d["depth_sum"] / rounds, "depth_max": d["depth_max"],
         "split": "native", "split_s": res.phase_times["split"],
         "card": card}), flush=True)
+
+    # the stack layouts on the main path, in turns: entry-major, then
+    # level-major again
+    from sheep_tpu_torch.ops import elim
+    for em in (True, False):
+        elim.STACK_ENTRY_MAJOR = em
+        t0 = time.perf_counter()
+        r2 = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
+                                       chunk_edges=1 << 23, dispatch_batch=8)
+        check((r2.edge_cut, r2.total_edges, r2.comm_volume) ==
+              (S22_EDGE_CUT, S22_TOTAL_EDGES, S22_COMM_VOLUME),
+              f"s22 with entry_major={em}: scores differ")
+        print("s22_layout " + json.dumps({
+            "entry_major": em, "wall_s": time.perf_counter() - t0,
+            "phase_s": r2.phase_times, "card": card}), flush=True)
+    elim.STACK_ENTRY_MAJOR = False
 
     # 6. every kernel: K1's launches are the main path's (phase 5), K2's
     # and K3's the probe tool's (phase 3b), their only path
@@ -253,7 +399,8 @@ def main() -> int:
     square = cases["square"]
     kernels = [
         entry("gather_clip", "sheep_tpu_torch/csrc/gather.cu",
-              "sheep_tpu/ops/pallas_gather.py:70", cases["climb"], launches,
+              "sheep_tpu/ops/pallas_gather.py:70", cases["climb"],
+              launches["gather_clip"],
               also_replaces=["tools/pallas_smoke.py:166 (form D)"],
               square_ms=square["ms"], square_bound_ms=square["bound_ms"],
               tool_launches=tool_launches["K1"],
@@ -267,6 +414,34 @@ def main() -> int:
               also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
                              "tools/pallas_smoke.py:420"],
               cases_max_abs_err=max_err("K3"))]
+    # the lifting kernels at the case nearest the main path's mean live
+    # share, the other cases beside it
+    share = d["live_sum"] / (rounds * slots)
+    head = min((r for r in lift_cases if r["case"].startswith("random")),
+               key=lambda r: abs(r["live"] / r["C"] - share))
+    for name, replaces, lib_key in (
+            ("lift_stack", "sheep_tpu/ops/elim.py:295", "take_level_ms"),
+            ("climb_tail", "sheep_tpu/ops/elim.py:128", None)):
+        key = name.split("_")[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sheep_tpu_torch/csrc/lift.cu", "replaces": replaces,
+            "also_replaces": ["sheep_tpu/ops/pallas_gather.py:70 (B1 in the "
+                              + ("squaring)" if key == "lift" else
+                                 "climb)")],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in lift_cases),
+            "ms": head[f"{key}_ms_rows"], "plain_ms": head[f"{key}_plain_ms"],
+            "bound_ms": head[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": head[lib_key] if lib_key else None,
+            "library_scope": "torch.take(t, t), one squaring level"
+            if lib_key else None,
+            "case": head["case"],
+            "cases": {r["case"]: {"ms": r[f"{key}_ms_rows"],
+                                  "ms_entry_major": r[f"{key}_ms_entries"],
+                                  "bound_ms": r[f"{key}_bound_ms"],
+                                  "depth": r["depth"]}
+                      for r in lift_cases}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

@@ -26,6 +26,7 @@ from sheep_tpu_torch.device import resolve_device
 from sheep_tpu_torch.ops import degrees as degrees_ops
 from sheep_tpu_torch.ops import elim as elim_ops
 from sheep_tpu_torch.ops import gather as gather_ops
+from sheep_tpu_torch.ops import lift as lift_ops
 from sheep_tpu_torch.ops import order as order_ops
 from sheep_tpu_torch.ops import score as score_ops
 from sheep_tpu_torch.ops import split as split_ops
@@ -109,7 +110,7 @@ class TorchBackend:
 
         t0 = time.perf_counter()
         stats: dict = {"dispatch_batch": self.dispatch_batch}
-        launches0 = gather_ops.LAUNCHES["gather_clip"]
+        launches0 = {**gather_ops.LAUNCHES, **lift_ops.LAUNCHES}
         P = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
         # the reference's defaults: lift levels from n, and a round budget
         # of 2 rounds per staged chunk for each execution
@@ -118,8 +119,11 @@ class TorchBackend:
         minp = P[pos.long()]
         del P
         _sync(dev)
-        stats["gather_launches"] = \
-            gather_ops.LAUNCHES["gather_clip"] - launches0
+        launches = {**gather_ops.LAUNCHES, **lift_ops.LAUNCHES}
+        for key, name in (("gather_launches", "gather_clip"),
+                          ("lift_launches", "lift_stack"),
+                          ("climb_launches", "climb_tail")):
+            stats[key] = launches[name] - launches0[name]
         t["build"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

@@ -3,11 +3,15 @@
 // Replaces the Pallas kernel sheep_tpu/ops/pallas_gather.py vmem_gather
 // (pl.pallas_call at :70). That kernel stages the whole table in TPU VMEM
 // as one block and blocks idx over a sequential grid. On Hopper the
-// counterpart of VMEM residency is the 50 MB L2: the fixpoint's lifting
-// tables are 4*(n+1) bytes (16.8 MB at RMAT-22), so they stay L2-resident
-// across a round's launches, and the random table reads go through the
-// read-only path (__ldg). Staging the table in shared memory would fit
-// only tables of <= ~56K entries (227 KB), so it is not done here.
+// counterpart of VMEM residency is the 50 MB L2: a table of 4*(n+1) bytes
+// (16.8 MB at RMAT-22) fits it, so one launch's random table reads hit
+// L2 once the table is in, and they go through the read-only path
+// (__ldg). Only the table of the current launch can be resident: a round
+// of the exact descent keeps 23 such tables (386 MB at RMAT-22). Staging
+// the table in shared memory would fit only tables of <= ~56K entries
+// (227 KB), so it is not done here. On the main path K1 now reads P once
+// a round, before the scatter; the squaring and the climb are the
+// kernels of lift.cu.
 //
 // Bound: the kernel streams idx in and out back, each once, plus the
 // table once: 8*M + 4*T bytes of device memory. At M = 2^23 and

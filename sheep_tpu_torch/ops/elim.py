@@ -16,10 +16,16 @@ until no slot changes. The fixpoint is the unique elimination forest of
 the inserted constraint multiset, whatever the order of folding, so the
 port's rounds are the reference's rounds, slot for slot.
 
-Every table gather of a round goes through :func:`gather_clip` (kernel K1
-on CUDA). The JAX ``lax.while_loop`` of :func:`batch_segment_fixpoint`
-becomes a Python loop that reads ``changed`` once per round; those reads
-are counted in ``host_syncs``. Tables and blocks are updated in place
+A round of the exact descent is K1 (:func:`gather_clip`) for the table
+read before the scatter, the scatter-min, and the two kernels of
+``ops/lift.py``: ``lift_stack`` squares the table into the lifting stack
+with an on-device depth cut, and ``climb_tail`` climbs, retires and
+counts in one pass. The stream descent sends every gather through K1.
+On CPU tensors each kernel's plain version runs instead. The JAX
+``lax.while_loop`` of :func:`batch_segment_fixpoint` becomes a Python
+loop that reads the round's control word (``changed`` with the depth,
+retired and live counts) once per round; those reads are counted in
+``host_syncs``. Tables and blocks are updated in place
 (the reference's arrays are immutable and it donates them instead).
 
 Sentinel encoding: index n means "none"; pos[n] = order[n] = n; inert
@@ -33,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from sheep_tpu_torch.ops import lift
 from sheep_tpu_torch.ops.gather import gather_clip
 
 NO_PARENT = -1
@@ -40,6 +47,9 @@ NO_PARENT = -1
 # exact descent keeps lift_levels tables of 4*(n+1) bytes live at once;
 # beyond this budget the fixpoint switches to the O(V) stream descent
 EXACT_TABLE_BYTES = 1 << 30
+
+# the exact descent's lifting-stack layout (ops/lift.py)
+STACK_ENTRY_MAJOR = False
 
 
 def pow2_at_least(x: int, floor: int = 1) -> int:
@@ -86,36 +96,54 @@ def dead_slot_spread(C: int, n: int, device) -> torch.Tensor:
     return torch.arange(C, device=device) % (n + 1)
 
 
-def _pos_round_body(n: int, lift_levels: int, descent: str):
+class _pos_round_body:
     """One fixpoint round over position-space state (lo, hi, P).
 
-    Returns ``body(lo, hi, P, spread) -> (out_lo, out_hi, P, changed)``;
-    ``spread`` is :func:`dead_slot_spread` for the row length. P is updated
-    in place and ``changed`` is a 0-d bool tensor on P's device."""
+    ``_pos_round_body(n, lift_levels, descent)(lo, hi, P, spread) ->
+    (out_lo, out_hi, P, changed)``; ``spread`` is :func:`dead_slot_spread`
+    for the row length. P is updated in place and ``changed`` is a 0-d
+    view of the round's control word ``ctl`` = int32 [depth, changed,
+    retired, live] (``ops/lift.py``), on P's device, which the caller
+    reads once a round. The exact descent's stack and ``ctl`` are
+    allocated at the first call and reused by every later one."""
 
-    def body(lo, hi, P, spread):
+    def __init__(self, n: int, lift_levels: int, descent: str):
+        self.n, self.lift_levels, self.descent = n, lift_levels, descent
+        self.ctl = self.stack = None
+
+    def __call__(self, lo, hi, P, spread):
+        n = self.n
+        if self.ctl is None:
+            self.ctl = lift.new_ctl(P.device)
+            if self.descent == "exact":
+                self.stack = lift.new_stack(len(P), self.lift_levels,
+                                            P.device, STACK_ENTRY_MAJOR)
         old_at_lo = gather_clip(P, lo)  # parent position BEFORE the round
         # a min is order-independent, so the atomic scatter is bit-exact
         target = torch.where(lo == n, spread, lo.long())
         P.scatter_reduce_(0, target, hi, reduce="amin", include_self=True)
-        now = gather_clip(P, lo)
+        if self.descent == "exact":
+            lift.lift_stack(P, self.stack, self.ctl, STACK_ENTRY_MAJOR,
+                            self.lift_levels)
+            out_lo, out_hi = lift.climb_tail(lo, hi, old_at_lo, P,
+                                             self.stack, self.ctl,
+                                             STACK_ENTRY_MAJOR)
+        else:
+            out_lo, out_hi = self._stream(lo, hi, P, old_at_lo)
+        return out_lo, out_hi, P, self.ctl[lift.CHANGED]
 
+    def _stream(self, lo, hi, P, old_at_lo):
+        """Stream descent: square in place, one table live, every gather
+        through K1; fills ``ctl`` with depth L."""
+        n = self.n
+        now = gather_clip(P, lo)
         t = P
         cur = lo
-        if descent == "exact":
-            tables = [t]
-            for _ in range(lift_levels - 1):
+        for j in range(self.lift_levels):
+            cand = gather_clip(t, cur)
+            cur = torch.where(cand < hi, cand, cur)
+            if j < self.lift_levels - 1:
                 t = gather_clip(t, t)
-                tables.append(t)
-            for t in reversed(tables):
-                cand = gather_clip(t, cur)
-                cur = torch.where(cand < hi, cand, cur)
-        else:  # stream: square in place, one table live
-            for j in range(lift_levels):
-                cand = gather_clip(t, cur)
-                cur = torch.where(cand < hi, cand, cur)
-                if j < lift_levels - 1:
-                    t = gather_clip(t, t)
         became_loop = cur == hi
         climb_lo = cur.masked_fill(became_loop, n)
         climb_hi = hi.masked_fill(became_loop, n)
@@ -126,10 +154,12 @@ def _pos_round_body(n: int, lift_levels: int, descent: str):
                              climb_lo)
         out_hi = torch.where(retire, old_at_lo.masked_fill(~displaced, n),
                              climb_hi)
-        changed = ((out_lo != lo) | (out_hi != hi)).any()
-        return out_lo, out_hi, P, changed
-
-    return body
+        live = lo != n
+        self.ctl.copy_(torch.stack([
+            torch.tensor(self.lift_levels, device=P.device),
+            ((out_lo != lo) | (out_hi != hi)).any(),
+            (live & (out_lo == n)).sum(), live.sum()]).to(torch.int32))
+        return out_lo, out_hi
 
 
 def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
@@ -144,25 +174,31 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
 
     Returns ``(loB, hiB, P, sv)`` with ``sv`` int32[4] = (segments_done,
     rounds, live, retired), as the reference. P, loB and hiB are updated
-    in place. Each per-round ``changed`` read adds one to
-    ``stats["host_syncs"]``."""
+    in place. Each round's control word is read once, and each read adds
+    one to ``stats["host_syncs"]``; the rounds' depths and live slots go
+    to ``stats`` (``depth_sum``, ``depth_max``, ``live_sum``,
+    ``live_max``)."""
     N = loB.shape[0]
     lift_levels, descent = _resolve(n, lift_levels, descent)
     if batch_rounds <= 0:
         batch_rounds = 32 * N
     body = _pos_round_body(n, lift_levels, descent)
-    dev = P.device
-    retired = torch.zeros((), dtype=torch.int32, device=dev)
-    i = rounds = 0
+    if stats is None:
+        stats = {}
+    retired = i = rounds = 0
     lo, hi = loB[0], hiB[0]
     while i < N and rounds < batch_rounds:
-        lo2, hi2, P, changed = body(lo, hi, P, spread)
-        retired += ((lo2 == n) & (lo != n)).sum(dtype=torch.int32)
+        lo2, hi2, P, _ = body(lo, hi, P, spread)
+        # the one read of the round
+        depth, changed, retired_r, live = body.ctl.tolist()
         rounds += 1
-        seg_done = not bool(changed)  # the one read of the round
-        if stats is not None:
-            stats["host_syncs"] = stats.get("host_syncs", 0) + 1
-        if seg_done:
+        retired += retired_r
+        stats["host_syncs"] = stats.get("host_syncs", 0) + 1
+        stats["depth_sum"] = stats.get("depth_sum", 0) + depth
+        stats["depth_max"] = max(stats.get("depth_max", 0), depth)
+        stats["live_sum"] = stats.get("live_sum", 0) + live
+        stats["live_max"] = max(stats.get("live_max", 0), live)
+        if not changed:
             loB[i] = n
             hiB[i] = n
             i += 1
@@ -173,10 +209,9 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
     if i < N:  # budget spent mid-row: store the working buffer back
         loB[i] = lo
         hiB[i] = hi
-    live = (loB != n).sum(dtype=torch.int32)
-    sv = torch.stack([torch.tensor(i, dtype=torch.int32, device=dev),
-                      torch.tensor(rounds, dtype=torch.int32, device=dev),
-                      live, retired])
+    sv = torch.tensor([i, rounds, 0, retired], dtype=torch.int32,
+                      device=P.device)
+    sv[2] = (loB != n).sum()
     return loB, hiB, P, sv
 
 

@@ -3,7 +3,8 @@
 ``gather_clip(table, idx)`` computes ``table[clip(idx, 0, len(table)-1)]``.
 On CUDA tensors it launches kernel K1 (``csrc/gather.cu``); on CPU tensors
 it runs the plain PyTorch version :func:`gather_clip_plain`. Anything else
-raises. The fixpoint round sends every one of its table gathers through it.
+raises. The exact-descent round reads P through it before the scatter;
+the stream descent sends every one of its table gathers through it.
 
 ``LAUNCHES["gather_clip"]`` counts K1 launches, so a run can show that it
 went through the kernel.
