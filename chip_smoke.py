@@ -220,29 +220,24 @@ def lifts(card, n: int = 1 << 22, C: int = 1 << 23, dev: str = "cuda"):
             want_ctl = [d, int(ch), int(ret), int(live)]
             rec = {"case": f"{kind}-live{share:g}", "T": T, "C": C, "L": L,
                    "depth": d, "live": int(live), "retired": int(ret)}
-            rec["max_abs_err"] = 0
-            for layout, em in (("rows", False), ("entries", True)):
-                stack = lift.new_stack(T, L, dev, em)
-                ctl = lift.new_ctl(dev)
-                lift.lift_stack(P, stack, ctl, em, L)
-                out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl,
-                                                 em)
-                torch.cuda.synchronize()
-                got = (stack.T if em else stack)[:d - 1, :T]
-                errs = [int((got.long() - st[:d - 1].long()).abs().max())
-                        if d > 1 else 0,
-                        int((out_lo.long() - p_lo.long()).abs().max()),
-                        int((out_hi.long() - p_hi.long()).abs().max())]
-                rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
-                check(max(errs) == 0 and ctl.tolist() == want_ctl,
-                      f"{rec['case']} {layout}: kernels disagree with their "
-                      f"plain versions (errors {errs}, ctl {ctl.tolist()} "
-                      f"!= {want_ctl})")
-                rec[f"lift_ms_{layout}"] = gs.time_ms(
-                    lambda: lift.lift_stack(P, stack, ctl, em, L))
-                rec[f"climb_ms_{layout}"] = gs.time_ms(
-                    lambda: lift.climb_tail(lo, hi, old, P, stack, ctl, em))
-                del stack
+            stack = lift.new_stack(T, L, dev)
+            ctl = lift.new_ctl(dev)
+            lift.lift_stack(P, stack, ctl)
+            out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl)
+            torch.cuda.synchronize()
+            errs = [int((stack[:d - 1, :T].long() - st[:d - 1].long())
+                        .abs().max()) if d > 1 else 0,
+                    int((out_lo.long() - p_lo.long()).abs().max()),
+                    int((out_hi.long() - p_hi.long()).abs().max())]
+            rec["max_abs_err"] = max(errs)
+            check(max(errs) == 0 and ctl.tolist() == want_ctl,
+                  f"{rec['case']}: kernels disagree with their plain "
+                  f"versions (errors {errs}, ctl {ctl.tolist()} != "
+                  f"{want_ctl})")
+            rec["lift_ms"] = gs.time_ms(lambda: lift.lift_stack(P, stack, ctl))
+            rec["climb_ms"] = gs.time_ms(
+                lambda: lift.climb_tail(lo, hi, old, P, stack, ctl))
+            del stack
             rec["lift_plain_ms"] = gs.time_ms(
                 lambda: lift.lift_stack_plain(P, L), iters=3)
             rec["climb_plain_ms"] = gs.time_ms(
@@ -256,6 +251,45 @@ def lifts(card, n: int = 1 << 22, C: int = 1 << 23, dev: str = "cuda"):
             print("lift " + json.dumps(rec), flush=True)
             records.append(rec)
     return records
+
+
+def lift_entries(cases, diag, launches) -> list:
+    """The kernels-line entries of ``lift_stack`` and ``climb_tail``: each
+    at the phase 3c case nearest the main path's rounds (the ladder by
+    depth, the climb by live share, then depth), the other cases beside
+    it; launches from the main path."""
+    rounds, slots = diag["device_rounds"], 1 << 23
+    share = diag["live_sum"] / (rounds * slots)
+    depth = diag["depth_sum"] / rounds
+    out = []
+    for name, replaces, lib_key in (
+            ("lift_stack", "sheep_tpu/ops/elim.py:295", "take_level_ms"),
+            ("climb_tail", "sheep_tpu/ops/elim.py:128", None)):
+        key = name.split("_")[0]
+        head = min(cases, key=lambda r: (
+            abs(r["depth"] - depth), abs(r["live"] / r["C"] - share))
+            if key == "lift" else (abs(r["live"] / r["C"] - share),
+                                   abs(r["depth"] - depth)))
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "sheep_tpu_torch/csrc/lift.cu", "replaces": replaces,
+            "also_replaces": ["sheep_tpu/ops/pallas_gather.py:70 (B1 in the "
+                              + ("squaring)" if key == "lift" else
+                                 "climb)")],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": head[f"{key}_ms"], "plain_ms": head[f"{key}_plain_ms"],
+            "bound_ms": head[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": head[lib_key] if lib_key else None,
+            "library_scope": "torch.take(t, t), one squaring level"
+            if lib_key else None,
+            "case": head["case"],
+            "cases": {r["case"]: {"ms": r[f"{key}_ms"],
+                                  "plain_ms": r[f"{key}_plain_ms"],
+                                  "bound_ms": r[f"{key}_bound_ms"],
+                                  "depth": r["depth"]}
+                      for r in cases}})
+    return out
 
 
 def same_result(a, b, what: str) -> None:
@@ -366,22 +400,6 @@ def main() -> int:
         "split": "native", "split_s": res.phase_times["split"],
         "card": card}), flush=True)
 
-    # the stack layouts on the main path, in turns: entry-major, then
-    # level-major again
-    from sheep_tpu_torch.ops import elim
-    for em in (True, False):
-        elim.STACK_ENTRY_MAJOR = em
-        t0 = time.perf_counter()
-        r2 = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
-                                       chunk_edges=1 << 23, dispatch_batch=8)
-        check((r2.edge_cut, r2.total_edges, r2.comm_volume) ==
-              (S22_EDGE_CUT, S22_TOTAL_EDGES, S22_COMM_VOLUME),
-              f"s22 with entry_major={em}: scores differ")
-        print("s22_layout " + json.dumps({
-            "entry_major": em, "wall_s": time.perf_counter() - t0,
-            "phase_s": r2.phase_times, "card": card}), flush=True)
-    elim.STACK_ENTRY_MAJOR = False
-
     # 6. every kernel: K1's launches are the main path's (phase 5), K2's
     # and K3's the probe tool's (phase 3b), their only path
     def entry(name, source, replaces, rec, launches, **extra):
@@ -414,34 +432,7 @@ def main() -> int:
               also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
                              "tools/pallas_smoke.py:420"],
               cases_max_abs_err=max_err("K3"))]
-    # the lifting kernels at the case nearest the main path's mean live
-    # share, the other cases beside it
-    share = d["live_sum"] / (rounds * slots)
-    head = min((r for r in lift_cases if r["case"].startswith("random")),
-               key=lambda r: abs(r["live"] / r["C"] - share))
-    for name, replaces, lib_key in (
-            ("lift_stack", "sheep_tpu/ops/elim.py:295", "take_level_ms"),
-            ("climb_tail", "sheep_tpu/ops/elim.py:128", None)):
-        key = name.split("_")[0]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "sheep_tpu_torch/csrc/lift.cu", "replaces": replaces,
-            "also_replaces": ["sheep_tpu/ops/pallas_gather.py:70 (B1 in the "
-                              + ("squaring)" if key == "lift" else
-                                 "climb)")],
-            "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in lift_cases),
-            "ms": head[f"{key}_ms_rows"], "plain_ms": head[f"{key}_plain_ms"],
-            "bound_ms": head[f"{key}_bound_ms"], "bound_by": "bytes",
-            "library_ms": head[lib_key] if lib_key else None,
-            "library_scope": "torch.take(t, t), one squaring level"
-            if lib_key else None,
-            "case": head["case"],
-            "cases": {r["case"]: {"ms": r[f"{key}_ms_rows"],
-                                  "ms_entry_major": r[f"{key}_ms_entries"],
-                                  "bound_ms": r[f"{key}_bound_ms"],
-                                  "depth": r["depth"]}
-                      for r in lift_cases}})
+    kernels += lift_entries(lift_cases, d, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

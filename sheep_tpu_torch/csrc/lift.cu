@@ -26,10 +26,12 @@
 // slot (cand = t[t[x]] = t[x] = cur), so this is bit for bit the climb
 // over L-1 .. 0.
 //
-// Stack layouts, chosen by the caller: level-major, one row of `stride`
-// (a multiple of 32) int32 per level, so the squaring streams a row with
-// 16-byte loads and stores; or entry-major, [T, 32], one 128-byte line
-// per entry, so a climbing slot that does not jump rereads one line.
+// The stack is level-major: one row of `stride` (a multiple of 32) int32
+// per level, so the squaring streams a row with 16-byte loads and stores.
+// An entry-major stack ([T, 32], one 128-byte line per entry, so that a
+// climbing slot that does not jump rereads one line) made the climb
+// 1.4-2.2x faster but the squaring ladder 15-26x slower, and the s22
+// build 7x slower, on an H100 (PERF.md).
 //
 // Bounds on an H100 (3.35 TB/s): a squaring level reads its source row
 // and writes its row, 8*T bytes (T = n + 1; 33.6 MB, 0.010 ms at
@@ -52,7 +54,6 @@ namespace {
 enum { kDepth = 0, kChanged = 1, kRetired = 2, kLive = 3 };
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int64_t kEntryWidth = 32;  // entry-major: int32 per entry
 
 __device__ __forceinline__ int32_t clip(int32_t x, int32_t last) {
   return x < 0 ? 0 : (x > last ? last : x);
@@ -71,11 +72,11 @@ __device__ __forceinline__ void vote_depth(bool diff, int j, int32_t* ctl) {
 
 __global__ void lift_begin(int32_t* ctl) { ctl[kDepth] = 1; }
 
-// level-major: dst = src[src] over T entries, 4 entries a thread through
-// 16-byte loads and stores, a scalar tail for the last T % 4
+// dst = src[src] over T entries, 4 entries a thread through 16-byte
+// loads and stores, a scalar tail for the last T % 4
 __global__ void __launch_bounds__(kThreads)
-lift_level_rows(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
-                int64_t T, int j, int32_t* ctl) {
+lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
+           int64_t T, int j, int32_t* ctl) {
   if (volatile_load(ctl + kDepth) <= j) return;  // t_j == t_{j-1}
   const int32_t last = (int32_t)(T - 1);
   const int64_t quads = T >> 2;
@@ -104,31 +105,6 @@ lift_level_rows(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
   vote_depth(diff, j, ctl);
 }
 
-// entry-major: column j of the [T, 32] stack from column j - 1 (P for
-// j = 0); the columns a launch reads are not written by it
-__global__ void __launch_bounds__(kThreads)
-lift_level_entries(const int32_t* __restrict__ P, int32_t* stack, int64_t T,
-                   int j, int32_t* ctl) {
-  if (volatile_load(ctl + kDepth) <= j) return;
-  const int32_t last = (int32_t)(T - 1);
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  bool diff = false;
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < T;
-       p += step) {
-    int32_t v, w;
-    if (j == 0) {
-      v = __ldg(P + p);
-      w = __ldg(P + clip(v, last));
-    } else {
-      v = __ldg(stack + p * kEntryWidth + (j - 1));
-      w = __ldg(stack + (int64_t)clip(v, last) * kEntryWidth + (j - 1));
-    }
-    stack[p * kEntryWidth + j] = w;
-    diff |= w != v;
-  }
-  vote_depth(diff, j, ctl);
-}
-
 // sum over the block into thread 0's return value
 __device__ __forceinline__ int block_sum(int x, int* smem) {
   x = __reduce_add_sync(0xffffffffu, x);
@@ -141,7 +117,6 @@ __device__ __forceinline__ int block_sum(int x, int* smem) {
   return s;
 }
 
-template <bool kEntryMajor>
 __global__ void __launch_bounds__(kThreads)
 climb_tail_kernel(const int32_t* __restrict__ lo,
                   const int32_t* __restrict__ hi,
@@ -171,10 +146,8 @@ climb_tail_kernel(const int32_t* __restrict__ lo,
       } else {  // climb levels depth-1 .. 1 of the stack, then P
         int32_t cur = clip(l, n);
         for (int k = depth - 1; k >= 1; --k) {
-          const int64_t at = kEntryMajor
-                                 ? (int64_t)cur * kEntryWidth + (k - 1)
-                                 : (int64_t)(k - 1) * stride + cur;
-          const int32_t cand = __ldg(stack + at);
+          const int32_t cand =
+              __ldg(stack + (int64_t)(k - 1) * stride + cur);
           if (cand < h) cur = cand;
         }
         const int32_t cand = __ldg(P + cur);
@@ -229,22 +202,20 @@ cudaError_t wave_blocks(Wave& w, Kernel kernel, long long work,
   return cudaSuccess;
 }
 
-Wave wave_rows, wave_entries, wave_climb_rows, wave_climb_entries;
+Wave wave_lift, wave_climb;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
 // The ladder of one round: d = 1, then levels t_1 .. t_{levels-1} into
-// the stack. Level-major: row k-1 at stack + (k-1)*stride holds t_k;
-// entry-major: column k-1 of [T, 32] holds t_k.
+// the stack, row k-1 (at stack + (k-1)*stride) holding t_k.
 extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
-                                long long stride, int levels,
-                                int entry_major, void* ctl, void* stream) {
+                                long long stride, int levels, void* ctl,
+                                void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL || levels < 1 || levels > 32)
     return (int)cudaErrorInvalidValue;
-  if (!entry_major && (stride < T || stride % 4 || !aligned16(P) ||
-                       !aligned16(stack)))
+  if (stride < T || stride % 4 || !aligned16(P) || !aligned16(stack))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* c = (int32_t*)ctl;
@@ -252,23 +223,14 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   unsigned blocks = 0;
-  if (entry_major) {
-    err = wave_blocks(wave_entries, lift_level_entries, T, &blocks);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    err = wave_blocks(wave_rows, lift_level_rows, (T + 3) / 4, &blocks);
-    if (err != cudaSuccess) return (int)err;
-  }
+  err = wave_blocks(wave_lift, lift_level, (T + 3) / 4, &blocks);
+  if (err != cudaSuccess) return (int)err;
   const int32_t* p = (const int32_t*)P;
   int32_t* st = (int32_t*)stack;
   for (int j = 0; j + 1 < levels; ++j) {
-    if (entry_major) {
-      lift_level_entries<<<blocks, kThreads, 0, s>>>(p, st, T, j, c);
-    } else {
-      const int32_t* src = j == 0 ? p : st + (long long)(j - 1) * stride;
-      lift_level_rows<<<blocks, kThreads, 0, s>>>(
-          src, st + (long long)j * stride, T, j, c);
-    }
+    const int32_t* src = j == 0 ? p : st + (long long)(j - 1) * stride;
+    lift_level<<<blocks, kThreads, 0, s>>>(
+        src, st + (long long)j * stride, T, j, c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -280,8 +242,8 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
 extern "C" int sheep_climb_tail(const void* lo, const void* hi,
                                 const void* old, long long m, const void* P,
                                 long long T, const void* stack,
-                                long long stride, int entry_major, void* ctl,
-                                void* out_lo, void* out_hi, void* stream) {
+                                long long stride, void* ctl, void* out_lo,
+                                void* out_hi, void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* c = (int32_t*)ctl;
@@ -289,22 +251,12 @@ extern "C" int sheep_climb_tail(const void* lo, const void* hi,
   if (err != cudaSuccess) return (int)err;
   if (m <= 0) return 0;
   unsigned blocks = 0;
-  const int32_t n = (int32_t)(T - 1);
-  if (entry_major) {
-    err = wave_blocks(wave_climb_entries, climb_tail_kernel<true>, m, &blocks);
-    if (err != cudaSuccess) return (int)err;
-    climb_tail_kernel<true><<<blocks, kThreads, 0, s>>>(
-        (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
-        (const int32_t*)P, (const int32_t*)stack, stride, c,
-        (int32_t*)out_lo, (int32_t*)out_hi, m, n);
-  } else {
-    err = wave_blocks(wave_climb_rows, climb_tail_kernel<false>, m, &blocks);
-    if (err != cudaSuccess) return (int)err;
-    climb_tail_kernel<false><<<blocks, kThreads, 0, s>>>(
-        (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
-        (const int32_t*)P, (const int32_t*)stack, stride, c,
-        (int32_t*)out_lo, (int32_t*)out_hi, m, n);
-  }
+  err = wave_blocks(wave_climb, climb_tail_kernel, m, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  climb_tail_kernel<<<blocks, kThreads, 0, s>>>(
+      (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
+      (const int32_t*)P, (const int32_t*)stack, stride, c, (int32_t*)out_lo,
+      (int32_t*)out_hi, m, (int32_t)(T - 1));
   return (int)cudaGetLastError();
 }
 

@@ -48,9 +48,6 @@ NO_PARENT = -1
 # beyond this budget the fixpoint switches to the O(V) stream descent
 EXACT_TABLE_BYTES = 1 << 30
 
-# the exact descent's lifting-stack layout (ops/lift.py)
-STACK_ENTRY_MAJOR = False
-
 
 def pow2_at_least(x: int, floor: int = 1) -> int:
     """Smallest power of two >= max(x, 1), raised to at least ``floor``."""
@@ -117,17 +114,15 @@ class _pos_round_body:
             self.ctl = lift.new_ctl(P.device)
             if self.descent == "exact":
                 self.stack = lift.new_stack(len(P), self.lift_levels,
-                                            P.device, STACK_ENTRY_MAJOR)
+                                            P.device)
         old_at_lo = gather_clip(P, lo)  # parent position BEFORE the round
         # a min is order-independent, so the atomic scatter is bit-exact
         target = torch.where(lo == n, spread, lo.long())
         P.scatter_reduce_(0, target, hi, reduce="amin", include_self=True)
         if self.descent == "exact":
-            lift.lift_stack(P, self.stack, self.ctl, STACK_ENTRY_MAJOR,
-                            self.lift_levels)
+            lift.lift_stack(P, self.stack, self.ctl)
             out_lo, out_hi = lift.climb_tail(lo, hi, old_at_lo, P,
-                                             self.stack, self.ctl,
-                                             STACK_ENTRY_MAJOR)
+                                             self.stack, self.ctl)
         else:
             out_lo, out_hi = self._stream(lo, hi, P, old_at_lo)
         return out_lo, out_hi, P, self.ctl[lift.CHANGED]

@@ -51,7 +51,6 @@ LAUNCHES = {"lift_stack": 0, "climb_tail": 0}
 
 DEPTH, CHANGED, RETIRED, LIVE = range(4)
 ROW_ALIGN = 32  # int32: rows start on 128-byte boundaries
-ENTRY_WIDTH = 32  # entry-major layout: int32 per entry
 
 
 def reset_launches() -> None:
@@ -63,11 +62,8 @@ def row_stride(T: int) -> int:
     return -(-T // ROW_ALIGN) * ROW_ALIGN
 
 
-def new_stack(T: int, levels: int, device,
-              entry_major: bool = False) -> torch.Tensor:
+def new_stack(T: int, levels: int, device) -> torch.Tensor:
     """The stack for a table of T entries and ``levels`` lifting levels."""
-    if entry_major:
-        return torch.empty((T, ENTRY_WIDTH), dtype=torch.int32, device=device)
     return torch.empty((max(levels - 1, 0), row_stride(T)), dtype=torch.int32,
                        device=device)
 
@@ -130,7 +126,7 @@ def _check_vec(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check(fn: str, P, stack, ctl, entry_major: bool, *slots) -> None:
+def _check(fn: str, P, stack, ctl, *slots) -> None:
     _check_vec(f"{fn}: P", P)
     _check_vec(f"{fn}: ctl", ctl)
     for i, t in enumerate(slots):
@@ -146,10 +142,7 @@ def _check(fn: str, P, stack, ctl, entry_major: bool, *slots) -> None:
         raise ValueError(f"{fn}: P must hold 1 .. 2^31-1 entries")
     if len(ctl) != 4:
         raise ValueError(f"{fn}: ctl must hold 4 entries")
-    want = ((T, ENTRY_WIDTH) if entry_major
-            else (stack.shape[0], row_stride(T)))
-    if tuple(stack.shape) != want or (not entry_major and
-                                      stack.shape[0] + 1 > 32):
+    if stack.shape[1] != row_stride(T) or stack.shape[0] + 1 > 32:
         raise ValueError(f"{fn}: stack shape {tuple(stack.shape)} does not "
                          f"fit a table of {T} entries")
     for t in (stack, ctl, *slots):
@@ -174,10 +167,10 @@ def _lib():
 
         lib = _build.load("lift")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, i, p, p]
+        lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, p, p]
         lib.sheep_lift_stack.restype = ctypes.c_int
-        lib.sheep_climb_tail.argtypes = [p, p, p, ll, p, ll, p, ll, i, p, p,
-                                         p, p]
+        lib.sheep_climb_tail.argtypes = [p, p, p, ll, p, ll, p, ll, p, p, p,
+                                         p]
         lib.sheep_climb_tail.restype = ctypes.c_int
         lib.sheep_lift_error_string.argtypes = [ctypes.c_int]
         lib.sheep_lift_error_string.restype = ctypes.c_char_p
@@ -191,47 +184,35 @@ def _raise_if(rc: int, fn: str) -> None:
                            + _lib().sheep_lift_error_string(rc).decode())
 
 
-def _levels(stack: torch.Tensor, entry_major: bool, levels: int) -> int:
-    return levels if entry_major else stack.shape[0] + 1
-
-
-def lift_stack(P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor,
-               entry_major: bool = False, levels: int = 0) -> None:
-    """Fill ``stack`` with t_1 .. t_{d-1} of P and set ``ctl[DEPTH] = d``.
-    The level count is ``stack.shape[0] + 1`` (level-major) or ``levels``
-    (entry-major)."""
-    _check("lift_stack", P, stack, ctl, entry_major)
-    L = _levels(stack, entry_major, levels)
+def lift_stack(P: torch.Tensor, stack: torch.Tensor,
+               ctl: torch.Tensor) -> None:
+    """Fill ``stack`` with t_1 .. t_{d-1} of P and set ``ctl[DEPTH] = d``,
+    for ``stack.shape[0] + 1`` levels."""
+    _check("lift_stack", P, stack, ctl)
+    L = stack.shape[0] + 1
     if P.device.type == "cpu":
         st, d = lift_stack_plain(P, L)
-        if entry_major:
-            stack[:, :d - 1] = st[:d - 1].T
-        else:
-            stack[:d - 1, :len(P)] = st[:d - 1]
+        stack[:d - 1, :len(P)] = st[:d - 1]
         ctl[DEPTH] = d
         return
     lib = _lib()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
         rc = lib.sheep_lift_stack(P.data_ptr(), len(P), stack.data_ptr(),
-                                  stack.shape[1], L, int(entry_major),
-                                  ctl.data_ptr(), stream)
+                                  stack.shape[1], L, ctl.data_ptr(), stream)
     _raise_if(rc, "lift_stack")
     LAUNCHES["lift_stack"] += 1
 
 
 def climb_tail(lo: torch.Tensor, hi: torch.Tensor, old_at_lo: torch.Tensor,
-               P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor,
-               entry_major: bool = False):
+               P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor):
     """The round after its scatter-min, in one pass: returns ``(out_lo,
     out_hi)`` and sets ``ctl[CHANGED]``, ``ctl[RETIRED]`` and ``ctl[LIVE]``
     for this pass; climbs ``ctl[DEPTH]`` levels."""
-    _check("climb_tail", P, stack, ctl, entry_major, lo, hi, old_at_lo)
+    _check("climb_tail", P, stack, ctl, lo, hi, old_at_lo)
     if P.device.type == "cpu":
-        d = int(ctl[DEPTH])
-        st = stack.T if entry_major else stack
         out_lo, out_hi, changed, retired, live = climb_tail_plain(
-            lo, hi, old_at_lo, P, st, d)
+            lo, hi, old_at_lo, P, stack, int(ctl[DEPTH]))
         ctl[CHANGED] = changed.to(torch.int32)
         ctl[RETIRED] = retired
         ctl[LIVE] = live
@@ -244,8 +225,7 @@ def climb_tail(lo: torch.Tensor, hi: torch.Tensor, old_at_lo: torch.Tensor,
         rc = lib.sheep_climb_tail(
             lo.data_ptr(), hi.data_ptr(), old_at_lo.data_ptr(), len(lo),
             P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1],
-            int(entry_major), ctl.data_ptr(), out_lo.data_ptr(),
-            out_hi.data_ptr(), stream)
+            ctl.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), stream)
     _raise_if(rc, "climb_tail")
     LAUNCHES["climb_tail"] += 1
     return out_lo, out_hi

@@ -239,8 +239,7 @@ def test_cpu_path_counts_no_launch():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry_major", [False, True])
-def test_kernels_match_plain_on_card(entry_major):
+def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc: the lift kernels have "
                     "no CPU mode")
@@ -251,19 +250,17 @@ def test_kernels_match_plain_on_card(entry_major):
     L = n.bit_length()
     dev = torch.device("cuda")
     Pc, loc, hic, oldc = (t.to(dev) for t in (P2, _t(lo), _t(hi), old))
-    stack = lift.new_stack(n + 1, L, dev, entry_major)
+    stack = lift.new_stack(n + 1, L, dev)
     ctl = lift.new_ctl(dev)
     n0 = dict(lift.LAUNCHES)
-    lift.lift_stack(Pc, stack, ctl, entry_major, L)
-    out_lo, out_hi = lift.climb_tail(loc, hic, oldc, Pc, stack, ctl,
-                                     entry_major)
+    lift.lift_stack(Pc, stack, ctl)
+    out_lo, out_hi = lift.climb_tail(loc, hic, oldc, Pc, stack, ctl)
     torch.cuda.synchronize()
     assert lift.LAUNCHES["lift_stack"] == n0["lift_stack"] + 1
     assert lift.LAUNCHES["climb_tail"] == n0["climb_tail"] + 1
     st, d = lift.lift_stack_plain(Pc, L)
     assert int(ctl[lift.DEPTH]) == d
-    got = stack.T if entry_major else stack
-    assert torch.equal(got[:d - 1, :n + 1], st[:d - 1])
+    assert torch.equal(stack[:d - 1, :n + 1], st[:d - 1])
     p_lo, p_hi, ch, ret, live = lift.climb_tail_plain(loc, hic, oldc, Pc, st,
                                                       d)
     assert torch.equal(out_lo, p_lo) and torch.equal(out_hi, p_hi)
