@@ -130,8 +130,6 @@ class _pos_round_body:
     def _stream(self, lo, hi, P, old_at_lo):
         """Stream descent: square in place, one table live, every gather
         through K1; fills ``ctl`` with depth L."""
-        n = self.n
-        now = gather_clip(P, lo)
         t = P
         cur = lo
         for j in range(self.lift_levels):
@@ -139,21 +137,11 @@ class _pos_round_body:
             cur = torch.where(cand < hi, cand, cur)
             if j < self.lift_levels - 1:
                 t = gather_clip(t, t)
-        became_loop = cur == hi
-        climb_lo = cur.masked_fill(became_loop, n)
-        climb_hi = hi.masked_fill(became_loop, n)
-
-        retire = hi == now
-        displaced = retire & (now < old_at_lo) & (old_at_lo < n)
-        out_lo = torch.where(retire, now.masked_fill(~displaced, n),
-                             climb_lo)
-        out_hi = torch.where(retire, old_at_lo.masked_fill(~displaced, n),
-                             climb_hi)
-        live = lo != n
-        self.ctl.copy_(torch.stack([
-            torch.tensor(self.lift_levels, device=P.device),
-            ((out_lo != lo) | (out_hi != hi)).any(),
-            (live & (out_lo == n)).sum(), live.sum()]).to(torch.int32))
+        out_lo, out_hi, *counts = lift.finish_round(
+            lo, hi, cur, gather_clip(P, lo), old_at_lo, self.n)
+        self.ctl[lift.DEPTH] = self.lift_levels
+        for i, v in zip((lift.CHANGED, lift.RETIRED, lift.LIVE), counts):
+            self.ctl[i] = v
         return out_lo, out_hi
 
 

@@ -95,13 +95,22 @@ def climb_tail_plain(lo, hi, old_at_lo, P, stack, d: int):
     padded past len(P)). Returns ``(out_lo, out_hi, changed, retired,
     live)``, the last three 0-d tensors."""
     T = len(P)
-    n = T - 1
-    now = gather_clip_plain(P, lo)
     cur = lo
     for k in range(d - 1, -1, -1):
         t = P if k == 0 else stack[k - 1, :T]
         cand = gather_clip_plain(t, cur)
         cur = torch.where(cand < hi, cand, cur)
+    return finish_round(lo, hi, cur, gather_clip_plain(P, lo), old_at_lo,
+                        T - 1)
+
+
+def finish_round(lo, hi, cur, now, old_at_lo, n: int):
+    """The round's end after the climb reached ``cur``, given ``now`` = P[lo]
+    after the scatter: a slot whose ``hi`` is ``now`` retires (reused for
+    the displaced constraint (now, old) if it improved an older parent),
+    a climbed slot that reached ``hi`` dies, any other moves to (cur, hi).
+    Returns ``(out_lo, out_hi, changed, retired, live)``, the last three
+    0-d tensors."""
     became_loop = cur == hi
     climb_lo = cur.masked_fill(became_loop, n)
     climb_hi = hi.masked_fill(became_loop, n)

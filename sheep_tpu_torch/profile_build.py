@@ -6,10 +6,13 @@
 Runs one partition on CUDA under ``torch.profiler`` and prints one JSON
 line: wall and per-phase seconds, the summed device time by kernel name
 (top entries, with their call counts), the device-busy share of the
-profiled wall, the card's name and power limit. The full table goes to
-``DIR/profile_build.txt`` when ``--out`` is given. Needs a GPU; the
-profiler itself slows the host side, so phase times here are not the
-unprofiled ones.
+profiled wall and of the fixpoint (``fixpoint``: from the start of
+``fold_segments_pipelined`` on the host to the end of the last device
+interval that starts before it returns; busy time is the union of the
+kernel and copy intervals there), the card's name and power limit. The
+full table goes to ``DIR/profile_build.txt`` when ``--out`` is given.
+Needs a GPU; the profiler itself slows the host side, so phase times
+here are not the unprofiled ones.
 """
 
 from __future__ import annotations
@@ -20,6 +23,37 @@ import os
 import subprocess
 import sys
 import time
+
+
+FIXPOINT = "fixpoint"
+
+
+def fixpoint_busy(events):
+    """Device time, window and busy share of the fixpoint: the host span
+    named FIXPOINT, to the end of the last device interval that starts in
+    it. None when the trace holds no such span or no device interval."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [e.time_range for e in events
+             if e.name == FIXPOINT and e.device_type != cuda]
+    device = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == cuda
+                    and e.time_range.end > e.time_range.start)
+    if not spans or not device:
+        return None
+    start, stop = spans[0].start, spans[0].end
+    busy = end = 0.0
+    reach = start  # the union of the intervals that start in the span
+    for a, b in device:
+        if not start <= a <= stop:
+            continue
+        busy += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+        end = max(end, b)
+    window = max(end, stop) - start
+    return {"window_s": window / 1e6, "device_s": busy / 1e6,
+            "busy_share": busy / window if window else 0.0}
 
 
 def main(argv=None) -> int:
@@ -33,10 +67,10 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     import sheep_tpu_torch
-    from sheep_tpu_torch.ops import _build
+    from sheep_tpu_torch.ops import _build, elim
 
     if not torch.cuda.is_available():
         print("profile_build: no CUDA device", file=sys.stderr)
@@ -46,14 +80,25 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = sheep_tpu_torch.partition(
-            args.input, args.k, device="cuda", chunk_edges=args.chunk_edges,
-            dispatch_batch=args.dispatch_batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    fold = elim.fold_segments_pipelined
+
+    def marked_fold(*args, **kwargs):
+        with record_function(FIXPOINT):
+            return fold(*args, **kwargs)
+
+    elim.fold_segments_pipelined = marked_fold
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = sheep_tpu_torch.partition(
+                args.input, args.k, device="cuda",
+                chunk_edges=args.chunk_edges,
+                dispatch_batch=args.dispatch_batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        elim.fold_segments_pipelined = fold
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -68,6 +113,7 @@ def main(argv=None) -> int:
             "device_rounds": res.diagnostics["device_rounds"],
             "device_ms": device_us / 1e3,
             "device_busy_share": device_us / 1e6 / wall if wall else 0.0,
+            "fixpoint": fixpoint_busy(prof.events()),
             "top_kernels": top, "card": card}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
