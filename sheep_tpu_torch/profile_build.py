@@ -31,14 +31,16 @@ FIXPOINT = "fixpoint"
 def fixpoint_busy(events):
     """Device time, window and busy share of the fixpoint: the host span
     named FIXPOINT, to the end of the last device interval that starts in
-    it. None when the trace holds no such span or no device interval."""
+    it. The profiler mirrors the span onto the device's timeline; that
+    copy is no device work and is left out. None when the trace holds no
+    such span or no device interval."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     spans = [e.time_range for e in events
              if e.name == FIXPOINT and e.device_type != cuda]
     device = sorted((e.time_range.start, e.time_range.end) for e in events
-                    if e.device_type == cuda
+                    if e.device_type == cuda and e.name != FIXPOINT
                     and e.time_range.end > e.time_range.start)
     if not spans or not device:
         return None
@@ -101,7 +103,8 @@ def main(argv=None) -> int:
         elim.fold_segments_pipelined = fold
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+              and e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key != FIXPOINT]
     events.sort(key=lambda e: -e.device_time_total)
     device_us = sum(e.device_time_total for e in events)
     top = [{"name": e.key[:90], "calls": e.count,
