@@ -32,13 +32,19 @@ line is printed:
      level, and its bytes bound;
   4. the port on CUDA against the port on the CPU at rmat-hash:16:16:7,
      k=64: forest, assignment and scores exactly equal;
+  4b. the same at rmat-hash:14:16:7, k=16, with the table budget set to 0
+     so that the fixpoint takes its stream descent (K1 and torch.where a
+     level, no lifting kernel);
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
      the card, with the native split: the launches of K1, ``lift_stack``
      and ``climb_tail`` in the run are counted (K1 at most once a round),
      the rounds' live-slot share and depth are summarized, and edge cut,
      total edges and comm volume must equal the JAX package's values;
-  6. one JSON line listing every kernel with its numbers;
+  5b. one more phase 3c case at the main path's median depth and median
+     live share (a path laid through the forest for that depth);
+  6. one JSON line listing every kernel with its numbers, the lifting
+     kernels at the case of 5b;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -153,29 +159,47 @@ def gathers(card):
 
 
 def climb_bytes(lo, hi, P, st, d: int, n: int) -> int:
-    """The bytes one climb pass must move on these inputs: lo, hi and
-    old_at_lo in and two outputs back (20 bytes a slot), and one 32-byte
-    sector for each distinct sector of a table that its live slots read at
-    each level (P at lo, then levels d-1 .. 0 for the slots that climb)."""
+    """The bytes one climb pass must move on these inputs: lo in and two
+    outputs back (12 bytes a slot), and 32 bytes for each distinct sector
+    that the pass must read of hi (at the live slots), of old_at_lo (at
+    the retiring slots) and of each table (P at lo for the live slots,
+    then levels d-1 .. 1 and P for the slots that climb)."""
     import torch
 
+    def sectors(j):
+        return torch.unique(j >> 3).numel()
+
+    slot = torch.arange(lo.numel(), device=lo.device)
     live = lo != n
-    now = P[lo.long()]
-    up = live & (hi != now)
+    retire = live & (hi == P[lo.long()])
+    up = live & ~retire
+    reads = sectors(slot[live]) + sectors(slot[retire])
     cur, h = lo[up], hi[up]
-    sectors = 0
     for k in range(d - 1, 0, -1):
-        sectors += torch.unique(cur >> 3).numel()
+        reads += sectors(cur)
         cand = st[k - 1][cur.long()]
         cur = torch.where(cand < h, cand, cur)
-    sectors += torch.unique(torch.cat([lo[live], cur]) >> 3).numel()
-    return 20 * lo.numel() + 32 * sectors
+    reads += sectors(torch.cat([lo[live], cur]))
+    return 12 * lo.numel() + 32 * reads
 
 
-def lifts(card, n: int = 1 << 22, C: int = 1 << 23, dev: str = "cuda"):
+def chain_for_depth(depth: int, n: int) -> int:
+    """The length of a path through the first positions that gives a
+    forest of phase 3c the depth ``depth``: 1.5 * 2^(depth-2) hops, so that
+    the longest path (the path and a random forest's short tail) lies in
+    (2^(depth-2), 2^(depth-1)] and d - 1 = ceil(log2) of it. The random
+    forest alone gives d of 8-10, so below 11 no path is laid."""
+    return min(3 << (depth - 3), n - 1) if depth >= 11 else 0
+
+
+def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
+          dev: str = "cuda"):
     """Phase 3c: ``lift_stack`` and ``climb_tail`` against their plain
     versions on the card, exactly, at the s22 shapes (the defaults), each
-    case timed with its bound. Returns the records."""
+    case timed with its bound. ``cases`` holds (name, path length, live
+    share): a random position-space forest (P[p] in (p, n]) with a path
+    through its first positions, and slots with that share live. Returns
+    the records."""
     import torch
 
     from sheep_tpu_torch.ops import lift
@@ -186,14 +210,12 @@ def lifts(card, n: int = 1 << 22, C: int = 1 << 23, dev: str = "cuda"):
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(13)
 
-    def forest(kind):
+    def forest(path):
         p = torch.arange(n, device=dev)
         step = torch.empty(n, device=dev).geometric_(1 / 50, generator=g)
         P = torch.minimum(p + step.long(), torch.tensor(n, device=dev))
         P[torch.rand(n, device=dev, generator=g) < 0.1] = n
-        if kind == "chain":  # a path through half the positions
-            half = n // 2
-            P[:half - 1] = torch.arange(1, half, device=dev)
+        P[:max(path - 1, 0)] = torch.arange(1, max(path, 1), device=dev)
         return torch.cat([P, torch.tensor([n], device=dev)]).int()
 
     def slots(share):
@@ -206,70 +228,62 @@ def lifts(card, n: int = 1 << 22, C: int = 1 << 23, dev: str = "cuda"):
         return lo.int(), hi.int()
 
     records = []
-    for kind in ("random", "chain"):
-        P0 = forest(kind)
-        for share in (1.0, 0.1, 0.01):
-            lo, hi = slots(share)
-            old = gather_clip_plain(P0, lo)
-            P = P0.clone()
-            P.scatter_reduce_(0, lo.long(), hi, reduce="amin",
-                              include_self=True)
-            st, d = lift.lift_stack_plain(P, L)
-            p_lo, p_hi, ch, ret, live = lift.climb_tail_plain(
-                lo, hi, old, P, st, d)
-            want_ctl = [d, int(ch), int(ret), int(live)]
-            rec = {"case": f"{kind}-live{share:g}", "T": T, "C": C, "L": L,
-                   "depth": d, "live": int(live), "retired": int(ret)}
-            stack = lift.new_stack(T, L, dev)
-            ctl = lift.new_ctl(dev)
-            lift.lift_stack(P, stack, ctl)
-            out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl)
-            torch.cuda.synchronize()
-            errs = [int((stack[:d - 1, :T].long() - st[:d - 1].long())
-                        .abs().max()) if d > 1 else 0,
-                    int((out_lo.long() - p_lo.long()).abs().max()),
-                    int((out_hi.long() - p_hi.long()).abs().max())]
-            rec["max_abs_err"] = max(errs)
-            check(max(errs) == 0 and ctl.tolist() == want_ctl,
-                  f"{rec['case']}: kernels disagree with their plain "
-                  f"versions (errors {errs}, ctl {ctl.tolist()} != "
-                  f"{want_ctl})")
-            rec["lift_ms"] = gs.time_ms(lambda: lift.lift_stack(P, stack, ctl))
-            rec["climb_ms"] = gs.time_ms(
-                lambda: lift.climb_tail(lo, hi, old, P, stack, ctl))
-            del stack
-            rec["lift_plain_ms"] = gs.time_ms(
-                lambda: lift.lift_stack_plain(P, L), iters=3)
-            rec["climb_plain_ms"] = gs.time_ms(
-                lambda: lift.climb_tail_plain(lo, hi, old, P, st, d), iters=5)
-            P64 = P.long()
-            rec["take_level_ms"] = gs.time_ms(lambda: torch.take(P, P64))
-            rec["lift_bound_ms"] = gs.bound_ms(4 * T * (1 + min(d, L - 1)))
-            rec["climb_bound_ms"] = gs.bound_ms(
-                climb_bytes(lo, hi, P, st, d, n))
-            rec["card"] = card
-            print("lift " + json.dumps(rec), flush=True)
-            records.append(rec)
+    for name, path, share in cases:
+        P0 = forest(path)
+        lo, hi = slots(share)
+        old = gather_clip_plain(P0, lo)
+        P = P0.clone()
+        P.scatter_reduce_(0, lo.long(), hi, reduce="amin",
+                          include_self=True)
+        st, d = lift.lift_stack_plain(P, L)
+        p_lo, p_hi, ch, ret, live = lift.climb_tail_plain(
+            lo, hi, old, P, st, d)
+        want_ctl = [d - 1, int(ch), int(ret), int(live)]
+        rec = {"case": name, "T": T, "C": C, "L": L, "path": path,
+               "share": share, "depth": d, "live": int(live),
+               "retired": int(ret)}
+        stack = lift.new_stack(T, L, dev)
+        ctl = lift.new_ctl(dev)
+        lift.lift_stack(P, stack, ctl)
+        out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl)
+        torch.cuda.synchronize()
+        errs = [int((stack[:d - 1, :T].long() - st[:d - 1].long())
+                    .abs().max()) if d > 1 else 0,
+                int((out_lo.long() - p_lo.long()).abs().max()),
+                int((out_hi.long() - p_hi.long()).abs().max())]
+        rec["max_abs_err"] = max(errs)
+        check(max(errs) == 0 and ctl.tolist() == want_ctl,
+              f"{name}: kernels disagree with their plain versions "
+              f"(errors {errs}, ctl {ctl.tolist()} != {want_ctl})")
+        rec["lift_ms"] = gs.time_ms(lambda: lift.lift_stack(P, stack, ctl))
+        # the ladders left ctl at this case's rows; the climbs add to it
+        rec["climb_ms"] = gs.time_ms(
+            lambda: lift.climb_tail(lo, hi, old, P, stack, ctl))
+        del stack
+        rec["lift_plain_ms"] = gs.time_ms(
+            lambda: lift.lift_stack_plain(P, L), iters=3)
+        rec["climb_plain_ms"] = gs.time_ms(
+            lambda: lift.climb_tail_plain(lo, hi, old, P, st, d), iters=5)
+        P64 = P.long()
+        rec["take_level_ms"] = gs.time_ms(lambda: torch.take(P, P64))
+        rec["lift_bound_ms"] = gs.bound_ms(4 * T * (1 + min(d, L - 1)))
+        rec["climb_bound_ms"] = gs.bound_ms(climb_bytes(lo, hi, P, st, d, n))
+        rec["card"] = card
+        print("lift " + json.dumps(rec), flush=True)
+        records.append(rec)
     return records
 
 
-def lift_entries(cases, diag, launches) -> list:
+def lift_entries(head, cases, launches) -> list:
     """The kernels-line entries of ``lift_stack`` and ``climb_tail``: each
-    at the phase 3c case nearest the main path's rounds (the ladder by
-    depth, the climb by live share, then depth), the other cases beside
-    it; launches from the main path."""
-    rounds, slots = diag["device_rounds"], 1 << 23
-    share = diag["live_sum"] / (rounds * slots)
-    depth = diag["depth_sum"] / rounds
+    at ``head``, the phase 3c case at the main path's median depth and
+    median live share, the other cases beside it; launches from the main
+    path."""
     out = []
     for name, replaces, lib_key in (
             ("lift_stack", "sheep_tpu/ops/elim.py:295", "take_level_ms"),
             ("climb_tail", "sheep_tpu/ops/elim.py:128", None)):
         key = name.split("_")[0]
-        head = min(cases, key=lambda r: (
-            abs(r["depth"] - depth), abs(r["live"] / r["C"] - share))
-            if key == "lift" else (abs(r["live"] / r["C"] - share),
-                                   abs(r["depth"] - depth)))
         out.append({
             "name": name, "route": "cuda",
             "source": "sheep_tpu_torch/csrc/lift.cu", "replaces": replaces,
@@ -312,8 +326,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
         return 2
+    import statistics
+
     import sheep_tpu_torch
-    from sheep_tpu_torch.ops import _build, gather, lift
+    from sheep_tpu_torch.ops import _build, elim, gather, lift
 
     t_all = time.perf_counter()
     # 1. the card
@@ -337,7 +353,11 @@ def main() -> int:
     cases, tool_launches = gathers(card)
 
     # 3c. the round's lifting kernels against their plain versions
-    lift_cases = lifts(card)
+    n22 = 1 << 22
+    lift_cases = lifts(card, [
+        (f"{kind}-live{share:g}", path, share)
+        for kind, path in (("random", 0), ("chain", n22 // 2))
+        for share in (1.0, 0.1, 0.01)])
 
     # 4. the port on CUDA against the port on the CPU
     spec16 = "rmat-hash:16:16:7"
@@ -354,18 +374,38 @@ def main() -> int:
     print(f"parity {spec16} k=64: cuda == cpu (edge_cut {on_gpu.edge_cut}, "
           f"device_rounds {on_gpu.diagnostics['device_rounds']:.0f}; "
           f"wall cuda {t_gpu:.2f}s cpu {t_cpu:.2f}s)", flush=True)
+    # 4b. the stream descent (K1 and torch.where a level), which the
+    # table budget keeps for larger graphs, forced by a budget of 0
+    spec14 = "rmat-hash:14:16:7"
+    opts = dict(chunk_edges=1 << 15, dispatch_batch=3, keep_tree=True)
+    budget, elim.EXACT_TABLE_BYTES = elim.EXACT_TABLE_BYTES, 0
+    try:
+        on_gpu = sheep_tpu_torch.partition(spec14, 16, device="cuda", **opts)
+        on_cpu = sheep_tpu_torch.partition(spec14, 16, device="cpu", **opts)
+    finally:
+        elim.EXACT_TABLE_BYTES = budget
+    same_result(on_gpu, on_cpu, f"{spec14} (stream descent)")
+    dg = on_gpu.diagnostics
+    check(dg["gather_launches"] > 0 and dg["lift_launches"] == 0 and
+          dg["climb_launches"] == 0, "the stream descent's CUDA run did "
+          "not go through K1 alone")
+    print(f"parity {spec14} k=16, stream descent: cuda == cpu (edge_cut "
+          f"{on_gpu.edge_cut}, device_rounds {dg['device_rounds']:.0f}, "
+          f"K1 launches {dg['gather_launches']:.0f})", flush=True)
 
     # 5. the full-size build on the card, through the user's entry point
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gather.reset_launches()
     lift.reset_launches()
+    elim.ROUND_LOG = []
     t0 = time.perf_counter()
     res = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
                                     chunk_edges=1 << 23, dispatch_batch=8)
     wall = time.perf_counter() - t0
     launches = {"gather_clip": gather.LAUNCHES["gather_clip"],
                 **lift.LAUNCHES}
+    round_log, elim.ROUND_LOG = elim.ROUND_LOG, None
     peak = torch.cuda.max_memory_allocated()
     d = res.diagnostics
     rounds = int(d["device_rounds"])
@@ -387,6 +427,9 @@ def main() -> int:
     check(res.comm_volume == S22_COMM_VOLUME,
           f"comm_volume {res.comm_volume} != JAX {S22_COMM_VOLUME}")
     slots = 1 << 23
+    check(len(round_log) == rounds, "the round log missed rounds")
+    depth_med = statistics.median_low(r[0] for r in round_log)
+    share_med = statistics.median_low(r[1] for r in round_log) / slots
     print("s22 " + json.dumps({
         "spec": S22_SPEC, "k": S22_K, "wall_s": wall,
         "phase_s": res.phase_times, "edge_cut": res.edge_cut,
@@ -396,9 +439,16 @@ def main() -> int:
         "launches": launches, "peak_mem_bytes": peak,
         "live_share_mean": d["live_sum"] / (rounds * slots),
         "live_share_max": d["live_max"] / slots,
+        "live_share_median": share_med,
         "depth_mean": d["depth_sum"] / rounds, "depth_max": d["depth_max"],
+        "depth_median": depth_med,
         "split": "native", "split_s": res.phase_times["split"],
         "card": card}), flush=True)
+
+    # 5b. the lifting kernels at the main path's median round (phase 3c)
+    main_case = lifts(card, [(f"main-d{depth_med}-live{share_med:.3g}",
+                              chain_for_depth(depth_med, n22),
+                              share_med)])[0]
 
     # 6. every kernel: K1's launches are the main path's (phase 5), K2's
     # and K3's the probe tool's (phase 3b), their only path
@@ -432,7 +482,7 @@ def main() -> int:
               also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
                              "tools/pallas_smoke.py:420"],
               cases_max_abs_err=max_err("K3"))]
-    kernels += lift_entries(lift_cases, d, launches)
+    kernels += lift_entries(main_case, lift_cases + [main_case], launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

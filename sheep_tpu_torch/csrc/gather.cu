@@ -9,9 +9,7 @@
 // (__ldg). Only the table of the current launch can be resident: a round
 // of the exact descent keeps 23 such tables (386 MB at RMAT-22). Staging
 // the table in shared memory would fit only tables of <= ~56K entries
-// (227 KB), so it is not done here. On the main path K1 now reads P once
-// a round, before the scatter; the squaring and the climb are the
-// kernels of lift.cu.
+// (227 KB), so it is not done here.
 //
 // Bound: the kernel streams idx in and out back, each once, plus the
 // table once: 8*M + 4*T bytes of device memory. At M = 2^23 and

@@ -7,21 +7,19 @@
 //                lifting climb, retire, displace, the round's `changed`
 //                flag and its retired and live counts.
 //
-// They replace the XLA program of _pos_round_body after its scatter-min
-// (sheep_tpu/ops/elim.py:158-192) and build_lift_tables
-// (sheep_tpu/ops/elim.py:295), which the port's first slices ran as one
-// K1 gather launch (the counterpart of the Pallas vmem_gather,
-// sheep_tpu/ops/pallas_gather.py:70) per squaring and per climb level,
-// with a compare and a select pass after each climb gather.
+// They are the counterparts of _pos_round_body after its scatter-min
+// (sheep_tpu/ops/elim.py:158-192) and of build_lift_tables
+// (sheep_tpu/ops/elim.py:295).
 //
-// Control word ctl (int32[4]): [0] depth d, the number of distinct
-// levels; [1] changed; [2] retired; [3] live. lift_stack writes [0];
-// climb_tail reads [0] and writes [1..3].
+// Control word ctl (int32[4]): [0] rows, the number of stack rows that
+// hold distinct levels (the depth d less one); [1] changed; [2] retired;
+// [3] live. lift_stack zeroes all four and writes [0]; climb_tail reads
+// [0] and adds to [1..3].
 //
-// Depth cut. Level launch j computes t_{j+1} from t_j and raises d to
-// j + 2 if any entry differs (a block vote, one atomicMax per block). If
+// Depth cut. Level launch j computes t_{j+1} from t_j and raises rows to
+// j + 1 if any entry differs (a block vote, one atomicMax per block). If
 // none differs, t_j is idempotent, every higher level equals it, and the
-// later launches of the ladder read d and return at once. The climb
+// later launches of the ladder read rows and return at once. The climb
 // applies levels d-1 .. 0: applying an idempotent table twice moves no
 // slot (cand = t[t[x]] = t[x] = cur), so this is bit for bit the climb
 // over L-1 .. 0.
@@ -33,14 +31,15 @@
 // 1.4-2.2x faster but the squaring ladder 15-26x slower, and the s22
 // build 7x slower, on an H100 (PERF.md).
 //
-// Bounds on an H100 (3.35 TB/s): a squaring level reads its source row
-// and writes its row, 8*T bytes (T = n + 1; 33.6 MB, 0.010 ms at
-// T = 2^22 + 1), plus the random reads t_j[t_j[p]], which hit L2 while
-// the 16.8 MB source row stays resident. A climb pass reads lo, hi and
-// old_at_lo and writes two outputs, 20 bytes a slot (168 MB, 0.050 ms at
-// 2^23 slots), plus one 32-byte sector for each distinct table sector its
-// live slots read at each level. Both are bound by bytes: they do no
-// arithmetic worth counting.
+// Bounds on an H100 (3.35 TB/s), both by bytes (no arithmetic worth
+// counting). The ladder reads P once and writes each level it computes
+// once, 4*T bytes for P and 4*T a level (T = n + 1; 0.0050 ms a level at
+// T = 2^22 + 1): a level's source row is the previous launch's output,
+// 16.8 MB, which L2 holds, so its reads need not reach memory. A climb
+// pass reads lo and writes two outputs, 12 bytes a slot; hi only at live
+// slots and old_at_lo only at retiring ones; and each table at the
+// sectors its live slots read (P at lo and at the end of the climb,
+// levels d-1 .. 1 on the way), 32 bytes a distinct sector.
 //
 // Bound to PyTorch through plain C functions (loaded with ctypes): the
 // caller passes device pointers and its CUDA stream and gets back the
@@ -51,7 +50,7 @@
 
 namespace {
 
-enum { kDepth = 0, kChanged = 1, kRetired = 2, kLive = 3 };
+enum { kRows = 0, kChanged = 1, kRetired = 2, kLive = 3 };
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -64,20 +63,18 @@ __device__ __forceinline__ int32_t volatile_load(const int32_t* p) {
 }
 
 // one atomicMax per block whose entries changed
-__device__ __forceinline__ void vote_depth(bool diff, int j, int32_t* ctl) {
+__device__ __forceinline__ void vote_rows(bool diff, int j, int32_t* ctl) {
   if (__syncthreads_or(diff) && threadIdx.x == 0 &&
-      volatile_load(ctl + kDepth) < j + 2)
-    atomicMax(ctl + kDepth, j + 2);
+      volatile_load(ctl + kRows) < j + 1)
+    atomicMax(ctl + kRows, j + 1);
 }
-
-__global__ void lift_begin(int32_t* ctl) { ctl[kDepth] = 1; }
 
 // dst = src[src] over T entries, 4 entries a thread through 16-byte
 // loads and stores, a scalar tail for the last T % 4
 __global__ void __launch_bounds__(kThreads)
 lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
            int64_t T, int j, int32_t* ctl) {
-  if (volatile_load(ctl + kDepth) <= j) return;  // t_j == t_{j-1}
+  if (volatile_load(ctl + kRows) < j) return;  // t_j == t_{j-1}
   const int32_t last = (int32_t)(T - 1);
   const int64_t quads = T >> 2;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -102,7 +99,7 @@ lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
     dst[p] = w;
     diff |= w != v;
   }
-  vote_depth(diff, j, ctl);
+  vote_rows(diff, j, ctl);
 }
 
 // sum over the block into thread 0's return value
@@ -126,16 +123,17 @@ climb_tail_kernel(const int32_t* __restrict__ lo,
                   int32_t* ctl, int32_t* __restrict__ out_lo,
                   int32_t* __restrict__ out_hi, int64_t m, int32_t n) {
   __shared__ int smem[2][kWarps];
-  const int32_t depth = volatile_load(ctl + kDepth);
+  const int32_t rows = volatile_load(ctl + kRows);
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
   bool changed = false;
   int retired = 0, live = 0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
        i += step) {
-    const int32_t l = lo[i], h = hi[i];
-    int32_t ol = n, oh = n;  // a dead slot (l == n) reads no table
+    const int32_t l = lo[i];
+    int32_t ol = n, oh = n;  // a dead slot (n, n) reads nothing else
     if (l != n) {
       ++live;
+      const int32_t h = hi[i];
       const int32_t now = __ldg(P + clip(l, n));
       if (h == now) {  // retire; displace an older parent
         const int32_t o = old[i];
@@ -143,9 +141,9 @@ climb_tail_kernel(const int32_t* __restrict__ lo,
           ol = now;
           oh = o;
         }
-      } else {  // climb levels depth-1 .. 1 of the stack, then P
+      } else {  // climb levels d-1 .. 1 of the stack, then P
         int32_t cur = clip(l, n);
-        for (int k = depth - 1; k >= 1; --k) {
+        for (int k = rows; k >= 1; --k) {
           const int32_t cand =
               __ldg(stack + (int64_t)(k - 1) * stride + cur);
           if (cand < h) cur = cand;
@@ -158,10 +156,10 @@ climb_tail_kernel(const int32_t* __restrict__ lo,
         }
       }
       retired += ol == n;
+      changed |= (ol != l) | (oh != h);
     }
     out_lo[i] = ol;
     out_hi[i] = oh;
-    changed |= (ol != l) | (oh != h);
   }
   const bool any = __syncthreads_or(changed);
   retired = block_sum(retired, smem[0]);
@@ -208,8 +206,8 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// The ladder of one round: d = 1, then levels t_1 .. t_{levels-1} into
-// the stack, row k-1 (at stack + (k-1)*stride) holding t_k.
+// The ladder of one round: ctl zeroed, then levels t_1 .. t_{levels-1}
+// into the stack, row k-1 (at stack + (k-1)*stride) holding t_k.
 extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
                                 long long stride, int levels, void* ctl,
                                 void* stream) {
@@ -219,8 +217,7 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* c = (int32_t*)ctl;
-  lift_begin<<<1, 1, 0, s>>>(c);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(c, 0, 4 * sizeof(int32_t), s);
   if (err != cudaSuccess) return (int)err;
   unsigned blocks = 0;
   err = wave_blocks(wave_lift, lift_level, (T + 3) / 4, &blocks);
@@ -237,26 +234,22 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
   return 0;
 }
 
-// One pass over m slots: out_lo/out_hi, and ctl[1..3] = (changed,
-// retired, live) of this pass; reads the depth at ctl[0].
+// One pass over m slots: out_lo/out_hi, and this pass's changed flag,
+// retired and live counts added to ctl[1..3]; reads rows at ctl[0].
 extern "C" int sheep_climb_tail(const void* lo, const void* hi,
                                 const void* old, long long m, const void* P,
                                 long long T, const void* stack,
                                 long long stride, void* ctl, void* out_lo,
                                 void* out_hi, void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int32_t* c = (int32_t*)ctl;
-  cudaError_t err = cudaMemsetAsync(c + kChanged, 0, 3 * sizeof(int32_t), s);
-  if (err != cudaSuccess) return (int)err;
   if (m <= 0) return 0;
   unsigned blocks = 0;
-  err = wave_blocks(wave_climb, climb_tail_kernel, m, &blocks);
+  cudaError_t err = wave_blocks(wave_climb, climb_tail_kernel, m, &blocks);
   if (err != cudaSuccess) return (int)err;
-  climb_tail_kernel<<<blocks, kThreads, 0, s>>>(
+  climb_tail_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
-      (const int32_t*)P, (const int32_t*)stack, stride, c, (int32_t*)out_lo,
-      (int32_t*)out_hi, m, (int32_t)(T - 1));
+      (const int32_t*)P, (const int32_t*)stack, stride, (int32_t*)ctl,
+      (int32_t*)out_lo, (int32_t*)out_hi, m, (int32_t)(T - 1));
   return (int)cudaGetLastError();
 }
 

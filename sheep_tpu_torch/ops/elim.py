@@ -23,9 +23,9 @@ with an on-device depth cut, and ``climb_tail`` climbs, retires and
 counts in one pass. The stream descent sends every gather through K1.
 On CPU tensors each kernel's plain version runs instead. The JAX
 ``lax.while_loop`` of :func:`batch_segment_fixpoint` becomes a Python
-loop that reads the round's control word (``changed`` with the depth,
-retired and live counts) once per round; those reads are counted in
-``host_syncs``. Tables and blocks are updated in place
+loop that reads the round's control word (``changed`` with the stack rows
+in use, retired and live counts) once per round; those reads are counted
+in ``host_syncs``. Tables and blocks are updated in place
 (the reference's arrays are immutable and it donates them instead).
 
 Sentinel encoding: index n means "none"; pos[n] = order[n] = n; inert
@@ -47,6 +47,10 @@ NO_PARENT = -1
 # exact descent keeps lift_levels tables of 4*(n+1) bytes live at once;
 # beyond this budget the fixpoint switches to the O(V) stream descent
 EXACT_TABLE_BYTES = 1 << 30
+
+# None, or a list to which batch_segment_fixpoint appends (depth, live
+# slots) for every round it runs
+ROUND_LOG = None
 
 
 def pow2_at_least(x: int, floor: int = 1) -> int:
@@ -99,7 +103,7 @@ class _pos_round_body:
     ``_pos_round_body(n, lift_levels, descent)(lo, hi, P, spread) ->
     (out_lo, out_hi, P, changed)``; ``spread`` is :func:`dead_slot_spread`
     for the row length. P is updated in place and ``changed`` is a 0-d
-    view of the round's control word ``ctl`` = int32 [depth, changed,
+    view of the round's control word ``ctl`` = int32 [rows, changed,
     retired, live] (``ops/lift.py``), on P's device, which the caller
     reads once a round. The exact descent's stack and ``ctl`` are
     allocated at the first call and reused by every later one."""
@@ -129,7 +133,7 @@ class _pos_round_body:
 
     def _stream(self, lo, hi, P, old_at_lo):
         """Stream descent: square in place, one table live, every gather
-        through K1; fills ``ctl`` with depth L."""
+        through K1; fills ``ctl`` with rows L - 1 (depth L) and the counts."""
         t = P
         cur = lo
         for j in range(self.lift_levels):
@@ -137,11 +141,11 @@ class _pos_round_body:
             cur = torch.where(cand < hi, cand, cur)
             if j < self.lift_levels - 1:
                 t = gather_clip(t, t)
-        out_lo, out_hi, *counts = lift.finish_round(
+        out_lo, out_hi, changed, retired, live = lift.finish_round(
             lo, hi, cur, gather_clip(P, lo), old_at_lo, self.n)
-        self.ctl[lift.DEPTH] = self.lift_levels
-        for i, v in zip((lift.CHANGED, lift.RETIRED, lift.LIVE), counts):
-            self.ctl[i] = v
+        self.ctl[lift.ROWS] = self.lift_levels - 1
+        torch.stack((changed.to(torch.int32), retired, live),
+                    out=self.ctl[lift.CHANGED:])
         return out_lo, out_hi
 
 
@@ -173,7 +177,10 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
     while i < N and rounds < batch_rounds:
         lo2, hi2, P, _ = body(lo, hi, P, spread)
         # the one read of the round
-        depth, changed, retired_r, live = body.ctl.tolist()
+        rows, changed, retired_r, live = body.ctl.tolist()
+        depth = rows + 1
+        if ROUND_LOG is not None:
+            ROUND_LOG.append((depth, live))
         rounds += 1
         retired += retired_r
         stats["host_syncs"] = stats.get("host_syncs", 0) + 1

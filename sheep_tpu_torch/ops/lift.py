@@ -3,11 +3,12 @@ climb (counterparts of ``build_lift_tables`` and of ``_pos_round_body``
 after its scatter-min, ``sheep_tpu/ops/elim.py:295`` and ``:158-192``).
 
 ``lift_stack(P, stack, ctl)`` fills the stack with the levels
-t_1 .. t_{d-1} of the table P (t_0 = P, t_{j+1} = t_j[t_j]) and writes
-the depth d to ``ctl[DEPTH]``. ``climb_tail(lo, hi, old_at_lo, P, stack,
-ctl)`` runs the rest of the round over the slots in one pass: retire,
-displace, the binary-lifting climb over levels d-1 .. 0, and the round's
-``changed`` flag, retired count and live count in ``ctl``. On CUDA
+t_1 .. t_{d-1} of the table P (t_0 = P, t_{j+1} = t_j[t_j]), zeroes the
+control word and writes d - 1, the stack rows in use, to ``ctl[ROWS]``.
+``climb_tail(lo, hi, old_at_lo, P, stack, ctl)`` runs the rest of the
+round over the slots in one pass: retire, displace, the binary-lifting
+climb over levels d-1 .. 0, and the pass's ``changed`` flag, retired
+count and live count added to ``ctl``. On CUDA
 tensors they launch the kernels of ``csrc/lift.cu``; on CPU tensors they
 run the plain PyTorch versions :func:`lift_stack_plain` and
 :func:`climb_tail_plain`. Anything else raises.
@@ -26,17 +27,19 @@ Inputs are the round's state: P int32[T], T = n + 1, with entries in
 [0, n] and P[n] = n; lo, hi, old_at_lo int32[C] with entries in [0, n],
 lo < hi on a live slot and lo == n only on a dead slot (n, n). The
 kernels clip every table index to [0, n], as K1 does. On such inputs the
-kernel and the plain version agree bit for bit.
+kernel and the plain version agree bit for bit. A dead slot's hi is not
+read: it is n by this contract.
 
 The stack is allocated once per fixpoint call (:func:`new_stack`): level
 k >= 1 is row k - 1 of an int32 [L-1, stride] tensor, stride the table
 length rounded up to a multiple of 32 (16-byte aligned rows). Rows at
 or above d - 1 are left as they were. The control word ``ctl`` is int32
-[DEPTH, CHANGED, RETIRED, LIVE] (:func:`new_ctl`).
+[ROWS, CHANGED, RETIRED, LIVE] (:func:`new_ctl`), ROWS = d - 1 so that
+zeroing the word starts a round.
 
 ``LAUNCHES`` counts the wrapper calls that launched their kernels: one
-``lift_stack`` call issues the whole ladder (1 + (L-1) launches, those
-above d returning at once).
+``lift_stack`` call issues the whole ladder (a memset of ``ctl`` and L-1
+launches, those above d returning at once).
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from sheep_tpu_torch.ops.gather import gather_clip_plain
 
 LAUNCHES = {"lift_stack": 0, "climb_tail": 0}
 
-DEPTH, CHANGED, RETIRED, LIVE = range(4)
+ROWS, CHANGED, RETIRED, LIVE = range(4)
 ROW_ALIGN = 32  # int32: rows start on 128-byte boundaries
 
 
@@ -195,14 +198,15 @@ def _raise_if(rc: int, fn: str) -> None:
 
 def lift_stack(P: torch.Tensor, stack: torch.Tensor,
                ctl: torch.Tensor) -> None:
-    """Fill ``stack`` with t_1 .. t_{d-1} of P and set ``ctl[DEPTH] = d``,
-    for ``stack.shape[0] + 1`` levels."""
+    """Fill ``stack`` with t_1 .. t_{d-1} of P and set ``ctl`` to
+    [d - 1, 0, 0, 0], for ``stack.shape[0] + 1`` levels."""
     _check("lift_stack", P, stack, ctl)
     L = stack.shape[0] + 1
     if P.device.type == "cpu":
         st, d = lift_stack_plain(P, L)
         stack[:d - 1, :len(P)] = st[:d - 1]
-        ctl[DEPTH] = d
+        ctl.zero_()
+        ctl[ROWS] = d - 1
         return
     lib = _lib()
     with torch.cuda.device(P.device):
@@ -216,15 +220,16 @@ def lift_stack(P: torch.Tensor, stack: torch.Tensor,
 def climb_tail(lo: torch.Tensor, hi: torch.Tensor, old_at_lo: torch.Tensor,
                P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor):
     """The round after its scatter-min, in one pass: returns ``(out_lo,
-    out_hi)`` and sets ``ctl[CHANGED]``, ``ctl[RETIRED]`` and ``ctl[LIVE]``
-    for this pass; climbs ``ctl[DEPTH]`` levels."""
+    out_hi)``, ORs this pass's changed flag into ``ctl[CHANGED]`` and adds
+    its retired and live counts to ``ctl[RETIRED]`` and ``ctl[LIVE]``;
+    climbs ``ctl[ROWS] + 1`` levels."""
     _check("climb_tail", P, stack, ctl, lo, hi, old_at_lo)
     if P.device.type == "cpu":
         out_lo, out_hi, changed, retired, live = climb_tail_plain(
-            lo, hi, old_at_lo, P, stack, int(ctl[DEPTH]))
-        ctl[CHANGED] = changed.to(torch.int32)
-        ctl[RETIRED] = retired
-        ctl[LIVE] = live
+            lo, hi, old_at_lo, P, stack, int(ctl[ROWS]) + 1)
+        ctl[CHANGED] |= changed
+        ctl[RETIRED] += retired
+        ctl[LIVE] += live
         return out_lo, out_hi
     out_lo = torch.empty_like(lo)
     out_hi = torch.empty_like(hi)

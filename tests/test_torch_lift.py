@@ -134,7 +134,7 @@ def test_rounds_match_jax(kind, n):
         assert int(live) == int(np.sum(lo_np != n))
 
         lift.lift_stack(P2, stack, ctl)  # the wrappers on the CPU
-        assert int(ctl[lift.DEPTH]) == d
+        assert int(ctl[lift.ROWS]) == d - 1
         assert torch.equal(stack[:d - 1, :n + 1], st[:d - 1])
         w_lo, w_hi = lift.climb_tail(_t(lo), _t(hi), old, P2, stack, ctl)
         assert torch.equal(w_lo, out_lo) and torch.equal(w_hi, out_hi)
@@ -176,11 +176,11 @@ def test_single_level_and_roots_only():
     assert d == 1
     stack, ctl = lift.new_stack(n + 1, 11, CPU), lift.new_ctl(CPU)
     lift.lift_stack(P, stack, ctl)
-    assert int(ctl[lift.DEPTH]) == 1
+    assert int(ctl[lift.ROWS]) == 0
     one = lift.new_stack(n + 1, 1, CPU)
     assert one.shape[0] == 0
     lift.lift_stack(P, one, ctl)
-    assert int(ctl[lift.DEPTH]) == 1
+    assert int(ctl[lift.ROWS]) == 0
 
 
 def _args():
@@ -259,9 +259,28 @@ def test_kernels_match_plain_on_card():
     assert lift.LAUNCHES["lift_stack"] == n0["lift_stack"] + 1
     assert lift.LAUNCHES["climb_tail"] == n0["climb_tail"] + 1
     st, d = lift.lift_stack_plain(Pc, L)
-    assert int(ctl[lift.DEPTH]) == d
+    assert int(ctl[lift.ROWS]) == d - 1
     assert torch.equal(stack[:d - 1, :n + 1], st[:d - 1])
     p_lo, p_hi, ch, ret, live = lift.climb_tail_plain(loc, hic, oldc, Pc, st,
                                                       d)
     assert torch.equal(out_lo, p_lo) and torch.equal(out_hi, p_hi)
     assert ctl[lift.CHANGED:].tolist() == [int(ch), int(ret), int(live)]
+
+
+def test_ctl_adds_until_lift_stack_zeroes_it():
+    """climb_tail adds each pass's counts to the control word, as the
+    kernel's atomics do; lift_stack starts the next round from zero."""
+    n = 1 << 10
+    P, lo, hi = _state("random", n, seed=3)
+    old, P2 = _scatter(_t(P), _t(lo), _t(hi), n)
+    stack, ctl = lift.new_stack(n + 1, 11, CPU), lift.new_ctl(CPU)
+    lift.lift_stack(P2, stack, ctl)
+    rows = int(ctl[lift.ROWS])
+    lift.climb_tail(_t(lo), _t(hi), old, P2, stack, ctl)
+    once = ctl.tolist()
+    assert once[lift.CHANGED] == 1 and once[lift.LIVE] > 0
+    lift.climb_tail(_t(lo), _t(hi), old, P2, stack, ctl)
+    assert ctl.tolist() == [rows, 1, 2 * once[lift.RETIRED],
+                            2 * once[lift.LIVE]]
+    lift.lift_stack(P2, stack, ctl)
+    assert ctl.tolist() == [rows, 0, 0, 0]
