@@ -30,21 +30,36 @@ line is printed:
      the positions) with live-slot shares of 100%, 10% and 1%, each timed
      beside its plain version, ``torch.take(t, t)`` for one squaring
      level, and its bytes bound;
-  4. the port on CUDA against the port on the CPU at rmat-hash:16:16:7,
-     k=64: forest, assignment and scores exactly equal;
-  4b. the same at rmat-hash:14:16:7, k=16, with the table budget set to 0
-     so that the fixpoint takes its stream descent (K1 and torch.where a
-     level, no lifting kernel);
+  3d. the batched execution's kernels (``ops/fixpoint.py``) against their
+     plain versions on the card, exactly: ``scatter_min`` at T = 2^22+1,
+     C = 2^23 with 100% and 1% of the slots live, also against the library
+     pair it replaced (``torch.where`` for the dead-slot index and
+     ``scatter_reduce_``); ``round_end``; ``exec_finish`` on [8, 2^23]
+     blocks with all and half the rows converged; ``climb_level`` (the
+     stream descent's level); each timed beside its plain version, with
+     its bytes bound;
+  4. the port on CUDA at its auto pipeline depth (2) against the port on
+     the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
+     assignment and scores exactly equal, and device rounds at depth 2;
+  4b. the same at depth 2 on both at rmat-hash:14:16:7, k=16, with the
+     table budget set to 0 so that the fixpoint takes its stream descent
+     (K1, ``climb_level`` and ``climb_tail``, no ``lift_stack``);
+  4c. a .bin32 file through the staged H2D ring (``h2d_ring=2``), CUDA
+     against the CPU, both at depth 2;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
-     the card, with the native split: the launches of K1, ``lift_stack``
-     and ``climb_tail`` in the run are counted (K1 at most once a round),
-     the rounds' live-slot share and depth are summarized, and edge cut,
-     total edges and comm volume must equal the JAX package's values;
-  5b. one more phase 3c case at the main path's median depth and median
-     live share (a path laid through the forest for that depth);
+     the card at the default depth (2), with the native split; the
+     driver's dispatch loop runs under torch.cuda's sync debug mode
+     "error". Every kernel of the path launched once a round enqueued
+     (``exec_finish`` once an execution), one host read per confirmed
+     execution, the device's round log one entry per counted round; the
+     rounds' live-slot share and depth summarized; edge cut, total edges
+     and comm volume equal to the JAX package's values;
+  5b. one more phase 3c case and one more scatter case at the main
+     path's median depth and median live share;
+  5c. the full-size build at depths 1 and 3: the same partition;
   6. one JSON line listing every kernel with its numbers, the lifting
-     kernels at the case of 5b;
+     kernels and the scatter at the case of 5b;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -53,8 +68,10 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # The JAX package's values for the full-size build, from its cpu backend:
@@ -64,6 +81,16 @@ S22_SPEC, S22_K = "rmat-hash:22:16:42", 64
 S22_EDGE_CUT = 62191637
 S22_TOTAL_EDGES = 67107073
 S22_COMM_VOLUME = 18440186
+
+
+# kernel -> the build's diagnostics key of its launches
+# (backends/torch_backend.py LAUNCH_KEYS), for the kernels of the exact
+# descent's main path
+PATH_KEYS = {"gather_clip": "gather_launches",
+             "scatter_min": "scatter_launches",
+             "lift_stack": "lift_launches", "climb_tail": "climb_launches",
+             "round_end": "round_end_launches",
+             "exec_finish": "exec_finish_launches"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -274,6 +301,178 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
     return records
 
 
+def sectors(j) -> int:
+    """Distinct 32-byte sectors of int32 entries at indices ``j``."""
+    import torch
+
+    return torch.unique(j >> 3).numel()
+
+
+def inplace_ms(reset, fn, iters: int = 50) -> float:
+    """Time of ``fn`` on freshly reset inputs: (reset + fn) less reset
+    alone, both by ``gather_smoke.time_ms``."""
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    both = gs.time_ms(lambda: (reset(), fn()), iters=iters)
+    return max(both - gs.time_ms(reset, iters=iters), 0.0)
+
+
+def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
+    """Phase 3d: ``scatter_min`` against its plain version and against
+    the library pair it replaced (the dead-slot ``torch.where`` index and
+    ``scatter_reduce_``), exactly, at the s22 shapes (T = n + 1, C slots)
+    with each share of live slots, on a random position-space table. Each
+    timed from a fresh copy of the table, with its bound: lo in, hi at
+    the live slots, one sector of P for each distinct sector written."""
+    import torch
+
+    from sheep_tpu_torch.ops import fixpoint
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    P0 = torch.randint(1, n + 1, (n + 1,), device=dev, generator=g,
+                       dtype=torch.int32)
+    P0[n] = n
+    spread = torch.arange(C, device=dev) % (n + 1)
+    records = []
+    for share in shares:
+        lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
+        hi = torch.randint(0, n, (C,), device=dev, generator=g).maximum(lo + 1)
+        dead = torch.rand(C, device=dev, generator=g) >= share
+        lo[dead] = n
+        hi[dead] = n
+        lo, hi = lo.int(), hi.int()
+        live = lo != n
+        P, ref, lib = P0.clone(), P0.clone(), P0.clone()
+
+        def library():
+            lib.scatter_reduce_(0, torch.where(lo == n, spread, lo.long()),
+                                hi, reduce="amin", include_self=True)
+
+        fixpoint.scatter_min(P, lo, hi)
+        fixpoint.scatter_min_plain(ref, lo, hi)
+        library()
+        torch.cuda.synchronize()
+        err = max(int((P.long() - ref.long()).abs().max()),
+                  int((lib.long() - ref.long()).abs().max()))
+        check(err == 0, f"scatter_min at live share {share:g} disagrees "
+                        f"with its plain version or the library pair")
+        rec = {"case": f"live{share:g}", "T": n + 1, "C": C, "share": share,
+               "live": int(live.sum()), "max_abs_err": err}
+        rec["ms"] = inplace_ms(lambda: P.copy_(P0),
+                               lambda: fixpoint.scatter_min(P, lo, hi))
+        rec["plain_ms"] = inplace_ms(
+            lambda: ref.copy_(P0),
+            lambda: fixpoint.scatter_min_plain(ref, lo, hi), iters=5)
+        rec["library_ms"] = inplace_ms(lambda: lib.copy_(P0), library)
+        slot = torch.arange(C, device=dev)
+        rec["bound_ms"] = gs.bound_ms(4 * C + 32 * sectors(slot[live])
+                                      + 32 * sectors(lo[live]))
+        rec["card"] = card
+        print("scatter_min " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def exec_kernels(card, n: int = 1 << 22, N: int = 8, C: int = 1 << 23):
+    """Phase 3d, the execution's other kernels against their plain
+    versions, exactly, at the s22 shapes, each timed with its bound:
+    ``round_end`` on a state mid-execution; ``exec_finish`` on [N, C]
+    blocks with all rows and with half the rows converged;
+    ``climb_level`` (the stream descent's level) on a random table with
+    10% of the slots dead. Returns the records by kernel."""
+    import torch
+
+    from sheep_tpu_torch.ops import fixpoint
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+
+    # round_end: a round that changed something, in a budget that the
+    # timing loop does not use up
+    budget = 64
+    ctl = torch.tensor([19, 1, 3, 12345], dtype=torch.int32, device=dev)
+    want, got = (fixpoint.new_state(budget, dev) for _ in range(2))
+    for st in (want, got):
+        st[fixpoint.ROUNDS] = 5
+    fixpoint.round_end(ctl, got, N, budget)
+    fixpoint.round_end_plain(ctl, want, N, budget)
+    err = int((got - want).abs().max())
+    check(err == 0, "round_end disagrees with its plain version")
+    out["round_end"] = {
+        "case": "changed-mid-execution", "max_abs_err": err,
+        "ms": gs.time_ms(lambda: fixpoint.round_end(ctl, got, N, budget)),
+        "plain_ms": gs.time_ms(
+            lambda: fixpoint.round_end_plain(ctl, want, N, budget), iters=5),
+        # ctl and the state's counters read, the counters and a log entry
+        # written
+        "bound_ms": gs.bound_ms(16 + 8 * fixpoint.LOG * 2 + 16),
+        "library_ms": None, "card": card}
+
+    # exec_finish: all rows converged, then half
+    loB0 = torch.randint(0, n + 1, (N, C), device=dev, generator=g,
+                         dtype=torch.int32)
+    hiB0 = torch.randint(0, n + 1, (N, C), device=dev, generator=g,
+                         dtype=torch.int32)
+    cases = []
+    for done in (N, N // 2):
+        state = fixpoint.new_state(1, dev)
+        state[fixpoint.ROW], state[fixpoint.ROUNDS] = done, 16
+        state[fixpoint.RETIRED] = 777
+        a_lo, a_hi = loB0.clone(), hiB0.clone()
+        sv = fixpoint.exec_finish(a_lo, a_hi, state, n)
+        b_lo, b_hi = loB0.clone(), hiB0.clone()
+        sv_p = fixpoint.exec_finish_plain(b_lo, b_hi, state.cpu(), n)
+        torch.cuda.synchronize()
+        err = max(int((a_lo.long() - b_lo.long()).abs().max()),
+                  int((a_hi.long() - b_hi.long()).abs().max()),
+                  int((sv.cpu().long() - sv_p.long()).abs().max()))
+        check(err == 0, f"exec_finish with {done} rows done disagrees with "
+                        f"its plain version")
+        rec = {"case": f"done{done}of{N}", "max_abs_err": err,
+               "ms": gs.time_ms(
+                   lambda: fixpoint.exec_finish(a_lo, a_hi, state, n)),
+               "plain_ms": gs.time_ms(lambda: fixpoint.exec_finish_plain(
+                   b_lo, b_hi, state.cpu(), n), iters=5),
+               # rows below done written (lo and hi), the rest of lo read
+               "bound_ms": gs.bound_ms(8 * done * C + 4 * (N - done) * C),
+               "library_ms": None, "card": card}
+        cases.append(rec)
+    out["exec_finish"] = dict(cases[0], cases=cases)
+
+    # climb_level on the s22 shapes
+    t = torch.randint(1, n + 1, (n + 1,), device=dev, generator=g,
+                      dtype=torch.int32)
+    t[n] = n
+    cur = torch.randint(0, n + 1, (C,), device=dev, generator=g,
+                        dtype=torch.int32)
+    hi = torch.randint(0, n + 1, (C,), device=dev, generator=g,
+                       dtype=torch.int32)
+    dead = torch.rand(C, device=dev, generator=g) < 0.1
+    cur[dead] = n
+    hi[dead] = n
+    res = torch.empty_like(cur)
+    fixpoint.climb_level(t, cur, hi, res)
+    ref = fixpoint.climb_level_plain(t, cur, hi)
+    torch.cuda.synchronize()
+    err = int((res.long() - ref.long()).abs().max())
+    check(err == 0, "climb_level disagrees with its plain version")
+    out["climb_level"] = {
+        "case": "random-live0.9", "max_abs_err": err,
+        "ms": gs.time_ms(lambda: fixpoint.climb_level(t, cur, hi, res)),
+        "plain_ms": gs.time_ms(
+            lambda: fixpoint.climb_level_plain(t, cur, hi), iters=5),
+        # cur and hi in, cur out, and the table sectors that cur reaches
+        "bound_ms": gs.bound_ms(12 * C + 32 * sectors(cur.long())),
+        "library_ms": None, "card": card}
+    for name, rec in out.items():
+        print(f"{name} " + json.dumps(rec), flush=True)
+    return out
+
+
 def lift_entries(head, cases, launches) -> list:
     """The kernels-line entries of ``lift_stack`` and ``climb_tail``: each
     at ``head``, the phase 3c case at the main path's median depth and
@@ -306,7 +505,25 @@ def lift_entries(head, cases, launches) -> list:
     return out
 
 
-def same_result(a, b, what: str) -> None:
+def s22_check(res, what: str) -> None:
+    """The full-size result: valid parts and the JAX package's cut, total
+    and comm volume."""
+    check(len(res.assignment) == 1 << 22, f"{what}: assignment has the "
+                                          f"wrong shape")
+    check(int(res.assignment.min()) >= 0 and
+          int(res.assignment.max()) < S22_K, f"{what}: part id out of range")
+    check(res.edge_cut == S22_EDGE_CUT,
+          f"{what}: edge_cut {res.edge_cut} != JAX {S22_EDGE_CUT}")
+    check(res.total_edges == S22_TOTAL_EDGES,
+          f"{what}: total_edges {res.total_edges} != JAX {S22_TOTAL_EDGES}")
+    check(res.comm_volume == S22_COMM_VOLUME,
+          f"{what}: comm_volume {res.comm_volume} != JAX {S22_COMM_VOLUME}")
+
+
+def same_result(a, b, what: str, rounds: bool = True) -> None:
+    """Equal forests, assignments and scores, and with ``rounds`` equal
+    device rounds (which only runs at the same pipeline depth share: a
+    deeper pipeline re-queues leftovers in another order)."""
     import numpy as np
 
     check(np.array_equal(a.tree["parent"], b.tree["parent"]),
@@ -315,7 +532,8 @@ def same_result(a, b, what: str) -> None:
           f"{what}: assignments differ")
     for key in ("edge_cut", "total_edges", "comm_volume", "balance"):
         check(getattr(a, key) == getattr(b, key), f"{what}: {key} differs")
-    check(a.diagnostics["device_rounds"] == b.diagnostics["device_rounds"],
+    check(not rounds or
+          a.diagnostics["device_rounds"] == b.diagnostics["device_rounds"],
           f"{what}: device_rounds differ")
 
 
@@ -328,8 +546,10 @@ def main() -> int:
         return 2
     import statistics
 
+    import numpy as np
+
     import sheep_tpu_torch
-    from sheep_tpu_torch.ops import _build, elim, gather, lift
+    from sheep_tpu_torch.ops import _build, elim, fixpoint, gather, lift
 
     t_all = time.perf_counter()
     # 1. the card
@@ -358,26 +578,38 @@ def main() -> int:
         (f"{kind}-live{share:g}", path, share)
         for kind, path in (("random", 0), ("chain", n22 // 2))
         for share in (1.0, 0.1, 0.01)])
+    # 3d. the execution's kernels against their plain versions
+    scatter_cases = scatters(card, (1.0, 0.01))
+    exec_cases = exec_kernels(card)
 
-    # 4. the port on CUDA against the port on the CPU
+    # 4. the port on CUDA (auto depth: 2) against the port on the CPU at
+    # depths 1 (its auto) and 2
     spec16 = "rmat-hash:16:16:7"
     opts = dict(chunk_edges=1 << 17, dispatch_batch=3, keep_tree=True)
     t0 = time.perf_counter()
     on_gpu = sheep_tpu_torch.partition(spec16, 64, device="cuda", **opts)
     t_gpu = time.perf_counter() - t0
+    check(on_gpu.diagnostics["inflight_depth"] == 2,
+          "the CUDA run's auto depth is not 2")
     t0 = time.perf_counter()
-    on_cpu = sheep_tpu_torch.partition(spec16, 64, device="cpu", **opts)
+    for depth in (1, 2):
+        on_cpu = sheep_tpu_torch.partition(spec16, 64, device="cpu",
+                                           inflight=depth, **opts)
+        same_result(on_gpu, on_cpu, f"{spec16} cuda D=2, cpu D={depth}",
+                    rounds=depth == 2)
     t_cpu = time.perf_counter() - t0
-    same_result(on_gpu, on_cpu, spec16)
-    for key in ("gather_launches", "lift_launches", "climb_launches"):
+    for key in PATH_KEYS.values():
         check(on_gpu.diagnostics[key] > 0, f"the CUDA run has no {key}")
-    print(f"parity {spec16} k=64: cuda == cpu (edge_cut {on_gpu.edge_cut}, "
-          f"device_rounds {on_gpu.diagnostics['device_rounds']:.0f}; "
-          f"wall cuda {t_gpu:.2f}s cpu {t_cpu:.2f}s)", flush=True)
-    # 4b. the stream descent (K1 and torch.where a level), which the
-    # table budget keeps for larger graphs, forced by a budget of 0
+    print(f"parity {spec16} k=64: cuda D=2 == cpu D=1 == cpu D=2 (edge_cut "
+          f"{on_gpu.edge_cut}, device_rounds "
+          f"{on_gpu.diagnostics['device_rounds']:.0f}; wall cuda "
+          f"{t_gpu:.2f}s, cpu both {t_cpu:.2f}s)", flush=True)
+    # 4b. the stream descent (climb_level a level, K1 for the squaring),
+    # which the table budget keeps for larger graphs, forced by a budget
+    # of 0
     spec14 = "rmat-hash:14:16:7"
-    opts = dict(chunk_edges=1 << 15, dispatch_batch=3, keep_tree=True)
+    opts = dict(chunk_edges=1 << 15, dispatch_batch=3, keep_tree=True,
+                inflight=2)
     budget, elim.EXACT_TABLE_BYTES = elim.EXACT_TABLE_BYTES, 0
     try:
         on_gpu = sheep_tpu_torch.partition(spec14, 16, device="cuda", **opts)
@@ -386,56 +618,84 @@ def main() -> int:
         elim.EXACT_TABLE_BYTES = budget
     same_result(on_gpu, on_cpu, f"{spec14} (stream descent)")
     dg = on_gpu.diagnostics
-    check(dg["gather_launches"] > 0 and dg["lift_launches"] == 0 and
-          dg["climb_launches"] == 0, "the stream descent's CUDA run did "
-          "not go through K1 alone")
+    check(dg["gather_launches"] > 0 and dg["climb_level_launches"] > 0 and
+          dg["climb_launches"] > 0 and dg["lift_launches"] == 0,
+          "the stream descent's CUDA run did not go through K1, "
+          "climb_level and climb_tail alone")
+    stream_launches = dg["climb_level_launches"]
     print(f"parity {spec14} k=16, stream descent: cuda == cpu (edge_cut "
           f"{on_gpu.edge_cut}, device_rounds {dg['device_rounds']:.0f}, "
-          f"K1 launches {dg['gather_launches']:.0f})", flush=True)
+          f"K1 launches {dg['gather_launches']:.0f}, climb_level "
+          f"{stream_launches:.0f})", flush=True)
+    # 4c. a file through the staged H2D ring: CUDA equals the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        from sheep_tpu_torch.io import formats, generators
 
-    # 5. the full-size build on the card, through the user's entry point
+        path = os.path.join(tmp, "rmat14.bin32")
+        formats.write_edges(path, generators.rmat_hash_range(
+            14, 0, 16 << 14, seed=5))
+        opts = dict(chunk_edges=1 << 15, dispatch_batch=3, keep_tree=True,
+                    inflight=2, h2d_ring=2)
+        on_gpu = sheep_tpu_torch.partition(path, 16, device="cuda", **opts)
+        on_cpu = sheep_tpu_torch.partition(path, 16, device="cpu", **opts)
+    same_result(on_gpu, on_cpu, "rmat14.bin32 through the ring")
+    dg = on_gpu.diagnostics
+    check(dg["h2d_ring_depth"] == 2 and dg["h2d_staged_bytes"] > 0,
+          "the file run did not stage through the ring")
+    print(f"parity rmat14.bin32 k=16, h2d_ring 2: cuda == cpu (edge_cut "
+          f"{on_gpu.edge_cut}, staged {dg['h2d_staged_bytes']:.0f} B, "
+          f"h2d_blocked_ms {dg['h2d_blocked_ms']:.3f})", flush=True)
+
+    # 5. the full-size build on the card, through the user's entry point,
+    # at the default depth; the driver runs its dispatch loop under
+    # torch.cuda's sync debug mode "error", so a stray synchronizing op
+    # there raises
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gather.reset_launches()
-    lift.reset_launches()
-    elim.ROUND_LOG = []
+    for counter in (gather, lift, fixpoint):
+        counter.reset_launches()
+    round_log: list = []
     t0 = time.perf_counter()
     res = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
-                                    chunk_edges=1 << 23, dispatch_batch=8)
+                                    chunk_edges=1 << 23, dispatch_batch=8,
+                                    round_log=round_log)
     wall = time.perf_counter() - t0
-    launches = {"gather_clip": gather.LAUNCHES["gather_clip"],
-                **lift.LAUNCHES}
-    round_log, elim.ROUND_LOG = elim.ROUND_LOG, None
+    launches = {**gather.LAUNCHES, **lift.LAUNCHES, **fixpoint.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "the driver left the sync debug mode on")
+    s22_check(res, "s22 D=2")
     d = res.diagnostics
+    check(d["inflight_depth"] == 2, "the s22 run's depth is not 2")
     rounds = int(d["device_rounds"])
-    for name, key in (("gather_clip", "gather_launches"),
-                      ("lift_stack", "lift_launches"),
-                      ("climb_tail", "climb_launches")):
+    enqueued = int(d["rounds_enqueued"])
+    for name, key in PATH_KEYS.items():
         check(launches[name] > 0, f"the main path launched no {name}")
         check(launches[name] == d[key],
               f"{name}: launch counter and diagnostics disagree")
-    check(launches["gather_clip"] <= rounds,
-          f"K1 launched {launches['gather_clip']} times in {rounds} rounds")
-    check(len(res.assignment) == 1 << 22, "assignment has the wrong shape")
-    check(int(res.assignment.min()) >= 0 and
-          int(res.assignment.max()) < S22_K, "part id out of range")
-    check(res.edge_cut == S22_EDGE_CUT,
-          f"edge_cut {res.edge_cut} != JAX {S22_EDGE_CUT}")
-    check(res.total_edges == S22_TOTAL_EDGES,
-          f"total_edges {res.total_edges} != JAX {S22_TOTAL_EDGES}")
-    check(res.comm_volume == S22_COMM_VOLUME,
-          f"comm_volume {res.comm_volume} != JAX {S22_COMM_VOLUME}")
+    for name in ("gather_clip", "scatter_min", "lift_stack", "climb_tail",
+                 "round_end"):
+        check(launches[name] == enqueued,
+              f"{name}: {launches[name]} launches in {enqueued} rounds")
+    check(launches["exec_finish"] ==
+          d["batch_execs"] + d["inflight_discards"],
+          "exec_finish: not one launch an execution")
+    check(d["host_syncs"] == d["batch_execs"],
+          f"{d['host_syncs']} host reads for {d['batch_execs']} executions")
+    check(len(round_log) == rounds, "the device round log missed rounds")
     slots = 1 << 23
-    check(len(round_log) == rounds, "the round log missed rounds")
     depth_med = statistics.median_low(r[0] for r in round_log)
     share_med = statistics.median_low(r[1] for r in round_log) / slots
     print("s22 " + json.dumps({
-        "spec": S22_SPEC, "k": S22_K, "wall_s": wall,
+        "spec": S22_SPEC, "k": S22_K, "inflight": 2, "wall_s": wall,
         "phase_s": res.phase_times, "edge_cut": res.edge_cut,
         "total_edges": res.total_edges, "comm_volume": res.comm_volume,
         "balance": res.balance, "device_rounds": d["device_rounds"],
-        "host_syncs": d["host_syncs"], "batch_execs": d["batch_execs"],
+        "rounds_enqueued": enqueued, "host_syncs": d["host_syncs"],
+        "batch_execs": d["batch_execs"],
+        "inflight_discards": d["inflight_discards"],
+        "host_blocked_ms": d["host_blocked_ms"],
+        "device_gap_ms": d["device_gap_ms"],
         "launches": launches, "peak_mem_bytes": peak,
         "live_share_mean": d["live_sum"] / (rounds * slots),
         "live_share_max": d["live_max"] / slots,
@@ -445,26 +705,50 @@ def main() -> int:
         "split": "native", "split_s": res.phase_times["split"],
         "card": card}), flush=True)
 
-    # 5b. the lifting kernels at the main path's median round (phase 3c)
+    # 5b. the lifting kernels and the scatter at the main path's median
+    # round (phases 3c and 3d)
     main_case = lifts(card, [(f"main-d{depth_med}-live{share_med:.3g}",
                               chain_for_depth(depth_med, n22),
                               share_med)])[0]
+    main_scatter = scatters(card, (share_med,))[0]
 
-    # 6. every kernel: K1's launches are the main path's (phase 5), K2's
-    # and K3's the probe tool's (phase 3b), their only path
+    # 5c. s22 at depths 1 and 3: the same partition
+    for depth in (1, 3):
+        t0 = time.perf_counter()
+        other = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
+                                          chunk_edges=1 << 23,
+                                          dispatch_batch=8, inflight=depth)
+        s22_check(other, f"s22 D={depth}")
+        check(np.array_equal(other.assignment, res.assignment),
+              f"s22 D={depth}: assignment differs from D=2")
+        od = other.diagnostics
+        print("s22-depth " + json.dumps({
+            "inflight": depth, "wall_s": time.perf_counter() - t0,
+            "phase_s": other.phase_times,
+            "device_rounds": od["device_rounds"],
+            "host_syncs": od["host_syncs"], "batch_execs": od["batch_execs"],
+            "inflight_discards": od["inflight_discards"],
+            "host_blocked_ms": od["host_blocked_ms"],
+            "device_gap_ms": od["device_gap_ms"], "card": card}),
+            flush=True)
+
+    # 6. every kernel: the launches are the main path's (phase 5); K2's
+    # and K3's the probe tool's (phase 3b) and climb_level's the stream
+    # descent's (phase 4b), their only paths
     def entry(name, source, replaces, rec, launches, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": "bytes", "library_ms": rec["library_ms"],
-                "case": rec["form"], **extra}
+                "case": rec.get("form", rec.get("case")), **extra}
 
     def max_err(kernel):
         return max(r["max_abs_err"] for r in cases.values()
                    if r["kernel"] == kernel)
 
     square = cases["square"]
+    fix_src = "sheep_tpu_torch/csrc/fixpoint.cu"
     kernels = [
         entry("gather_clip", "sheep_tpu_torch/csrc/gather.cu",
               "sheep_tpu/ops/pallas_gather.py:70", cases["climb"],
@@ -483,6 +767,25 @@ def main() -> int:
                              "tools/pallas_smoke.py:420"],
               cases_max_abs_err=max_err("K3"))]
     kernels += lift_entries(main_case, lift_cases + [main_case], launches)
+    scatter_all = scatter_cases + [main_scatter]
+    kernels += [
+        entry("scatter_min", fix_src, "sheep_tpu/ops/elim.py:149",
+              main_scatter, launches["scatter_min"],
+              library_scope="torch.where dead-slot index + scatter_reduce_",
+              cases={r["case"]: {k: r[k] for k in (
+                  "ms", "plain_ms", "library_ms", "bound_ms", "live")}
+                  for r in scatter_all},
+              cases_max_abs_err=max(r["max_abs_err"] for r in scatter_all)),
+        entry("round_end", fix_src, "sheep_tpu/ops/elim.py:467",
+              exec_cases["round_end"], launches["round_end"]),
+        entry("exec_finish", fix_src, "sheep_tpu/ops/elim.py:486",
+              exec_cases["exec_finish"], launches["exec_finish"],
+              cases={r["case"]: {k: r[k] for k in (
+                  "ms", "plain_ms", "bound_ms")}
+                  for r in exec_cases["exec_finish"]["cases"]}),
+        entry("climb_level", fix_src, "sheep_tpu/ops/elim.py:170",
+              exec_cases["climb_level"], launches["climb_level"],
+              stream_descent_launches=stream_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

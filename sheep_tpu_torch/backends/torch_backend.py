@@ -3,15 +3,19 @@
 
   degrees   scatter-add per chunk, int64 on the device
   sort      stable argsort of the degrees -> pos / order
-  build     batched fixpoint over [N, C] position blocks, depth 1
+  build     batched fixpoint over [N, C] position blocks, up to
+            ``inflight`` executions in flight
   split     tree split on the host
   score     per-chunk cut counts and comm-volume keys
 
 Chunks are padded to a fixed (C, 2) shape with the sentinel vertex n, and
 the last group of ``dispatch_batch`` chunks is filled with all-sentinel
 chunks as the reference stages it, so the fixpoint runs the same rounds.
-Streams that can synthesize chunks on the device (``device_chunk``) do so;
-others are read on the host, padded and copied over.
+Streams that can synthesize chunks on the device (``device_chunk``) do so
+and never stage; others are read and padded on a worker thread and copied
+over through the staged H2D ring (``utils/prefetch.py``), ``h2d_ring``
+blocks ahead. ``inflight`` and ``h2d_ring`` of 0 resolve as the
+reference's accelerator defaults: 2 on CUDA, 1 on the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +34,19 @@ from sheep_tpu_torch.ops import lift as lift_ops
 from sheep_tpu_torch.ops import order as order_ops
 from sheep_tpu_torch.ops import score as score_ops
 from sheep_tpu_torch.ops import split as split_ops
+from sheep_tpu_torch.ops import fixpoint as fixpoint_ops
 from sheep_tpu_torch.types import PartitionResult, check_vertex_range
+from sheep_tpu_torch.utils.prefetch import H2DRing, prefetch
+
+
+# diagnostics key -> kernel: the build's launches of each kernel
+LAUNCH_KEYS = {"gather_launches": "gather_clip",
+               "scatter_launches": "scatter_min",
+               "lift_launches": "lift_stack",
+               "climb_launches": "climb_tail",
+               "climb_level_launches": "climb_level",
+               "round_end_launches": "round_end",
+               "exec_finish_launches": "exec_finish"}
 
 
 def pad_chunk(chunk: np.ndarray, size: int, n: int) -> np.ndarray:
@@ -43,14 +59,37 @@ def pad_chunk(chunk: np.ndarray, size: int, n: int) -> np.ndarray:
     return out
 
 
-def device_chunks(stream, cs: int, n: int, device):
-    """Padded (cs, 2) int32 chunks on ``device``, in stream order."""
+def device_chunks(stream, cs: int, n: int, device, ring: int = 1,
+                  stats=None):
+    """Padded (cs, 2) int32 chunks on ``device``, in stream order. A
+    stream with ``device_chunk`` synthesizes them in place; any other is
+    read and padded on a worker thread and staged through an
+    :class:`H2DRing` of depth ``ring`` (counters into ``stats``)."""
     if hasattr(stream, "device_chunk"):
         for i in range(stream.num_chunks(cs)):
             yield stream.device_chunk(i, cs, n, device)
         return
-    for c in stream.chunks(cs):
-        yield torch.from_numpy(pad_chunk(c, cs, n)).to(device)
+    with prefetch(pad_chunk(c, cs, n) for c in stream.chunks(cs)) as pf, \
+            H2DRing(pf, device, depth=ring, stats=stats) as staged:
+        yield from staged
+
+
+def resolve_inflight(inflight: int, device) -> int:
+    """Pipeline depth: an explicit D >= 1 passes; 0 (auto) is 2 on CUDA
+    (one execution running while the previous one's stats word is read)
+    and 1 on the CPU, as the reference's ``resolve_inflight``."""
+    if inflight != 0:
+        return max(1, int(inflight))
+    return 2 if torch.device(device).type == "cuda" else 1
+
+
+def resolve_h2d_ring(h2d_ring: int, device) -> int:
+    """Staged H2D ring depth: an explicit D >= 1 passes; 0 (auto) is 2 on
+    CUDA and 1 on the CPU, as the reference's ``resolve_h2d_ring``.
+    Device streams never stage, whatever this says."""
+    if h2d_ring != 0:
+        return max(1, int(h2d_ring))
+    return 2 if torch.device(device).type == "cuda" else 1
 
 
 def _sync(device) -> None:
@@ -62,20 +101,27 @@ class TorchBackend:
     name = "torch"
 
     def __init__(self, chunk_edges: int = 1 << 23, dispatch_batch: int = 8,
-                 alpha: float = 1.0, device=None):
+                 alpha: float = 1.0, device=None, inflight: int = 0,
+                 h2d_ring: int = 0):
         if dispatch_batch < 1:
             raise ValueError("dispatch_batch must be >= 1")
+        if inflight < 0:
+            raise ValueError("inflight must be >= 0 (0 = auto)")
+        if h2d_ring < 0:
+            raise ValueError("h2d_ring must be >= 0 (0 = auto)")
+        self.inflight = int(inflight)
+        self.h2d_ring = int(h2d_ring)
         self.chunk_edges = int(chunk_edges)
         self.dispatch_batch = int(dispatch_batch)
         self.alpha = alpha
         self.device = resolve_device(device)
 
-    def _staged_groups(self, stream, cs: int, n: int, pos: torch.Tensor):
+    def _staged_groups(self, chunks, cs: int, n: int, pos: torch.Tensor):
         """[N, C] oriented position blocks, one per group of N chunks; the
         last group is filled with all-sentinel chunks."""
         N, dev = self.dispatch_batch, self.device
         group: list = []
-        for chunk in device_chunks(stream, cs, n, dev):
+        for chunk in chunks:
             group.append(chunk)
             if len(group) == N:
                 yield elim_ops.orient_chunks_batch_pos(
@@ -87,17 +133,29 @@ class TorchBackend:
             yield elim_ops.orient_chunks_batch_pos(torch.stack(group), pos, n)
 
     def partition(self, stream, k: int, weights: str = "unit",
-                  comm_volume: bool = True,
-                  keep_tree: bool = False) -> PartitionResult:
+                  comm_volume: bool = True, keep_tree: bool = False,
+                  round_log=None) -> PartitionResult:
+        """``round_log``, a list, receives (depth, live slots) of every
+        counted fixpoint round, from the executions' device logs."""
         dev = self.device
         t = {}
         cs = stream.clamp_chunk_edges(self.chunk_edges)
         t0 = time.perf_counter()
         n = stream.num_vertices
         check_vertex_range(n)
+        ring = resolve_h2d_ring(self.h2d_ring, dev)
+        inflight = resolve_inflight(self.inflight, dev)
+        # one record across the three streaming passes: the ingest
+        # counters add up wherever chunks cross, the build adds its own
+        stats: dict = {"dispatch_batch": self.dispatch_batch,
+                       "inflight_depth": inflight,
+                       "h2d_staged_ms": 0.0, "h2d_blocked_ms": 0.0}
+
+        def chunks():
+            return device_chunks(stream, cs, n, dev, ring, stats)
 
         deg = degrees_ops.init_degrees(n, dev)
-        for chunk in device_chunks(stream, cs, n, dev):
+        for chunk in chunks():
             degrees_ops.degree_chunk(deg, chunk, n)
         deg_host = deg[:n].cpu().numpy()
         t["degrees"] = time.perf_counter() - t0
@@ -109,20 +167,28 @@ class TorchBackend:
         t["sort"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        stats: dict = {"dispatch_batch": self.dispatch_batch}
-        launches0 = {**gather_ops.LAUNCHES, **lift_ops.LAUNCHES}
+        counters = (gather_ops.LAUNCHES, lift_ops.LAUNCHES,
+                    fixpoint_ops.LAUNCHES)
+        launches0 = {k: v for c in counters for k, v in c.items()}
         P = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
         # the reference's defaults: lift levels from n, and a round budget
         # of 2 rounds per staged chunk for each execution
-        P, total_rounds = elim_ops.fold_segments_pipelined(
-            P, self._staged_groups(stream, cs, n, pos), n, stats=stats)
+        groups = chunks()
+        staged = self._staged_groups(groups, cs, n, pos)
+        try:
+            P, total_rounds = elim_ops.fold_segments_pipelined(
+                P, staged, n, inflight=inflight, stats=stats,
+                round_log=round_log)
+        finally:
+            # a driver that stops early leaves both generators open: close
+            # them, and with them the prefetch worker and the ring
+            staged.close()
+            groups.close()
         minp = P[pos.long()]
         del P
         _sync(dev)
-        launches = {**gather_ops.LAUNCHES, **lift_ops.LAUNCHES}
-        for key, name in (("gather_launches", "gather_clip"),
-                          ("lift_launches", "lift_stack"),
-                          ("climb_launches", "climb_tail")):
+        launches = {k: v for c in counters for k, v in c.items()}
+        for key, name in LAUNCH_KEYS.items():
             stats[key] = launches[name] - launches0[name]
         t["build"] = time.perf_counter() - t0
 
@@ -140,7 +206,7 @@ class TorchBackend:
         cut = torch.zeros((), dtype=torch.int64, device=dev)
         total = torch.zeros((), dtype=torch.int64, device=dev)
         cv_chunks: list = []
-        for chunk in device_chunks(stream, cs, n, dev):
+        for chunk in chunks():
             c, tt = score_ops.score_chunk(chunk, assign, n)
             cut += c
             total += tt

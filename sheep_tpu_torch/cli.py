@@ -23,6 +23,12 @@ def main(argv=None) -> int:
     p.add_argument("--k", type=int, required=True, help="number of parts")
     p.add_argument("--chunk-edges", type=int, default=1 << 23)
     p.add_argument("--dispatch-batch", type=int, default=8)
+    p.add_argument("--inflight", type=int, default=0, metavar="D",
+                   help="fixpoint executions in flight (0 = auto: 2 on "
+                        "CUDA, 1 on the CPU)")
+    p.add_argument("--h2d-ring", type=int, default=0, metavar="D",
+                   help="file chunks staged to the device ahead of use "
+                        "(0 = auto: 2 on CUDA, 1 on the CPU)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--output", default=None,
@@ -30,6 +36,10 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true",
                    help="print only the JSON result line")
     args = p.parse_args(argv)
+    if args.inflight < 0:
+        p.error("--inflight must be >= 0 (0 = auto)")
+    if args.h2d_ring < 0:
+        p.error("--h2d-ring must be >= 0 (0 = auto)")
 
     import sheep_tpu_torch
     from sheep_tpu_torch.io import formats
@@ -37,7 +47,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     res = sheep_tpu_torch.partition(args.input, args.k, device=args.device,
                                     chunk_edges=args.chunk_edges,
-                                    dispatch_batch=args.dispatch_batch)
+                                    dispatch_batch=args.dispatch_batch,
+                                    inflight=args.inflight,
+                                    h2d_ring=args.h2d_ring)
     wall = time.perf_counter() - t0
     if args.output:
         formats.write_partition(args.output, res.assignment)

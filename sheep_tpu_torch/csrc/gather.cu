@@ -18,6 +18,11 @@
 // over M, neighbouring threads on neighbouring idx/out elements
 // (coalesced), the ragged tail masked by the loop bound.
 //
+// In a batched fixpoint execution (csrc/exec_state.cuh) the kernel is
+// given the execution's state: it returns at once when the execution has
+// stopped, and with a row stride it reads idx from the execution's row of
+// an [N, C] block (the read of P before the round's scatter).
+//
 // Bound to PyTorch through a plain C function (loaded with ctypes): the
 // caller passes device pointers and its CUDA stream, and gets back
 // cudaGetLastError() of the launch.
@@ -25,13 +30,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exec_state.cuh"
+
 namespace {
 
 __global__ void gather_clip_kernel(const int32_t* __restrict__ table,
                                    int32_t last,
                                    const int32_t* __restrict__ idx,
                                    int32_t* __restrict__ out,
-                                   int64_t m) {
+                                   int64_t m, const int64_t* ex,
+                                   int64_t row_stride) {
+  if (sheep_exec::stopped(ex)) return;
+  idx += sheep_exec::row_offset(ex, row_stride);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
        i += stride) {
@@ -43,8 +53,11 @@ __global__ void gather_clip_kernel(const int32_t* __restrict__ table,
 
 }  // namespace
 
+// ex: the execution's state or null; row_stride: the block's row length
+// when idx is an [N, C] block, else 0.
 extern "C" int sheep_gather_clip(const void* table, long long table_len,
                                  const void* idx, void* out, long long m,
+                                 const void* ex, long long row_stride,
                                  void* stream) {
   if (m <= 0) return 0;
   if (table_len <= 0 || table_len > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
@@ -70,7 +83,7 @@ extern "C" int sheep_gather_clip(const void* table, long long table_len,
   if (blocks > cap) blocks = cap;
   gather_clip_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)table, (int32_t)(table_len - 1), (const int32_t*)idx,
-      (int32_t*)out, (int64_t)m);
+      (int32_t*)out, (int64_t)m, (const int64_t*)ex, (int64_t)row_stride);
   return (int)cudaGetLastError();
 }
 

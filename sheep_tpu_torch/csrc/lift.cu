@@ -41,6 +41,13 @@
 // sectors its live slots read (P at lo and at the end of the climb,
 // levels d-1 .. 1 on the way), 32 bytes a distinct sector.
 //
+// In a batched fixpoint execution (csrc/exec_state.cuh) both kernels are
+// given the execution's state and return at once when it has stopped;
+// climb_tail then reads the execution's row of the [N, C] blocks and
+// writes its outputs back into that row in place (each slot reads and
+// writes only its own entries). For the stream descent climb_tail takes
+// the climbed positions `pre` instead of climbing the stack itself.
+//
 // Bound to PyTorch through plain C functions (loaded with ctypes): the
 // caller passes device pointers and its CUDA stream and gets back the
 // first CUDA error of its launches (0 if none).
@@ -48,9 +55,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exec_state.cuh"
+
 namespace {
 
-enum { kRows = 0, kChanged = 1, kRetired = 2, kLive = 3 };
+constexpr int kRows = sheep_exec::kCtlRows;
+constexpr int kChanged = sheep_exec::kCtlChanged;
+constexpr int kRetired = sheep_exec::kCtlRetired;
+constexpr int kLive = sheep_exec::kCtlLive;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -73,7 +85,8 @@ __device__ __forceinline__ void vote_rows(bool diff, int j, int32_t* ctl) {
 // loads and stores, a scalar tail for the last T % 4
 __global__ void __launch_bounds__(kThreads)
 lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
-           int64_t T, int j, int32_t* ctl) {
+           int64_t T, int j, int32_t* ctl, const int64_t* ex) {
+  if (sheep_exec::stopped(ex)) return;
   if (volatile_load(ctl + kRows) < j) return;  // t_j == t_{j-1}
   const int32_t last = (int32_t)(T - 1);
   const int64_t quads = T >> 2;
@@ -114,15 +127,23 @@ __device__ __forceinline__ int block_sum(int x, int* smem) {
   return s;
 }
 
+// lo, hi and out_lo, out_hi may be the same slots (in place): no
+// __restrict__ on them
 __global__ void __launch_bounds__(kThreads)
-climb_tail_kernel(const int32_t* __restrict__ lo,
-                  const int32_t* __restrict__ hi,
+climb_tail_kernel(const int32_t* lo, const int32_t* hi,
                   const int32_t* __restrict__ old,
                   const int32_t* __restrict__ P,
                   const int32_t* __restrict__ stack, int64_t stride,
-                  int32_t* ctl, int32_t* __restrict__ out_lo,
-                  int32_t* __restrict__ out_hi, int64_t m, int32_t n) {
+                  int32_t* ctl, int32_t* out_lo, int32_t* out_hi, int64_t m,
+                  int32_t n, const int64_t* ex, int64_t row_stride,
+                  const int32_t* __restrict__ pre) {
   __shared__ int smem[2][kWarps];
+  if (sheep_exec::stopped(ex)) return;
+  const int64_t off = sheep_exec::row_offset(ex, row_stride);
+  lo += off;
+  hi += off;
+  out_lo += off;
+  out_hi += off;
   const int32_t rows = volatile_load(ctl + kRows);
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
   bool changed = false;
@@ -143,13 +164,17 @@ climb_tail_kernel(const int32_t* __restrict__ lo,
         }
       } else {  // climb levels d-1 .. 1 of the stack, then P
         int32_t cur = clip(l, n);
-        for (int k = rows; k >= 1; --k) {
-          const int32_t cand =
-              __ldg(stack + (int64_t)(k - 1) * stride + cur);
+        if (pre != nullptr) {
+          cur = pre[i];  // the stream descent climbed already
+        } else {
+          for (int k = rows; k >= 1; --k) {
+            const int32_t cand =
+                __ldg(stack + (int64_t)(k - 1) * stride + cur);
+            if (cand < h) cur = cand;
+          }
+          const int32_t cand = __ldg(P + cur);
           if (cand < h) cur = cand;
         }
-        const int32_t cand = __ldg(P + cur);
-        if (cand < h) cur = cand;
         if (cur != h) {  // else the constraint is implied: the slot dies
           ol = cur;
           oh = h;
@@ -207,10 +232,11 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // The ladder of one round: ctl zeroed, then levels t_1 .. t_{levels-1}
-// into the stack, row k-1 (at stack + (k-1)*stride) holding t_k.
+// into the stack, row k-1 (at stack + (k-1)*stride) holding t_k. ex: the
+// execution's state or null.
 extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
                                 long long stride, int levels, void* ctl,
-                                void* stream) {
+                                const void* ex, void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL || levels < 1 || levels > 32)
     return (int)cudaErrorInvalidValue;
   if (stride < T || stride % 4 || !aligned16(P) || !aligned16(stack))
@@ -227,7 +253,7 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
   for (int j = 0; j + 1 < levels; ++j) {
     const int32_t* src = j == 0 ? p : st + (long long)(j - 1) * stride;
     lift_level<<<blocks, kThreads, 0, s>>>(
-        src, st + (long long)j * stride, T, j, c);
+        src, st + (long long)j * stride, T, j, c, (const int64_t*)ex);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -235,12 +261,17 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
 }
 
 // One pass over m slots: out_lo/out_hi, and this pass's changed flag,
-// retired and live counts added to ctl[1..3]; reads rows at ctl[0].
+// retired and live counts added to ctl[1..3]; reads rows at ctl[0]. ex:
+// the execution's state or null; row_stride: the blocks' row length when
+// lo, hi, out_lo and out_hi are [N, C] blocks, else 0; pre: the climbed
+// positions (stream descent) or null.
 extern "C" int sheep_climb_tail(const void* lo, const void* hi,
                                 const void* old, long long m, const void* P,
                                 long long T, const void* stack,
                                 long long stride, void* ctl, void* out_lo,
-                                void* out_hi, void* stream) {
+                                void* out_hi, const void* ex,
+                                long long row_stride, const void* pre,
+                                void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   if (m <= 0) return 0;
   unsigned blocks = 0;
@@ -249,7 +280,8 @@ extern "C" int sheep_climb_tail(const void* lo, const void* hi,
   climb_tail_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
       (const int32_t*)P, (const int32_t*)stack, stride, (int32_t*)ctl,
-      (int32_t*)out_lo, (int32_t*)out_hi, m, (int32_t)(T - 1));
+      (int32_t*)out_lo, (int32_t*)out_hi, m, (int32_t)(T - 1),
+      (const int64_t*)ex, (int64_t)row_stride, (const int32_t*)pre);
   return (int)cudaGetLastError();
 }
 

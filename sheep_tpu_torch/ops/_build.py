@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` and each
 ``csrc/<name>.cpp`` (host code) with the C++ compiler (``CXX``, else
 ``c++`` or ``g++``) into a shared library with a plain C interface, loaded
-with ``ctypes``. A host library needs no ``nvcc``. The output goes to
+with ``ctypes``; ``csrc/*.cuh`` are headers the ``.cu`` files share. A host library needs no ``nvcc``. The output goes to
 ``sheep_tpu_torch/_build/<hash of the sources and flags>/``, so an edited
 source builds anew and an unchanged one is reused. The sources asked for
 compile together, one compiler process each, started at once. A failed
@@ -64,10 +64,13 @@ def _command(src: str, out: str) -> list:
 
 
 def build_dir() -> str:
+    """The output directory: a hash of the flags, the sources and the
+    headers they share (``csrc/*.cuh``)."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS + ["|"] + CXX_FLAGS).encode())
-    for name, path in _sources().items():
-        with open(path, "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh", ".cpp")):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 
 

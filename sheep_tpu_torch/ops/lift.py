@@ -37,6 +37,12 @@ or above d - 1 are left as they were. The control word ``ctl`` is int32
 [ROWS, CHANGED, RETIRED, LIVE] (:func:`new_ctl`), ROWS = d - 1 so that
 zeroing the word starts a round.
 
+In a batched fixpoint execution (``ops/fixpoint.py``) both are given the
+execution's state and do nothing once it has stopped (``lift_stack``
+still zeroes ``ctl``); :func:`climb_rows` is ``climb_tail`` on the
+execution's row of the [N, C] blocks, written back in place, and takes
+the stream descent's climbed positions ``pre`` instead of the stack.
+
 ``LAUNCHES`` counts the wrapper calls that launched their kernels: one
 ``lift_stack`` call issues the whole ladder (a memset of ``ctl`` and L-1
 launches, those above d returning at once).
@@ -48,6 +54,7 @@ import ctypes
 
 import torch
 
+from sheep_tpu_torch.ops import fixpoint
 from sheep_tpu_torch.ops.gather import gather_clip_plain
 
 LAUNCHES = {"lift_stack": 0, "climb_tail": 0}
@@ -91,15 +98,16 @@ def lift_stack_plain(P: torch.Tensor, levels: int):
     return stack, levels
 
 
-def climb_tail_plain(lo, hi, old_at_lo, P, stack, d: int):
+def climb_tail_plain(lo, hi, old_at_lo, P, stack, d: int, pre=None):
     """The plain version of :func:`climb_tail`: the round after its
     scatter-min, as the port ran it before this kernel, with the level loop
     bounded by d. ``stack`` rows 0 .. d-2 hold t_1 .. t_{d-1} (a row may be
-    padded past len(P)). Returns ``(out_lo, out_hi, changed, retired,
-    live)``, the last three 0-d tensors."""
+    padded past len(P)); ``pre``, when given, is the climb's result
+    instead (the stream descent's). Returns ``(out_lo, out_hi, changed,
+    retired, live)``, the last three 0-d tensors."""
     T = len(P)
-    cur = lo
-    for k in range(d - 1, -1, -1):
+    cur = lo if pre is None else pre
+    for k in range(d - 1, -1, -1) if pre is None else ():
         t = P if k == 0 else stack[k - 1, :T]
         cand = gather_clip_plain(t, cur)
         cur = torch.where(cand < hi, cand, cur)
@@ -138,13 +146,23 @@ def _check_vec(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check(fn: str, P, stack, ctl, *slots) -> None:
+def _check(fn: str, P, stack, ctl, *slots, state=None) -> None:
     _check_vec(f"{fn}: P", P)
     _check_vec(f"{fn}: ctl", ctl)
     for i, t in enumerate(slots):
-        _check_vec(f"{fn}: {('lo', 'hi', 'old_at_lo')[i]}", t)
-        if len(t) != len(slots[0]):
-            raise ValueError(f"{fn}: lo, hi and old_at_lo differ in length")
+        name = ("lo", "hi", "old_at_lo", "pre")[i]
+        if state is not None and i < 2:  # [N, C] blocks
+            if t.dim() != 2 or t.dtype != torch.int32 or \
+                    not t.is_contiguous() or t.shape != slots[0].shape:
+                raise ValueError(f"{fn}: {name} must be a contiguous int32 "
+                                 f"[N, C] block, the shape of lo")
+            continue
+        _check_vec(f"{fn}: {name}", t)
+        if len(t) != slots[0].shape[-1]:
+            raise ValueError(f"{fn}: lo, hi, old_at_lo and pre differ in "
+                             f"row length")
+    if state is not None:
+        fixpoint.check_state(fn, state, P.device)
     if stack.dtype != torch.int32:
         raise TypeError(f"{fn}: stack must be int32, got {stack.dtype}")
     if stack.dim() != 2 or not stack.is_contiguous():
@@ -179,10 +197,10 @@ def _lib():
 
         lib = _build.load("lift")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, p, p]
+        lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, p, p, p]
         lib.sheep_lift_stack.restype = ctypes.c_int
         lib.sheep_climb_tail.argtypes = [p, p, p, ll, p, ll, p, ll, p, p, p,
-                                         p]
+                                         p, ll, p, p]
         lib.sheep_climb_tail.restype = ctypes.c_int
         lib.sheep_lift_error_string.argtypes = [ctypes.c_int]
         lib.sheep_lift_error_string.restype = ctypes.c_char_p
@@ -197,12 +215,16 @@ def _raise_if(rc: int, fn: str) -> None:
 
 
 def lift_stack(P: torch.Tensor, stack: torch.Tensor,
-               ctl: torch.Tensor) -> None:
+               ctl: torch.Tensor, state: torch.Tensor = None) -> None:
     """Fill ``stack`` with t_1 .. t_{d-1} of P and set ``ctl`` to
-    [d - 1, 0, 0, 0], for ``stack.shape[0] + 1`` levels."""
-    _check("lift_stack", P, stack, ctl)
+    [d - 1, 0, 0, 0], for ``stack.shape[0] + 1`` levels. With an
+    execution ``state`` that has stopped: only ``ctl`` is zeroed."""
+    _check("lift_stack", P, stack, ctl, state=state)
     L = stack.shape[0] + 1
     if P.device.type == "cpu":
+        if state is not None and fixpoint.stopped(state):
+            ctl.zero_()
+            return
         st, d = lift_stack_plain(P, L)
         stack[:d - 1, :len(P)] = st[:d - 1]
         ctl.zero_()
@@ -211,8 +233,10 @@ def lift_stack(P: torch.Tensor, stack: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        rc = lib.sheep_lift_stack(P.data_ptr(), len(P), stack.data_ptr(),
-                                  stack.shape[1], L, ctl.data_ptr(), stream)
+        rc = lib.sheep_lift_stack(
+            P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1], L,
+            ctl.data_ptr(), None if state is None else state.data_ptr(),
+            stream)
     _raise_if(rc, "lift_stack")
     LAUNCHES["lift_stack"] += 1
 
@@ -233,13 +257,45 @@ def climb_tail(lo: torch.Tensor, hi: torch.Tensor, old_at_lo: torch.Tensor,
         return out_lo, out_hi
     out_lo = torch.empty_like(lo)
     out_hi = torch.empty_like(hi)
+    _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi)
+    return out_lo, out_hi
+
+
+def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
+               P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor,
+               state: torch.Tensor, pre: torch.Tensor = None) -> None:
+    """:func:`climb_tail` on the row of the [N, C] blocks that the
+    execution ``state`` picks, written back into that row; nothing once
+    the execution has stopped. ``pre``: the stream descent's climbed
+    positions, used instead of climbing the stack."""
+    slots = (loB, hiB, old_at_lo) + (() if pre is None else (pre,))
+    _check("climb_tail", P, stack, ctl, *slots, state=state)
+    if P.device.type == "cpu":
+        if fixpoint.stopped(state):
+            return
+        lo, hi = fixpoint.pick_row(state, loB, hiB)
+        out_lo, out_hi, changed, retired, live = climb_tail_plain(
+            lo, hi, old_at_lo, P, stack, int(ctl[ROWS]) + 1, pre)
+        lo.copy_(out_lo)
+        hi.copy_(out_hi)
+        ctl[CHANGED] |= changed
+        ctl[RETIRED] += retired
+        ctl[LIVE] += live
+        return
+    _launch_climb(loB, hiB, old_at_lo, P, stack, ctl, loB, hiB, state, pre)
+
+
+def _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi,
+                  state=None, pre=None) -> None:
     lib = _lib()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
         rc = lib.sheep_climb_tail(
-            lo.data_ptr(), hi.data_ptr(), old_at_lo.data_ptr(), len(lo),
-            P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1],
-            ctl.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), stream)
+            lo.data_ptr(), hi.data_ptr(), old_at_lo.data_ptr(),
+            lo.shape[-1], P.data_ptr(), len(P), stack.data_ptr(),
+            stack.shape[1], ctl.data_ptr(), out_lo.data_ptr(),
+            out_hi.data_ptr(), None if state is None else state.data_ptr(),
+            lo.shape[1] if lo.dim() == 2 else 0,
+            None if pre is None else pre.data_ptr(), stream)
     _raise_if(rc, "climb_tail")
     LAUNCHES["climb_tail"] += 1
-    return out_lo, out_hi

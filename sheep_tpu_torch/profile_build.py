@@ -1,18 +1,22 @@
-"""Where the device time of one build goes, by kernel name.
+"""Where the device time of one build goes, by kernel name, at each
+pipeline depth asked for.
 
     python -m sheep_tpu_torch.profile_build [--input SPEC] [--k K]
-        [--out DIR]
+        [--inflight 1,2] [--out DIR]
 
-Runs one partition on CUDA under ``torch.profiler`` and prints one JSON
-line: wall and per-phase seconds, the summed device time by kernel name
-(top entries, with their call counts), the device-busy share of the
-profiled wall and of the fixpoint (``fixpoint``: from the start of
-``fold_segments_pipelined`` on the host to the end of the last device
-interval that starts before it returns; busy time is the union of the
-kernel and copy intervals there), the card's name and power limit. The
-full table goes to ``DIR/profile_build.txt`` when ``--out`` is given.
-Needs a GPU; the profiler itself slows the host side, so phase times
-here are not the unprofiled ones.
+Runs one partition on CUDA under ``torch.profiler`` for each depth of
+``--inflight`` and prints one JSON line: for each depth, the wall and
+per-phase seconds, the host reads (``host_syncs``), executions and device
+rounds, the launches of each of the port's kernels, the summed device
+time by kernel name (top entries, with their call counts), the
+device-busy share of the profiled wall and of the fixpoint
+(``fixpoint``: from the start of ``fold_segments_pipelined`` on the host
+to the end of the last device interval that starts before it returns;
+busy time is the union of the kernel and copy intervals there); and the
+card's name and power limit. The full tables go to
+``DIR/profile_build_d<D>.txt`` when ``--out`` is given. Needs a GPU; the
+profiler itself slows the host side, so phase times here are not the
+unprofiled ones.
 """
 
 from __future__ import annotations
@@ -58,35 +62,22 @@ def fixpoint_busy(events):
             "busy_share": busy / window if window else 0.0}
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser()
-    p.add_argument("--input", default="rmat-hash:22:16:42")
-    p.add_argument("--k", type=int, default=64)
-    p.add_argument("--chunk-edges", type=int, default=1 << 23)
-    p.add_argument("--dispatch-batch", type=int, default=8)
-    p.add_argument("--top", type=int, default=12)
-    p.add_argument("--out", default=None)
-    args = p.parse_args(argv)
-
+def profile_one(args, inflight: int) -> dict:
+    """One profiled partition at pipeline depth ``inflight``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import sheep_tpu_torch
-    from sheep_tpu_torch.ops import _build, elim
+    from sheep_tpu_torch.ops import elim, fixpoint, gather, lift
 
-    if not torch.cuda.is_available():
-        print("profile_build: no CUDA device", file=sys.stderr)
-        return 2
-    _build.build_all()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    counters = (gather, lift, fixpoint)
+    for c in counters:
+        c.reset_launches()
     fold = elim.fold_segments_pipelined
 
-    def marked_fold(*args, **kwargs):
+    def marked_fold(*a, **kw):
         with record_function(FIXPOINT):
-            return fold(*args, **kwargs)
+            return fold(*a, **kw)
 
     elim.fold_segments_pipelined = marked_fold
     try:
@@ -96,7 +87,7 @@ def main(argv=None) -> int:
             res = sheep_tpu_torch.partition(
                 args.input, args.k, device="cuda",
                 chunk_edges=args.chunk_edges,
-                dispatch_batch=args.dispatch_batch)
+                dispatch_batch=args.dispatch_batch, inflight=inflight)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -111,19 +102,54 @@ def main(argv=None) -> int:
             "device_ms": e.device_time_total / 1e3,
             "share": e.device_time_total / device_us if device_us else 0.0}
            for e in events[:args.top]]
-    line = {"input": args.input, "k": args.k, "wall_s": wall,
+    d = res.diagnostics
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, f"profile_build_d{inflight}.txt"),
+                  "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="device_time_total", row_limit=60))
+    return {"inflight": inflight, "wall_s": wall,
             "phase_s": res.phase_times,
-            "device_rounds": res.diagnostics["device_rounds"],
+            **{key: d[key] for key in (
+                "device_rounds", "rounds_enqueued", "host_syncs",
+                "batch_execs", "inflight_discards", "host_blocked_ms",
+                "device_gap_ms")},
+            "launches": {k: v for c in counters
+                         for k, v in c.LAUNCHES.items()},
             "device_ms": device_us / 1e3,
             "device_busy_share": device_us / 1e6 / wall if wall else 0.0,
             "fixpoint": fixpoint_busy(prof.events()),
-            "top_kernels": top, "card": card}
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_build.txt"), "w") as f:
-            f.write(prof.key_averages().table(
-                sort_by="device_time_total", row_limit=60))
-    print(json.dumps(line))
+            "top_kernels": top}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--input", default="rmat-hash:22:16:42")
+    p.add_argument("--k", type=int, default=64)
+    p.add_argument("--chunk-edges", type=int, default=1 << 23)
+    p.add_argument("--dispatch-batch", type=int, default=8)
+    p.add_argument("--inflight", default="1,2",
+                   help="comma-separated pipeline depths, one run each")
+    p.add_argument("--top", type=int, default=12)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+
+    import torch
+
+    from sheep_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("profile_build: no CUDA device", file=sys.stderr)
+        return 2
+    _build.build_all()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    runs = [profile_one(args, int(d)) for d in args.inflight.split(",")]
+    print(json.dumps({"input": args.input, "k": args.k, "runs": runs,
+                      "card": card}))
     return 0
 
 
