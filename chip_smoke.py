@@ -83,16 +83,6 @@ S22_TOTAL_EDGES = 67107073
 S22_COMM_VOLUME = 18440186
 
 
-# kernel -> the build's diagnostics key of its launches
-# (backends/torch_backend.py LAUNCH_KEYS), for the kernels of the exact
-# descent's main path
-PATH_KEYS = {"gather_clip": "gather_launches",
-             "scatter_min": "scatter_launches",
-             "lift_stack": "lift_launches", "climb_tail": "climb_launches",
-             "round_end": "round_end_launches",
-             "exec_finish": "exec_finish_launches"}
-
-
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -549,7 +539,13 @@ def main() -> int:
     import numpy as np
 
     import sheep_tpu_torch
+    from sheep_tpu_torch.backends.torch_backend import LAUNCH_KEYS
     from sheep_tpu_torch.ops import _build, elim, fixpoint, gather, lift
+
+    # kernel -> its launches' diagnostics key, for the kernels of the
+    # exact descent's main path (all but the stream descent's level)
+    path_keys = {name: key for key, name in LAUNCH_KEYS.items()
+                 if name != "climb_level"}
 
     t_all = time.perf_counter()
     # 1. the card
@@ -598,7 +594,7 @@ def main() -> int:
         same_result(on_gpu, on_cpu, f"{spec16} cuda D=2, cpu D={depth}",
                     rounds=depth == 2)
     t_cpu = time.perf_counter() - t0
-    for key in PATH_KEYS.values():
+    for key in path_keys.values():
         check(on_gpu.diagnostics[key] > 0, f"the CUDA run has no {key}")
     print(f"parity {spec16} k=64: cuda D=2 == cpu D=1 == cpu D=2 (edge_cut "
           f"{on_gpu.edge_cut}, device_rounds "
@@ -669,7 +665,7 @@ def main() -> int:
     check(d["inflight_depth"] == 2, "the s22 run's depth is not 2")
     rounds = int(d["device_rounds"])
     enqueued = int(d["rounds_enqueued"])
-    for name, key in PATH_KEYS.items():
+    for name, key in path_keys.items():
         check(launches[name] > 0, f"the main path launched no {name}")
         check(launches[name] == d[key],
               f"{name}: launch counter and diagnostics disagree")

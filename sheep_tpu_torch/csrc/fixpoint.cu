@@ -17,7 +17,7 @@
 // The JAX package runs an execution as one lax.while_loop whose stop
 // condition lives on the device. Here the host enqueues the execution's
 // whole budget of rounds and reads nothing back: the state lives in a
-// small int64 tensor (csrc/exec_state.cuh), every kernel of a round reads
+// small int64 tensor (csrc/common.cuh), every kernel of a round reads
 // it first and returns at once once the execution has stopped, and the
 // host reads the packed sv once per execution.
 //
@@ -42,18 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "exec_state.cuh"
+#include "common.cuh"
 
 namespace {
 
-using namespace sheep_exec;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ int32_t clip(int32_t x, int32_t last) {
-  return x < 0 ? 0 : (x > last ? last : x);
-}
+using namespace sheep;
 
 __global__ void __launch_bounds__(kThreads)
 scatter_min_kernel(int32_t* P, const int32_t* __restrict__ lo,
@@ -110,13 +103,9 @@ exec_finish_kernel(int32_t* loB, int32_t* hiB, int64_t total, int64_t C,
       live += loB[e] != n;
     }
   }
-  live = __reduce_add_sync(0xffffffffu, live);
-  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = live;
-  __syncthreads();
+  live = block_sum(live, smem);
   if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += smem[w];
-    if (s) atomicAdd(sv + 2, s);
+    if (live) atomicAdd(sv + 2, live);
     if (blockIdx.x == 0) {
       sv[0] = (int32_t)done;
       sv[1] = (int32_t)ex[kRounds];
@@ -141,35 +130,6 @@ climb_level_kernel(const int32_t* __restrict__ t, int32_t last,
     const int32_t cand = __ldg(t + clip(c, last));
     cur_out[i] = cand < hi[i] ? cand : c;
   }
-}
-
-// blocks for `work` items, capped at one wave: the blocks the card holds
-// resident for `kernel`, queried once per device
-struct Wave {
-  int dev = -1;
-  long long cap = 0;
-};
-
-template <typename Kernel>
-cudaError_t wave_blocks(Wave& w, Kernel kernel, long long work,
-                        unsigned* blocks) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev != w.dev) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-    if (err != cudaSuccess) return err;
-    w.cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    w.dev = dev;
-  }
-  long long b = (work + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  *blocks = (unsigned)(b < w.cap ? b : w.cap);
-  return cudaSuccess;
 }
 
 Wave wave_scatter, wave_finish, wave_level;

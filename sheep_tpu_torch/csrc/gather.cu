@@ -18,7 +18,7 @@
 // over M, neighbouring threads on neighbouring idx/out elements
 // (coalesced), the ragged tail masked by the loop bound.
 //
-// In a batched fixpoint execution (csrc/exec_state.cuh) the kernel is
+// In a batched fixpoint execution (csrc/common.cuh) the kernel is
 // given the execution's state: it returns at once when the execution has
 // stopped, and with a row stride it reads idx from the execution's row of
 // an [N, C] block (the read of P before the round's scatter).
@@ -30,7 +30,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "exec_state.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -40,8 +40,8 @@ __global__ void gather_clip_kernel(const int32_t* __restrict__ table,
                                    int32_t* __restrict__ out,
                                    int64_t m, const int64_t* ex,
                                    int64_t row_stride) {
-  if (sheep_exec::stopped(ex)) return;
-  idx += sheep_exec::row_offset(ex, row_stride);
+  if (sheep::stopped(ex)) return;
+  idx += sheep::row_offset(ex, row_stride);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
        i += stride) {
@@ -62,26 +62,12 @@ extern "C" int sheep_gather_clip(const void* table, long long table_len,
   if (m <= 0) return 0;
   if (table_len <= 0 || table_len > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   // one wave: the grid is capped at the blocks the card holds resident
-  // (8 per SM on an H100 at 256 threads), queried once per device
-  static int cached_dev = -1;
-  static long long cap = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // (8 per SM on an H100 at 256 threads)
+  static sheep::Wave wave;
+  unsigned blocks = 0;
+  cudaError_t err = sheep::wave_blocks(wave, gather_clip_kernel, m, &blocks);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  if (dev != cached_dev) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gather_clip_kernel, threads, 0);
-    if (err != cudaSuccess) return (int)err;
-    cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    cached_dev = dev;
-  }
-  long long blocks = (m + threads - 1) / threads;
-  if (blocks > cap) blocks = cap;
-  gather_clip_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  gather_clip_kernel<<<blocks, sheep::kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)table, (int32_t)(table_len - 1), (const int32_t*)idx,
       (int32_t*)out, (int64_t)m, (const int64_t*)ex, (int64_t)row_stride);
   return (int)cudaGetLastError();

@@ -41,7 +41,7 @@
 // sectors its live slots read (P at lo and at the end of the climb,
 // levels d-1 .. 1 on the way), 32 bytes a distinct sector.
 //
-// In a batched fixpoint execution (csrc/exec_state.cuh) both kernels are
+// In a batched fixpoint execution (csrc/common.cuh) both kernels are
 // given the execution's state and return at once when it has stopped;
 // climb_tail then reads the execution's row of the [N, C] blocks and
 // writes its outputs back into that row in place (each slot reads and
@@ -55,20 +55,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "exec_state.cuh"
+#include "common.cuh"
 
 namespace {
 
-constexpr int kRows = sheep_exec::kCtlRows;
-constexpr int kChanged = sheep_exec::kCtlChanged;
-constexpr int kRetired = sheep_exec::kCtlRetired;
-constexpr int kLive = sheep_exec::kCtlLive;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ int32_t clip(int32_t x, int32_t last) {
-  return x < 0 ? 0 : (x > last ? last : x);
-}
+using sheep::block_sum;
+using sheep::clip;
+using sheep::kThreads;
+using sheep::kWarps;
+using sheep::Wave;
+using sheep::wave_blocks;
+constexpr int kRows = sheep::kCtlRows;
+constexpr int kChanged = sheep::kCtlChanged;
+constexpr int kRetired = sheep::kCtlRetired;
+constexpr int kLive = sheep::kCtlLive;
 
 __device__ __forceinline__ int32_t volatile_load(const int32_t* p) {
   return *reinterpret_cast<const volatile int32_t*>(p);
@@ -86,7 +86,7 @@ __device__ __forceinline__ void vote_rows(bool diff, int j, int32_t* ctl) {
 __global__ void __launch_bounds__(kThreads)
 lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
            int64_t T, int j, int32_t* ctl, const int64_t* ex) {
-  if (sheep_exec::stopped(ex)) return;
+  if (sheep::stopped(ex)) return;
   if (volatile_load(ctl + kRows) < j) return;  // t_j == t_{j-1}
   const int32_t last = (int32_t)(T - 1);
   const int64_t quads = T >> 2;
@@ -115,18 +115,6 @@ lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
   vote_rows(diff, j, ctl);
 }
 
-// sum over the block into thread 0's return value
-__device__ __forceinline__ int block_sum(int x, int* smem) {
-  x = __reduce_add_sync(0xffffffffu, x);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) smem[warp] = x;
-  __syncthreads();
-  int s = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) s += smem[w];
-  return s;
-}
-
 // lo, hi and out_lo, out_hi may be the same slots (in place): no
 // __restrict__ on them
 __global__ void __launch_bounds__(kThreads)
@@ -138,8 +126,8 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
                   int32_t n, const int64_t* ex, int64_t row_stride,
                   const int32_t* __restrict__ pre) {
   __shared__ int smem[2][kWarps];
-  if (sheep_exec::stopped(ex)) return;
-  const int64_t off = sheep_exec::row_offset(ex, row_stride);
+  if (sheep::stopped(ex)) return;
+  const int64_t off = sheep::row_offset(ex, row_stride);
   lo += off;
   hi += off;
   out_lo += off;
@@ -194,35 +182,6 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
     if (retired) atomicAdd(ctl + kRetired, retired);
     if (live) atomicAdd(ctl + kLive, live);
   }
-}
-
-// blocks for `work` threads' worth of items, capped at one wave: the
-// blocks the card holds resident for `kernel`, queried once per device
-struct Wave {
-  int dev = -1;
-  long long cap = 0;
-};
-
-template <typename Kernel>
-cudaError_t wave_blocks(Wave& w, Kernel kernel, long long work,
-                        unsigned* blocks) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev != w.dev) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-    if (err != cudaSuccess) return err;
-    w.cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    w.dev = dev;
-  }
-  long long b = (work + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  *blocks = (unsigned)(b < w.cap ? b : w.cap);
-  return cudaSuccess;
 }
 
 Wave wave_lift, wave_climb;

@@ -106,11 +106,14 @@ def climb_tail_plain(lo, hi, old_at_lo, P, stack, d: int, pre=None):
     instead (the stream descent's). Returns ``(out_lo, out_hi, changed,
     retired, live)``, the last three 0-d tensors."""
     T = len(P)
-    cur = lo if pre is None else pre
-    for k in range(d - 1, -1, -1) if pre is None else ():
-        t = P if k == 0 else stack[k - 1, :T]
-        cand = gather_clip_plain(t, cur)
-        cur = torch.where(cand < hi, cand, cur)
+    cur = lo
+    if pre is not None:
+        cur = pre
+    else:
+        for k in range(d - 1, -1, -1):
+            t = P if k == 0 else stack[k - 1, :T]
+            cand = gather_clip_plain(t, cur)
+            cur = torch.where(cand < hi, cand, cur)
     return finish_round(lo, hi, cur, gather_clip_plain(P, lo), old_at_lo,
                         T - 1)
 
