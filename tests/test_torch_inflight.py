@@ -44,8 +44,8 @@ def one_torch_thread():
     """These CPU runs issue many small ops, round after round; beside the
     other workers of a parallel test run, torch's intra-op threads cost
     far more than they save (a test of ~1.5 s alone took 150 s beside
-    five other workers on eight cores), so the
-    module runs on one thread and restores the count after."""
+    five other workers on eight cores), so the module runs on one thread
+    and restores the count after."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
