@@ -49,7 +49,7 @@ line is printed:
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
      the card at the default depth (2), with the native split; the
-     driver's dispatch loop runs under torch.cuda's sync debug mode
+     pipeline's dispatch loop runs under torch.cuda's sync debug mode
      "error". Every kernel of the path launched once a round enqueued
      (``exec_finish`` once an execution), one host read per confirmed
      execution, the device's round log one entry per counted round; the
@@ -643,9 +643,9 @@ def main() -> int:
           f"h2d_blocked_ms {dg['h2d_blocked_ms']:.3f})", flush=True)
 
     # 5. the full-size build on the card, through the user's entry point,
-    # at the default depth; the driver runs its dispatch loop under
-    # torch.cuda's sync debug mode "error", so a stray synchronizing op
-    # there raises
+    # at the default depth; fold_segments_pipelined runs its dispatch loop
+    # under torch.cuda's sync debug mode "error", so a stray synchronizing
+    # op there raises
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for counter in (gather, lift, fixpoint):
@@ -659,7 +659,7 @@ def main() -> int:
     launches = {**gather.LAUNCHES, **lift.LAUNCHES, **fixpoint.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     check(torch.cuda.get_sync_debug_mode() == 0,
-          "the driver left the sync debug mode on")
+          "the pipelined fold left the sync debug mode on")
     s22_check(res, "s22 D=2")
     d = res.diagnostics
     check(d["inflight_depth"] == 2, "the s22 run's depth is not 2")

@@ -180,7 +180,7 @@ class TorchBackend:
                 P, staged, n, inflight=inflight, stats=stats,
                 round_log=round_log)
         finally:
-            # a driver that stops early leaves both generators open: close
+            # a fold that stops early leaves both generators open: close
             # them, and with them the prefetch worker and the ring
             staged.close()
             groups.close()

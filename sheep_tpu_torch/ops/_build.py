@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` and each
 ``csrc/<name>.cpp`` (host code) with the C++ compiler (``CXX``, else
 ``c++`` or ``g++``) into a shared library with a plain C interface, loaded
-with ``ctypes``; ``csrc/*.cuh`` are headers the ``.cu`` files share. A host library needs no ``nvcc``. The output goes to
-``sheep_tpu_torch/_build/<hash of the sources and flags>/``, so an edited
-source builds anew and an unchanged one is reused. The sources asked for
+with ``ctypes``; ``csrc/*.cuh`` are headers the ``.cu`` files share. A
+host library needs no ``nvcc``. The output goes to
+``sheep_tpu_torch/_build/<hash of the sources, headers and flags>/``, so
+an edited source builds anew and an unchanged one is reused. The sources asked for
 compile together, one compiler process each, started at once. A failed
 build raises with the compiler's stderr. Nothing is built when the module
 is imported.

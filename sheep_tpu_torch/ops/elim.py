@@ -31,7 +31,8 @@ tensor on the device: the host reads nothing per round, and one stats
 word per execution, one execution behind at pipeline depth >= 2
 (:func:`fold_segments_pipelined`). Tables and blocks are updated in place
 (the reference's arrays are immutable and it donates them instead); the
-comment above the driver says why that keeps its semantics.
+comment above :func:`fold_segments_pipelined` says why that keeps its
+semantics.
 
 Sentinel encoding: index n means "none"; pos[n] = order[n] = n; inert
 edges are (n, n).
@@ -249,7 +250,7 @@ class _Readback:
 # drain their blocks; when a read shows one did not (budget spent), its
 # blocks are re-queued on the current table, which reorders the folding
 # but cannot change the result: the fixpoint is the unique forest of the
-# inserted constraint multiset. At the end of the stream the driver
+# inserted constraint multiset. At the end of the stream the pipeline
 # speculates the other way and issues the newest execution's re-dispatch
 # before reading; if the read says it drained, the speculative executions
 # are discarded unread: drained blocks are all-sentinel, and re-running
@@ -277,7 +278,7 @@ def fold_segments_pipelined(P: torch.Tensor, staged, n: int,
                             stats=None, on_confirm=None, on_flush=None,
                             round_log=None):
     """Fold a stream of staged [N, C] oriented position blocks with up to
-    ``inflight`` executions in flight (the reference's driver of the same
+    ``inflight`` executions in flight (the reference's function of the same
     name; see the comment above for the speculation, discard and in-place
     model). ``inflight=1`` is the synchronous execute/read/decide loop; the
     entry points resolve their auto depth to 2 on CUDA

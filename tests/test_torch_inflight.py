@@ -1,7 +1,7 @@
 """The port's pipelined dispatch (``fold_segments_pipelined`` at depth D)
 and staged ingest against the JAX package's, on the CPU.
 
-For D in {1, 2, 3} the port's driver is held exactly against the
+For D in {1, 2, 3} the port's pipelined fold is held exactly against the
 reference's at the same D on the same staged blocks: the table, the total
 rounds and the dispatch counters (``batch_execs``, ``host_syncs``,
 ``inflight_discards``, ``batch_retired``, ``device_rounds``), in the
@@ -72,7 +72,7 @@ def _groups(scale, ef, seed, cs, batch):
 
 
 def _both(groups, n, inflight, **kw):
-    """The same staged blocks through the reference's driver and the
+    """The same staged blocks through the reference's fold and the
     port's at depth ``inflight``: (P, rounds, stats) of each; tags are
     the group indices."""
     sj, sp = {}, {}

@@ -159,7 +159,7 @@ def test_batch_segment_fixpoint(batch_rounds):
     assert np.array_equal(P2.numpy(), np.asarray(P_j))
     assert np.array_equal(loB2.numpy(), np.asarray(loB_j))
     assert np.array_equal(hiB2.numpy(), np.asarray(hiB_j))
-    # the execution reads nothing back (sv stays where P is); the driver
+    # the execution reads nothing back (sv stays where P is); the pipeline
     # reads one stats word per confirmed execution, as the reference
     assert sv.device == P2.device
     stats = {}
