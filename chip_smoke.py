@@ -34,10 +34,18 @@ line is printed:
      plain versions on the card, exactly: ``scatter_min`` at T = 2^22+1,
      C = 2^23 with 100% and 1% of the slots live, also against the library
      pair it replaced (``torch.where`` for the dead-slot index and
-     ``scatter_reduce_``); ``round_end``; ``exec_finish`` on [8, 2^23]
-     blocks with all and half the rows converged; ``climb_level`` (the
-     stream descent's level); each timed beside its plain version, with
-     its bytes bound;
+     ``scatter_reduce_``) and timed beside its ``pre_read`` form (the
+     atomic only where a read of P[lo] is above hi), and on the rows of
+     [3, C] blocks with C not a multiple of 4 (row starts off 16-byte
+     boundaries); ``exec_finish`` on [8, 2^23] blocks with all and half
+     the rows converged; ``climb_level`` (the stream descent's level);
+     each timed beside its plain version, with its bytes bound; then the
+     round's end, folded into ``climb_tail``'s last block: whole
+     executions over [3, 2^13] blocks, exact and stream descent, with
+     budgets that run out mid-row and that leave no-op rounds, round by
+     round against the CPU (``climb_rows``'s plain version and
+     ``round_end_plain``), every word of the execution's state and of the
+     control word equal;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -45,21 +53,31 @@ line is printed:
      table budget set to 0 so that the fixpoint takes its stream descent
      (K1, ``climb_level`` and ``climb_tail``, no ``lift_stack``);
   4c. a .bin32 file through the staged H2D ring (``h2d_ring=2``), CUDA
-     against the CPU, both at depth 2;
+     against the CPU, both at depth 2; the same edges as a text file
+     (read by the native parser, its last line without a newline) give
+     the same partition;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
      the card at the default depth (2), with the native split; the
      pipeline's dispatch loop runs under torch.cuda's sync debug mode
      "error". Every kernel of the path launched once a round enqueued
-     (``exec_finish`` once an execution), one host read per confirmed
-     execution, the device's round log one entry per counted round; the
-     rounds' live-slot share and depth summarized; edge cut, total edges
-     and comm volume equal to the JAX package's values;
-  5b. one more phase 3c case and one more scatter case at the main
-     path's median depth and median live share;
-  5c. the full-size build at depths 1 and 3: the same partition;
+     (``exec_finish`` once an execution; the round's end has no launch of
+     its own), one host read per confirmed execution, the device's round
+     log one entry per counted round; the rounds' live-slot share and
+     depth summarized; edge cut, total edges and comm volume equal to the
+     JAX package's values;
+  5b. one more phase 3c case, one more scatter case and K1's case (the
+     read of the table before the scatter) at the main path's median
+     depth and median live share; at that case ``climb_tail`` is also
+     timed with the round's end folded in (``climb_rows`` on a one-row
+     execution, in place, its live slots and state restored between
+     calls);
+  5c. the full-size build at depths 1 and 3: the same partition, one host
+     read per execution;
   6. one JSON line listing every kernel with its numbers, the lifting
-     kernels and the scatter at the case of 5b;
+     kernels and the scatter at the case of 5b, the round's end as folded
+     into ``climb_tail`` (no launches of its own; its time the fused
+     pass's less the plain pass's);
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -210,13 +228,17 @@ def chain_for_depth(depth: int, n: int) -> int:
 
 
 def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
-          dev: str = "cuda"):
+          dev: str = "cuda", fused: bool = False):
     """Phase 3c: ``lift_stack`` and ``climb_tail`` against their plain
     versions on the card, exactly, at the s22 shapes (the defaults), each
     case timed with its bound. ``cases`` holds (name, path length, live
     share): a random position-space forest (P[p] in (p, n]) with a path
-    through its first positions, and slots with that share live. Returns
-    the records."""
+    through its first positions, and slots with that share live. With
+    ``fused``, ``climb_tail`` is also run and timed as the round's last
+    kernel (``climb_rows`` on a one-row execution, which ends the round
+    in its last block): its state against ``round_end_plain``'s, exactly,
+    and its time from restored inputs (``fused_ms``). Returns the
+    records."""
     import torch
 
     from sheep_tpu_torch.ops import lift
@@ -269,13 +291,15 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
                 int((out_lo.long() - p_lo.long()).abs().max()),
                 int((out_hi.long() - p_hi.long()).abs().max())]
         rec["max_abs_err"] = max(errs)
-        check(max(errs) == 0 and ctl.tolist() == want_ctl,
+        check(max(errs) == 0 and ctl.tolist() == want_ctl + [0],
               f"{name}: kernels disagree with their plain versions "
               f"(errors {errs}, ctl {ctl.tolist()} != {want_ctl})")
         rec["lift_ms"] = gs.time_ms(lambda: lift.lift_stack(P, stack, ctl))
         # the ladders left ctl at this case's rows; the climbs add to it
         rec["climb_ms"] = gs.time_ms(
             lambda: lift.climb_tail(lo, hi, old, P, stack, ctl))
+        if fused:
+            rec.update(fused_climb(lo, hi, old, P, stack, n, want_ctl))
         del stack
         rec["lift_plain_ms"] = gs.time_ms(
             lambda: lift.lift_stack_plain(P, L), iters=3)
@@ -289,6 +313,63 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
         print("lift " + json.dumps(rec), flush=True)
         records.append(rec)
     return records
+
+
+def fused_climb(lo, hi, old, P, stack, n: int, want_ctl, budget: int = 64):
+    """``climb_tail`` with the round's end folded in (``climb_rows`` on a
+    one-row execution): one call from a fresh state against
+    ``round_end_plain`` on the plain control word, every word of the state
+    equal; then its time (``fused_ms``) and that of the same pass without
+    the round's end (``unfused_ms``), each from the same inputs restored
+    before each call (the live slots, which the pass moves in place, and
+    the state), less the restore's time (``inplace_ms``); and the plain
+    round's end on the card's tensors."""
+    import torch
+
+    from sheep_tpu_torch.ops import fixpoint, lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = lo.device
+    loB, hiB = lo[None].clone(), hi[None].clone()
+    at = (lo != n).nonzero().squeeze(1)
+    lo_at, hi_at = lo[at], hi[at]
+    state0 = fixpoint.new_state(budget, dev)
+    state = state0.clone()
+    ctl = lift.new_ctl(dev)
+    ctl[lift.ROWS] = want_ctl[lift.ROWS]
+    lift.climb_rows(loB, hiB, old, P, stack, ctl, state, budget)
+    want = state0.cpu()
+    fixpoint.round_end_plain(torch.tensor(want_ctl + [0], dtype=torch.int32),
+                             want, 1, budget)
+    got_ctl = ctl.tolist()
+    err = int((state.cpu() - want).abs().max())
+    check(err == 0 and got_ctl == want_ctl + [0],
+          f"climb_rows with the round's end disagrees with its plain "
+          f"versions (state error {err}, ctl {got_ctl} != {want_ctl})")
+
+    def restore():
+        loB[0].index_copy_(0, at, lo_at)
+        hiB[0].index_copy_(0, at, hi_at)
+        state.copy_(state0)
+
+    # the same pass without the round's end (no execution), after the
+    # same restore, as the baseline of the difference
+    unfused = inplace_ms(restore, lambda: lift.climb_tail(lo, hi, old, P,
+                                                          stack, ctl))
+
+    # the plain round's end on the card's tensors (its reads go to the
+    # host), on a state whose row the round does not move
+    plain_ctl = torch.tensor(want_ctl + [0], dtype=torch.int32, device=dev)
+    plain_ctl[lift.CHANGED] = 1
+    plain_state = fixpoint.new_state(1000, dev)
+    return {"fused_max_abs_err": err, "fused_ms": inplace_ms(
+        restore, lambda: lift.climb_rows(loB, hiB, old, P, stack, ctl, state,
+                                         budget)), "unfused_ms": unfused,
+        "round_end_plain_ms": gs.time_ms(lambda: fixpoint.round_end_plain(
+            plain_ctl, plain_state, 1, 1000), iters=5),
+        # ctl and the state's counters read, the counters and a log entry
+        # written
+        "round_end_bound_ms": gs.bound_ms(16 + 8 * fixpoint.LOG * 2 + 16)}
 
 
 def sectors(j) -> int:
@@ -313,7 +394,11 @@ def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
     ``scatter_reduce_``), exactly, at the s22 shapes (T = n + 1, C slots)
     with each share of live slots, on a random position-space table. Each
     timed from a fresh copy of the table, with its bound: lo in, hi at
-    the live slots, one sector of P for each distinct sector written."""
+    the live slots, one sector of P for each distinct sector written; and
+    its ``pre_read`` form timed in turns with it (``pre_read_ms``). Also
+    timed back to back, with ``lo`` left in L2 (``repeat_ms``), and from
+    an L2 that holds none of it (``cold_ms``), beside one PyTorch pass
+    that reads ``lo`` (``read_lo_ms``, ``read_lo_cold_ms``)."""
     import torch
 
     from sheep_tpu_torch.ops import fixpoint
@@ -325,6 +410,7 @@ def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
                        dtype=torch.int32)
     P0[n] = n
     spread = torch.arange(C, device=dev) % (n + 1)
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)  # 128 MB
     records = []
     for share in shares:
         lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
@@ -340,18 +426,42 @@ def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
             lib.scatter_reduce_(0, torch.where(lo == n, spread, lo.long()),
                                 hi, reduce="amin", include_self=True)
 
+        pre = P0.clone()
         fixpoint.scatter_min(P, lo, hi)
+        fixpoint.scatter_min(pre, lo, hi, pre_read=True)
         fixpoint.scatter_min_plain(ref, lo, hi)
         library()
         torch.cuda.synchronize()
         err = max(int((P.long() - ref.long()).abs().max()),
+                  int((pre.long() - ref.long()).abs().max()),
                   int((lib.long() - ref.long()).abs().max()))
         check(err == 0, f"scatter_min at live share {share:g} disagrees "
                         f"with its plain version or the library pair")
         rec = {"case": f"live{share:g}", "T": n + 1, "C": C, "share": share,
                "live": int(live.sum()), "max_abs_err": err}
-        rec["ms"] = inplace_ms(lambda: P.copy_(P0),
-                               lambda: fixpoint.scatter_min(P, lo, hi))
+
+        def timed(pre_read):
+            return inplace_ms(lambda: P.copy_(P0),
+                              lambda: fixpoint.scatter_min(
+                                  P, lo, hi, pre_read=pre_read))
+
+        # in turns: kernel, pre_read, pre_read, kernel
+        ms = [timed(False), timed(True), timed(True), timed(False)]
+        rec["ms"] = (ms[0] + ms[3]) / 2
+        rec["pre_read_ms"] = (ms[1] + ms[2]) / 2
+        rec["ms_turns"] = ms
+        # back to back on the table it leaves: each call issues the same
+        # atomics (no pre-read), and lo stays in L2 between the calls
+        rec["repeat_ms"] = gs.time_ms(lambda: fixpoint.scatter_min(P, lo, hi))
+        # from cold: after a read of a buffer larger than L2, which leaves
+        # no line to write back, less that read
+        rec["cold_ms"] = inplace_ms(lambda: torch.amax(flush),
+                                    lambda: fixpoint.scatter_min(P, lo, hi))
+        # one PyTorch pass that reads lo once, as a yardstick of the
+        # stream, back to back and from cold
+        rec["read_lo_ms"] = gs.time_ms(lambda: torch.amax(lo))
+        rec["read_lo_cold_ms"] = inplace_ms(lambda: torch.amax(flush),
+                                            lambda: torch.amax(lo))
         rec["plain_ms"] = inplace_ms(
             lambda: ref.copy_(P0),
             lambda: fixpoint.scatter_min_plain(ref, lo, hi), iters=5)
@@ -365,11 +475,152 @@ def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
     return records
 
 
+def k1_main(card, share, n: int = 1 << 22, C: int = 1 << 23):
+    """Phase 5b: K1 at the main path's case, the read of the table before
+    the scatter (``old_at_lo = P[lo]``) with a median round's share of
+    live slots (the dead ones read P[n]), against its plain version,
+    exactly, timed beside it, ``torch.take`` and its bound: lo in and the
+    result out (8 B a slot), and each distinct sector of P it reaches."""
+    import torch
+
+    from sheep_tpu_torch.ops import gather
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    P = torch.randint(1, n + 1, (n + 1,), device=dev, generator=g,
+                      dtype=torch.int32)
+    P[n] = n
+    lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
+    lo[torch.rand(C, device=dev, generator=g) >= share] = n
+    lo = lo.int()
+    got = gather.gather_clip(P, lo)
+    want = gather.gather_clip_plain(P, lo)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0, "K1 at the main case disagrees with its plain version")
+    lo64 = lo.long()
+    rec = {"case": f"main-live{share:.3g}", "T": n + 1, "M": C,
+           "live": int((lo != n).sum()), "max_abs_err": err,
+           "ms": gs.time_ms(lambda: gather.gather_clip(P, lo)),
+           "plain_ms": gs.time_ms(lambda: gather.gather_clip_plain(P, lo)),
+           "library_ms": gs.time_ms(lambda: torch.take(P, lo64)),
+           "bound_ms": gs.bound_ms(8 * C + 32 * sectors(lo64)),
+           "card": card}
+    print("K1-main " + json.dumps(rec), flush=True)
+    return rec
+
+
+def scatter_rows(C: int = (1 << 20) + 3, N: int = 3, n: int = 1 << 20,
+                 dev: str = "cuda"):
+    """Phase 3d: ``scatter_min`` on each row of [N, C] blocks, C not a
+    multiple of 4, so that rows 1 and 2 start off a 16-byte boundary (its
+    scalar head and tail), with 50% and 1% of the slots live, against its
+    plain version on that row, exactly."""
+    import torch
+
+    from sheep_tpu_torch.ops import fixpoint
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    P0 = torch.randint(1, n + 1, (n + 1,), device=dev, generator=g,
+                       dtype=torch.int32)
+    P0[n] = n
+    worst = 0
+    for share in (0.5, 0.01):
+        loB = torch.randint(0, n - 1, (N, C), device=dev, generator=g)
+        hiB = torch.randint(0, n, (N, C), device=dev,
+                            generator=g).maximum(loB + 1)
+        dead = torch.rand(N, C, device=dev, generator=g) >= share
+        loB[dead] = n
+        hiB[dead] = n
+        loB, hiB = loB.int(), hiB.int()
+        for row in range(N):
+            for pre_read in (False, True):
+                state = fixpoint.new_state(1, dev)
+                state[fixpoint.ROW] = row
+                P, ref = P0.clone(), P0.clone()
+                fixpoint.scatter_min(P, loB, hiB, state, pre_read=pre_read)
+                fixpoint.scatter_min_plain(ref, loB[row], hiB[row])
+                torch.cuda.synchronize()
+                err = int((P.long() - ref.long()).abs().max())
+                check(err == 0, f"scatter_min on row {row} of [{N}, {C}] "
+                                f"blocks (live share {share:g}, pre_read "
+                                f"{pre_read}) disagrees with its plain "
+                                f"version")
+                worst = max(worst, err)
+    print(f"scatter_min rows: [{N}, {C}] blocks, rows 0-{N - 1}, exact "
+          f"(max_abs_err {worst})", flush=True)
+    return worst
+
+
+def fused_rounds(card, scale: int = 14, N: int = 3, C: int = 1 << 13,
+                 dev: str = "cuda"):
+    """Phase 3d: the round's end folded into ``climb_tail``'s last block,
+    held against the CPU round by round. Executions over [N, C] blocks of
+    an R-MAT graph (the port's generator, order and orientation), on the
+    exact and the stream descent, with budgets that run out in the middle
+    of a row and that leave no-op rounds after the last row; after each
+    round every word of the execution's state and of the control word on
+    the card equals the CPU's (``climb_rows``'s plain version, then
+    ``round_end_plain``). Returns the rounds compared."""
+    import torch
+
+    from sheep_tpu_torch.io import generators
+    from sheep_tpu_torch.ops import degrees, elim, fixpoint, order
+
+    cpu, dev = torch.device("cpu"), torch.device(dev)
+    n = 1 << scale
+    e = torch.from_numpy(generators.rmat_hash_range(scale, 0, N * C,
+                                                    seed=3)).int()
+    deg = degrees.init_degrees(n, cpu)
+    degrees.degree_chunk(deg, e, n)
+    pos, _ = order.elimination_order(deg, n)
+    loB0, hiB0 = elim.orient_chunks_batch_pos(e.reshape(N, C, 2), pos, n)
+    seen = {"row_switch": False, "budget_spent": False, "no_op": False}
+    compared = 0
+    t0 = time.perf_counter()
+    for descent in ("exact", "stream"):
+        L = n.bit_length()
+        for budget in (5, 23, 400):
+            runs = []
+            for d in (cpu, dev):
+                runs.append((elim._pos_round_body(n, L, descent),
+                             torch.full((n + 1,), n, dtype=torch.int32,
+                                        device=d),
+                             loB0.clone().to(d), hiB0.clone().to(d),
+                             fixpoint.new_state(budget, d)))
+            for r in range(budget):
+                for body, P, loB, hiB, state in runs:
+                    body(loB, hiB, P, state, budget)
+                (cb, _, _, _, cs), (gb, gP, glo, ghi, gs_) = runs
+                torch.cuda.synchronize()
+                check(torch.equal(gs_.cpu(), cs) and
+                      torch.equal(gb.ctl.cpu(), cb.ctl),
+                      f"{descent} budget {budget} round {r}: the card's "
+                      f"state or control word differs from the CPU's")
+                compared += 1
+            (_, P, loB, hiB, cs), (_, gP, glo, ghi, _) = runs
+            check(torch.equal(gP.cpu(), P) and torch.equal(glo.cpu(), loB)
+                  and torch.equal(ghi.cpu(), hiB),
+                  f"{descent} budget {budget}: table or blocks differ")
+            rows, rounds = int(cs[fixpoint.ROW]), int(cs[fixpoint.ROUNDS])
+            seen["row_switch"] |= rows >= 1
+            seen["budget_spent"] |= rows < N
+            seen["no_op"] |= rounds < budget
+    check(all(seen.values()), f"the executions missed a case: {seen}")
+    print("round_end-fused " + json.dumps({
+        "blocks": [N, C], "scale": scale, "rounds_compared": compared,
+        "cases": seen, "s": time.perf_counter() - t0, "card": card}),
+        flush=True)
+    return compared
+
+
 def exec_kernels(card, n: int = 1 << 22, N: int = 8, C: int = 1 << 23):
     """Phase 3d, the execution's other kernels against their plain
     versions, exactly, at the s22 shapes, each timed with its bound:
-    ``round_end`` on a state mid-execution; ``exec_finish`` on [N, C]
-    blocks with all rows and with half the rows converged;
+    ``exec_finish`` on [N, C] blocks with all rows and with half the rows
+    converged;
     ``climb_level`` (the stream descent's level) on a random table with
     10% of the slots dead. Returns the records by kernel."""
     import torch
@@ -380,27 +631,6 @@ def exec_kernels(card, n: int = 1 << 22, N: int = 8, C: int = 1 << 23):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(19)
     out = {}
-
-    # round_end: a round that changed something, in a budget that the
-    # timing loop does not use up
-    budget = 64
-    ctl = torch.tensor([19, 1, 3, 12345], dtype=torch.int32, device=dev)
-    want, got = (fixpoint.new_state(budget, dev) for _ in range(2))
-    for st in (want, got):
-        st[fixpoint.ROUNDS] = 5
-    fixpoint.round_end(ctl, got, N, budget)
-    fixpoint.round_end_plain(ctl, want, N, budget)
-    err = int((got - want).abs().max())
-    check(err == 0, "round_end disagrees with its plain version")
-    out["round_end"] = {
-        "case": "changed-mid-execution", "max_abs_err": err,
-        "ms": gs.time_ms(lambda: fixpoint.round_end(ctl, got, N, budget)),
-        "plain_ms": gs.time_ms(
-            lambda: fixpoint.round_end_plain(ctl, want, N, budget), iters=5),
-        # ctl and the state's counters read, the counters and a log entry
-        # written
-        "bound_ms": gs.bound_ms(16 + 8 * fixpoint.LOG * 2 + 16),
-        "library_ms": None, "card": card}
 
     # exec_finish: all rows converged, then half
     loB0 = torch.randint(0, n + 1, (N, C), device=dev, generator=g,
@@ -576,7 +806,9 @@ def main() -> int:
         for share in (1.0, 0.1, 0.01)])
     # 3d. the execution's kernels against their plain versions
     scatter_cases = scatters(card, (1.0, 0.01))
+    rows_err = scatter_rows()
     exec_cases = exec_kernels(card)
+    fused_compared = fused_rounds(card)
 
     # 4. the port on CUDA (auto depth: 2) against the port on the CPU at
     # depths 1 (its auto) and 2
@@ -623,18 +855,32 @@ def main() -> int:
           f"{on_gpu.edge_cut}, device_rounds {dg['device_rounds']:.0f}, "
           f"K1 launches {dg['gather_launches']:.0f}, climb_level "
           f"{stream_launches:.0f})", flush=True)
-    # 4c. a file through the staged H2D ring: CUDA equals the CPU
+    # 4c. a file through the staged H2D ring: CUDA equals the CPU; the
+    # same edges as text (the native parser; no newline after the last
+    # line) give the same partition
     with tempfile.TemporaryDirectory() as tmp:
         from sheep_tpu_torch.io import formats, generators
 
         path = os.path.join(tmp, "rmat14.bin32")
-        formats.write_edges(path, generators.rmat_hash_range(
-            14, 0, 16 << 14, seed=5))
+        text = os.path.join(tmp, "rmat14.edges")
+        edges = generators.rmat_hash_range(14, 0, 16 << 14, seed=5)
+        formats.write_edges(path, edges)
+        formats.write_edges(text, edges)
+        with open(text, "rb+") as f:
+            f.truncate(os.path.getsize(text) - 1)
         opts = dict(chunk_edges=1 << 15, dispatch_batch=3, keep_tree=True,
                     inflight=2, h2d_ring=2)
         on_gpu = sheep_tpu_torch.partition(path, 16, device="cuda", **opts)
         on_cpu = sheep_tpu_torch.partition(path, 16, device="cpu", **opts)
+        t0 = time.perf_counter()
+        on_text = sheep_tpu_torch.partition(text, 16, device="cuda", **opts)
+        t_text = time.perf_counter() - t0
     same_result(on_gpu, on_cpu, "rmat14.bin32 through the ring")
+    same_result(on_text, on_gpu, "rmat14.edges (text) against .bin32")
+    check(on_text.total_edges == on_gpu.total_edges,
+          "the text file lost edges")
+    print(f"parity rmat14.edges k=16 (native text parser, no final "
+          f"newline): == .bin32 on cuda (wall {t_text:.2f}s)", flush=True)
     dg = on_gpu.diagnostics
     check(dg["h2d_ring_depth"] == 2 and dg["h2d_staged_bytes"] > 0,
           "the file run did not stage through the ring")
@@ -669,10 +915,12 @@ def main() -> int:
         check(launches[name] > 0, f"the main path launched no {name}")
         check(launches[name] == d[key],
               f"{name}: launch counter and diagnostics disagree")
-    for name in ("gather_clip", "scatter_min", "lift_stack", "climb_tail",
-                 "round_end"):
+    for name in ("gather_clip", "scatter_min", "lift_stack", "climb_tail"):
         check(launches[name] == enqueued,
               f"{name}: {launches[name]} launches in {enqueued} rounds")
+    # the round's end runs in climb_tail's last block: no launch of its own
+    check("round_end" not in launches and
+          "round_end_launches" not in d, "a stand-alone round_end ran")
     check(launches["exec_finish"] ==
           d["batch_execs"] + d["inflight_discards"],
           "exec_finish: not one launch an execution")
@@ -692,7 +940,8 @@ def main() -> int:
         "inflight_discards": d["inflight_discards"],
         "host_blocked_ms": d["host_blocked_ms"],
         "device_gap_ms": d["device_gap_ms"],
-        "launches": launches, "peak_mem_bytes": peak,
+        "launches": launches, "round_end_launches": 0,
+        "peak_mem_bytes": peak,
         "live_share_mean": d["live_sum"] / (rounds * slots),
         "live_share_max": d["live_max"] / slots,
         "live_share_median": share_med,
@@ -705,8 +954,9 @@ def main() -> int:
     # round (phases 3c and 3d)
     main_case = lifts(card, [(f"main-d{depth_med}-live{share_med:.3g}",
                               chain_for_depth(depth_med, n22),
-                              share_med)])[0]
+                              share_med)], fused=True)[0]
     main_scatter = scatters(card, (share_med,))[0]
+    k1_case = k1_main(card, share_med)
 
     # 5c. s22 at depths 1 and 3: the same partition
     for depth in (1, 3):
@@ -718,6 +968,9 @@ def main() -> int:
         check(np.array_equal(other.assignment, res.assignment),
               f"s22 D={depth}: assignment differs from D=2")
         od = other.diagnostics
+        check(od["host_syncs"] == od["batch_execs"],
+              f"s22 D={depth}: {od['host_syncs']} host reads for "
+              f"{od['batch_execs']} executions")
         print("s22-depth " + json.dumps({
             "inflight": depth, "wall_s": time.perf_counter() - t0,
             "phase_s": other.phase_times,
@@ -746,10 +999,15 @@ def main() -> int:
     square = cases["square"]
     fix_src = "sheep_tpu_torch/csrc/fixpoint.cu"
     kernels = [
+        # at the main path's case (the read before the scatter); the
+        # climb and squaring shapes it ran before the lifting kernels
+        # beside it
         entry("gather_clip", "sheep_tpu_torch/csrc/gather.cu",
-              "sheep_tpu/ops/pallas_gather.py:70", cases["climb"],
+              "sheep_tpu/ops/pallas_gather.py:70", k1_case,
               launches["gather_clip"],
               also_replaces=["tools/pallas_smoke.py:166 (form D)"],
+              climb_ms=cases["climb"]["ms"],
+              climb_bound_ms=cases["climb"]["bound_ms"],
               square_ms=square["ms"], square_bound_ms=square["bound_ms"],
               tool_launches=tool_launches["K1"],
               cases_max_abs_err=max_err("K1")),
@@ -768,12 +1026,26 @@ def main() -> int:
         entry("scatter_min", fix_src, "sheep_tpu/ops/elim.py:149",
               main_scatter, launches["scatter_min"],
               library_scope="torch.where dead-slot index + scatter_reduce_",
+              pre_read_ms=main_scatter["pre_read_ms"],
               cases={r["case"]: {k: r[k] for k in (
-                  "ms", "plain_ms", "library_ms", "bound_ms", "live")}
-                  for r in scatter_all},
-              cases_max_abs_err=max(r["max_abs_err"] for r in scatter_all)),
-        entry("round_end", fix_src, "sheep_tpu/ops/elim.py:467",
-              exec_cases["round_end"], launches["round_end"]),
+                  "ms", "pre_read_ms", "repeat_ms", "cold_ms", "plain_ms",
+                  "library_ms", "bound_ms", "live")} for r in scatter_all},
+              cases_max_abs_err=max([r["max_abs_err"] for r in scatter_all]
+                                    + [rows_err])),
+        # folded into climb_tail's last block: no launch of its own, its
+        # time the fused pass's less the plain pass's at the main case
+        entry("round_end", "sheep_tpu_torch/csrc/lift.cu",
+              "sheep_tpu/ops/elim.py:467", {
+                  "max_abs_err": main_case["fused_max_abs_err"],
+                  "ms": max(main_case["fused_ms"] - main_case["unfused_ms"],
+                            0.0),
+                  "plain_ms": main_case["round_end_plain_ms"],
+                  "bound_ms": main_case["round_end_bound_ms"],
+                  "library_ms": None, "case": main_case["case"]}, 0,
+              folded_into="climb_tail",
+              fused_climb_ms=main_case["fused_ms"],
+              unfused_climb_ms=main_case["unfused_ms"],
+              rounds_compared=fused_compared),
         entry("exec_finish", fix_src, "sheep_tpu/ops/elim.py:486",
               exec_cases["exec_finish"], launches["exec_finish"],
               cases={r["case"]: {k: r[k] for k in (

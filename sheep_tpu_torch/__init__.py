@@ -10,7 +10,7 @@ raises.
 __version__ = "0.1.0"
 
 
-def partition(path, k, device=None, chunk_edges=1 << 23, dispatch_batch=8,
+def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=8,
               comm_volume=True, weights="unit", alpha=1.0, keep_tree=False,
               inflight=0, h2d_ring=0, round_log=None):
     """Partition the graph at *path* (a file, or ``rmat-hash:SCALE[:EF[:SEED]]``)

@@ -45,7 +45,6 @@ LAUNCH_KEYS = {"gather_launches": "gather_clip",
                "lift_launches": "lift_stack",
                "climb_launches": "climb_tail",
                "climb_level_launches": "climb_level",
-               "round_end_launches": "round_end",
                "exec_finish_launches": "exec_finish"}
 
 
@@ -100,7 +99,7 @@ def _sync(device) -> None:
 class TorchBackend:
     name = "torch"
 
-    def __init__(self, chunk_edges: int = 1 << 23, dispatch_batch: int = 8,
+    def __init__(self, chunk_edges: int = 1 << 22, dispatch_batch: int = 8,
                  alpha: float = 1.0, device=None, inflight: int = 0,
                  h2d_ring: int = 0):
         if dispatch_batch < 1:
@@ -138,13 +137,18 @@ class TorchBackend:
         """``round_log``, a list, receives (depth, live slots) of every
         counted fixpoint round, from the executions' device logs."""
         dev = self.device
+        inflight = resolve_inflight(self.inflight, dev)
+        if self.dispatch_batch == 1 and inflight == 1:
+            raise ValueError(
+                "dispatch_batch=1 at pipeline depth 1: the reference runs "
+                "its adaptive per-segment driver there, which the port does "
+                "not have yet; use dispatch_batch >= 2, or inflight >= 2")
         t = {}
         cs = stream.clamp_chunk_edges(self.chunk_edges)
         t0 = time.perf_counter()
         n = stream.num_vertices
         check_vertex_range(n)
         ring = resolve_h2d_ring(self.h2d_ring, dev)
-        inflight = resolve_inflight(self.inflight, dev)
         # one record across the three streaming passes: the ingest
         # counters add up wherever chunks cross, the build adds its own
         stats: dict = {"dispatch_batch": self.dispatch_batch,

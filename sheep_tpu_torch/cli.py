@@ -21,8 +21,10 @@ def main(argv=None) -> int:
     p.add_argument("--input", required=True,
                    help="edge-list file or rmat-hash:SCALE[:EF[:SEED]]")
     p.add_argument("--k", type=int, required=True, help="number of parts")
-    p.add_argument("--chunk-edges", type=int, default=1 << 23)
-    p.add_argument("--dispatch-batch", type=int, default=8)
+    p.add_argument("--chunk-edges", type=int, default=1 << 22)
+    p.add_argument("--dispatch-batch", type=int, default=8, metavar="N",
+                   help="chunks folded by one fixpoint execution; 1 needs "
+                        "a pipeline depth of 2 or more (--inflight)")
     p.add_argument("--inflight", type=int, default=0, metavar="D",
                    help="fixpoint executions in flight (0 = auto: 2 on "
                         "CUDA, 1 on the CPU)")

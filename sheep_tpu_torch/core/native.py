@@ -1,9 +1,11 @@
 """ctypes loader for the port's native host code (``csrc/sheep_core.cpp``;
-counterpart of ``tree_split`` in ``sheep_tpu/core/native.py``).
+counterpart of ``tree_split`` and ``parse_text`` in
+``sheep_tpu/core/native.py``).
 
 The library is built with the host C++ compiler at first use (no
 ``nvcc``), by ``sheep_tpu_torch.ops._build``. A failed build or load
-raises: the port has no quiet fallback to the Python split.
+raises: the port has no quiet fallback to the Python split, and no
+Python text parser.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-ABI_VERSION = 2
+ABI_VERSION = 3
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
@@ -50,6 +52,9 @@ def load() -> ctypes.CDLL:
         lib.sheep_tree_split.argtypes = [_i64p, _i64p, _f64p_or_null, c_i64,
                                          c_i64, ctypes.c_double, _i32p]
         lib.sheep_tree_split.restype = ctypes.c_int
+        lib.sheep_parse_text.argtypes = [ctypes.c_char_p, c_i64, _i64p,
+                                         c_i64, ctypes.POINTER(c_i64)]
+        lib.sheep_parse_text.restype = c_i64
         _LIB = lib
     return _LIB
 
@@ -86,3 +91,17 @@ def tree_split(parent: np.ndarray, pos: np.ndarray, k: int,
         raise ValueError(f"tree_split: parent is not a forest in pos order "
                          f"(a parent >= {n}, or not after its child)")
     return assign
+
+
+def parse_text(data: bytes):
+    """The complete lines of a text block -> ``(edges, consumed)``: int64
+    (m, 2) edges in the reference's text grammar (``csrc/sheep_core.cpp``
+    ``sheep_parse_text``) and the bytes of ``data`` they came from; the
+    rest is an incomplete last line."""
+    lib = load()
+    cap = len(data) // 3 + 1  # a line that holds an edge is >= 4 bytes
+    out = np.empty((cap, 2), dtype=np.int64)
+    consumed = ctypes.c_int64(0)
+    count = lib.sheep_parse_text(data, len(data), out.reshape(-1), cap,
+                                 ctypes.byref(consumed))
+    return out[:count].copy(), consumed.value

@@ -7,14 +7,16 @@
 // folded; [kRounds] rounds counted; [kRetired] slots retired; depth and
 // live-slot sums and maxima; [kStop] set once the row passes N - 1 or the
 // round budget is spent; from [kLog] on, (depth, live) of each counted
-// round. round_end (csrc/fixpoint.cu) is its only writer. A kernel of a
-// round given ex returns at once when kStop is set, and a kernel that
-// reads a row of the blocks offsets its pointers by ex[kRow] rows. Stream
-// order makes round_end's writes visible to the next round's kernels.
+// round. end_round, run by the last block of the round's last kernel
+// (climb_tail, csrc/lift.cu), is its only writer. A kernel of a round
+// given ex returns at once when kStop is set, and a kernel that reads a
+// row of the blocks offsets its pointers by ex[kRow] rows. Stream order
+// makes end_round's writes visible to the next round's kernels.
 //
-// Control word ctl (int32[4]) of one round: [kCtlRows] the stack rows in
-// use (depth d less one), [kCtlChanged], [kCtlRetired], [kCtlLive]
-// (csrc/lift.cu writes it).
+// Control word ctl (int32[5]) of one round: [kCtlRows] the stack rows in
+// use (depth d less one), [kCtlChanged], [kCtlRetired], [kCtlLive], and
+// [kCtlTickets], the blocks of climb_tail that have finished (csrc/lift.cu
+// writes it; zeroed with the rest at the start of each round).
 
 #pragma once
 
@@ -38,7 +40,14 @@ enum : int {
   kLog = 8,
 };
 
-enum : int { kCtlRows = 0, kCtlChanged = 1, kCtlRetired = 2, kCtlLive = 3 };
+enum : int {
+  kCtlRows = 0,
+  kCtlChanged = 1,
+  kCtlRetired = 2,
+  kCtlLive = 3,
+  kCtlTickets = 4,
+  kCtlWords = 5,
+};
 
 __device__ __forceinline__ bool stopped(const int64_t* ex) {
   return ex != nullptr && ex[kStop] != 0;
@@ -49,6 +58,54 @@ __device__ __forceinline__ bool stopped(const int64_t* ex) {
 __device__ __forceinline__ int64_t row_offset(const int64_t* ex,
                                               int64_t stride) {
   return ex != nullptr ? ex[kRow] * stride : 0;
+}
+
+__device__ __forceinline__ int32_t volatile_load(const int32_t* p) {
+  return *reinterpret_cast<const volatile int32_t*>(p);
+}
+
+// The end of a round of an execution over N rows with a budget of
+// `budget` rounds (the loop body of batch_segment_fixpoint and its cond,
+// sheep_tpu/ops/elim.py:463-484): log (depth, live), add the retired
+// count, move to the next row when the round changed nothing, stop once
+// the row passes N - 1 or the budget is spent. One thread, after every
+// write of the round to ctl is visible to it; nothing once stopped. Every
+// word is loaded before the first store, so the loads go out together.
+__device__ __forceinline__ void end_round(const int32_t* ctl, int64_t* ex,
+                                          int64_t N, int64_t budget) {
+  const int64_t stop = ex[kStop], r = ex[kRounds], row = ex[kRow];
+  const int64_t retired = ex[kRetired], depth_sum = ex[kDepthSum],
+                depth_max = ex[kDepthMax], live_sum = ex[kLiveSum],
+                live_max = ex[kLiveMax];
+  const int64_t depth = (int64_t)volatile_load(ctl + kCtlRows) + 1;
+  const int32_t changed = volatile_load(ctl + kCtlChanged);
+  const int64_t ret = volatile_load(ctl + kCtlRetired);
+  const int64_t live = volatile_load(ctl + kCtlLive);
+  if (stop) return;
+  const int64_t next = row + (changed ? 0 : 1);
+  ex[kLog + 2 * r] = depth;
+  ex[kLog + 2 * r + 1] = live;
+  ex[kRounds] = r + 1;
+  ex[kRetired] = retired + ret;
+  ex[kDepthSum] = depth_sum + depth;
+  ex[kDepthMax] = depth > depth_max ? depth : depth_max;
+  ex[kLiveSum] = live_sum + live;
+  ex[kLiveMax] = live > live_max ? live : live_max;
+  ex[kRow] = next;
+  ex[kStop] = next >= N || r + 1 >= budget;
+}
+
+// atomicAdd(p, 1) with acquire-release order at device scope: the
+// caller's earlier writes are visible to whoever later reads the count
+// it leaves, and the writes of whoever left the count it reads are
+// visible to the caller
+__device__ __forceinline__ unsigned ticket(int32_t* p) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(p)
+               : "memory");
+  return old;
 }
 
 __device__ __forceinline__ int32_t clip(int32_t x, int32_t last) {

@@ -11,10 +11,11 @@
 // (sheep_tpu/ops/elim.py:158-192) and of build_lift_tables
 // (sheep_tpu/ops/elim.py:295).
 //
-// Control word ctl (int32[4]): [0] rows, the number of stack rows that
+// Control word ctl (int32[5]): [0] rows, the number of stack rows that
 // hold distinct levels (the depth d less one); [1] changed; [2] retired;
-// [3] live. lift_stack zeroes all four and writes [0]; climb_tail reads
-// [0] and adds to [1..3].
+// [3] live; [4] the blocks of climb_tail that have finished. lift_stack
+// zeroes all five and writes [0]; climb_tail reads [0] and adds to
+// [1..4].
 //
 // Depth cut. Level launch j computes t_{j+1} from t_j and raises rows to
 // j + 1 if any entry differs (a block vote, one atomicMax per block). If
@@ -48,6 +49,15 @@
 // writes only its own entries). For the stream descent climb_tail takes
 // the climbed positions `pre` instead of climbing the stack itself.
 //
+// climb_tail is the round's last kernel on both descents, so it also ends
+// the round (end_round, csrc/common.cuh): a round's end is a few words,
+// and as a launch of its own it cost a launch and a gap a round. Each
+// block, once its counts are in ctl, draws a ticket; the block that
+// draws the last one has seen every block's counts, ends the round
+// on one thread and puts the ticket counter back to 0 (one atomic with
+// acquire-release order a block, in place of a fence and an atomic).
+// Without an execution (a free-standing round) nothing is counted.
+//
 // Bound to PyTorch through plain C functions (loaded with ctypes): the
 // caller passes device pointers and its CUDA stream and gets back the
 // first CUDA error of its launches (0 if none).
@@ -63,16 +73,13 @@ using sheep::block_sum;
 using sheep::clip;
 using sheep::kThreads;
 using sheep::kWarps;
+using sheep::volatile_load;
 using sheep::Wave;
 using sheep::wave_blocks;
 constexpr int kRows = sheep::kCtlRows;
 constexpr int kChanged = sheep::kCtlChanged;
 constexpr int kRetired = sheep::kCtlRetired;
 constexpr int kLive = sheep::kCtlLive;
-
-__device__ __forceinline__ int32_t volatile_load(const int32_t* p) {
-  return *reinterpret_cast<const volatile int32_t*>(p);
-}
 
 // one atomicMax per block whose entries changed
 __device__ __forceinline__ void vote_rows(bool diff, int j, int32_t* ctl) {
@@ -123,8 +130,9 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
                   const int32_t* __restrict__ P,
                   const int32_t* __restrict__ stack, int64_t stride,
                   int32_t* ctl, int32_t* out_lo, int32_t* out_hi, int64_t m,
-                  int32_t n, const int64_t* ex, int64_t row_stride,
-                  const int32_t* __restrict__ pre) {
+                  int32_t n, int64_t* ex, int64_t row_stride,
+                  const int32_t* __restrict__ pre, int64_t N,
+                  int64_t budget) {
   __shared__ int smem[2][kWarps];
   if (sheep::stopped(ex)) return;
   const int64_t off = sheep::row_offset(ex, row_stride);
@@ -181,6 +189,13 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
     if (any && volatile_load(ctl + kChanged) == 0) atomicOr(ctl + kChanged, 1);
     if (retired) atomicAdd(ctl + kRetired, retired);
     if (live) atomicAdd(ctl + kLive, live);
+    // the ticket releases this block's counts; the last one acquires
+    // every block's
+    if (ex != nullptr &&
+        sheep::ticket(ctl + sheep::kCtlTickets) == gridDim.x - 1) {
+      sheep::end_round(ctl, ex, N, budget);
+      ctl[sheep::kCtlTickets] = 0;
+    }
   }
 }
 
@@ -202,7 +217,8 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* c = (int32_t*)ctl;
-  cudaError_t err = cudaMemsetAsync(c, 0, 4 * sizeof(int32_t), s);
+  cudaError_t err =
+      cudaMemsetAsync(c, 0, sheep::kCtlWords * sizeof(int32_t), s);
   if (err != cudaSuccess) return (int)err;
   unsigned blocks = 0;
   err = wave_blocks(wave_lift, lift_level, (T + 3) / 4, &blocks);
@@ -221,17 +237,21 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
 
 // One pass over m slots: out_lo/out_hi, and this pass's changed flag,
 // retired and live counts added to ctl[1..3]; reads rows at ctl[0]. ex:
-// the execution's state or null; row_stride: the blocks' row length when
-// lo, hi, out_lo and out_hi are [N, C] blocks, else 0; pre: the climbed
-// positions (stream descent) or null.
+// the execution's state or null; with it, the round of an execution over
+// N rows with a budget of `budget` rounds is ended in the last block;
+// row_stride: the blocks' row length when lo, hi, out_lo and out_hi are
+// [N, C] blocks, else 0; pre: the climbed positions (stream descent) or
+// null.
 extern "C" int sheep_climb_tail(const void* lo, const void* hi,
                                 const void* old, long long m, const void* P,
                                 long long T, const void* stack,
                                 long long stride, void* ctl, void* out_lo,
-                                void* out_hi, const void* ex,
-                                long long row_stride, const void* pre,
-                                void* stream) {
+                                void* out_hi, void* ex, long long row_stride,
+                                const void* pre, long long N,
+                                long long budget, void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (ex != nullptr && (m <= 0 || N <= 0 || budget <= 0))
+    return (int)cudaErrorInvalidValue;  // the round must end
   if (m <= 0) return 0;
   unsigned blocks = 0;
   cudaError_t err = wave_blocks(wave_climb, climb_tail_kernel, m, &blocks);
@@ -240,7 +260,8 @@ extern "C" int sheep_climb_tail(const void* lo, const void* hi,
       (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
       (const int32_t*)P, (const int32_t*)stack, stride, (int32_t*)ctl,
       (int32_t*)out_lo, (int32_t*)out_hi, m, (int32_t)(T - 1),
-      (const int64_t*)ex, (int64_t)row_stride, (const int32_t*)pre);
+      (int64_t*)ex, (int64_t)row_stride, (const int32_t*)pre, (int64_t)N,
+      (int64_t)budget);
   return (int)cudaGetLastError();
 }
 

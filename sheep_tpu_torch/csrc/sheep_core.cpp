@@ -1,8 +1,9 @@
-// sheep_core — the port's native host code: the greedy tree split.
+// sheep_core — the port's native host code: the greedy tree split and the
+// text edge-list parser.
 //
-// A copy of sheep_tree_split from the JAX package's native core
-// (sheep_tpu/core/csrc/sheep_core.cpp), so that the port imports and
-// builds nothing of that package. The Python copy of the spec
+// Copies of sheep_tree_split and sheep_parse_text from the JAX package's
+// native core (sheep_tpu/core/csrc/sheep_core.cpp), so that the port
+// imports and builds nothing of that package. The Python copy of the spec
 // (sheep_tpu_torch/core/pure.py tree_split) and this function give
 // bit-identical assignments; the tests hold both, and the JAX package's
 // two, to each other. Exposed as a plain C ABI over caller-allocated
@@ -140,8 +141,58 @@ int sheep_tree_split(const i64* parent, const i64* pos, const double* w,
   return 0;
 }
 
+// ----------------------------------------------------- text edge parsing
+
+// The reference's default text grammar (its sheep_parse_text): complete
+// lines of buf only. A line's leading spaces, tabs and '\r' are skipped;
+// a line that then starts with '#' or '%' is a comment. A field is a run
+// of the digits 0-9 and ends at the first other byte, so a sign makes the
+// line malformed and "6 7.0" reads (6, 7); the two fields are separated
+// by spaces and tabs, and whatever follows the second is ignored. A line
+// without two fields is skipped. Writes at most max_edges (u, v) pairs to
+// out and returns their number; *consumed is the length of the prefix of
+// buf whose lines were parsed (the caller feeds the rest again, with the
+// next block, or with a '\n' appended at the end of the input).
+i64 sheep_parse_text(const char* buf, i64 len, i64* out, i64 max_edges,
+                     i64* consumed) {
+  i64 w = 0;
+  i64 i = 0;
+  *consumed = 0;
+  while (i < len && w < max_edges) {
+    i64 j = i;
+    while (j < len && buf[j] != '\n') j++;
+    if (j == len) break;  // incomplete line: left for the next block
+    i64 p = i;
+    while (p < j && (buf[p] == ' ' || buf[p] == '\t' || buf[p] == '\r')) p++;
+    if (p < j && buf[p] != '#' && buf[p] != '%') {
+      i64 u = 0, v = 0;
+      bool ok = false;
+      while (p < j && buf[p] >= '0' && buf[p] <= '9') {
+        u = u * 10 + (buf[p] - '0');
+        p++;
+        ok = true;
+      }
+      while (p < j && (buf[p] == ' ' || buf[p] == '\t')) p++;
+      bool ok2 = false;
+      while (p < j && buf[p] >= '0' && buf[p] <= '9') {
+        v = v * 10 + (buf[p] - '0');
+        p++;
+        ok2 = true;
+      }
+      if (ok && ok2) {
+        out[2 * w] = u;
+        out[2 * w + 1] = v;
+        w++;
+      }
+    }
+    i = j + 1;
+    *consumed = i;
+  }
+  return w;
+}
+
 // ------------------------------------------------------------- utilities
 
-i64 sheep_core_abi_version() { return 2; }
+i64 sheep_core_abi_version() { return 3; }
 
 }  // extern "C"

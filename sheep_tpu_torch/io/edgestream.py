@@ -3,7 +3,9 @@
 Every stream provides ``num_vertices``, ``clamp_chunk_edges`` and
 ``chunks(cs)``, which yields (<= cs, 2) int64 host arrays: chunk i holds
 edges [i*cs, (i+1)*cs) in stream order, exactly as the reference cuts them,
-so the fixpoint sees the same segments and counts the same rounds.
+so the fixpoint sees the same segments and counts the same rounds. Text
+is parsed by the port's copy of the reference's native parser, so both
+read the same edges from the same file.
 """
 
 from __future__ import annotations
@@ -100,18 +102,50 @@ class EdgeStream:
                 yield flat.reshape(-1, 2).astype(np.int64)
 
     def _chunks_text(self, cs: int):
-        buf: list = []
-        with open(self.path, "r") as f:
-            for line in f:
-                pair = formats.parse_text_line(line)
-                if pair is None:
-                    continue
-                buf.append(pair)
-                if len(buf) == cs:
-                    yield np.asarray(buf, dtype=np.int64)
-                    buf = []
-        if buf:
-            yield np.asarray(buf, dtype=np.int64)
+        """Text through the native parser (``core/native.parse_text``, the
+        reference's grammar), block by block, regrouped into chunks of
+        ``cs`` edges."""
+        pend: list = []
+        pend_n = 0
+        for edges in _text_blocks(self.path):
+            pend.append(edges)
+            pend_n += len(edges)
+            while pend_n >= cs:
+                cat = np.concatenate(pend)
+                yield cat[:cs]
+                pend = [cat[cs:]]
+                pend_n = len(pend[0])
+        if pend_n:
+            yield np.concatenate(pend)
+
+
+TEXT_BLOCK_BYTES = 1 << 24
+
+
+def _text_blocks(path: str):
+    """The edges of a text file, one array per block of
+    ``TEXT_BLOCK_BYTES`` read, as the reference's
+    ``EdgeStream._text_blocks`` cuts them: the incomplete line at the end
+    of a block is carried into the next, and a last line with no newline
+    is parsed with one appended. A failed build of the native parser
+    raises."""
+    from sheep_tpu_torch.core import native
+
+    tail = b""
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(TEXT_BLOCK_BYTES)
+            data = tail + block
+            if not data:
+                return
+            if block:
+                edges, consumed = native.parse_text(data)
+                tail = data[consumed:]
+            else:  # the last line, without its newline
+                edges, _ = native.parse_text(data + b"\n")
+            yield edges
+            if not block:
+                return
 
 
 def open_input(spec, n_vertices: Optional[int] = None):

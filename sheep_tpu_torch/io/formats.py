@@ -2,7 +2,8 @@
 
 - text edge list (``.edges``/``.txt``/``.el``/``.snap``): one ``u v`` pair
   per line; ``#``/``%`` comments, blank and malformed lines are skipped,
-  extra columns ignored.
+  extra columns ignored (the grammar is the native parser's,
+  ``csrc/sheep_core.cpp`` ``sheep_parse_text``).
 - binary edge list: raw little-endian pairs, ``.bin32``/``.bin`` uint32,
   ``.bin64`` uint64.
 - partition map: ``.parts`` text (line i = part of vertex i) or ``.pbin``
@@ -30,20 +31,6 @@ def detect_format(path: str) -> str:
         return "bin64"
     raise ValueError(f"unknown graph format for {path!r} (ext {ext!r}); "
                      f"the port reads text, .bin32 and .bin64 edge lists")
-
-
-def parse_text_line(line: str):
-    """One edge-list line -> (u, v), or None for a skipped line."""
-    line = line.strip()
-    if not line or line.startswith(("#", "%")):
-        return None
-    parts = line.split()
-    if len(parts) < 2:
-        return None
-    try:
-        return int(parts[0]), int(parts[1])
-    except ValueError:
-        return None
 
 
 def write_edges(path: str, edges: np.ndarray) -> None:

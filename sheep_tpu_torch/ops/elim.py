@@ -20,19 +20,19 @@ A round of the exact descent is K1 (:func:`gather_clip`) for the table
 read before the scatter, ``scatter_min`` (``ops/fixpoint.py``), and the
 two kernels of ``ops/lift.py``: ``lift_stack`` squares the table into the
 lifting stack with an on-device depth cut, and ``climb_tail`` climbs,
-retires and counts in one pass. The stream descent climbs a level at a
-time (``fixpoint.climb_level``) and squares through K1. On CPU tensors
-each kernel's plain version runs instead.
+retires, counts and ends the round in one pass. The stream descent
+climbs a level at a time (``fixpoint.climb_level``) and squares through
+K1. On CPU tensors each kernel's plain version runs instead.
 
 The JAX ``lax.while_loop`` of :func:`batch_segment_fixpoint` becomes an
 execution that the host enqueues whole, ``batch_rounds`` rounds each
-ended by ``fixpoint.round_end``, with its stop conditions in a state
-tensor on the device: the host reads nothing per round, and one stats
-word per execution, one execution behind at pipeline depth >= 2
-(:func:`fold_segments_pipelined`). Tables and blocks are updated in place
-(the reference's arrays are immutable and it donates them instead); the
-comment above :func:`fold_segments_pipelined` says why that keeps its
-semantics.
+ended in ``climb_tail``'s last block (``fixpoint.round_end``), with its
+stop conditions in a state tensor on the device: the host reads nothing
+per round, and one stats word per execution, one execution behind at
+pipeline depth >= 2 (:func:`fold_segments_pipelined`). Tables and blocks
+are updated in place (the reference's arrays are immutable and it donates
+them instead); the comment above :func:`fold_segments_pipelined` says why
+that keeps its semantics.
 
 Sentinel encoding: index n means "none"; pos[n] = order[n] = n; inert
 edges are (n, n).
@@ -94,12 +94,14 @@ def orient_chunks_batch_pos(chunks: torch.Tensor, pos: torch.Tensor, n: int):
 class _pos_round_body:
     """One fixpoint round over position-space state.
 
-    ``_pos_round_body(n, lift_levels, descent)(loB, hiB, P, state)`` runs
-    the round on the row of the [N, C] blocks that the execution ``state``
-    picks (``ops/fixpoint.py``): P and that row are updated in place and
-    the round's control word ``ctl`` = int32 [rows, changed, retired,
-    live] (``ops/lift.py``) is filled; every step does nothing once the
-    execution has stopped, and nothing is read back. Called with 1-D
+    ``_pos_round_body(n, lift_levels, descent)(loB, hiB, P, state,
+    batch_rounds)`` runs the round on the row of the [N, C] blocks that
+    the execution ``state`` picks (``ops/fixpoint.py``): P and that row
+    are updated in place, the round's control word ``ctl`` = int32 [rows,
+    changed, retired, live, tickets] (``ops/lift.py``) is filled, and the
+    round is counted into the state of an execution with a budget of
+    ``batch_rounds`` rounds; every step does nothing once the execution
+    has stopped, and nothing is read back. Called with 1-D
     ``(lo, hi, P)`` it is one free-standing round and returns ``(out_lo,
     out_hi, P, changed)``, ``changed`` a 0-d view of ``ctl``. The stack,
     ``ctl`` and the stream descent's climb buffer are allocated at the
@@ -109,7 +111,7 @@ class _pos_round_body:
         self.n, self.lift_levels, self.descent = n, lift_levels, descent
         self.ctl = self.stack = self.cur = None
 
-    def __call__(self, lo, hi, P, state=None):
+    def __call__(self, lo, hi, P, state=None, batch_rounds=1):
         if state is None:
             loB, hiB = lo[None].clone(), hi[None].clone()
             self(loB, hiB, P, fixpoint.new_state(1, P.device))
@@ -127,11 +129,11 @@ class _pos_round_body:
         if self.descent == "exact":
             lift.lift_stack(P, self.stack, self.ctl, state)
             lift.climb_rows(lo, hi, old_at_lo, P, self.stack, self.ctl,
-                            state)
+                            state, batch_rounds)
         else:
-            self._stream(lo, hi, P, old_at_lo, state)
+            self._stream(lo, hi, P, old_at_lo, state, batch_rounds)
 
-    def _stream(self, loB, hiB, P, old_at_lo, state):
+    def _stream(self, loB, hiB, P, old_at_lo, state, batch_rounds):
         """Stream descent: square in place, one table live, the climb a
         level at a time (``fixpoint.climb_level``), the squaring through
         K1; ``ctl`` gets rows L - 1 (depth L) and the counts."""
@@ -147,7 +149,7 @@ class _pos_round_body:
             if j < L - 1:
                 t = gather_clip(t, t, state)
         lift.climb_rows(loB, hiB, old_at_lo, P, self.stack, self.ctl, state,
-                        pre=self.cur)
+                        batch_rounds, pre=self.cur)
 
 
 def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
@@ -156,9 +158,10 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
                            state: torch.Tensor = None):
     """Enqueue one execution over the rows of the [N, C] blocks: exactly
     ``batch_rounds`` rounds (default 32 N), each ended by
-    ``fixpoint.round_end``, then ``fixpoint.exec_finish``. A row is done
-    when a round changes nothing; the rounds after the last row is done,
-    or after the budget is spent mid-row, change nothing. Nothing is read
+    ``fixpoint.round_end`` (in ``climb_tail``'s last block on CUDA), then
+    ``fixpoint.exec_finish``. A row is done when a round changes nothing;
+    the rounds after the last row is done, or after the budget is spent
+    mid-row, change nothing. Nothing is read
     back: the stop conditions, the counts and the per-round log live in
     the execution's ``state`` (``fixpoint.new_state(batch_rounds)``, made
     here when None). The blocks always hold resumable state: the round
@@ -176,8 +179,7 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
         state = fixpoint.new_state(batch_rounds, P.device)
     body = _pos_round_body(n, lift_levels, descent)
     for _ in range(batch_rounds):
-        body(loB, hiB, P, state)
-        fixpoint.round_end(body.ctl, state, N, batch_rounds)
+        body(loB, hiB, P, state, batch_rounds)
     sv = fixpoint.exec_finish(loB, hiB, state, n)
     return loB, hiB, P, sv
 

@@ -18,14 +18,15 @@ int64, because a sum of live slots over a budget of rounds of C slots can
 pass 2^31. Every kernel of a round is given the state and returns at once
 when STOP is set, so the rounds enqueued after the last row converged
 change nothing and are not counted; a kernel that reads the round's slots
-reads row ROW of the blocks. :func:`round_end` is the state's only writer.
+reads row ROW of the blocks. The round's end (:func:`round_end`: count
+the round from the control word ``ctl`` of ``ops/lift.py``, move to the
+next row when the round changed nothing, set STOP) is the state's only
+writer; on CUDA it runs in the last block of the round's last kernel,
+``climb_tail`` (``lift.climb_rows``), and has no launch of its own.
 
 Kernels (``csrc/fixpoint.cu``), each with its plain PyTorch version:
 
   scatter_min   P[lo] <- min(P[lo], hi) at the live slots (lo != n)
-  round_end     count the round from the control word ``ctl``
-                (``ops/lift.py``), move to the next row when the round
-                changed nothing, set STOP
   exec_finish   store the rows that converged all-sentinel and pack
                 sv = int32[4] (segments_done, rounds, live, retired)
   climb_level   one level of the stream descent's climb
@@ -42,8 +43,7 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"scatter_min": 0, "round_end": 0, "exec_finish": 0,
-            "climb_level": 0}
+LAUNCHES = {"scatter_min": 0, "exec_finish": 0, "climb_level": 0}
 
 (ROW, ROUNDS, RETIRED, DEPTH_SUM, DEPTH_MAX, LIVE_SUM, LIVE_MAX,
  STOP) = range(8)
@@ -147,8 +147,8 @@ def round_end_plain(ctl: torch.Tensor, state: torch.Tensor, N: int,
     """The plain version of :func:`round_end`, on a CPU state."""
     if stopped(state):
         return
-    # the control word: [rows, changed, retired, live] (ops/lift.py)
-    rows, changed, retired, live = (int(x) for x in ctl.tolist())
+    # the control word: [rows, changed, retired, live, ...] (ops/lift.py)
+    rows, changed, retired, live = (int(x) for x in ctl.tolist()[:4])
     depth = rows + 1
     r = int(state[ROUNDS])
     state[LOG + 2 * r] = depth
@@ -197,8 +197,7 @@ def _lib():
         lib = _build.load("fixpoint")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn, args in (
-                ("sheep_scatter_min", [p, ll, p, p, ll, p, ll, p]),
-                ("sheep_round_end", [p, p, ll, ll, p]),
+                ("sheep_scatter_min", [p, ll, p, p, ll, p, ll, i, p]),
                 ("sheep_exec_finish", [p, p, ll, ll, i, p, p, p]),
                 ("sheep_climb_level", [p, ll, p, ll, p, ll, p, ll, p, p])):
             getattr(lib, fn).argtypes = args
@@ -221,11 +220,14 @@ def _launch(name: str, dev, *args) -> None:
 
 
 def scatter_min(P: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                state: torch.Tensor = None) -> None:
+                state: torch.Tensor = None, pre_read: bool = False) -> None:
     """``P[lo] <- min(P[lo], hi)`` in place at the live slots (lo in
     [0, n), n = len(P) - 1; a dead slot (n, n) changes nothing). With an
     execution ``state``: nothing once it has stopped, and [N, C] blocks
-    ``lo``/``hi`` are read at the execution's row."""
+    ``lo``/``hi`` are read at the execution's row. ``pre_read`` (the same
+    result; for timing against the kernel's earlier design in
+    ``chip_smoke.py``): the kernel's atomic only where a read of P[lo] is
+    above hi."""
     _check_vec("scatter_min", "P", P)
     _slots("scatter_min", lo, hi, state)
     _check_device("scatter_min", P, lo, hi)
@@ -241,31 +243,41 @@ def scatter_min(P: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         scatter_min_plain(P, lo, hi)
         return
     _launch("scatter_min", P.device, P.data_ptr(), len(P), lo.data_ptr(),
-            hi.data_ptr(), lo.shape[-1], _ptr(state), _stride(lo))
+            hi.data_ptr(), lo.shape[-1], _ptr(state), _stride(lo),
+            int(pre_read))
+
+
+def check_round_end(fn: str, state: torch.Tensor, N: int,
+                    batch_rounds: int) -> None:
+    """Check the arguments of a round's end: ``N`` rows, a budget of
+    ``batch_rounds`` rounds, and a ``state`` that can log that many."""
+    if N < 1 or batch_rounds < 1:
+        raise ValueError(f"{fn}: N and batch_rounds must be >= 1")
+    if len(state) < LOG + 2 * batch_rounds:
+        raise ValueError(f"{fn}: state logs {(len(state) - LOG) // 2} "
+                         f"rounds, budget {batch_rounds}")
 
 
 def round_end(ctl: torch.Tensor, state: torch.Tensor, N: int,
               batch_rounds: int) -> None:
     """Count one round of an execution over ``N`` rows with a budget of
     ``batch_rounds`` rounds, from the round's control word ``ctl``
-    ([rows, changed, retired, live], ``ops/lift.py``): log (depth, live),
-    add the retired count, move to the next row when nothing changed, set
-    STOP as the reference's loop condition would. Nothing once stopped."""
+    ([rows, changed, retired, live, tickets], ``ops/lift.py``): log
+    (depth, live), add the retired count, move to the next row when
+    nothing changed, set STOP as the reference's loop condition would.
+    Nothing once stopped. CPU tensors only: on CUDA the round ends in the
+    last block of ``climb_tail`` (``lift.climb_rows``), which has no
+    launch of its own to offer here."""
     _check_vec("round_end", "ctl", ctl)
-    if len(ctl) != 4:
-        raise ValueError("round_end: ctl must hold 4 entries")
+    if len(ctl) < 4:
+        raise ValueError("round_end: ctl must hold >= 4 entries")
     check_state("round_end", state, ctl.device)
-    if N < 1 or batch_rounds < 1:
-        raise ValueError("round_end: N and batch_rounds must be >= 1")
-    if len(state) < LOG + 2 * batch_rounds:
-        raise ValueError(f"round_end: state logs {(len(state) - LOG) // 2} "
-                         f"rounds, budget {batch_rounds}")
+    check_round_end("round_end", state, N, batch_rounds)
     _check_device("round_end", ctl, state)
-    if ctl.device.type == "cpu":
-        round_end_plain(ctl, state, N, batch_rounds)
-        return
-    _launch("round_end", ctl.device, ctl.data_ptr(), state.data_ptr(), N,
-            batch_rounds)
+    if ctl.device.type != "cpu":
+        raise ValueError("round_end: CPU tensors only; on CUDA the round "
+                         "ends in climb_tail's last block (lift.climb_rows)")
+    round_end_plain(ctl, state, N, batch_rounds)
 
 
 def exec_finish(loB: torch.Tensor, hiB: torch.Tensor, state: torch.Tensor,

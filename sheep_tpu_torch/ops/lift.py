@@ -34,14 +34,18 @@ The stack is allocated once per fixpoint call (:func:`new_stack`): level
 k >= 1 is row k - 1 of an int32 [L-1, stride] tensor, stride the table
 length rounded up to a multiple of 32 (16-byte aligned rows). Rows at
 or above d - 1 are left as they were. The control word ``ctl`` is int32
-[ROWS, CHANGED, RETIRED, LIVE] (:func:`new_ctl`), ROWS = d - 1 so that
-zeroing the word starts a round.
+[ROWS, CHANGED, RETIRED, LIVE, TICKETS] (:func:`new_ctl`), ROWS = d - 1
+so that zeroing the word starts a round; TICKETS counts the blocks of
+the CUDA ``climb_tail`` that have finished the round.
 
 In a batched fixpoint execution (``ops/fixpoint.py``) both are given the
 execution's state and do nothing once it has stopped (``lift_stack``
 still zeroes ``ctl``); :func:`climb_rows` is ``climb_tail`` on the
 execution's row of the [N, C] blocks, written back in place, and takes
 the stream descent's climbed positions ``pre`` instead of the stack.
+``climb_rows`` is the round's last step, so it also ends the round
+(``fixpoint.round_end``): on CUDA in the last block of its kernel, on the
+CPU by the plain version after the plain climb.
 
 ``LAUNCHES`` counts the wrapper calls that launched their kernels: one
 ``lift_stack`` call issues the whole ladder (a memset of ``ctl`` and L-1
@@ -59,7 +63,8 @@ from sheep_tpu_torch.ops.gather import gather_clip_plain
 
 LAUNCHES = {"lift_stack": 0, "climb_tail": 0}
 
-ROWS, CHANGED, RETIRED, LIVE = range(4)
+ROWS, CHANGED, RETIRED, LIVE, TICKETS = range(5)
+CTL_WORDS = 5
 ROW_ALIGN = 32  # int32: rows start on 128-byte boundaries
 
 
@@ -79,7 +84,7 @@ def new_stack(T: int, levels: int, device) -> torch.Tensor:
 
 
 def new_ctl(device) -> torch.Tensor:
-    return torch.zeros(4, dtype=torch.int32, device=device)
+    return torch.zeros(CTL_WORDS, dtype=torch.int32, device=device)
 
 
 def lift_stack_plain(P: torch.Tensor, levels: int):
@@ -173,8 +178,8 @@ def _check(fn: str, P, stack, ctl, *slots, state=None) -> None:
     T = len(P)
     if not 0 < T < 2**31:
         raise ValueError(f"{fn}: P must hold 1 .. 2^31-1 entries")
-    if len(ctl) != 4:
-        raise ValueError(f"{fn}: ctl must hold 4 entries")
+    if len(ctl) != CTL_WORDS:
+        raise ValueError(f"{fn}: ctl must hold {CTL_WORDS} entries")
     if stack.shape[1] != row_stride(T) or stack.shape[0] + 1 > 32:
         raise ValueError(f"{fn}: stack shape {tuple(stack.shape)} does not "
                          f"fit a table of {T} entries")
@@ -203,7 +208,7 @@ def _lib():
         lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, p, p, p]
         lib.sheep_lift_stack.restype = ctypes.c_int
         lib.sheep_climb_tail.argtypes = [p, p, p, ll, p, ll, p, ll, p, p, p,
-                                         p, ll, p, p]
+                                         p, ll, p, ll, ll, p]
         lib.sheep_climb_tail.restype = ctypes.c_int
         lib.sheep_lift_error_string.argtypes = [ctypes.c_int]
         lib.sheep_lift_error_string.restype = ctypes.c_char_p
@@ -266,13 +271,18 @@ def climb_tail(lo: torch.Tensor, hi: torch.Tensor, old_at_lo: torch.Tensor,
 
 def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
                P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor,
-               state: torch.Tensor, pre: torch.Tensor = None) -> None:
+               state: torch.Tensor, batch_rounds: int,
+               pre: torch.Tensor = None) -> None:
     """:func:`climb_tail` on the row of the [N, C] blocks that the
-    execution ``state`` picks, written back into that row; nothing once
-    the execution has stopped. ``pre``: the stream descent's climbed
+    execution ``state`` picks, written back into that row, then the end of
+    the round (``fixpoint.round_end`` for an execution over the blocks' N
+    rows with a budget of ``batch_rounds`` rounds); nothing once the
+    execution has stopped. ``pre``: the stream descent's climbed
     positions, used instead of climbing the stack."""
     slots = (loB, hiB, old_at_lo) + (() if pre is None else (pre,))
     _check("climb_tail", P, stack, ctl, *slots, state=state)
+    N = loB.shape[0]
+    fixpoint.check_round_end("climb_tail", state, N, batch_rounds)
     if P.device.type == "cpu":
         if fixpoint.stopped(state):
             return
@@ -284,12 +294,14 @@ def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
         ctl[CHANGED] |= changed
         ctl[RETIRED] += retired
         ctl[LIVE] += live
+        fixpoint.round_end(ctl, state, N, batch_rounds)
         return
-    _launch_climb(loB, hiB, old_at_lo, P, stack, ctl, loB, hiB, state, pre)
+    _launch_climb(loB, hiB, old_at_lo, P, stack, ctl, loB, hiB, state, pre,
+                  N, batch_rounds)
 
 
 def _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi,
-                  state=None, pre=None) -> None:
+                  state=None, pre=None, N=0, batch_rounds=0) -> None:
     lib = _lib()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
@@ -299,6 +311,7 @@ def _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi,
             stack.shape[1], ctl.data_ptr(), out_lo.data_ptr(),
             out_hi.data_ptr(), None if state is None else state.data_ptr(),
             lo.shape[1] if lo.dim() == 2 else 0,
-            None if pre is None else pre.data_ptr(), stream)
+            None if pre is None else pre.data_ptr(), N, batch_rounds,
+            stream)
     _raise_if(rc, "climb_tail")
     LAUNCHES["climb_tail"] += 1

@@ -165,23 +165,23 @@ def test_stopped_execution_changes_nothing():
     loB, hiB = _t(loB), _t(hiB)
     state = fixpoint.new_state(3, CPU)
     state[fixpoint.STOP] = 1
-    before = [t.clone() for t in (P, loB, hiB)]
+    before = [t.clone() for t in (P, loB, hiB, state)]
     L = n.bit_length()
     stack, ctl = lift.new_stack(n + 1, L, CPU), lift.new_ctl(CPU)
-    ctl[:] = torch.tensor([3, 1, 4, 1], dtype=torch.int32)
+    ctl[:] = torch.tensor([3, 1, 4, 1, 5], dtype=torch.int32)
     old = gather.gather_clip(P, loB, state)
     assert old.shape == (loB.shape[1],)
     fixpoint.scatter_min(P, loB, hiB, state)
     lift.lift_stack(P, stack, ctl, state)
     assert not ctl.any()  # the ladder's memset still runs
-    ctl[:] = torch.tensor([3, 1, 4, 1], dtype=torch.int32)
-    lift.climb_rows(loB, hiB, old, P, stack, ctl, state)
+    ctl[:] = torch.tensor([3, 1, 4, 1, 5], dtype=torch.int32)
+    lift.climb_rows(loB, hiB, old, P, stack, ctl, state, 3)
     cur = torch.full((loB.shape[1],), 7, dtype=torch.int32)
     fixpoint.climb_level(P, loB, hiB, cur, state)
     assert (cur == 7).all()
-    for a, b in zip((P, loB, hiB), before):
+    for a, b in zip((P, loB, hiB, state), before):
         assert torch.equal(a, b)
-    assert ctl.tolist() == [3, 1, 4, 1]
+    assert ctl.tolist() == [3, 1, 4, 1, 5]
 
 
 def test_exec_finish_stores_converged_rows():
@@ -229,7 +229,7 @@ def test_wrappers_reject_bad_inputs():
         gather.gather_clip(P, lo[None])  # a block needs a state
     with pytest.raises(ValueError, match="block"):
         lift.climb_rows(lo, hi, lo, P, lift.new_stack(9, 4, CPU),
-                        lift.new_ctl(CPU), state)
+                        lift.new_ctl(CPU), state, 2)
 
 
 def test_wrappers_reject_other_devices():
@@ -265,12 +265,43 @@ def test_kernels_match_plain_on_card():
         want = elim.batch_segment_fixpoint(_t(P0), _t(loB), _t(hiB), n,
                                            batch_rounds=batch_rounds)
         n0 = dict(fixpoint.LAUNCHES)
+        climbs0 = lift.LAUNCHES["climb_tail"]
         got = elim.batch_segment_fixpoint(
             _t(P0).to(dev), _t(loB).to(dev), _t(hiB).to(dev), n,
             batch_rounds=batch_rounds)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
-        assert fixpoint.LAUNCHES["round_end"] == \
-            n0["round_end"] + batch_rounds
+        # the round ends in climb_tail's last block, one launch a round
+        assert "round_end" not in fixpoint.LAUNCHES
+        assert lift.LAUNCHES["climb_tail"] == climbs0 + batch_rounds
         assert fixpoint.LAUNCHES["exec_finish"] == n0["exec_finish"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4099, 4101, 4096])
+def test_scatter_min_rows_match_plain_on_card(C):
+    """scatter_min on each row of [3, C] blocks: with C not a multiple of
+    4 the rows start off a 16-byte boundary (the kernel's scalar head and
+    tail); with and without ``pre_read``, against the plain version on
+    that row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the fixpoint kernels "
+                    "have no CPU mode")
+    dev = torch.device("cuda")
+    n = (1 << 12) + 5
+    rng = np.random.default_rng(C)
+    P = _forest(n, rng)
+    rows = [_slots(n, C, rng, dead) for dead in (0.0, 0.5, 0.99)]
+    loB = _t(np.stack([lo for lo, _ in rows])).to(dev)
+    hiB = _t(np.stack([hi for _, hi in rows])).to(dev)
+    loB[0, :40] = 7  # many slots on one entry, in the head and the body
+    for r in range(3):
+        for pre_read in (False, True):
+            state = fixpoint.new_state(1, dev)
+            state[fixpoint.ROW] = r
+            got, want = _t(P).to(dev), _t(P)
+            fixpoint.scatter_min(got, loB, hiB, state, pre_read=pre_read)
+            fixpoint.scatter_min_plain(want, loB[r].cpu(), hiB[r].cpu())
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)

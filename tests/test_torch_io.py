@@ -131,3 +131,73 @@ def test_tree_split_equal(n, k, seed, weighted):
                           weights=w, alpha=1.0)
     assert np.array_equal(got, ref)
     assert pure.part_balance(got, k, w) == jpure.part_balance(ref, k, w)
+
+
+# The reference's default text grammar is its native parser's: digits
+# only (a signed field makes the line malformed), a field ends at the
+# first other byte ("6 7.0" reads (6, 7), "1 2x" reads (1, 2)), spaces and
+# tabs between fields, extra columns ignored. The second file is the one
+# that first showed the port's reader taking another grammar.
+TEXT_FILES = {
+    "mixed-no-final-newline": b"1 2\n2 3\n-1 3\n+4 5\n6 7.0\n3 4\n4 5\n"
+                              b"5 6\n6 7\n0 7\n1 2x\n  8\t9 10\n7 8",
+    "signs-and-decimals": b"1 2\n2 3\n-1 3\n+4 5\n6 7.0\n3 4\n4 5\n5 6\n"
+                          b"6 7\n0 7\n",
+}
+
+
+@pytest.fixture
+def reference_native_text(monkeypatch):
+    """The reference's text reader, held to its native parser: its Python
+    fallback raises if it is reached."""
+    from sheep_tpu.core import native as jnative
+
+    assert jnative.available(), "the reference's native parser is not built"
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError("the reference read text without its native "
+                             "parser")
+
+    monkeypatch.setattr(jes.EdgeStream, "_chunks_text_python", no_fallback)
+
+
+@pytest.mark.parametrize("name", sorted(TEXT_FILES))
+@pytest.mark.parametrize("cs", [3, 1 << 22])
+def test_text_grammar_matches_native_reference(tmp_path, name, cs,
+                                               reference_native_text):
+    path = str(tmp_path / f"{name}.edges")
+    with open(path, "wb") as f:
+        f.write(TEXT_FILES[name])
+    ref = list(jes.open_input(path).chunks(cs))
+    got = list(edgestream.open_input(path).chunks(cs))
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert a.dtype == np.int64
+        assert np.array_equal(a, b)
+    if name == "mixed-no-final-newline":
+        assert np.concatenate(got).tolist() == [
+            [1, 2], [2, 3], [6, 7], [3, 4], [4, 5], [5, 6], [6, 7], [0, 7],
+            [1, 2], [8, 9], [7, 8]]
+
+
+@pytest.mark.parametrize("block", [5, 64, 4093])
+@pytest.mark.parametrize("final_newline", [True, False])
+def test_text_split_across_parse_blocks(tmp_path, monkeypatch, block,
+                                        final_newline,
+                                        reference_native_text):
+    """Lines cut by the parser's block boundary are carried whole into the
+    next block, at any block size, with or without a final newline."""
+    e = jgen.random_graph(500, 3000, seed=block)
+    path = str(tmp_path / "g.edges")
+    jformats.write_edges(path, e)
+    with open(path, "ab") as f:
+        f.write(b"# tail comment\n\r 12\t13 99\n-5 6\n14 15")
+        if final_newline:
+            f.write(b"\n")
+    monkeypatch.setattr(edgestream, "TEXT_BLOCK_BYTES", block)
+    ref = list(jes.open_input(path).chunks(1000))
+    got = list(edgestream.open_input(path).chunks(1000))
+    assert len(got) == len(ref) == 4
+    for a, b in zip(got, ref):
+        assert np.array_equal(a, b)
+    assert got[-1][-2:].tolist() == [[12, 13], [14, 15]]

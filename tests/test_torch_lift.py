@@ -12,7 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from sheep_tpu.ops import elim as jelim
-from sheep_tpu_torch.ops import lift
+from sheep_tpu_torch.ops import elim, fixpoint, lift
 from sheep_tpu_torch.ops.gather import gather_clip_plain
 
 CPU = torch.device("cpu")
@@ -138,7 +138,8 @@ def test_rounds_match_jax(kind, n):
         assert torch.equal(stack[:d - 1, :n + 1], st[:d - 1])
         w_lo, w_hi = lift.climb_tail(_t(lo), _t(hi), old, P2, stack, ctl)
         assert torch.equal(w_lo, out_lo) and torch.equal(w_hi, out_hi)
-        assert ctl[lift.CHANGED:].tolist() == [int(ch), int(ret), int(live)]
+        assert ctl[lift.CHANGED:].tolist() == [int(ch), int(ret), int(live),
+                                               0]
 
         P, lo, hi = P2.numpy(), out_lo.numpy(), out_hi.numpy()
     if kind == "deep-chain":
@@ -211,7 +212,7 @@ def test_wrappers_reject_bad_inputs():
         lift.climb_tail(v, v[:8], v, P, stack, ctl)
     with pytest.raises(ValueError, match="fit"):
         lift.lift_stack(P, lift.new_stack(200, 7, CPU), ctl)
-    with pytest.raises(ValueError, match="4 entries"):
+    with pytest.raises(ValueError, match=f"{lift.CTL_WORDS} entries"):
         lift.lift_stack(P, stack, ctl[:3])
 
 
@@ -264,7 +265,8 @@ def test_kernels_match_plain_on_card():
     p_lo, p_hi, ch, ret, live = lift.climb_tail_plain(loc, hic, oldc, Pc, st,
                                                       d)
     assert torch.equal(out_lo, p_lo) and torch.equal(out_hi, p_hi)
-    assert ctl[lift.CHANGED:].tolist() == [int(ch), int(ret), int(live)]
+    assert ctl[lift.CHANGED:].tolist() == [int(ch), int(ret), int(live),
+                                               0]
 
 
 def test_ctl_adds_until_lift_stack_zeroes_it():
@@ -281,6 +283,44 @@ def test_ctl_adds_until_lift_stack_zeroes_it():
     assert once[lift.CHANGED] == 1 and once[lift.LIVE] > 0
     lift.climb_tail(_t(lo), _t(hi), old, P2, stack, ctl)
     assert ctl.tolist() == [rows, 1, 2 * once[lift.RETIRED],
-                            2 * once[lift.LIVE]]
+                            2 * once[lift.LIVE], 0]
     lift.lift_stack(P2, stack, ctl)
-    assert ctl.tolist() == [rows, 0, 0, 0]
+    assert ctl.tolist() == [rows, 0, 0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [4, 60])
+def test_fused_round_end_matches_plain_on_card(budget):
+    """climb_rows on the card ends the round in climb_tail's last block.
+    Rounds of an execution over three rows of slots, whose budget runs out
+    mid-execution (4) or leaves no-op rounds (60): after every round the
+    table, the blocks, every word of the state and the control word equal
+    the CPU's (the plain climb, then ``round_end_plain``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the lift kernels have "
+                    "no CPU mode")
+    n, C = (1 << 12) + 3, 3000
+    rng = np.random.default_rng(budget)
+    rows = [_slots(n, C, rng, dead) for dead in (0.5, 0.9, 1.0)]
+    L = n.bit_length()
+    runs = []
+    for dev in (CPU, torch.device("cuda")):
+        runs.append((elim._pos_round_body(n, L, "exact"),
+                     torch.full((n + 1,), n, dtype=torch.int32, device=dev),
+                     _t(np.stack([lo for lo, _ in rows])).to(dev),
+                     _t(np.stack([hi for _, hi in rows])).to(dev),
+                     fixpoint.new_state(budget, dev)))
+    for _ in range(budget):
+        for body, P, loB, hiB, state in runs:
+            body(loB, hiB, P, state, budget)
+        torch.cuda.synchronize()
+        (cb, *cpu), (gb, *gpu) = runs
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(gb.ctl.cpu(), cb.ctl)
+    state = runs[0][4]
+    rows_done, rounds = int(state[fixpoint.ROW]), int(state[fixpoint.ROUNDS])
+    if budget == 4:
+        assert rows_done < 3 and rounds == 4  # the budget ran out
+    else:
+        assert rows_done == 3 and rounds < 60  # no-op rounds after the last

@@ -5,6 +5,7 @@ count are integers (balance is the same numpy formula), so every
 comparison is exact."""
 
 import ast
+import inspect
 import json
 import pathlib
 
@@ -23,6 +24,8 @@ from sheep_tpu.ops import degrees as jdeg
 from sheep_tpu.ops import elim as jelim
 from sheep_tpu.ops import order as jorder
 from sheep_tpu_torch import cli, state
+from sheep_tpu_torch.backends.torch_backend import TorchBackend
+from sheep_tpu_torch.io import edgestream
 from sheep_tpu_torch.ops import elim
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -170,3 +173,62 @@ def test_port_imports_no_jax():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "sheep_tpu"), \
                 f"{path.relative_to(REPO)} imports {mod}"
+
+
+def test_text_grammar_partition_matches(tmp_path):
+    """Signed and decimal fields read as the reference's native parser
+    reads them, so the degrees, forest, assignment and cut agree."""
+    path = str(tmp_path / "signs.edges")
+    with open(path, "wb") as f:
+        f.write(b"1 2\n2 3\n-1 3\n+4 5\n6 7.0\n3 4\n4 5\n5 6\n6 7\n0 7\n")
+    ref = _jax(path, 2, 1 << 13, 2)
+    res = sheep_tpu_torch.partition(path, 2, device="cpu",
+                                    chunk_edges=1 << 13, dispatch_batch=2,
+                                    keep_tree=True)
+    _assert_equal(res, ref)
+    assert res.tree["deg"].tolist() == [1, 1, 2, 2, 2, 2, 3, 3]
+
+
+@pytest.mark.parametrize("inflight", [0, 1])
+def test_single_chunk_batch_at_depth_one_is_refused(inflight):
+    """At dispatch_batch=1 and depth 1 the reference runs its adaptive
+    per-segment driver, which the port lacks; the port refuses rather
+    than count other rounds. On the CPU the auto depth is 1."""
+    be = TorchBackend(dispatch_batch=1, device="cpu", inflight=inflight)
+    with pytest.raises(ValueError, match="adaptive per-segment driver"):
+        be.partition(edgestream.open_input("rmat-hash:8:4:1"), 2)
+    with pytest.raises(ValueError, match="adaptive per-segment driver"):
+        sheep_tpu_torch.partition("rmat-hash:8:4:1", 2, device="cpu",
+                                  dispatch_batch=1, inflight=inflight)
+
+
+def test_single_chunk_batch_at_depth_two_matches():
+    spec, k, cs = "rmat-hash:12:8:1", 8, 1 << 13
+    be = TpuBackend(chunk_edges=cs, dispatch_batch=1, inflight=2)
+    with jes.open_input(spec) as s:
+        ref = be.partition(s, k, keep_tree=True)
+    res = sheep_tpu_torch.partition(spec, k, device="cpu", chunk_edges=cs,
+                                    dispatch_batch=1, inflight=2,
+                                    keep_tree=True)
+    _assert_equal(res, ref)
+    assert res.diagnostics["inflight_depth"] == 2
+
+
+def test_default_chunk_edges_is_the_reference(monkeypatch):
+    ref = inspect.signature(TpuBackend.__init__).parameters[
+        "chunk_edges"].default
+    assert inspect.signature(TorchBackend.__init__).parameters[
+        "chunk_edges"].default == ref
+    assert inspect.signature(sheep_tpu_torch.partition).parameters[
+        "chunk_edges"].default == ref
+    assert TorchBackend(device="cpu").chunk_edges == ref
+    seen = {}
+
+    def fake_partition(path, k, **kw):
+        seen.update(kw)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(sheep_tpu_torch, "partition", fake_partition)
+    with pytest.raises(SystemExit):
+        cli.main(["--input", "rmat-hash:8", "--k", "2", "--device", "cpu"])
+    assert seen["chunk_edges"] == ref
