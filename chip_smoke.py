@@ -31,19 +31,17 @@ line is printed:
      beside its plain version, ``torch.take(t, t)`` for one squaring
      level, and its bytes bound;
   3d. the batched execution's kernels (``ops/fixpoint.py``) against their
-     plain versions on the card, exactly: ``scatter_min`` at T = 2^22+1,
-     C = 2^23 with 100% and 1% of the slots live, also against the library
-     pair it replaced (``torch.where`` for the dead-slot index and
-     ``scatter_reduce_``) and timed beside its ``pre_read`` form (the
-     atomic only where a read of P[lo] is above hi), and on the rows of
-     [3, C] blocks with C not a multiple of 4 (row starts off 16-byte
-     boundaries); ``exec_finish`` on [8, 2^23] blocks with all and half
-     the rows converged; ``climb_level`` (the stream descent's level);
-     each timed beside its plain version, with its bytes bound; then the
-     round's end, folded into ``climb_tail``'s last block: whole
-     executions over [3, 2^13] blocks, exact and stream descent, with
-     budgets that run out mid-row and that leave no-op rounds, round by
-     round against the CPU (``climb_rows``'s plain version and
+     plain versions on the card, exactly: ``scatter_min`` at T = 2^22+1, C =
+     2^23 with 100% and 1% of the slots live, also against the library pair
+     it replaced (``torch.where`` for the dead-slot index and
+     ``scatter_reduce_``), and on the rows of [3, C] blocks with C not a
+     multiple of 4 (row starts off 16-byte boundaries); ``exec_finish`` on
+     [8, 2^23] blocks with all and half the rows converged; ``climb_level``
+     (the stream descent's level); each timed beside its plain version, with
+     its bytes bound; then the round's end, folded into ``climb_tail``'s
+     last block: whole executions over [3, 2^13] blocks, exact and stream
+     descent, with budgets that run out mid-row and that leave no-op rounds,
+     round by round against the CPU (``climb_rows``'s plain version and
      ``round_end_plain``), every word of the execution's state and of the
      control word equal;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
@@ -320,10 +318,11 @@ def fused_climb(lo, hi, old, P, stack, n: int, want_ctl, budget: int = 64):
     one-row execution): one call from a fresh state against
     ``round_end_plain`` on the plain control word, every word of the state
     equal; then its time (``fused_ms``) and that of the same pass without
-    the round's end (``unfused_ms``), each from the same inputs restored
-    before each call (the live slots, which the pass moves in place, and
-    the state), less the restore's time (``inplace_ms``); and the plain
-    round's end on the card's tensors."""
+    the round's end (``unfused_ms``: the same kernel with no execution
+    state, written in place into the same row), each from the same inputs
+    restored before each call (the live slots, which the pass moves in
+    place, and the state), less the restore's time (``inplace_ms``); and
+    the plain round's end on the card's tensors."""
     import torch
 
     from sheep_tpu_torch.ops import fixpoint, lift
@@ -352,10 +351,11 @@ def fused_climb(lo, hi, old, P, stack, n: int, want_ctl, budget: int = 64):
         hiB[0].index_copy_(0, at, hi_at)
         state.copy_(state0)
 
-    # the same pass without the round's end (no execution), after the
-    # same restore, as the baseline of the difference
-    unfused = inplace_ms(restore, lambda: lift.climb_tail(lo, hi, old, P,
-                                                          stack, ctl))
+    # the same pass without the round's end (no execution state), into
+    # the same row in place, after the same restore: the baseline of the
+    # difference
+    unfused = inplace_ms(restore, lambda: lift._launch_climb(
+        loB[0], hiB[0], old, P, stack, ctl, loB[0], hiB[0]))
 
     # the plain round's end on the card's tensors (its reads go to the
     # host), on a state whose row the round does not move
@@ -394,11 +394,7 @@ def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
     ``scatter_reduce_``), exactly, at the s22 shapes (T = n + 1, C slots)
     with each share of live slots, on a random position-space table. Each
     timed from a fresh copy of the table, with its bound: lo in, hi at
-    the live slots, one sector of P for each distinct sector written; and
-    its ``pre_read`` form timed in turns with it (``pre_read_ms``). Also
-    timed back to back, with ``lo`` left in L2 (``repeat_ms``), and from
-    an L2 that holds none of it (``cold_ms``), beside one PyTorch pass
-    that reads ``lo`` (``read_lo_ms``, ``read_lo_cold_ms``)."""
+    the live slots, one sector of P for each distinct sector written."""
     import torch
 
     from sheep_tpu_torch.ops import fixpoint
@@ -410,7 +406,6 @@ def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
                        dtype=torch.int32)
     P0[n] = n
     spread = torch.arange(C, device=dev) % (n + 1)
-    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)  # 128 MB
     records = []
     for share in shares:
         lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
@@ -426,50 +421,27 @@ def scatters(card, shares, n: int = 1 << 22, C: int = 1 << 23):
             lib.scatter_reduce_(0, torch.where(lo == n, spread, lo.long()),
                                 hi, reduce="amin", include_self=True)
 
-        pre = P0.clone()
         fixpoint.scatter_min(P, lo, hi)
-        fixpoint.scatter_min(pre, lo, hi, pre_read=True)
         fixpoint.scatter_min_plain(ref, lo, hi)
         library()
         torch.cuda.synchronize()
         err = max(int((P.long() - ref.long()).abs().max()),
-                  int((pre.long() - ref.long()).abs().max()),
                   int((lib.long() - ref.long()).abs().max()))
         check(err == 0, f"scatter_min at live share {share:g} disagrees "
                         f"with its plain version or the library pair")
-        rec = {"case": f"live{share:g}", "T": n + 1, "C": C, "share": share,
-               "live": int(live.sum()), "max_abs_err": err}
-
-        def timed(pre_read):
-            return inplace_ms(lambda: P.copy_(P0),
-                              lambda: fixpoint.scatter_min(
-                                  P, lo, hi, pre_read=pre_read))
-
-        # in turns: kernel, pre_read, pre_read, kernel
-        ms = [timed(False), timed(True), timed(True), timed(False)]
-        rec["ms"] = (ms[0] + ms[3]) / 2
-        rec["pre_read_ms"] = (ms[1] + ms[2]) / 2
-        rec["ms_turns"] = ms
-        # back to back on the table it leaves: each call issues the same
-        # atomics (no pre-read), and lo stays in L2 between the calls
-        rec["repeat_ms"] = gs.time_ms(lambda: fixpoint.scatter_min(P, lo, hi))
-        # from cold: after a read of a buffer larger than L2, which leaves
-        # no line to write back, less that read
-        rec["cold_ms"] = inplace_ms(lambda: torch.amax(flush),
-                                    lambda: fixpoint.scatter_min(P, lo, hi))
-        # one PyTorch pass that reads lo once, as a yardstick of the
-        # stream, back to back and from cold
-        rec["read_lo_ms"] = gs.time_ms(lambda: torch.amax(lo))
-        rec["read_lo_cold_ms"] = inplace_ms(lambda: torch.amax(flush),
-                                            lambda: torch.amax(lo))
-        rec["plain_ms"] = inplace_ms(
-            lambda: ref.copy_(P0),
-            lambda: fixpoint.scatter_min_plain(ref, lo, hi), iters=5)
-        rec["library_ms"] = inplace_ms(lambda: lib.copy_(P0), library)
         slot = torch.arange(C, device=dev)
-        rec["bound_ms"] = gs.bound_ms(4 * C + 32 * sectors(slot[live])
-                                      + 32 * sectors(lo[live]))
-        rec["card"] = card
+        rec = {"case": f"live{share:g}", "T": n + 1, "C": C, "share": share,
+               "live": int(live.sum()), "max_abs_err": err,
+               "ms": inplace_ms(lambda: P.copy_(P0),
+                                lambda: fixpoint.scatter_min(P, lo, hi)),
+               "plain_ms": inplace_ms(
+                   lambda: ref.copy_(P0),
+                   lambda: fixpoint.scatter_min_plain(ref, lo, hi),
+                   iters=5),
+               "library_ms": inplace_ms(lambda: lib.copy_(P0), library),
+               "bound_ms": gs.bound_ms(4 * C + 32 * sectors(slot[live])
+                                       + 32 * sectors(lo[live])),
+               "card": card}
         print("scatter_min " + json.dumps(rec), flush=True)
         records.append(rec)
     return records
@@ -536,19 +508,17 @@ def scatter_rows(C: int = (1 << 20) + 3, N: int = 3, n: int = 1 << 20,
         hiB[dead] = n
         loB, hiB = loB.int(), hiB.int()
         for row in range(N):
-            for pre_read in (False, True):
-                state = fixpoint.new_state(1, dev)
-                state[fixpoint.ROW] = row
-                P, ref = P0.clone(), P0.clone()
-                fixpoint.scatter_min(P, loB, hiB, state, pre_read=pre_read)
-                fixpoint.scatter_min_plain(ref, loB[row], hiB[row])
-                torch.cuda.synchronize()
-                err = int((P.long() - ref.long()).abs().max())
-                check(err == 0, f"scatter_min on row {row} of [{N}, {C}] "
-                                f"blocks (live share {share:g}, pre_read "
-                                f"{pre_read}) disagrees with its plain "
-                                f"version")
-                worst = max(worst, err)
+            state = fixpoint.new_state(1, dev)
+            state[fixpoint.ROW] = row
+            P, ref = P0.clone(), P0.clone()
+            fixpoint.scatter_min(P, loB, hiB, state)
+            fixpoint.scatter_min_plain(ref, loB[row], hiB[row])
+            torch.cuda.synchronize()
+            err = int((P.long() - ref.long()).abs().max())
+            check(err == 0, f"scatter_min on row {row} of [{N}, {C}] blocks "
+                            f"(live share {share:g}) disagrees with its "
+                            f"plain version")
+            worst = max(worst, err)
     print(f"scatter_min rows: [{N}, {C}] blocks, rows 0-{N - 1}, exact "
           f"(max_abs_err {worst})", flush=True)
     return worst
@@ -1026,19 +996,18 @@ def main() -> int:
         entry("scatter_min", fix_src, "sheep_tpu/ops/elim.py:149",
               main_scatter, launches["scatter_min"],
               library_scope="torch.where dead-slot index + scatter_reduce_",
-              pre_read_ms=main_scatter["pre_read_ms"],
               cases={r["case"]: {k: r[k] for k in (
-                  "ms", "pre_read_ms", "repeat_ms", "cold_ms", "plain_ms",
-                  "library_ms", "bound_ms", "live")} for r in scatter_all},
+                  "ms", "plain_ms", "library_ms", "bound_ms", "live")}
+                  for r in scatter_all},
               cases_max_abs_err=max([r["max_abs_err"] for r in scatter_all]
                                     + [rows_err])),
         # folded into climb_tail's last block: no launch of its own, its
-        # time the fused pass's less the plain pass's at the main case
+        # time the fused pass's less the same pass's without it at the
+        # main case, signed (within the noise it can fall below 0)
         entry("round_end", "sheep_tpu_torch/csrc/lift.cu",
               "sheep_tpu/ops/elim.py:467", {
                   "max_abs_err": main_case["fused_max_abs_err"],
-                  "ms": max(main_case["fused_ms"] - main_case["unfused_ms"],
-                            0.0),
+                  "ms": main_case["fused_ms"] - main_case["unfused_ms"],
                   "plain_ms": main_case["round_end_plain_ms"],
                   "bound_ms": main_case["round_end_bound_ms"],
                   "library_ms": None, "case": main_case["case"]}, 0,

@@ -38,13 +38,10 @@
 // The grid is one wave of the blocks the card holds resident. Of 1, 2, 4
 // and 8 loads a thread on one wave, two waves or a thread for each group
 // of quads, this one was the fastest at a median round's share and at 1%
-// live, and within 1.5% of the fastest at 100% (tools/scatter_sweep.py).
-// PERF.md says where it stands against its bound, cold, warm and on the
-// main path. pre_read keeps, for comparison, the filter of the kernel this
-// one replaced: the atomic only where a read of P[lo] is above hi, which
-// saves atomics that change nothing but makes the lane wait on that read;
-// it measured slower at 100% and 1% live and no faster at a median
-// round's share, so the main path runs without it.
+// live, and within 1.5% of the fastest at 100% (PERF.md, section 6). The
+// filter of the kernel this one replaced (the atomic only where a read of
+// P[lo] is above hi) measured slower at 100% and 1% live and no faster at
+// a median round's share, so it went.
 //
 // exec_finish streams the blocks once (each row below the final one
 // written back as sentinel, the others read); climb_level reads cur and hi
@@ -70,12 +67,6 @@ __device__ __forceinline__ bool live_slot(int32_t l, int32_t n) {
   return (uint32_t)l < (uint32_t)n;  // dead (n, n) or out of range
 }
 
-template <bool kPreRead>
-__device__ __forceinline__ void scatter_one(int32_t* P, int32_t l, int32_t h) {
-  if (!kPreRead || h < __ldcg(P + l)) atomicMin(P + l, h);
-}
-
-template <bool kPreRead>
 __global__ void __launch_bounds__(kThreads)
 scatter_min_kernel(int32_t* __restrict__ P, const int32_t* __restrict__ lo,
                    const int32_t* __restrict__ hi, int64_t m, int32_t n,
@@ -94,11 +85,11 @@ scatter_min_kernel(int32_t* __restrict__ P, const int32_t* __restrict__ lo,
   const int64_t body_end = head + 4 * quads;
   if (tid < head) {
     const int32_t l = lo[tid];
-    if (live_slot(l, n)) scatter_one<kPreRead>(P, l, hi[tid]);
+    if (live_slot(l, n)) atomicMin(P + l, hi[tid]);
   }
   if (tid < m - body_end) {
     const int32_t l = lo[body_end + tid];
-    if (live_slot(l, n)) scatter_one<kPreRead>(P, l, hi[body_end + tid]);
+    if (live_slot(l, n)) atomicMin(P + l, hi[body_end + tid]);
   }
   const int4* lo4 = reinterpret_cast<const int4*>(lo + head);
   const int32_t* hi_b = hi + head;
@@ -135,7 +126,7 @@ scatter_min_kernel(int32_t* __restrict__ P, const int32_t* __restrict__ lo,
       const int32_t l[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (live_slot(l[c], n)) scatter_one<kPreRead>(P, l[c], h[4 * u + c]);
+        if (live_slot(l[c], n)) atomicMin(P + l[c], h[4 * u + c]);
     }
   }
 }
@@ -187,18 +178,16 @@ climb_level_kernel(const int32_t* __restrict__ t, int32_t last,
   }
 }
 
-Wave wave_scatter, wave_scatter_pre, wave_finish, wave_level;
+Wave wave_scatter, wave_finish, wave_level;
 
 }  // namespace
 
 // P[lo[i]] <- min(P[lo[i]], hi[i]) over m slots with lo in [0, n), n =
 // T - 1. ex: the execution's state or null; row_stride: the blocks' row
-// length when lo and hi are [N, C] blocks, else 0; pre_read: the atomic
-// only where a read of P[lo] is above hi.
+// length when lo and hi are [N, C] blocks, else 0.
 extern "C" int sheep_scatter_min(void* P, long long T, const void* lo,
                                  const void* hi, long long m, const void* ex,
-                                 long long row_stride, int pre_read,
-                                 void* stream) {
+                                 long long row_stride, void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   if (m <= 0) return 0;
   if ((uintptr_t)lo & 3) return (int)cudaErrorMisalignedAddress;
@@ -207,14 +196,9 @@ extern "C" int sheep_scatter_min(void* P, long long T, const void* lo,
   const long long work = (m + 4 * kScatterUnroll - 1) / (4 * kScatterUnroll);
   unsigned blocks = 0;
   cudaError_t err =
-      pre_read ? wave_blocks(wave_scatter_pre, scatter_min_kernel<true>,
-                             work, &blocks)
-               : wave_blocks(wave_scatter, scatter_min_kernel<false>, work,
-                             &blocks);
+      wave_blocks(wave_scatter, scatter_min_kernel, work, &blocks);
   if (err != cudaSuccess) return (int)err;
-  auto kernel =
-      pre_read ? scatter_min_kernel<true> : scatter_min_kernel<false>;
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  scatter_min_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (int32_t*)P, (const int32_t*)lo, (const int32_t*)hi, m,
       (int32_t)(T - 1), (const int64_t*)ex, (int64_t)row_stride);
   return (int)cudaGetLastError();

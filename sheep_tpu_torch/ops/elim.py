@@ -26,13 +26,13 @@ K1. On CPU tensors each kernel's plain version runs instead.
 
 The JAX ``lax.while_loop`` of :func:`batch_segment_fixpoint` becomes an
 execution that the host enqueues whole, ``batch_rounds`` rounds each
-ended in ``climb_tail``'s last block (``fixpoint.round_end``), with its
-stop conditions in a state tensor on the device: the host reads nothing
-per round, and one stats word per execution, one execution behind at
-pipeline depth >= 2 (:func:`fold_segments_pipelined`). Tables and blocks
-are updated in place (the reference's arrays are immutable and it donates
-them instead); the comment above :func:`fold_segments_pipelined` says why
-that keeps its semantics.
+ended in ``climb_tail``'s last block (``fixpoint.round_end_plain`` on the
+CPU), with its stop conditions in a state tensor on the device: the host
+reads nothing per round, and one stats word per execution, one execution
+behind at pipeline depth >= 2 (:func:`fold_segments_pipelined`). Tables
+and blocks are updated in place (the reference's arrays are immutable and
+it donates them instead); the comment above
+:func:`fold_segments_pipelined` says why that keeps its semantics.
 
 Sentinel encoding: index n means "none"; pos[n] = order[n] = n; inert
 edges are (n, n).
@@ -111,11 +111,14 @@ class _pos_round_body:
         self.n, self.lift_levels, self.descent = n, lift_levels, descent
         self.ctl = self.stack = self.cur = None
 
-    def __call__(self, lo, hi, P, state=None, batch_rounds=1):
+    def __call__(self, lo, hi, P, state=None, batch_rounds=None):
         if state is None:
             loB, hiB = lo[None].clone(), hi[None].clone()
-            self(loB, hiB, P, fixpoint.new_state(1, P.device))
+            self(loB, hiB, P, fixpoint.new_state(1, P.device), 1)
             return loB[0], hiB[0], P, self.ctl[lift.CHANGED]
+        if batch_rounds is None:
+            raise ValueError("_pos_round_body: an execution state needs its "
+                             "budget, batch_rounds")
         if self.ctl is None:
             self.ctl = lift.new_ctl(P.device)
             exact = self.descent == "exact"
@@ -157,14 +160,14 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
                            descent: str = "auto", batch_rounds: int = 0,
                            state: torch.Tensor = None):
     """Enqueue one execution over the rows of the [N, C] blocks: exactly
-    ``batch_rounds`` rounds (default 32 N), each ended by
-    ``fixpoint.round_end`` (in ``climb_tail``'s last block on CUDA), then
-    ``fixpoint.exec_finish``. A row is done when a round changes nothing;
-    the rounds after the last row is done, or after the budget is spent
-    mid-row, change nothing. Nothing is read
-    back: the stop conditions, the counts and the per-round log live in
-    the execution's ``state`` (``fixpoint.new_state(batch_rounds)``, made
-    here when None). The blocks always hold resumable state: the round
+    ``batch_rounds`` rounds (default 32 N), each ended in
+    ``climb_tail``'s last block (by ``fixpoint.round_end_plain`` on the
+    CPU), then ``fixpoint.exec_finish``. A row is done when a round
+    changes nothing; the rounds after the last row is done, or after the
+    budget is spent mid-row, change nothing. Nothing is read back: the
+    stop conditions, the counts and the per-round log live in the
+    execution's ``state`` (``fixpoint.new_state(batch_rounds)``, made here
+    when None). The blocks always hold resumable state: the round
     writes its row back in place, and the rows that converged are stored
     all-sentinel at the end.
 

@@ -18,11 +18,12 @@ int64, because a sum of live slots over a budget of rounds of C slots can
 pass 2^31. Every kernel of a round is given the state and returns at once
 when STOP is set, so the rounds enqueued after the last row converged
 change nothing and are not counted; a kernel that reads the round's slots
-reads row ROW of the blocks. The round's end (:func:`round_end`: count
-the round from the control word ``ctl`` of ``ops/lift.py``, move to the
-next row when the round changed nothing, set STOP) is the state's only
-writer; on CUDA it runs in the last block of the round's last kernel,
-``climb_tail`` (``lift.climb_rows``), and has no launch of its own.
+reads row ROW of the blocks. The round's end (count the round from the
+control word ``ctl`` of ``ops/lift.py``, move to the next row when the
+round changed nothing, set STOP; :func:`round_end_plain` on the CPU) is
+the state's only writer; on CUDA it runs in the last block of the
+round's last kernel, ``climb_tail`` (``lift.climb_rows``), and has no
+launch of its own.
 
 Kernels (``csrc/fixpoint.cu``), each with its plain PyTorch version:
 
@@ -142,28 +143,6 @@ def scatter_min_plain(P: torch.Tensor, lo: torch.Tensor,
                       include_self=True)
 
 
-def round_end_plain(ctl: torch.Tensor, state: torch.Tensor, N: int,
-                    batch_rounds: int) -> None:
-    """The plain version of :func:`round_end`, on a CPU state."""
-    if stopped(state):
-        return
-    # the control word: [rows, changed, retired, live, ...] (ops/lift.py)
-    rows, changed, retired, live = (int(x) for x in ctl.tolist()[:4])
-    depth = rows + 1
-    r = int(state[ROUNDS])
-    state[LOG + 2 * r] = depth
-    state[LOG + 2 * r + 1] = live
-    state[ROUNDS] = r + 1
-    state[RETIRED] += retired
-    state[DEPTH_SUM] += depth
-    state[DEPTH_MAX] = max(int(state[DEPTH_MAX]), depth)
-    state[LIVE_SUM] += live
-    state[LIVE_MAX] = max(int(state[LIVE_MAX]), live)
-    i = row(state) + (0 if changed else 1)
-    state[ROW] = i
-    state[STOP] = int(i >= N or r + 1 >= batch_rounds)
-
-
 def exec_finish_plain(loB: torch.Tensor, hiB: torch.Tensor,
                       state: torch.Tensor, n: int) -> torch.Tensor:
     """The plain version of :func:`exec_finish`, on a CPU state."""
@@ -197,7 +176,7 @@ def _lib():
         lib = _build.load("fixpoint")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn, args in (
-                ("sheep_scatter_min", [p, ll, p, p, ll, p, ll, i, p]),
+                ("sheep_scatter_min", [p, ll, p, p, ll, p, ll, p]),
                 ("sheep_exec_finish", [p, p, ll, ll, i, p, p, p]),
                 ("sheep_climb_level", [p, ll, p, ll, p, ll, p, ll, p, p])):
             getattr(lib, fn).argtypes = args
@@ -220,14 +199,11 @@ def _launch(name: str, dev, *args) -> None:
 
 
 def scatter_min(P: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                state: torch.Tensor = None, pre_read: bool = False) -> None:
+                state: torch.Tensor = None) -> None:
     """``P[lo] <- min(P[lo], hi)`` in place at the live slots (lo in
     [0, n), n = len(P) - 1; a dead slot (n, n) changes nothing). With an
     execution ``state``: nothing once it has stopped, and [N, C] blocks
-    ``lo``/``hi`` are read at the execution's row. ``pre_read`` (the same
-    result; for timing against the kernel's earlier design in
-    ``chip_smoke.py``): the kernel's atomic only where a read of P[lo] is
-    above hi."""
+    ``lo``/``hi`` are read at the execution's row."""
     _check_vec("scatter_min", "P", P)
     _slots("scatter_min", lo, hi, state)
     _check_device("scatter_min", P, lo, hi)
@@ -243,8 +219,7 @@ def scatter_min(P: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         scatter_min_plain(P, lo, hi)
         return
     _launch("scatter_min", P.device, P.data_ptr(), len(P), lo.data_ptr(),
-            hi.data_ptr(), lo.shape[-1], _ptr(state), _stride(lo),
-            int(pre_read))
+            hi.data_ptr(), lo.shape[-1], _ptr(state), _stride(lo))
 
 
 def check_round_end(fn: str, state: torch.Tensor, N: int,
@@ -258,26 +233,39 @@ def check_round_end(fn: str, state: torch.Tensor, N: int,
                          f"rounds, budget {batch_rounds}")
 
 
-def round_end(ctl: torch.Tensor, state: torch.Tensor, N: int,
-              batch_rounds: int) -> None:
+def round_end_plain(ctl: torch.Tensor, state: torch.Tensor, N: int,
+                    batch_rounds: int) -> None:
     """Count one round of an execution over ``N`` rows with a budget of
     ``batch_rounds`` rounds, from the round's control word ``ctl``
     ([rows, changed, retired, live, tickets], ``ops/lift.py``): log
     (depth, live), add the retired count, move to the next row when
     nothing changed, set STOP as the reference's loop condition would.
-    Nothing once stopped. CPU tensors only: on CUDA the round ends in the
-    last block of ``climb_tail`` (``lift.climb_rows``), which has no
-    launch of its own to offer here."""
-    _check_vec("round_end", "ctl", ctl)
+    Nothing once stopped. The plain version, which reads the state on the
+    host: on CUDA the round ends in the last block of ``climb_tail``
+    (``lift.climb_rows``), which has no launch of its own."""
+    fn = "round_end_plain"
+    _check_vec(fn, "ctl", ctl)
     if len(ctl) < 4:
-        raise ValueError("round_end: ctl must hold >= 4 entries")
-    check_state("round_end", state, ctl.device)
-    check_round_end("round_end", state, N, batch_rounds)
-    _check_device("round_end", ctl, state)
-    if ctl.device.type != "cpu":
-        raise ValueError("round_end: CPU tensors only; on CUDA the round "
-                         "ends in climb_tail's last block (lift.climb_rows)")
-    round_end_plain(ctl, state, N, batch_rounds)
+        raise ValueError(f"{fn}: ctl must hold >= 4 entries")
+    check_state(fn, state, ctl.device)
+    check_round_end(fn, state, N, batch_rounds)
+    _check_device(fn, ctl, state)
+    if stopped(state):
+        return
+    rows, changed, retired, live = (int(x) for x in ctl.tolist()[:4])
+    depth = rows + 1
+    r = int(state[ROUNDS])
+    state[LOG + 2 * r] = depth
+    state[LOG + 2 * r + 1] = live
+    state[ROUNDS] = r + 1
+    state[RETIRED] += retired
+    state[DEPTH_SUM] += depth
+    state[DEPTH_MAX] = max(int(state[DEPTH_MAX]), depth)
+    state[LIVE_SUM] += live
+    state[LIVE_MAX] = max(int(state[LIVE_MAX]), live)
+    i = row(state) + (0 if changed else 1)
+    state[ROW] = i
+    state[STOP] = int(i >= N or r + 1 >= batch_rounds)
 
 
 def exec_finish(loB: torch.Tensor, hiB: torch.Tensor, state: torch.Tensor,

@@ -43,9 +43,9 @@ execution's state and do nothing once it has stopped (``lift_stack``
 still zeroes ``ctl``); :func:`climb_rows` is ``climb_tail`` on the
 execution's row of the [N, C] blocks, written back in place, and takes
 the stream descent's climbed positions ``pre`` instead of the stack.
-``climb_rows`` is the round's last step, so it also ends the round
-(``fixpoint.round_end``): on CUDA in the last block of its kernel, on the
-CPU by the plain version after the plain climb.
+``climb_rows`` is the round's last step, so it also ends the round: on
+CUDA in the last block of its kernel, on the CPU by
+``fixpoint.round_end_plain`` after the plain climb.
 
 ``LAUNCHES`` counts the wrapper calls that launched their kernels: one
 ``lift_stack`` call issues the whole ladder (a memset of ``ctl`` and L-1
@@ -275,9 +275,9 @@ def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
                pre: torch.Tensor = None) -> None:
     """:func:`climb_tail` on the row of the [N, C] blocks that the
     execution ``state`` picks, written back into that row, then the end of
-    the round (``fixpoint.round_end`` for an execution over the blocks' N
-    rows with a budget of ``batch_rounds`` rounds); nothing once the
-    execution has stopped. ``pre``: the stream descent's climbed
+    the round (``fixpoint.round_end_plain``, for an execution over the
+    blocks' N rows with a budget of ``batch_rounds`` rounds); nothing once
+    the execution has stopped. ``pre``: the stream descent's climbed
     positions, used instead of climbing the stack."""
     slots = (loB, hiB, old_at_lo) + (() if pre is None else (pre,))
     _check("climb_tail", P, stack, ctl, *slots, state=state)
@@ -294,7 +294,7 @@ def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
         ctl[CHANGED] |= changed
         ctl[RETIRED] += retired
         ctl[LIVE] += live
-        fixpoint.round_end(ctl, state, N, batch_rounds)
+        fixpoint.round_end_plain(ctl, state, N, batch_rounds)
         return
     _launch_climb(loB, hiB, old_at_lo, P, stack, ctl, loB, hiB, state, pre,
                   N, batch_rounds)

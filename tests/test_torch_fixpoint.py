@@ -1,7 +1,7 @@
 """The batched fixpoint execution's kernels (sheep_tpu_torch/ops/fixpoint.py)
 and the guarded round against the JAX package: the scatter-min against
 ``P.at[lo].min(hi, mode="drop")``, the stream descent's climb level against
-its ``t[cur]``/``where`` step, and whole executions (``round_end`` and
+its ``t[cur]``/``where`` step, and whole executions (``round_end_plain`` and
 ``exec_finish`` with the round's kernels) against the reference's
 ``fold_segments_batch_pos``, on the same numpy inputs made from fixed
 seeds. Everything is integer, so every comparison is exact. The CPU runs
@@ -139,21 +139,21 @@ def test_execution_matches_jax(descent, batch_rounds):
 def test_round_end_counts_switches_rows_and_stops():
     state = fixpoint.new_state(4, CPU)
     ctl = torch.tensor([5, 1, 2, 9], dtype=torch.int32)  # changed
-    fixpoint.round_end(ctl, state, 2, 4)
+    fixpoint.round_end_plain(ctl, state, 2, 4)
     assert state[:fixpoint.LOG].tolist() == [0, 1, 2, 6, 6, 9, 9, 0]
     ctl[:] = torch.tensor([2, 0, 1, 3], dtype=torch.int32)  # converged
-    fixpoint.round_end(ctl, state, 2, 4)
+    fixpoint.round_end_plain(ctl, state, 2, 4)
     assert state[:fixpoint.LOG].tolist() == [1, 2, 3, 9, 6, 12, 9, 0]
-    fixpoint.round_end(ctl, state, 2, 4)  # row 1 converges: i == N
+    fixpoint.round_end_plain(ctl, state, 2, 4)  # row 1 converges: i == N
     assert state[fixpoint.ROW] == 2 and state[fixpoint.STOP] == 1
     before = state.clone()
-    fixpoint.round_end(ctl, state, 2, 4)  # stopped: a no-op round
+    fixpoint.round_end_plain(ctl, state, 2, 4)  # stopped: a no-op round
     assert torch.equal(state, before)
     assert fixpoint.round_log(state, 3) == [(6, 9), (3, 3), (3, 3)]
     budget = fixpoint.new_state(2, CPU)
     ctl[lift.CHANGED] = 1
     for _ in range(2):
-        fixpoint.round_end(ctl, budget, 5, 2)
+        fixpoint.round_end_plain(ctl, budget, 5, 2)
     assert budget[fixpoint.ROW] == 0 and budget[fixpoint.STOP] == 1
 
 
@@ -218,9 +218,11 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="int64"):
         fixpoint.scatter_min(P, lo[None], hi[None], state.int())
     with pytest.raises(ValueError, match="budget"):
-        fixpoint.round_end(lift.new_ctl(CPU), state, 1, 5)
+        fixpoint.round_end_plain(lift.new_ctl(CPU), state, 1, 5)
     with pytest.raises(ValueError, match=">= 1"):
-        fixpoint.round_end(lift.new_ctl(CPU), state, 0, 1)
+        fixpoint.round_end_plain(lift.new_ctl(CPU), state, 0, 1)
+    with pytest.raises(ValueError, match="budget"):
+        elim._pos_round_body(8, 4, "exact")(lo[None], hi[None], P, state)
     with pytest.raises(ValueError, match="blocks"):
         fixpoint.exec_finish(lo[None], hi[None, :3], state, 8)
     with pytest.raises(ValueError, match="row length"):
@@ -283,8 +285,7 @@ def test_kernels_match_plain_on_card():
 def test_scatter_min_rows_match_plain_on_card(C):
     """scatter_min on each row of [3, C] blocks: with C not a multiple of
     4 the rows start off a 16-byte boundary (the kernel's scalar head and
-    tail); with and without ``pre_read``, against the plain version on
-    that row."""
+    tail), against the plain version on that row."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc: the fixpoint kernels "
                     "have no CPU mode")
@@ -297,11 +298,10 @@ def test_scatter_min_rows_match_plain_on_card(C):
     hiB = _t(np.stack([hi for _, hi in rows])).to(dev)
     loB[0, :40] = 7  # many slots on one entry, in the head and the body
     for r in range(3):
-        for pre_read in (False, True):
-            state = fixpoint.new_state(1, dev)
-            state[fixpoint.ROW] = r
-            got, want = _t(P).to(dev), _t(P)
-            fixpoint.scatter_min(got, loB, hiB, state, pre_read=pre_read)
-            fixpoint.scatter_min_plain(want, loB[r].cpu(), hiB[r].cpu())
-            torch.cuda.synchronize()
-            assert torch.equal(got.cpu(), want)
+        state = fixpoint.new_state(1, dev)
+        state[fixpoint.ROW] = r
+        got, want = _t(P).to(dev), _t(P)
+        fixpoint.scatter_min(got, loB, hiB, state)
+        fixpoint.scatter_min_plain(want, loB[r].cpu(), hiB[r].cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
