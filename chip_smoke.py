@@ -44,6 +44,14 @@ line is printed:
      round by round against the CPU (``climb_rows``'s plain version and
      ``round_end_plain``), every word of the execution's state and of the
      control word equal;
+  3e. the per-segment driver's kernels against their plain versions on
+     the card, exactly: ``compact_live`` at C = 2^22 pairs with 50%, 10%
+     and 1% live (with duplicates) into the driver's ``size``, its
+     keys-only sort also against ``torch.sort``; timed whole, its sort
+     and its compaction alone, beside ``torch.sort`` of 64-bit keys, the
+     plain version, ``torch.unique`` of the packed keys with a masked
+     select, and its bytes bound; ``climb_jumps`` (``climb_tail``'s jump
+     mode, 16 steps) at C' = 2^14 on a chain forest;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -54,6 +62,13 @@ line is printed:
      against the CPU, both at depth 2; the same edges as a text file
      (read by the native parser, its last line without a newline) give
      the same partition;
+  4d. the per-segment driver (dispatch batch 1, depth 1), CUDA against
+     the CPU at rmat-hash:16:16:7, k=64, chunk 2^17, the host tail at 4096
+     live pairs: with ``stale_reuse`` 1 and 2, ``carry_tail`` and
+     ``tail_overlap``, forest, assignment, scores, device rounds and every
+     segment and compaction counter equal; then one chunk's adaptive fold
+     with ``host_tail=False``, whose tail runs as jump-mode segments
+     (``climb_jumps``);
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
      the card at the default depth (2), with the native split; the
@@ -72,10 +87,21 @@ line is printed:
      calls);
   5c. the full-size build at depths 1 and 3: the same partition, one host
      read per execution;
+  5d. the full-size build through the per-segment driver (dispatch batch
+     1, depth 1, chunk 2^22): the JAX package's cut, total and comm
+     volume, one host read a segment; its phase seconds, segments by
+     kind, host tails and launches, and the dispatch batch that auto
+     resolves to on this card;
+  5e. the full-size build with the entry point's defaults (auto dispatch
+     batch and depth, chunk 2^22): the JAX package's cut, total and comm
+     volume, the dispatch batch the auto rule gives, and the peak device
+     memory beside the model's total and within 0.9 of the card's;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
-     pass's less the plain pass's);
+     pass's less the plain pass's); ``climb_level``'s, ``lift_stack``'s
+     and ``compact_live``'s launches from 5d, ``climb_jumps``'s from the
+     jump-mode fold of 4d;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -663,6 +689,246 @@ def exec_kernels(card, n: int = 1 << 22, N: int = 8, C: int = 1 << 23):
     return out
 
 
+def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
+                C: int = 1 << 22, dup: float = 0.3):
+    """Phase 3e: ``compact_live`` against its plain version on the card,
+    exactly, at the adaptive driver's widest buffer (C = 2^22 pairs, T =
+    2^22+1 positions), each share of live pairs with about ``dup`` of them
+    copies of others, and ``size`` the driver's rule, pow2_at_least(2 live,
+    2^14), the kernel's sort also against ``torch.sort`` of its keys.
+    Timed: the whole call, the compaction alone on the sorted keys, the
+    kernel's sort alone and ``torch.sort`` of the 64-bit keys (the sort it
+    replaced), the plain version, and ``torch.unique`` of the packed keys
+    with a masked select of the live ones as a yardstick (it and the
+    plain version read their sizes back to the host, so they are timed
+    without the spin prefill); the bound: the pairs read (8 B each) and
+    the output written (8 B a slot)."""
+    import torch
+
+    from sheep_tpu_torch.ops import compact
+    from sheep_tpu_torch.ops.elim import pow2_at_least
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    records = []
+    for share in shares:
+        lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
+        u = torch.rand(C, device=dev, generator=g, dtype=torch.float64)
+        hi = lo + 1 + (u * (n - 1 - lo)).long()
+        copy = torch.rand(C, device=dev, generator=g) < dup
+        src = torch.randint(0, C, (C,), device=dev, generator=g)
+        lo = torch.where(copy, lo[src], lo)
+        hi = torch.where(copy, hi[src], hi)
+        dead = torch.rand(C, device=dev, generator=g) >= share
+        lo[dead] = n
+        hi[dead] = n
+        lo, hi = lo.int(), hi.int()
+        live = int((lo != n).sum())
+        size = pow2_at_least(2 * live, 1 << 14)
+        got = compact.compact_live(lo, hi, n, size)
+        want = compact.compact_live_plain(lo, hi, n, size)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        check(err == 0, f"compact_live at live share {share:g} disagrees "
+                        f"with its plain version")
+        packed = (lo.long() << 32) | hi.long()
+        key = compact.sort_keys(lo, hi, n)
+        bits = compact.key_bits(n)
+        check(torch.equal(key, torch.sort((lo.long() << bits) |
+                                          hi.long()).values),
+              f"compact_live's sort at live share {share:g} disagrees "
+              f"with torch.sort")
+
+        def library():
+            u = torch.unique(packed)
+            return u[(u >> 32) != n]
+
+        rec = {"case": f"live{share:g}", "C": C, "T": n + 1, "live": live,
+               "distinct": int(library().numel()), "size": size,
+               "max_abs_err": err,
+               "ms": gs.time_ms(lambda: compact.compact_live(lo, hi, n,
+                                                             size)),
+               "kernel_ms": gs.time_ms(
+                   lambda: compact.compact_sorted(key, n, size)),
+               "sort_ms": gs.time_ms(lambda: compact.sort_keys(lo, hi, n)),
+               "torch_sort_ms": gs.time_ms(lambda: torch.sort(packed)),
+               "plain_ms": gs.time_ms(
+                   lambda: compact.compact_live_plain(lo, hi, n, size),
+                   iters=5, prefill=False),
+               "library_ms": gs.time_ms(library, iters=5, prefill=False),
+               "bound_ms": gs.bound_ms(8 * C + 8 * size), "card": card}
+        print("compact_live " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def jump_climbs(card, n: int = 1 << 22, C: int = 1 << 14, jumps: int = 16,
+                chain: int = 4096):
+    """Phase 3e: ``climb_jumps`` (``climb_tail``'s jump mode) against its
+    plain version on the card, exactly (outputs and the control word), at
+    the small buffer's width (C' = 2^14 slots, 90% live, T = 2^22+1) on a
+    chain forest (P[p] = p + 1, every ``chain``-th position a root), the
+    slots' hi 1-48 positions above lo, so that climbing slots take up to
+    ``jumps`` steps; after the round's scatter. Timed beside its plain
+    version, with its bound: lo in and two outputs back (12 B a slot), hi
+    at the live slots, old_at_lo at the retiring ones, and each distinct
+    sector of P that the steps read."""
+    import torch
+
+    from sheep_tpu_torch.ops import fixpoint, lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37)
+    p = torch.arange(n, device=dev)
+    P0 = torch.where(p % chain == chain - 1, n, p + 1)
+    P0 = torch.cat([P0, torch.tensor([n], device=dev)]).int()
+    lo = torch.randint(0, n - 64, (C,), device=dev, generator=g)
+    hi = lo + torch.randint(1, 49, (C,), device=dev, generator=g)
+    dead = torch.rand(C, device=dev, generator=g) >= 0.9
+    lo[dead] = n
+    hi[dead] = n
+    lo, hi = lo.int(), hi.int()
+    old = P0[lo.long()]
+    P = P0.clone()
+    fixpoint.scatter_min_plain(P, lo, hi)
+    want = lift.climb_tail_plain(lo, hi, old, P, None, 1, jumps=jumps)
+    ctl = lift.new_ctl(dev)
+    got = lift.climb_tail(lo, hi, old, P, None, ctl, jumps=jumps)
+    torch.cuda.synchronize()
+    err = max(int((got[0].long() - want[0].long()).abs().max()),
+              int((got[1].long() - want[1].long()).abs().max()))
+    want_ctl = [0, int(want[2]), int(want[3]), int(want[4]), 0]
+    check(err == 0 and ctl.tolist() == want_ctl,
+          f"climb_jumps disagrees with its plain version (error {err}, ctl "
+          f"{ctl.tolist()} != {want_ctl})")
+    # the P entries the round reads: P[lo] at the live slots, then each
+    # step of the climbing ones
+    live = lo != n
+    now = P[lo.long()]
+    climbing = live & (hi != now)
+    reads, cur = [lo[live]], lo[climbing]
+    h = hi[climbing]
+    for _ in range(jumps):
+        reads.append(cur)
+        cand = P[cur.long()]
+        cur = torch.where(cand < h, cand, cur)
+    retiring = int((live & ~climbing).sum())
+    rec = {"case": f"chain{chain}-jumps{jumps}", "C": C, "T": n + 1,
+           "live": int(live.sum()), "retiring": retiring,
+           "max_abs_err": err,
+           "ms": gs.time_ms(lambda: lift.climb_tail(lo, hi, old, P, None,
+                                                    ctl, jumps=jumps)),
+           "plain_ms": gs.time_ms(lambda: lift.climb_tail_plain(
+               lo, hi, old, P, None, 1, jumps=jumps), iters=5),
+           "bound_ms": gs.bound_ms(
+               12 * C + 4 * int(live.sum()) + 4 * retiring
+               + 32 * sectors(torch.cat(reads).long())),
+           "library_ms": None, "card": card}
+    print("climb_jumps " + json.dumps(rec), flush=True)
+    return rec
+
+
+SEGMENT_COUNTERS = ("warm_segments", "full_segments", "small_segments",
+                    "stack_rebuilds", "compactions", "host_tails",
+                    "host_tail_live", "host_syncs", "device_rounds",
+                    "carried_tails", "carried_live", "overlap_tails")
+
+
+def per_segment(card, counters):
+    """Phase 4d: the per-segment driver on the card against the port on
+    the CPU, rmat-hash:16:16:7, k=64, chunk 2^17, dispatch batch 1, depth
+    1, the host tail at 4096 live pairs on both: with ``stale_reuse`` 1
+    and 2, with ``carry_tail`` and with ``tail_overlap``, forest,
+    assignment, scores and every segment and compaction counter equal,
+    the path's kernels launched; then the adaptive fold of one chunk with
+    no host tail (``host_tail=False``), so that its tail runs as jump-mode
+    segments (``climb_jumps``): table, rounds and counters equal. Returns
+    the launches of that fold."""
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.io import generators
+    from sheep_tpu_torch.ops import degrees, elim, order
+
+    spec16, cs = "rmat-hash:16:16:7", 1 << 17
+    base = dict(chunk_edges=cs, dispatch_batch=1, inflight=1,
+                host_tail_threshold=1 << 12, keep_tree=True)
+
+    def counted(fn):
+        for c in counters:
+            c.reset_launches()
+        out = fn()
+        return out, {k: v for c in counters for k, v in c.LAUNCHES.items()}
+
+    def same_counts(a, b, what):
+        for key in SEGMENT_COUNTERS:
+            check(a.get(key) == b.get(key),
+                  f"{what}: {key} {a.get(key)} != {b.get(key)}")
+
+    for name, extra in (("stale_reuse1", {}),
+                        ("stale_reuse2", dict(stale_reuse=2)),
+                        ("carry_tail", dict(carry_tail=True)),
+                        ("tail_overlap", dict(tail_overlap=True))):
+        t0 = time.perf_counter()
+        on_gpu, launches = counted(lambda: sheep_tpu_torch.partition(
+            spec16, 64, device="cuda", **base, **extra))
+        t_gpu = time.perf_counter() - t0
+        on_cpu = sheep_tpu_torch.partition(spec16, 64, device="cpu", **base,
+                                           **extra)
+        what = f"{spec16} per segment, {name}"
+        same_result(on_gpu, on_cpu, what)
+        same_counts(on_gpu.diagnostics, on_cpu.diagnostics, what)
+        dg = on_gpu.diagnostics
+        need = ["gather_clip", "scatter_min", "climb_tail", "climb_level",
+                "lift_stack"]
+        need += ["climb_jumps"] if dg.get("small_segments") else []
+        need += ["compact_live"] if dg.get("compactions") or \
+            dg.get("host_tails") or dg.get("carried_tails") else []
+        for kernel in need:
+            check(launches[kernel] > 0, f"{what}: no {kernel} launch")
+        print("per-segment " + json.dumps({
+            "case": name, "spec": spec16, "k": 64, "edge_cut":
+            on_gpu.edge_cut, **{k: dg[k] for k in SEGMENT_COUNTERS
+                                if k in dg},
+            "launches": {k: launches[k] for k in need}, "cuda_s": t_gpu,
+            "card": card}), flush=True)
+
+    # the ops-level fold of one chunk, its tail in jump mode
+    cpu = torch.device("cpu")
+    n = 1 << 16
+    e = torch.from_numpy(generators.rmat_hash_range(16, 0, cs, seed=7)).int()
+    deg = degrees.init_degrees(n, cpu)
+    degrees.degree_chunk(deg, e, n)
+    pos, _ = order.elimination_order(deg, n)
+    lo, hi = elim.orient_edges_pos(e, pos, n)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        stats: dict = {}
+        (P, rounds), launches = counted(lambda: elim.fold_edges_adaptive_pos(
+            torch.full((n + 1,), n, dtype=torch.int32, device=dev),
+            lo.clone().to(dev), hi.clone().to(dev), n, host_tail=False,
+            warm_schedule=((1, 8),), stats=stats))
+        runs.append((P.cpu(), rounds, stats, launches))
+    (gP, gr, gs_, gl), (cP, cr, cs_, _) = runs
+    check(torch.equal(gP, cP) and gr == cr,
+          "the jump-mode fold's table or rounds differ on the card")
+    same_counts(gs_, cs_, "the jump-mode fold")
+    check(gs_.get("small_segments", 0) > 0 and gl["climb_jumps"] > 0 and
+          gl["compact_live"] > 0,
+          f"the jump-mode fold ran no small segment on the card: {gs_}")
+    print("per-segment-jumps " + json.dumps({
+        "n": n, "C": cs, "rounds": gr, **{k: gs_[k] for k in
+                                          SEGMENT_COUNTERS if k in gs_},
+        "launches": {k: gl[k] for k in ("climb_jumps", "compact_live",
+                                        "climb_level", "lift_stack",
+                                        "climb_tail")},
+        "card": card}), flush=True)
+    return gl
+
+
 def lift_entries(head, cases, launches) -> list:
     """The kernels-line entries of ``lift_stack`` and ``climb_tail``: each
     at ``head``, the phase 3c case at the main path's median depth and
@@ -739,13 +1005,18 @@ def main() -> int:
     import numpy as np
 
     import sheep_tpu_torch
+    from sheep_tpu_torch.backends import torch_backend
     from sheep_tpu_torch.backends.torch_backend import LAUNCH_KEYS
-    from sheep_tpu_torch.ops import _build, elim, fixpoint, gather, lift
+    from sheep_tpu_torch.ops import (_build, compact, elim, fixpoint, gather,
+                                     lift)
 
+    counters = (gather, lift, fixpoint, compact)
     # kernel -> its launches' diagnostics key, for the kernels of the
-    # exact descent's main path (all but the stream descent's level)
+    # batched driver's exact descent (not the stream descent's level, nor
+    # the per-segment driver's own kernels)
     path_keys = {name: key for key, name in LAUNCH_KEYS.items()
-                 if name != "climb_level"}
+                 if name not in ("climb_level", "climb_jumps",
+                                 "compact_live")}
 
     t_all = time.perf_counter()
     # 1. the card
@@ -779,6 +1050,9 @@ def main() -> int:
     rows_err = scatter_rows()
     exec_cases = exec_kernels(card)
     fused_compared = fused_rounds(card)
+    # 3e. the per-segment driver's kernels against their plain versions
+    compact_cases = compactions(card)
+    jumps_case = jump_climbs(card)
 
     # 4. the port on CUDA (auto depth: 2) against the port on the CPU at
     # depths 1 (its auto) and 2
@@ -858,13 +1132,16 @@ def main() -> int:
           f"{on_gpu.edge_cut}, staged {dg['h2d_staged_bytes']:.0f} B, "
           f"h2d_blocked_ms {dg['h2d_blocked_ms']:.3f})", flush=True)
 
+    # 4d. the per-segment driver, CUDA against the CPU
+    jump_launches = per_segment(card, counters)
+
     # 5. the full-size build on the card, through the user's entry point,
     # at the default depth; fold_segments_pipelined runs its dispatch loop
     # under torch.cuda's sync debug mode "error", so a stray synchronizing
     # op there raises
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counter in (gather, lift, fixpoint):
+    for counter in counters:
         counter.reset_launches()
     round_log: list = []
     t0 = time.perf_counter()
@@ -872,7 +1149,7 @@ def main() -> int:
                                     chunk_edges=1 << 23, dispatch_batch=8,
                                     round_log=round_log)
     wall = time.perf_counter() - t0
-    launches = {**gather.LAUNCHES, **lift.LAUNCHES, **fixpoint.LAUNCHES}
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
     check(torch.cuda.get_sync_debug_mode() == 0,
           "the pipelined fold left the sync debug mode on")
@@ -951,6 +1228,93 @@ def main() -> int:
             "device_gap_ms": od["device_gap_ms"], "card": card}),
             flush=True)
 
+    # 5d. the full-size build through the per-segment driver, at the
+    # reference's default chunk (2^22)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters:
+        counter.reset_launches()
+    t0 = time.perf_counter()
+    seg = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
+                                    chunk_edges=1 << 22, dispatch_batch=1,
+                                    inflight=1)
+    seg_wall = time.perf_counter() - t0
+    seg_launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    s22_check(seg, "s22 per segment")
+    check(np.array_equal(seg.assignment, res.assignment),
+          "s22 per segment: assignment differs from the batched build")
+    sd = seg.diagnostics
+    segments = sum(sd.get(k, 0) for k in ("warm_segments", "full_segments",
+                                          "small_segments"))
+    check(sd["host_syncs"] == segments,
+          f"s22 per segment: {sd['host_syncs']} host reads for {segments} "
+          f"segments")
+    for name in ("gather_clip", "scatter_min", "climb_tail", "climb_level",
+                 "lift_stack", "compact_live"):
+        check(seg_launches[name] > 0,
+              f"s22 per segment: no {name} launch")
+    auto_batch = torch_backend.resolve_dispatch_batch(
+        0, 1 << 22, 1 << 22, "cuda", inflight=2, donate=True, h2d_ring=0)
+    print("s22-per-segment " + json.dumps({
+        "spec": S22_SPEC, "k": S22_K, "chunk_edges": 1 << 22,
+        "dispatch_batch": 1, "inflight": 1, "wall_s": seg_wall,
+        "phase_s": seg.phase_times, "edge_cut": seg.edge_cut,
+        "total_edges": seg.total_edges, "comm_volume": seg.comm_volume,
+        **{k: sd[k] for k in SEGMENT_COUNTERS if k in sd},
+        **{k: sd[k] for k in sd if k.startswith("t_")},
+        "host_blocked_ms": sd["host_blocked_ms"],
+        "device_gap_ms": sd["device_gap_ms"],
+        "fixpoint_rounds": sd["fixpoint_rounds"],
+        "launches": seg_launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "auto_dispatch_batch": auto_batch,
+        "device_memory_bytes": torch_backend.device_memory_bytes(
+            torch.device("cuda")), "card": card}), flush=True)
+
+    # 5e. the full-size build with the entry point's defaults: auto
+    # dispatch batch and depth, the default chunk; its peak memory against
+    # the model that sized N and the share of the card the model may use
+    from sheep_tpu_torch.utils.membudget import build_phase_bytes
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dflt = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda")
+    dflt_wall = time.perf_counter() - t0
+    dflt_peak = torch.cuda.max_memory_allocated()
+    s22_check(dflt, "s22 defaults")
+    check(np.array_equal(dflt.assignment, res.assignment),
+          "s22 defaults: assignment differs from the batched build")
+    dd = dflt.diagnostics
+    check(dd["dispatch_batch"] == auto_batch,
+          f"s22 defaults: dispatch batch {dd['dispatch_batch']}, the auto "
+          f"rule says {auto_batch}")
+    check(dd["host_syncs"] == dd["batch_execs"],
+          f"s22 defaults: {dd['host_syncs']} host reads for "
+          f"{dd['batch_execs']} executions")
+    model = build_phase_bytes(1 << 22, 1 << 22, dispatch_batch=auto_batch,
+                              inflight=int(dd["inflight_depth"]),
+                              donate=True)
+    allowed = int(0.9 * torch_backend.device_memory_bytes(
+        torch.device("cuda")))
+    check(dflt_peak <= allowed,
+          f"s22 defaults: peak {dflt_peak} B over the model's allowance "
+          f"{allowed} B")
+    print("s22-defaults " + json.dumps({
+        "spec": S22_SPEC, "k": S22_K, "chunk_edges": 1 << 22,
+        "dispatch_batch": dd["dispatch_batch"],
+        "inflight": dd["inflight_depth"], "wall_s": dflt_wall,
+        "phase_s": dflt.phase_times, "edge_cut": dflt.edge_cut,
+        "total_edges": dflt.total_edges, "comm_volume": dflt.comm_volume,
+        "device_rounds": dd["device_rounds"], "host_syncs": dd["host_syncs"],
+        "batch_execs": dd["batch_execs"],
+        "inflight_discards": dd["inflight_discards"],
+        "host_blocked_ms": dd["host_blocked_ms"],
+        "device_gap_ms": dd["device_gap_ms"],
+        "peak_mem_bytes": dflt_peak, "model_total_bytes":
+            model["total_bytes"], "allowed_bytes": allowed,
+        "card": card}), flush=True)
+
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b) and climb_level's the stream
     # descent's (phase 4b), their only paths
@@ -990,7 +1354,17 @@ def main() -> int:
               also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
                              "tools/pallas_smoke.py:420"],
               cases_max_abs_err=max_err("K3"))]
-    kernels += lift_entries(main_case, lift_cases + [main_case], launches)
+    # lift_stack's launches are the per-segment build's (5d: once a stale
+    # segment, a warm segment none), the batched build's beside them
+    kernels += lift_entries(main_case, lift_cases + [main_case],
+                            {**launches,
+                             "lift_stack": seg_launches["lift_stack"]})
+    for k in kernels[-2:]:
+        k["batched_launches"] = launches[k["name"]]
+        k["per_segment_launches"] = seg_launches[k["name"]]
+        k["also_replaces"].append("sheep_tpu/ops/elim.py:222 (B3, the "
+                                  "stale round: the stack once a segment, "
+                                  "the climb every round)")
     scatter_all = scatter_cases + [main_scatter]
     kernels += [
         entry("scatter_min", fix_src, "sheep_tpu/ops/elim.py:149",
@@ -1020,9 +1394,34 @@ def main() -> int:
               cases={r["case"]: {k: r[k] for k in (
                   "ms", "plain_ms", "bound_ms")}
                   for r in exec_cases["exec_finish"]["cases"]}),
+        # on the per-segment build's warm segments (5d); the forced
+        # stream descent's (4b) beside them
         entry("climb_level", fix_src, "sheep_tpu/ops/elim.py:170",
-              exec_cases["climb_level"], launches["climb_level"],
-              stream_descent_launches=stream_launches)]
+              exec_cases["climb_level"], seg_launches["climb_level"],
+              stream_descent_launches=stream_launches),
+        # on the jump-mode fold of phase 4d (the s22 per-segment build
+        # finishes its tails on the host before any small segment)
+        entry("climb_jumps", "sheep_tpu_torch/csrc/lift.cu",
+              "sheep_tpu/ops/elim.py:359", jumps_case,
+              jump_launches["climb_jumps"],
+              s22_launches=seg_launches["climb_jumps"],
+              mode_of="climb_tail"),
+        # on the per-segment build (5d), at a 10% live share; the other
+        # shares beside it
+        entry("compact_live", "sheep_tpu_torch/csrc/compact.cu",
+              "sheep_tpu/ops/elim.py:1055", compact_cases[1],
+              seg_launches["compact_live"],
+              library_scope="torch.unique of the packed keys + a masked "
+                            "select of the live ones",
+              kernel_ms=compact_cases[1]["kernel_ms"],
+              sort_ms=compact_cases[1]["sort_ms"],
+              torch_sort_ms=compact_cases[1]["torch_sort_ms"],
+              cases={r["case"]: {k: r[k] for k in (
+                  "ms", "kernel_ms", "sort_ms", "torch_sort_ms",
+                  "plain_ms", "library_ms",
+                  "bound_ms", "live", "size")} for r in compact_cases},
+              cases_max_abs_err=max(r["max_abs_err"]
+                                    for r in compact_cases))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

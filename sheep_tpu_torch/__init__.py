@@ -10,21 +10,28 @@ raises.
 __version__ = "0.1.0"
 
 
-def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=8,
+def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
               comm_volume=True, weights="unit", alpha=1.0, keep_tree=False,
-              inflight=0, h2d_ring=0, round_log=None):
+              inflight=0, h2d_ring=0, round_log=None, **build_opts):
     """Partition the graph at *path* (a file, or ``rmat-hash:SCALE[:EF[:SEED]]``)
     into *k* parts with the single-device build; returns a
-    :class:`~sheep_tpu_torch.types.PartitionResult`. ``inflight`` (the
-    fixpoint pipeline's depth) and ``h2d_ring`` (file chunks staged ahead)
-    of 0 are auto: 2 on CUDA, 1 on the CPU. ``round_log``, a list,
-    receives (depth, live slots) of every counted fixpoint round."""
+    :class:`~sheep_tpu_torch.types.PartitionResult`. ``dispatch_batch``
+    (chunks an execution), ``inflight`` (the fixpoint pipeline's depth) and
+    ``h2d_ring`` (file chunks staged ahead) of 0 are auto: N from the
+    card's memory on CUDA and 1 on the CPU, D 2 on CUDA and 1 on the CPU;
+    at N == 1 == D the per-segment driver runs. ``build_opts``: the
+    driver's other knobs of
+    :class:`~sheep_tpu_torch.backends.torch_backend.TorchBackend`
+    (``segment_rounds``, ``warm_schedule``, ``host_tail_threshold``,
+    ``carry_tail``, ``tail_overlap``, ``stale_reuse``, ``lift_levels``).
+    ``round_log``, a list, receives (depth, live slots) of every counted
+    round of the batched driver."""
     from sheep_tpu_torch.backends.torch_backend import TorchBackend
     from sheep_tpu_torch.io.edgestream import open_input
 
     be = TorchBackend(chunk_edges=chunk_edges, dispatch_batch=dispatch_batch,
                       alpha=alpha, device=device, inflight=inflight,
-                      h2d_ring=h2d_ring)
+                      h2d_ring=h2d_ring, **build_opts)
     with open_input(path) as stream:
         return be.partition(stream, k, weights=weights,
                             comm_volume=comm_volume, keep_tree=keep_tree,

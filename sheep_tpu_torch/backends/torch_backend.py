@@ -1,10 +1,17 @@
 """Single-device PyTorch backend (counterpart of ``TpuBackend.partition`` in
-``sheep_tpu/backends/tpu_backend.py``, its batched segment dispatch only).
+``sheep_tpu/backends/tpu_backend.py``, without its checkpoints, chunk cache
+and fault handling).
 
   degrees   scatter-add per chunk, int64 on the device
   sort      stable argsort of the degrees -> pos / order
-  build     batched fixpoint over [N, C] position blocks, up to
-            ``inflight`` executions in flight
+  build     the fixpoint, by one of the reference's two drivers:
+            batched: [N, C] position blocks of ``dispatch_batch`` chunks,
+              up to ``inflight`` executions in flight
+              (``elim.fold_segments_pipelined``);
+            per segment, when N == 1 == D: one chunk at a time through the
+              adaptive driver (``elim.build_chunk_step_adaptive_pos``:
+              warm, stale and jump-mode segments, compaction, the host
+              tail, or ``carry_tail`` / ``tail_overlap``)
   split     tree split on the host
   score     per-chunk cut counts and comm-volume keys
 
@@ -15,18 +22,22 @@ Streams that can synthesize chunks on the device (``device_chunk``) do so
 and never stage; others are read and padded on a worker thread and copied
 over through the staged H2D ring (``utils/prefetch.py``), ``h2d_ring``
 blocks ahead. ``inflight`` and ``h2d_ring`` of 0 resolve as the
-reference's accelerator defaults: 2 on CUDA, 1 on the CPU.
+reference's accelerator defaults: 2 on CUDA, 1 on the CPU;
+``dispatch_batch`` of 0 as its auto sizing (:func:`resolve_dispatch_batch`:
+1 on the CPU, which selects the per-segment driver there as in cpu-jax).
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from sheep_tpu_torch.core import pure
 from sheep_tpu_torch.device import resolve_device
+from sheep_tpu_torch.ops import compact as compact_ops
 from sheep_tpu_torch.ops import degrees as degrees_ops
 from sheep_tpu_torch.ops import elim as elim_ops
 from sheep_tpu_torch.ops import gather as gather_ops
@@ -45,7 +56,9 @@ LAUNCH_KEYS = {"gather_launches": "gather_clip",
                "lift_launches": "lift_stack",
                "climb_launches": "climb_tail",
                "climb_level_launches": "climb_level",
-               "exec_finish_launches": "exec_finish"}
+               "exec_finish_launches": "exec_finish",
+               "climb_jumps_launches": "climb_jumps",
+               "compact_launches": "compact_live"}
 
 
 def pad_chunk(chunk: np.ndarray, size: int, n: int) -> np.ndarray:
@@ -91,6 +104,33 @@ def resolve_h2d_ring(h2d_ring: int, device) -> int:
     return 2 if torch.device(device).type == "cuda" else 1
 
 
+def device_memory_bytes(device) -> int:
+    """The card's memory, ``total_memory`` of its properties: what stands
+    for the reference's ``bytes_limit`` (the JAX allocator's limit) in the
+    dispatch-batch model."""
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
+def resolve_dispatch_batch(dispatch_batch: int, n: int, cs: int, device,
+                           inflight: int = 1, donate: bool = False,
+                           h2d_ring: int = 0) -> int:
+    """Dispatch batch N, as the reference's ``resolve_dispatch_batch``: an
+    explicit N >= 1 passes; 0 (auto) is 1 on the CPU (the per-segment
+    driver) and on CUDA the largest power of two up to 16 whose build
+    phase fits 0.9 of the card's memory by the model
+    (``utils/membudget.dispatch_batch_for``)."""
+    if dispatch_batch != 0:
+        return max(1, int(dispatch_batch))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    from sheep_tpu_torch.utils.membudget import dispatch_batch_for
+
+    return dispatch_batch_for(int(0.9 * device_memory_bytes(device)), n, cs,
+                              inflight=inflight, donate=donate,
+                              h2d_ring=h2d_ring)
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -99,26 +139,64 @@ def _sync(device) -> None:
 class TorchBackend:
     name = "torch"
 
-    def __init__(self, chunk_edges: int = 1 << 22, dispatch_batch: int = 8,
+    def __init__(self, chunk_edges: int = 1 << 22, dispatch_batch: int = 0,
                  alpha: float = 1.0, device=None, inflight: int = 0,
-                 h2d_ring: int = 0):
-        if dispatch_batch < 1:
-            raise ValueError("dispatch_batch must be >= 1")
+                 h2d_ring: int = 0, lift_levels: int = 0,
+                 segment_rounds: int = 2, warm_schedule=None,
+                 host_tail_threshold: int = -1, carry_tail=None,
+                 tail_overlap=None, stale_reuse: int = 1):
+        """The reference's knobs and defaults. ``dispatch_batch``,
+        ``inflight`` and ``h2d_ring`` of 0 are auto. The per-segment
+        driver's: ``segment_rounds`` (rounds a segment; also the batched
+        round budget a chunk), ``warm_schedule`` ((rounds, levels), ...;
+        None: ((1, 8),)), ``host_tail_threshold`` (-1: C/2 on CUDA, auto
+        on the CPU), ``carry_tail`` / ``tail_overlap`` (the per-chunk tail
+        strategies; either one selects the per-segment driver),
+        ``stale_reuse`` (full segments a lifting stack), ``lift_levels``
+        (0: from n)."""
+        if dispatch_batch < 0:
+            raise ValueError("dispatch_batch must be >= 0 (0 = auto)")
         if inflight < 0:
             raise ValueError("inflight must be >= 0 (0 = auto)")
         if h2d_ring < 0:
             raise ValueError("h2d_ring must be >= 0 (0 = auto)")
+        if lift_levels < 0 or segment_rounds < 1 or stale_reuse < 1:
+            raise ValueError("lift_levels must be >= 0, segment_rounds and "
+                             "stale_reuse >= 1")
+        if dispatch_batch > 1 and (carry_tail or tail_overlap):
+            raise ValueError("dispatch_batch > 1 folds whole segments on "
+                             "device; it excludes the per-chunk tail "
+                             "strategies (carry_tail / tail_overlap)")
+        if inflight > 1 and (carry_tail or tail_overlap):
+            raise ValueError("inflight > 1 pipelines whole batched "
+                             "executions; it excludes the per-chunk tail "
+                             "strategies (carry_tail / tail_overlap)")
+        if carry_tail and tail_overlap:
+            raise ValueError("carry_tail and tail_overlap are mutually "
+                             "exclusive tail strategies")
         self.inflight = int(inflight)
         self.h2d_ring = int(h2d_ring)
         self.chunk_edges = int(chunk_edges)
         self.dispatch_batch = int(dispatch_batch)
         self.alpha = alpha
         self.device = resolve_device(device)
+        self.lift_levels = int(lift_levels)
+        self.segment_rounds = int(segment_rounds)
+        self.warm_schedule = ((1, 8),) if warm_schedule is None \
+            else tuple(tuple(w) for w in warm_schedule)
+        self.host_tail_threshold = int(host_tail_threshold)
+        self.carry_tail = bool(carry_tail)
+        self.tail_overlap = bool(tail_overlap)
+        self.stale_reuse = int(stale_reuse)
 
-    def _staged_groups(self, chunks, cs: int, n: int, pos: torch.Tensor):
+    def _tail_strategy(self) -> bool:
+        return self.carry_tail or self.tail_overlap
+
+    def _staged_groups(self, chunks, cs: int, n: int, pos: torch.Tensor,
+                       N: int):
         """[N, C] oriented position blocks, one per group of N chunks; the
         last group is filled with all-sentinel chunks."""
-        N, dev = self.dispatch_batch, self.device
+        dev = self.device
         group: list = []
         for chunk in chunks:
             group.append(chunk)
@@ -131,28 +209,90 @@ class TorchBackend:
             group += [sentinel] * (N - len(group))
             yield elim_ops.orient_chunks_batch_pos(torch.stack(group), pos, n)
 
+    def _build_per_segment(self, P, chunks, cs: int, n: int, pos, stats):
+        """The build at N == 1 == D, as the reference's: each chunk through
+        the adaptive driver, its tail finished on the host, carried into
+        the next chunk (``carry_tail``) or resolved in a worker thread and
+        folded back as delta pairs (``tail_overlap``); a carried tail left
+        at the end is folded last. Returns ``(P, total_rounds)``."""
+        dev = self.device
+        pos_host = pos[:n].cpu().numpy()
+        tail_at = self.host_tail_threshold
+        if tail_at < 0:
+            tail_at = cs // 2 if dev.type == "cuda" else 0
+        fold_kw = dict(lift_levels=self.lift_levels,
+                       segment_rounds=self.segment_rounds,
+                       host_tail_threshold=tail_at,
+                       stale_reuse=self.stale_reuse, stats=stats)
+        overlap = self.tail_overlap and not self.carry_tail
+        total = 0
+        carry = None
+        with (elim_ops.TailOverlap(n, pos_host, dev) if overlap
+              else nullcontext()) as ov:
+            for padded in chunks():
+                if overlap:
+                    # resolved tails, without waiting, join this fold
+                    ov.drain(False)
+                    carry = ov.take_inject()
+                step = elim_ops.build_chunk_step_adaptive_pos(
+                    P, padded, pos, pos_host, n, carry=carry,
+                    carry_out=self.carry_tail or overlap,
+                    warm_schedule=self.warm_schedule, **fold_kw)
+                if self.carry_tail:
+                    P, rounds, carry = step
+                elif overlap:
+                    P, rounds, tail = step
+                    carry = None
+                    if len(tail[0]):
+                        stats["overlap_tails"] = \
+                            stats.get("overlap_tails", 0) + 1
+                        ov.submit(P, tail[0], tail[1])
+                else:
+                    P, rounds = step
+                total += rounds
+            if overlap:
+                ov.drain(True)
+                inj = ov.take_inject()
+                if inj is not None:
+                    P, rounds = elim_ops.fold_edges_adaptive_pos(
+                        P, inj[0], inj[1], n, pos_host=pos_host, **fold_kw)
+                    total += rounds
+        if self.carry_tail and carry is not None and len(carry[0]):
+            P, rounds = elim_ops.fold_edges_adaptive_pos(
+                P, carry[0], carry[1], n, pos_host=pos_host, **fold_kw)
+            total += rounds
+        return P, total
+
     def partition(self, stream, k: int, weights: str = "unit",
                   comm_volume: bool = True, keep_tree: bool = False,
                   round_log=None) -> PartitionResult:
         """``round_log``, a list, receives (depth, live slots) of every
-        counted fixpoint round, from the executions' device logs."""
+        counted fixpoint round of the batched driver, from the executions'
+        device logs (the per-segment driver logs none)."""
         dev = self.device
-        inflight = resolve_inflight(self.inflight, dev)
-        if self.dispatch_batch == 1 and inflight == 1:
-            raise ValueError(
-                "dispatch_batch=1 at pipeline depth 1: the reference runs "
-                "its adaptive per-segment driver there, which the port does "
-                "not have yet; use dispatch_batch >= 2, or inflight >= 2")
+        # auto defers to an explicit per-chunk tail strategy, as the
+        # reference's
+        inflight = 1 if self.inflight == 0 and self._tail_strategy() \
+            else resolve_inflight(self.inflight, dev)
         t = {}
         cs = stream.clamp_chunk_edges(self.chunk_edges)
         t0 = time.perf_counter()
         n = stream.num_vertices
         check_vertex_range(n)
         ring = resolve_h2d_ring(self.h2d_ring, dev)
+        if self.dispatch_batch == 0 and self._tail_strategy():
+            batch = 1
+        else:
+            # the model counts the ring only for streams that stage, and
+            # donation as the reference's default does (the batched path
+            # updates its buffers in place)
+            batch = resolve_dispatch_batch(
+                self.dispatch_batch, n, cs, dev, inflight=inflight,
+                donate=True,
+                h2d_ring=0 if hasattr(stream, "device_chunk") else ring)
         # one record across the three streaming passes: the ingest
         # counters add up wherever chunks cross, the build adds its own
-        stats: dict = {"dispatch_batch": self.dispatch_batch,
-                       "inflight_depth": inflight,
+        stats: dict = {"dispatch_batch": batch, "inflight_depth": inflight,
                        "h2d_staged_ms": 0.0, "h2d_blocked_ms": 0.0}
 
         def chunks():
@@ -172,22 +312,27 @@ class TorchBackend:
 
         t0 = time.perf_counter()
         counters = (gather_ops.LAUNCHES, lift_ops.LAUNCHES,
-                    fixpoint_ops.LAUNCHES)
+                    fixpoint_ops.LAUNCHES, compact_ops.LAUNCHES)
         launches0 = {k: v for c in counters for k, v in c.items()}
         P = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
-        # the reference's defaults: lift levels from n, and a round budget
-        # of 2 rounds per staged chunk for each execution
-        groups = chunks()
-        staged = self._staged_groups(groups, cs, n, pos)
-        try:
-            P, total_rounds = elim_ops.fold_segments_pipelined(
-                P, staged, n, inflight=inflight, stats=stats,
-                round_log=round_log)
-        finally:
-            # a fold that stops early leaves both generators open: close
-            # them, and with them the prefetch worker and the ring
-            staged.close()
-            groups.close()
+        if batch == 1 and inflight == 1:
+            P, total_rounds = self._build_per_segment(P, chunks, cs, n, pos,
+                                                      stats)
+        else:
+            groups = chunks()
+            staged = self._staged_groups(groups, cs, n, pos, batch)
+            try:
+                P, total_rounds = elim_ops.fold_segments_pipelined(
+                    P, staged, n, inflight=inflight,
+                    lift_levels=self.lift_levels,
+                    segment_rounds=self.segment_rounds, stats=stats,
+                    round_log=round_log)
+            finally:
+                # a fold that stops early leaves both generators open:
+                # close them, and with them the prefetch worker and the
+                # ring
+                staged.close()
+                groups.close()
         minp = P[pos.long()]
         del P
         _sync(dev)

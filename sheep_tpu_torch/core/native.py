@@ -1,11 +1,11 @@
 """ctypes loader for the port's native host code (``csrc/sheep_core.cpp``;
-counterpart of ``tree_split`` and ``parse_text`` in
+counterpart of ``tree_split``, ``parse_text`` and ``build_elim_tree`` in
 ``sheep_tpu/core/native.py``).
 
 The library is built with the host C++ compiler at first use (no
 ``nvcc``), by ``sheep_tpu_torch.ops._build``. A failed build or load
-raises: the port has no quiet fallback to the Python split, and no
-Python text parser.
+raises: the port has no quiet fallback to the Python split, no Python
+text parser, and no fixpoint host tail without the native pass.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-ABI_VERSION = 3
+ABI_VERSION = 4
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
@@ -55,6 +55,9 @@ def load() -> ctypes.CDLL:
         lib.sheep_parse_text.argtypes = [ctypes.c_char_p, c_i64, _i64p,
                                          c_i64, ctypes.POINTER(c_i64)]
         lib.sheep_parse_text.restype = c_i64
+        lib.sheep_build_elim_tree.argtypes = [_i64p, c_i64, _i64p, c_i64,
+                                              _i64p]
+        lib.sheep_build_elim_tree.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -105,3 +108,33 @@ def parse_text(data: bytes):
     count = lib.sheep_parse_text(data, len(data), out.reshape(-1), cap,
                                  ctypes.byref(consumed))
     return out[:count].copy(), consumed.value
+
+
+def build_elim_tree(edges: np.ndarray, pos: np.ndarray,
+                    parent: Optional[np.ndarray] = None) -> np.ndarray:
+    """Extend the elimination forest ``parent`` (int64[n], -1 for a root;
+    all roots when None) with the constraints of ``edges`` (m, 2) under
+    the elimination positions ``pos``, by the reference's native Liu pass
+    (``csrc/sheep_core.cpp`` ``sheep_build_elim_tree``). A contiguous
+    int64 ``parent`` is updated in place and returned. Self-loops and ids
+    outside [0, n) are skipped; a ``pos`` that is not a permutation of
+    ``range(n)``, or a parent >= n, raises ValueError."""
+    lib = load()
+    e = np.ascontiguousarray(np.asarray(edges).reshape(-1, 2),
+                             dtype=np.int64)
+    p = np.ascontiguousarray(pos, dtype=np.int64)
+    n = len(p)
+    if parent is None:
+        parent = np.full(n, -1, dtype=np.int64)
+    else:
+        parent = np.ascontiguousarray(parent, dtype=np.int64)
+    if len(parent) != n:
+        raise ValueError(f"build_elim_tree: parent has {len(parent)} "
+                         f"entries, pos {n}")
+    rc = lib.sheep_build_elim_tree(e.reshape(-1), len(e), p, n, parent)
+    if rc == -1:
+        raise ValueError(f"build_elim_tree: pos is not a permutation of "
+                         f"range({n})")
+    if rc == -2:
+        raise ValueError(f"build_elim_tree: a parent is >= {n}")
+    return parent

@@ -5,11 +5,16 @@
 //                with an on-device depth cut;
 //   climb_tail   one fused pass per round over the slots: the binary-
 //                lifting climb, retire, displace, the round's `changed`
-//                flag and its retired and live counts.
+//                flag and its retired and live counts;
+//   climb_jumps  the same pass with the jump-mode climb: `jumps` single
+//                parent steps over the current table in place of the
+//                stack.
 //
 // They are the counterparts of _pos_round_body after its scatter-min
-// (sheep_tpu/ops/elim.py:158-192) and of build_lift_tables
-// (sheep_tpu/ops/elim.py:295).
+// (sheep_tpu/ops/elim.py:158-192), of build_lift_tables (:295), of the
+// stale round _pos_round_body_stale after its scatter (:222; climb_tail
+// over a stack built once a segment, its level 0 the current table), and
+// of the jump-mode round _pos_small_round_body after its scatter (:359).
 //
 // Control word ctl (int32[5]): [0] rows, the number of stack rows that
 // hold distinct levels (the depth d less one); [1] changed; [2] retired;
@@ -57,6 +62,14 @@
 // on one thread and puts the ticket counter back to 0 (one atomic with
 // acquire-release order a block, in place of a fence and an atomic).
 // Without an execution (a free-standing round) nothing is counted.
+//
+// climb_jumps runs on the adaptive driver's small buffers (at most 2^14
+// slots after compaction): `jumps` dependent loads a climbing slot, each
+// a random 4-byte read of P, so it is bound by their latency, not by
+// bytes; one thread a slot keeps every slot's chain in flight at once.
+// Its bytes bound: lo in and two outputs back (12 B a slot), hi at the
+// live slots, old_at_lo at the retiring ones, and a sector of P for each
+// step a climbing slot takes.
 //
 // Bound to PyTorch through plain C functions (loaded with ctypes): the
 // caller passes device pointers and its CUDA stream and gets back the
@@ -123,7 +136,9 @@ lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
 }
 
 // lo, hi and out_lo, out_hi may be the same slots (in place): no
-// __restrict__ on them
+// __restrict__ on them. kJumps: the climb is `jumps` steps over P (the
+// stack and pre are not read).
+template <bool kJumps>
 __global__ void __launch_bounds__(kThreads)
 climb_tail_kernel(const int32_t* lo, const int32_t* hi,
                   const int32_t* __restrict__ old,
@@ -132,7 +147,7 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
                   int32_t* ctl, int32_t* out_lo, int32_t* out_hi, int64_t m,
                   int32_t n, int64_t* ex, int64_t row_stride,
                   const int32_t* __restrict__ pre, int64_t N,
-                  int64_t budget) {
+                  int64_t budget, int jumps) {
   __shared__ int smem[2][kWarps];
   if (sheep::stopped(ex)) return;
   const int64_t off = sheep::row_offset(ex, row_stride);
@@ -160,7 +175,12 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
         }
       } else {  // climb levels d-1 .. 1 of the stack, then P
         int32_t cur = clip(l, n);
-        if (pre != nullptr) {
+        if (kJumps) {
+          for (int j = 0; j < jumps; ++j) {
+            const int32_t cand = __ldg(P + cur);
+            if (cand < h) cur = cand;
+          }
+        } else if (pre != nullptr) {
           cur = pre[i];  // the stream descent climbed already
         } else {
           for (int k = rows; k >= 1; --k) {
@@ -199,7 +219,7 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
   }
 }
 
-Wave wave_lift, wave_climb;
+Wave wave_lift, wave_climb, wave_jumps;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -254,14 +274,41 @@ extern "C" int sheep_climb_tail(const void* lo, const void* hi,
     return (int)cudaErrorInvalidValue;  // the round must end
   if (m <= 0) return 0;
   unsigned blocks = 0;
-  cudaError_t err = wave_blocks(wave_climb, climb_tail_kernel, m, &blocks);
+  cudaError_t err =
+      wave_blocks(wave_climb, climb_tail_kernel<false>, m, &blocks);
   if (err != cudaSuccess) return (int)err;
-  climb_tail_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  climb_tail_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
       (const int32_t*)P, (const int32_t*)stack, stride, (int32_t*)ctl,
       (int32_t*)out_lo, (int32_t*)out_hi, m, (int32_t)(T - 1),
       (int64_t*)ex, (int64_t)row_stride, (const int32_t*)pre, (int64_t)N,
-      (int64_t)budget);
+      (int64_t)budget, 0);
+  return (int)cudaGetLastError();
+}
+
+// climb_tail's pass with the jump-mode climb: `jumps` steps cur <- P[cur]
+// where that lands below hi, for the non-retiring live slots; the other
+// arguments as sheep_climb_tail's.
+extern "C" int sheep_climb_jumps(const void* lo, const void* hi,
+                                 const void* old, long long m, const void* P,
+                                 long long T, int jumps, void* ctl,
+                                 void* out_lo, void* out_hi, void* ex,
+                                 long long row_stride, long long N,
+                                 long long budget, void* stream) {
+  if (T <= 0 || T > 0x7FFFFFFFLL || jumps < 0)
+    return (int)cudaErrorInvalidValue;
+  if (ex != nullptr && (m <= 0 || N <= 0 || budget <= 0))
+    return (int)cudaErrorInvalidValue;  // the round must end
+  if (m <= 0) return 0;
+  unsigned blocks = 0;
+  cudaError_t err =
+      wave_blocks(wave_jumps, climb_tail_kernel<true>, m, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  climb_tail_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)old,
+      (const int32_t*)P, nullptr, 0, (int32_t*)ctl, (int32_t*)out_lo,
+      (int32_t*)out_hi, m, (int32_t)(T - 1), (int64_t*)ex,
+      (int64_t)row_stride, nullptr, (int64_t)N, (int64_t)budget, jumps);
   return (int)cudaGetLastError();
 }
 

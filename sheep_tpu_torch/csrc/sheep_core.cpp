@@ -1,7 +1,9 @@
-// sheep_core — the port's native host code: the greedy tree split and the
-// text edge-list parser.
+// sheep_core — the port's native host code: the greedy tree split, the
+// text edge-list parser and the elimination-forest pass of the fixpoint's
+// host tail.
 //
-// Copies of sheep_tree_split and sheep_parse_text from the JAX package's
+// Copies of sheep_tree_split, sheep_parse_text and sheep_build_elim_tree
+// from the JAX package's
 // native core (sheep_tpu/core/csrc/sheep_core.cpp), so that the port
 // imports and builds nothing of that package. The Python copy of the spec
 // (sheep_tpu_torch/core/pure.py tree_split) and this function give
@@ -13,6 +15,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <numeric>
 #include <queue>
 #include <utility>
 #include <vector>
@@ -191,8 +194,94 @@ i64 sheep_parse_text(const char* buf, i64 len, i64* out, i64 max_edges,
   return w;
 }
 
+// ------------------------------------------------------- elim tree build
+
+// Extend the elimination forest `parent` (int64[n], -1 for a root) in
+// place with the constraints of m edges (pairs of vertex ids; self-loops
+// and ids outside [0, n) are skipped): Liu's sorted union-find pass over
+// the forest's tree edges and the edges, as the reference's
+// sheep_build_elim_tree. Constraints are counting-sorted by the position
+// of their later endpoint; in that order each links the root of its
+// earlier endpoint's component under the later endpoint (a fresh DSU with
+// path compression; a component's root is its latest vertex). The result
+// is the unique elimination forest of the forest's edges and the new
+// ones, which is what the fixpoint's host tail needs.
+//
+// Unlike the JAX package's copy, it checks what it indexes by, in the
+// O(n) passes it makes anyway, and changes nothing when one is bad: it
+// returns -1 when pos is not a permutation of [0, n), -2 when a parent is
+// >= n, and 0 otherwise.
+int sheep_build_elim_tree(const i64* edges, i64 m, const i64* pos, i64 n,
+                          i64* parent) {
+  // order[p] = vertex at position p
+  std::vector<i64> order(n, -1);
+  for (i64 v = 0; v < n; ++v) {
+    const i64 p = pos[v];
+    if (p < 0 || p >= n || order[p] >= 0) return -1;
+    order[p] = v;
+  }
+  for (i64 v = 0; v < n; ++v)
+    if (parent[v] >= n) return -2;
+
+  // constraints (key, lo), key = the later endpoint's position; a tree
+  // edge v -> parent[v] gives (pos[parent[v]], v)
+  std::vector<i64> counts(n + 1, 0);
+  auto skip = [&](i64 a, i64 b) {
+    return a == b || a < 0 || b < 0 || a >= n || b >= n;
+  };
+  for (i64 v = 0; v < n; ++v)
+    if (parent[v] >= 0) counts[pos[parent[v]]]++;
+  for (i64 i = 0; i < m; ++i) {
+    const i64 a = edges[2 * i], b = edges[2 * i + 1];
+    if (!skip(a, b)) counts[std::max(pos[a], pos[b])]++;
+  }
+  i64 total = 0;
+  for (i64 p = 0; p <= n; ++p) {
+    const i64 c = counts[p];
+    counts[p] = total;
+    total += c;
+  }
+  std::vector<i64> keys(total), los(total);
+  auto place = [&](i64 lo, i64 k) {
+    const i64 at = counts[k]++;
+    keys[at] = k;
+    los[at] = lo;
+  };
+  for (i64 v = 0; v < n; ++v)
+    if (parent[v] >= 0) place(v, pos[parent[v]]);
+  for (i64 i = 0; i < m; ++i) {
+    i64 a = edges[2 * i], b = edges[2 * i + 1];
+    if (skip(a, b)) continue;
+    if (pos[a] > pos[b]) std::swap(a, b);
+    place(a, pos[b]);
+  }
+
+  // Liu's pass
+  std::vector<i64> dsu(n);
+  std::iota(dsu.begin(), dsu.end(), 0);
+  auto find = [&](i64 x) {
+    i64 root = x;
+    while (dsu[root] != root) root = dsu[root];
+    while (dsu[x] != root) {
+      const i64 nx = dsu[x];
+      dsu[x] = root;
+      x = nx;
+    }
+    return root;
+  };
+  for (i64 i = 0; i < total; ++i) {
+    const i64 hi = order[keys[i]];
+    const i64 r = find(los[i]);
+    if (r != hi) {
+      parent[r] = hi;
+      dsu[r] = hi;
+    }
+  }
+  return 0;
+}
+
 // ------------------------------------------------------------- utilities
 
-i64 sheep_core_abi_version() { return 3; }
+i64 sheep_core_abi_version() { return 4; }
 
 }  // extern "C"

@@ -34,6 +34,14 @@ and blocks are updated in place (the reference's arrays are immutable and
 it donates them instead); the comment above
 :func:`fold_segments_pipelined` says why that keeps its semantics.
 
+The adaptive per-segment driver (:func:`fold_edges_adaptive_pos`, the
+reference's other build path) folds one chunk's active buffer by short
+segments with one read a segment: warm rounds on the stream descent,
+stale rounds (``lift_stack`` once a segment, ``climb_tail`` each round),
+the live pairs compacted (``ops/compact.py``), the tail finished by the
+native Liu pass on the host (``core/native.py``) or by jump-mode rounds
+(``climb_tail``'s jump mode, ``climb_jumps``).
+
 Sentinel encoding: index n means "none"; pos[n] = order[n] = n; inert
 edges are (n, n).
 """
@@ -47,7 +55,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from sheep_tpu_torch.ops import fixpoint, lift
+from sheep_tpu_torch.core import native
+from sheep_tpu_torch.ops import compact, fixpoint, lift
 from sheep_tpu_torch.ops.gather import gather_clip
 
 NO_PARENT = -1
@@ -431,6 +440,466 @@ def fold_segments_pipelined(P: torch.Tensor, staged, n: int,
     stats["t_batch_s"] = stats.get("t_batch_s", 0.0) + \
         time.perf_counter() - t_start
     return P, total
+
+
+
+# -- the adaptive per-segment driver ----------------------------------------
+#
+# The reference's other build path (sheep_tpu/ops/elim.py:206-420 and
+# :1055-1760), which it runs at dispatch_batch == 1 == inflight and by
+# default on cpu-jax: one short segment of rounds on one active buffer at a
+# time, one read of its stats word a segment, and host decisions between
+# segments: cheap warm rounds first, stale lifting tables, compaction of
+# the live pairs into a smaller buffer, then the tail handed to the native
+# Liu pass on the host (or carried into the next chunk, or resolved in a
+# worker thread), or, with no host tail, jump-mode rounds on the small
+# buffer. A segment is a one-row execution of the batched machinery
+# (``fixpoint.new_state``, ``exec_finish``) whose round budget is the
+# segment's, so its rounds are the reference's ``_run_segment`` rounds,
+# the round that changes nothing included. Its buffers are allocated per
+# segment, at the buffer's current size.
+
+def _run_segment(body, P: torch.Tensor, loP: torch.Tensor, hiP: torch.Tensor,
+                 n: int, segment_rounds: int):
+    """At most ``segment_rounds`` rounds of ``body`` over the 1-D active
+    buffer (loP, hiP), ending after the first round that changes nothing.
+    Returns ``(loP, hiP, P, sv)``, all updated in place, with ``sv`` int32[3]
+    = (changed, rounds, live) on P's device, as the reference's
+    ``_run_segment``: ``changed`` 0 once a round changed nothing, ``live``
+    the live slots left."""
+    loB, hiB = loP.view(1, -1), hiP.view(1, -1)
+    state = fixpoint.new_state(segment_rounds, P.device)
+    for _ in range(segment_rounds):
+        body(loB, hiB, P, state, segment_rounds)
+    sv = fixpoint.exec_finish(loB, hiB, state, n)
+    # a one-row execution: done is 1 exactly when a round changed nothing
+    return loP, hiP, P, torch.cat((1 - sv[:1], sv[1:3]))
+
+
+def fold_segment_pos(P, loP, hiP, n: int, lift_levels: int = 0,
+                     segment_rounds: int = 32, descent: str = "auto"):
+    """At most ``segment_rounds`` fresh rounds (:class:`_pos_round_body`)
+    over the active buffer; the reference's function of the same name.
+    Returns ``(loP, hiP, P, sv)`` (:func:`_run_segment`)."""
+    lift_levels, descent = _resolve(n, lift_levels, descent)
+    return _run_segment(_pos_round_body(n, lift_levels, descent), P, loP,
+                        hiP, n, segment_rounds)
+
+
+def build_lift_tables(P: torch.Tensor, n: int, lift_levels: int = 0):
+    """The exact descent's lifting stack of the table P as it is now, for
+    the stale rounds of one or more segments: ``(stack, ctl)``, the stack
+    rows t_1 .. t_{d-1} (``lift.lift_stack``, its depth cut exact) and a
+    control word whose ROWS holds d - 1. The reference's tuple of L - 1
+    tables (its levels above d equal t_{d-1}, which the climb need not
+    apply again)."""
+    lift_levels, _ = _resolve(n, lift_levels, "exact")
+    stack = lift.new_stack(len(P), lift_levels, P.device)
+    ctl = lift.new_ctl(P.device)
+    lift.lift_stack(P, stack, ctl)
+    return stack, ctl
+
+
+class _pos_round_body_stale:
+    """The stale round (the reference's ``_pos_round_body_stale``): K1 for
+    the table before the scatter, ``scatter_min``, then ``climb_tail`` over
+    a stack built earlier (:func:`build_lift_tables`) and level 0 from the
+    current table. The stack's depth in ``ctl[ROWS]`` is kept; the round's
+    own words are zeroed each round."""
+
+    def __init__(self, n: int, tables):
+        self.stack, self.ctl = tables
+
+    def __call__(self, loB, hiB, P, state, batch_rounds):
+        self.ctl.narrow(0, lift.CHANGED, lift.CTL_WORDS - lift.CHANGED) \
+            .zero_()
+        old_at_lo = gather_clip(P, loB, state)
+        fixpoint.scatter_min(P, loB, hiB, state)
+        lift.climb_rows(loB, hiB, old_at_lo, P, self.stack, self.ctl, state,
+                        batch_rounds)
+
+
+def fold_segment_pos_stale(P, loP, hiP, tables, n: int,
+                           segment_rounds: int = 32):
+    """At most ``segment_rounds`` stale rounds over the stack ``tables``
+    (:func:`build_lift_tables`), which the caller may reuse across
+    segments. The same unique fixpoint; other round counts than fresh
+    rounds."""
+    return _run_segment(_pos_round_body_stale(n, tables), P, loP, hiP, n,
+                        segment_rounds)
+
+
+def fold_segment_pos_hoisted(P, loP, hiP, n: int, lift_levels: int = 0,
+                             segment_rounds: int = 32):
+    """:func:`fold_segment_pos_stale` on a stack built from the segment's
+    entry table."""
+    return fold_segment_pos_stale(P, loP, hiP,
+                                  build_lift_tables(P, n, lift_levels), n,
+                                  segment_rounds)
+
+
+class _pos_small_round_body:
+    """The jump-mode round of small buffers (the reference's
+    ``_pos_small_round_body``): K1, ``scatter_min``, then ``climb_jumps``:
+    ``jumps`` single parent steps over the current table, no O(V) stack."""
+
+    def __init__(self, n: int, jumps: int):
+        self.jumps, self.ctl = jumps, None
+
+    def __call__(self, loB, hiB, P, state, batch_rounds):
+        if self.ctl is None:
+            self.ctl = lift.new_ctl(P.device)
+        self.ctl.zero_()
+        old_at_lo = gather_clip(P, loB, state)
+        fixpoint.scatter_min(P, loB, hiB, state)
+        lift.climb_rows(loB, hiB, old_at_lo, P, None, self.ctl, state,
+                        batch_rounds, jumps=self.jumps)
+
+
+def fold_segment_small_pos(P, loP, hiP, n: int, jumps: int = 8,
+                           segment_rounds: int = 64):
+    """At most ``segment_rounds`` jump-mode rounds; the reference's
+    function of the same name."""
+    return _run_segment(_pos_small_round_body(n, jumps), P, loP, hiP, n,
+                        segment_rounds)
+
+
+def _order_host(pos_host, n: int) -> np.ndarray:
+    """Inverse permutation of pos_host with the sentinel slot appended."""
+    order_host = np.empty(n + 1, dtype=np.int64)
+    order_host[np.asarray(pos_host)] = np.arange(n, dtype=np.int64)
+    order_host[n] = n
+    return order_host
+
+
+def _resolve_on_host(P_np, lo_np, hi_np, n: int, pos_host):
+    """The native Liu pass over the table and the live pairs, on host
+    arrays: ``(parent, new_parent)``, vertex space (int64, -1 roots)."""
+    mask = lo_np != n
+    pos_host = np.asarray(pos_host)
+    order_host = _order_host(pos_host, n)
+    edges = np.stack([order_host[lo_np[mask]], order_host[hi_np[mask]]],
+                     axis=1)
+    pp = P_np[pos_host]
+    parent = np.where(pp < n, order_host[np.minimum(pp, n)],
+                      NO_PARENT).astype(np.int64)
+    return parent, native.build_elim_tree(edges, pos_host, parent.copy())
+
+
+def _host_tail_finish_pos(P, loP, hiP, n: int, size: int, pos_host,
+                          stats=None):
+    """Finish the fixpoint on the host: the live pairs compacted to
+    ``size`` (``compact_live``), the table and the pairs pulled, the native
+    Liu pass, the new table pushed back (a new tensor on P's device).
+    ``stats`` gets the seconds of the host's part, the pass and the array
+    work around it, as ``t_host_tail_native_s``."""
+    clo, chi = compact.compact_live(loP, hiP, n, size)
+    P_np, lo_np, hi_np = P.cpu().numpy(), clo.cpu().numpy(), \
+        chi.cpu().numpy()
+    t0 = time.perf_counter()
+    _, parent = _resolve_on_host(P_np, lo_np, hi_np, n, pos_host)
+    if stats is not None:
+        stats["t_host_tail_native_s"] = \
+            stats.get("t_host_tail_native_s", 0.0) + time.perf_counter() - t0
+    pos_host = np.asarray(pos_host)
+    newP = np.full(n + 1, n, dtype=np.int32)
+    has = parent >= 0
+    newP[pos_host[has]] = pos_host[parent[has]]
+    return torch.from_numpy(newP).to(P.device)
+
+
+def host_tail_delta(P_snap, loP, hiP, n: int, pos_host):
+    """Resolve a fixpoint tail on the host and return it as delta
+    constraints: the (position, new parent position) pairs whose parent the
+    native pass changed, int32 host arrays. Folded into any later fold they
+    give the same unique fixpoint. The inputs are host arrays or CPU
+    tensors that no one updates any more (:class:`TailOverlap` hands it
+    host copies)."""
+    def host(t):
+        return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+    parent, new_parent = _resolve_on_host(host(P_snap), host(loP), host(hiP),
+                                          n, pos_host)
+    ch = np.nonzero(new_parent != parent)[0]
+    # links are only ever added or improved, never removed
+    assert len(ch) == 0 or new_parent[ch].min() >= 0
+    pos_host = np.asarray(pos_host)
+    return pos_host[ch].astype(np.int32), \
+        pos_host[new_parent[ch]].astype(np.int32)
+
+
+def pad_actives_pow2(dlo, dhi, n: int, device, floor: int = 1 << 14):
+    """Host (dlo, dhi) constraints as an active buffer on ``device``, padded
+    with (n, n) to a power-of-two length (at least ``floor``)."""
+    size = pow2_at_least(max(1, len(dlo)), floor=floor)
+    out_lo = np.full(size, n, dtype=np.int32)
+    out_hi = np.full(size, n, dtype=np.int32)
+    out_lo[:len(dlo)] = dlo
+    out_hi[:len(dhi)] = dhi
+    return torch.from_numpy(out_lo).to(device), \
+        torch.from_numpy(out_hi).to(device)
+
+
+def _host_copies(*ts):
+    """Host copies of the tensors as they stand in stream order now, and
+    the event after which they are complete (None on the CPU). The port's
+    tables are updated in place by later folds, so a worker must not read
+    them: on CUDA the copies go into pinned buffers behind the work
+    enqueued so far, on the CPU they are clones."""
+    if ts[0].device.type != "cuda":
+        return [t.clone() for t in ts], None
+    out = []
+    for t in ts:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out.append(h)
+    ready = torch.cuda.Event()
+    ready.record()
+    return out, ready
+
+
+def _tail_job(copies, ready, n: int, pos_host):
+    if ready is not None:
+        ready.synchronize()
+    return host_tail_delta(*copies, n, pos_host)
+
+
+class TailOverlap:
+    """Host tails resolved in one worker thread while the device folds the
+    next chunk (the reference's class of the same name): :meth:`submit` a
+    tail, :meth:`drain` finished resolutions, :meth:`take_inject` them as
+    one padded active buffer on ``device``. A context manager, so that the
+    worker is joined when the driving loop raises."""
+
+    def __init__(self, n: int, pos_host, device):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.n, self.pos_host, self.device = n, pos_host, device
+        self._executor = ThreadPoolExecutor(max_workers=1)
+        self._pending: list = []   # in-flight futures, FIFO
+        self._deltas: list = []    # resolved (dlo, dhi) awaiting injection
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._executor.shutdown(wait=True)
+        return False
+
+    def submit(self, P, loP, hiP) -> None:
+        """Queue a live tail; the worker reads host copies taken now, in
+        stream order, not the tensors (:func:`_host_copies`)."""
+        copies, ready = _host_copies(P, loP, hiP)
+        self._pending.append(self._executor.submit(
+            _tail_job, copies, ready, self.n, self.pos_host))
+
+    def drain(self, block: bool) -> None:
+        while self._pending and (block or self._pending[0].done()):
+            d = self._pending.pop(0).result()
+            if len(d[0]):
+                self._deltas.append(d)
+
+    def take_inject(self):
+        """All drained deltas as one padded (loP, hiP) buffer, or None."""
+        if not self._deltas:
+            return None
+        dlo = np.concatenate([d[0] for d in self._deltas])
+        dhi = np.concatenate([d[1] for d in self._deltas])
+        self._deltas.clear()
+        return pad_actives_pow2(dlo, dhi, self.n, self.device)
+
+
+def _seed_ms_counters(stats: dict) -> None:
+    for key in ("host_blocked_ms", "device_gap_ms", "h2d_staged_ms",
+                "h2d_blocked_ms"):
+        stats.setdefault(key, 0.0)
+
+
+# the adaptive fold's fixed settings, the reference's defaults: the round
+# backstop, the buffer size at and below which segments run in jump mode,
+# and the single steps of a jump-mode round
+MAX_ROUNDS = 1 << 20
+SMALL_SIZE = 1 << 14
+SMALL_JUMPS = 16
+
+
+def _fold_adaptive(P, loP, hiP, n: int, lift_levels: int,
+                   segment_rounds: int, host_tail: bool,
+                   host_tail_threshold: int, warm_schedule: tuple, pos_host,
+                   stats, carry_out: bool, stale_reuse: int):
+    """The adaptive loop (the reference's
+    ``_fold_adaptive_pos_impl_body``): returns ``(P, total, carry)``,
+    ``carry`` None (converged or finished on the host) or the compacted
+    still-live pairs (``carry_out``). One segment a turn, each ended by one
+    read of its stats word:
+
+    - warm: ``warm_schedule`` segments first, stream descent at few levels;
+    - full: stale rounds on a stack rebuilt every ``stale_reuse`` segments
+      (exact descent, segments of more than one round), else fresh rounds;
+    - small (buffer <= ``SMALL_SIZE``): jump-mode rounds;
+
+    then: stop once a segment changed nothing or nothing is live; at
+    ``live <= host_tail_threshold`` (0: auto, max(2^16, size/8)) carry the
+    tail out or finish it on the host; at ``live <= size/2`` compact the
+    buffer to max(SMALL_SIZE, 2 live) rounded up to a power of two. The
+    host tail needs ``pos_host`` and the native library (its build raises
+    when it fails); ``host_tail=False`` is the way to jump mode."""
+    for entry in warm_schedule:
+        wr, wl = entry
+        if wr < 1 or wl < 1:
+            raise ValueError(
+                f"warm_schedule entries must be (rounds >= 1, "
+                f"lift_levels >= 1); got {tuple(entry)!r}")
+    if host_tail and pos_host is None:
+        raise ValueError("a host tail needs pos_host; pass host_tail=False "
+                         "for jump-mode rounds instead")
+    if host_tail:
+        native.load()  # builds the native pass now, or raises
+    if stats is None:
+        stats = {}
+    _seed_ms_counters(stats)
+    total = 0
+    size = int(loP.shape[0])
+    if host_tail_threshold <= 0:
+        host_tail_threshold = max(1 << 16, size // 8)
+    warm = list(warm_schedule)
+    tables = None
+    segs_on_stack = 0
+
+    def t_add(key: str, dt: float) -> None:
+        stats[key] = stats.get(key, 0.0) + dt
+
+    def count(key: str, by: int = 1) -> None:
+        stats[key] = stats.get(key, 0) + by
+
+    prev_ready = None  # when the previous segment's stats read returned
+    while True:
+        t0 = time.perf_counter()
+        if prev_ready is not None:
+            _t_ms(stats, "device_gap_ms", t0 - prev_ready)
+        if warm and size > SMALL_SIZE:
+            wrounds, wlevels = warm.pop(0)
+            seg = min(wrounds, MAX_ROUNDS - total)
+            loP, hiP, P, sv = fold_segment_pos(
+                P, loP, hiP, n, lift_levels=wlevels, segment_rounds=seg,
+                descent="stream")
+            count("warm_segments")
+            t_key = "t_warm_s"
+        elif size > SMALL_SIZE:
+            seg = min(segment_rounds, MAX_ROUNDS - total)
+            rl, rd = _resolve(n, lift_levels, "auto")
+            if rd == "exact" and seg > 1:
+                if stale_reuse > 1:
+                    if tables is None or segs_on_stack >= stale_reuse:
+                        tables = None  # free the old stack first
+                        tables = build_lift_tables(P, n, rl)
+                        segs_on_stack = 0
+                        count("stack_rebuilds")
+                    loP, hiP, P, sv = fold_segment_pos_stale(
+                        P, loP, hiP, tables, n, segment_rounds=seg)
+                    segs_on_stack += 1
+                else:
+                    loP, hiP, P, sv = fold_segment_pos_hoisted(
+                        P, loP, hiP, n, lift_levels=rl, segment_rounds=seg)
+            else:
+                loP, hiP, P, sv = fold_segment_pos(
+                    P, loP, hiP, n, lift_levels=lift_levels,
+                    segment_rounds=seg)
+            count("full_segments")
+            t_key = "t_full_s"
+        else:
+            seg = min(max(segment_rounds, 64), MAX_ROUNDS - total)
+            loP, hiP, P, sv = fold_segment_small_pos(
+                P, loP, hiP, n, jumps=SMALL_JUMPS, segment_rounds=seg)
+            count("small_segments")
+            t_key = "t_small_s"
+        # the one designed read of a segment
+        t_pull = time.perf_counter()
+        changed, r, live = sv.tolist()
+        prev_ready = time.perf_counter()
+        _t_ms(stats, "host_blocked_ms", prev_ready - t_pull)
+        count("host_syncs")
+        t_add(t_key, time.perf_counter() - t0)
+        total += r
+        count("device_rounds", r)
+        if not changed or live == 0 or total >= MAX_ROUNDS:
+            return P, total, None
+        if live <= host_tail_threshold:
+            if carry_out:
+                count("carried_tails")
+                count("carried_live", live)
+                cap = min(pow2_at_least(live, floor=1 << 14), size)
+                return P, total, compact.compact_live(loP, hiP, n, cap)
+            if host_tail:
+                count("host_tails")
+                count("host_tail_live", live)
+                pull = pow2_at_least(live, floor=1 << 14)
+                t0 = time.perf_counter()
+                P = _host_tail_finish_pos(P, loP, hiP, n, min(pull, size),
+                                          pos_host, stats)
+                t_add("t_host_tail_s", time.perf_counter() - t0)
+                return P, total, None
+        if size > SMALL_SIZE and live <= size // 2:
+            new_size = pow2_at_least(2 * live, floor=SMALL_SIZE)
+            if new_size < size:
+                loP, hiP = compact.compact_live(loP, hiP, n, new_size)
+                size = new_size
+                count("compactions")
+
+
+# the options of the adaptive fold and their defaults, the reference's
+ADAPTIVE_DEFAULTS = {"lift_levels": 0, "segment_rounds": 2,
+                     "host_tail": True, "host_tail_threshold": 0,
+                     "warm_schedule": (), "pos_host": None, "stats": None,
+                     "stale_reuse": 1}
+
+
+def _adaptive_options(opts: dict) -> dict:
+    unknown = sorted(set(opts) - set(ADAPTIVE_DEFAULTS))
+    if unknown:
+        raise TypeError(f"unknown options: {unknown}")
+    return {**ADAPTIVE_DEFAULTS, **opts}
+
+
+def fold_edges_adaptive_pos(P, loP, hiP, n: int, **opts):
+    """Fold the active buffer (loP, hiP) into P with the adaptive driver
+    (:func:`_fold_adaptive`; options and defaults in
+    ``ADAPTIVE_DEFAULTS``, the reference's). P and the buffer are updated
+    in place until a compaction or a host tail replaces them. Returns
+    ``(P, total_rounds)``."""
+    P, total, _ = _fold_adaptive(P, loP, hiP, n, carry_out=False,
+                                 **_adaptive_options(opts))
+    return P, total
+
+
+def fold_edges_adaptive_pos_carry(P, loP, hiP, n: int, **opts):
+    """:func:`fold_edges_adaptive_pos` that hands the tail on instead of
+    finishing it on the host: returns ``(P, total_rounds, (carry_lo,
+    carry_hi))``, the still-live pairs compacted (empty when converged),
+    for the caller to fold with the next chunk."""
+    P, total, carry = _fold_adaptive(P, loP, hiP, n, carry_out=True,
+                                     **_adaptive_options(opts))
+    if carry is None:
+        empty = torch.zeros(0, dtype=torch.int32, device=P.device)
+        carry = (empty, empty.clone())
+    return P, total, carry
+
+
+def build_chunk_step_adaptive_pos(P, chunk, pos, pos_host, n: int,
+                                  carry=None, carry_out: bool = False,
+                                  **opts):
+    """One streaming step of the adaptive build: orient the (C, 2) chunk,
+    append ``carry`` (a previous fold's still-live pairs) when given, and
+    fold; ``carry_out``: :func:`fold_edges_adaptive_pos_carry`, returning
+    ``(P, rounds, carry)``, else :func:`fold_edges_adaptive_pos`, returning
+    ``(P, rounds)``."""
+    loP, hiP = orient_edges_pos(chunk, pos, n)
+    if carry is not None and len(carry[0]):
+        loP = torch.cat([loP, carry[0]])
+        hiP = torch.cat([hiP, carry[1]])
+    fold = fold_edges_adaptive_pos_carry if carry_out \
+        else fold_edges_adaptive_pos
+    return fold(P, loP, hiP, n, pos_host=pos_host, **opts)
 
 
 def minp_to_parent(minp, order, n: int) -> np.ndarray:

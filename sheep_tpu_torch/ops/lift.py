@@ -1,6 +1,8 @@
 """The exact-descent round's lifting work: the lifting stack and the fused
 climb (counterparts of ``build_lift_tables`` and of ``_pos_round_body``
-after its scatter-min, ``sheep_tpu/ops/elim.py:295`` and ``:158-192``).
+after its scatter-min, ``sheep_tpu/ops/elim.py:295`` and ``:158-192``),
+and the jump-mode climb of the adaptive driver's small buffers (of
+``_pos_small_round_body`` after its scatter-min, ``:359``).
 
 ``lift_stack(P, stack, ctl)`` fills the stack with the levels
 t_1 .. t_{d-1} of the table P (t_0 = P, t_{j+1} = t_j[t_j]), zeroes the
@@ -8,9 +10,11 @@ control word and writes d - 1, the stack rows in use, to ``ctl[ROWS]``.
 ``climb_tail(lo, hi, old_at_lo, P, stack, ctl)`` runs the rest of the
 round over the slots in one pass: retire, displace, the binary-lifting
 climb over levels d-1 .. 0, and the pass's ``changed`` flag, retired
-count and live count added to ``ctl``. On CUDA
-tensors they launch the kernels of ``csrc/lift.cu``; on CPU tensors they
-run the plain PyTorch versions :func:`lift_stack_plain` and
+count and live count added to ``ctl``. Given ``jumps`` > 0, ``climb_tail`` launches
+its jump-mode kernel, ``climb_jumps``, instead: the climb is ``jumps``
+single steps over P and the stack is not read. On CUDA tensors they
+launch the kernels of ``csrc/lift.cu``; on CPU tensors they run the
+plain PyTorch versions :func:`lift_stack_plain` and
 :func:`climb_tail_plain`. Anything else raises.
 
 **The depth cut is exact.** The squaring stops at the first level j with
@@ -50,6 +54,12 @@ CUDA in the last block of its kernel, on the CPU by
 ``LAUNCHES`` counts the wrapper calls that launched their kernels: one
 ``lift_stack`` call issues the whole ladder (a memset of ``ctl`` and L-1
 launches, those above d returning at once).
+
+The adaptive driver's stale round (``ops/elim.py``, the counterpart of
+``_pos_round_body_stale``, ``:222``) calls ``lift_stack`` once a segment
+and ``climb_tail`` every round on that stack: ``climb_tail`` applies
+level 0 from the current P, so a stack built from an older table gives
+the stale round, and no kernel of its own is needed.
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ import torch
 from sheep_tpu_torch.ops import fixpoint
 from sheep_tpu_torch.ops.gather import gather_clip_plain
 
-LAUNCHES = {"lift_stack": 0, "climb_tail": 0}
+LAUNCHES = {"lift_stack": 0, "climb_tail": 0, "climb_jumps": 0}
 
 ROWS, CHANGED, RETIRED, LIVE, TICKETS = range(5)
 CTL_WORDS = 5
@@ -103,17 +113,24 @@ def lift_stack_plain(P: torch.Tensor, levels: int):
     return stack, levels
 
 
-def climb_tail_plain(lo, hi, old_at_lo, P, stack, d: int, pre=None):
+def climb_tail_plain(lo, hi, old_at_lo, P, stack, d: int, pre=None,
+                     jumps: int = 0):
     """The plain version of :func:`climb_tail`: the round after its
     scatter-min, as the port ran it before this kernel, with the level loop
     bounded by d. ``stack`` rows 0 .. d-2 hold t_1 .. t_{d-1} (a row may be
     padded past len(P)); ``pre``, when given, is the climb's result
-    instead (the stream descent's). Returns ``(out_lo, out_hi, changed,
-    retired, live)``, the last three 0-d tensors."""
+    instead (the stream descent's); ``jumps`` > 0: the climb is that many
+    single steps over P (the jump mode; ``stack`` and d are not read).
+    Returns ``(out_lo, out_hi, changed, retired, live)``, the last three
+    0-d tensors."""
     T = len(P)
     cur = lo
     if pre is not None:
         cur = pre
+    elif jumps > 0:
+        for _ in range(jumps):
+            cand = gather_clip_plain(P, cur)
+            cur = torch.where(cand < hi, cand, cur)
     else:
         for k in range(d - 1, -1, -1):
             t = P if k == 0 else stack[k - 1, :T]
@@ -155,6 +172,8 @@ def _check_vec(name: str, t: torch.Tensor) -> None:
 
 
 def _check(fn: str, P, stack, ctl, *slots, state=None) -> None:
+    """Check a lifting call's arguments; ``stack`` None: a jump-mode climb
+    that reads none."""
     _check_vec(f"{fn}: P", P)
     _check_vec(f"{fn}: ctl", ctl)
     for i, t in enumerate(slots):
@@ -171,16 +190,18 @@ def _check(fn: str, P, stack, ctl, *slots, state=None) -> None:
                              f"row length")
     if state is not None:
         fixpoint.check_state(fn, state, P.device)
-    if stack.dtype != torch.int32:
-        raise TypeError(f"{fn}: stack must be int32, got {stack.dtype}")
-    if stack.dim() != 2 or not stack.is_contiguous():
-        raise ValueError(f"{fn}: stack must be a contiguous 2-D tensor")
     T = len(P)
     if not 0 < T < 2**31:
         raise ValueError(f"{fn}: P must hold 1 .. 2^31-1 entries")
     if len(ctl) != CTL_WORDS:
         raise ValueError(f"{fn}: ctl must hold {CTL_WORDS} entries")
-    if stack.shape[1] != row_stride(T) or stack.shape[0] + 1 > 32:
+    if stack is None:
+        stack = P  # nothing more to check of it
+    elif stack.dtype != torch.int32:
+        raise TypeError(f"{fn}: stack must be int32, got {stack.dtype}")
+    elif stack.dim() != 2 or not stack.is_contiguous():
+        raise ValueError(f"{fn}: stack must be a contiguous 2-D tensor")
+    elif stack.shape[1] != row_stride(T) or stack.shape[0] + 1 > 32:
         raise ValueError(f"{fn}: stack shape {tuple(stack.shape)} does not "
                          f"fit a table of {T} entries")
     for t in (stack, ctl, *slots):
@@ -210,6 +231,9 @@ def _lib():
         lib.sheep_climb_tail.argtypes = [p, p, p, ll, p, ll, p, ll, p, p, p,
                                          p, ll, p, ll, ll, p]
         lib.sheep_climb_tail.restype = ctypes.c_int
+        lib.sheep_climb_jumps.argtypes = [p, p, p, ll, p, ll, i, p, p, p, p,
+                                          ll, ll, ll, p]
+        lib.sheep_climb_jumps.restype = ctypes.c_int
         lib.sheep_lift_error_string.argtypes = [ctypes.c_int]
         lib.sheep_lift_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -250,37 +274,42 @@ def lift_stack(P: torch.Tensor, stack: torch.Tensor,
 
 
 def climb_tail(lo: torch.Tensor, hi: torch.Tensor, old_at_lo: torch.Tensor,
-               P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor):
+               P: torch.Tensor, stack, ctl: torch.Tensor, jumps: int = 0):
     """The round after its scatter-min, in one pass: returns ``(out_lo,
     out_hi)``, ORs this pass's changed flag into ``ctl[CHANGED]`` and adds
     its retired and live counts to ``ctl[RETIRED]`` and ``ctl[LIVE]``;
-    climbs ``ctl[ROWS] + 1`` levels."""
-    _check("climb_tail", P, stack, ctl, lo, hi, old_at_lo)
+    climbs ``ctl[ROWS] + 1`` levels, or with ``jumps`` > 0 takes that many
+    single steps over P (``climb_jumps``; ``stack`` may be None)."""
+    _check("climb_tail", P, None if jumps > 0 else stack, ctl, lo, hi,
+           old_at_lo)
     if P.device.type == "cpu":
         out_lo, out_hi, changed, retired, live = climb_tail_plain(
-            lo, hi, old_at_lo, P, stack, int(ctl[ROWS]) + 1)
+            lo, hi, old_at_lo, P, stack, int(ctl[ROWS]) + 1, jumps=jumps)
         ctl[CHANGED] |= changed
         ctl[RETIRED] += retired
         ctl[LIVE] += live
         return out_lo, out_hi
     out_lo = torch.empty_like(lo)
     out_hi = torch.empty_like(hi)
-    _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi)
+    _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi,
+                  jumps=jumps)
     return out_lo, out_hi
 
 
 def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
-               P: torch.Tensor, stack: torch.Tensor, ctl: torch.Tensor,
+               P: torch.Tensor, stack, ctl: torch.Tensor,
                state: torch.Tensor, batch_rounds: int,
-               pre: torch.Tensor = None) -> None:
+               pre: torch.Tensor = None, jumps: int = 0) -> None:
     """:func:`climb_tail` on the row of the [N, C] blocks that the
     execution ``state`` picks, written back into that row, then the end of
     the round (``fixpoint.round_end_plain``, for an execution over the
     blocks' N rows with a budget of ``batch_rounds`` rounds); nothing once
     the execution has stopped. ``pre``: the stream descent's climbed
-    positions, used instead of climbing the stack."""
+    positions, used instead of climbing the stack; ``jumps`` > 0: the
+    jump-mode climb (``climb_jumps``; ``stack`` may be None)."""
     slots = (loB, hiB, old_at_lo) + (() if pre is None else (pre,))
-    _check("climb_tail", P, stack, ctl, *slots, state=state)
+    _check("climb_tail", P, None if jumps > 0 else stack, ctl, *slots,
+           state=state)
     N = loB.shape[0]
     fixpoint.check_round_end("climb_tail", state, N, batch_rounds)
     if P.device.type == "cpu":
@@ -288,7 +317,7 @@ def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
             return
         lo, hi = fixpoint.pick_row(state, loB, hiB)
         out_lo, out_hi, changed, retired, live = climb_tail_plain(
-            lo, hi, old_at_lo, P, stack, int(ctl[ROWS]) + 1, pre)
+            lo, hi, old_at_lo, P, stack, int(ctl[ROWS]) + 1, pre, jumps)
         lo.copy_(out_lo)
         hi.copy_(out_hi)
         ctl[CHANGED] |= changed
@@ -297,20 +326,31 @@ def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
         fixpoint.round_end_plain(ctl, state, N, batch_rounds)
         return
     _launch_climb(loB, hiB, old_at_lo, P, stack, ctl, loB, hiB, state, pre,
-                  N, batch_rounds)
+                  N, batch_rounds, jumps)
 
 
 def _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi,
-                  state=None, pre=None, N=0, batch_rounds=0) -> None:
+                  state=None, pre=None, N=0, batch_rounds=0,
+                  jumps=0) -> None:
     lib = _lib()
+    row_stride = lo.shape[1] if lo.dim() == 2 else 0
+    ex = None if state is None else state.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
+        if jumps > 0:
+            rc = lib.sheep_climb_jumps(
+                lo.data_ptr(), hi.data_ptr(), old_at_lo.data_ptr(),
+                lo.shape[-1], P.data_ptr(), len(P), jumps, ctl.data_ptr(),
+                out_lo.data_ptr(), out_hi.data_ptr(), ex, row_stride, N,
+                batch_rounds, stream)
+            _raise_if(rc, "climb_jumps")
+            LAUNCHES["climb_jumps"] += 1
+            return
         rc = lib.sheep_climb_tail(
             lo.data_ptr(), hi.data_ptr(), old_at_lo.data_ptr(),
             lo.shape[-1], P.data_ptr(), len(P), stack.data_ptr(),
             stack.shape[1], ctl.data_ptr(), out_lo.data_ptr(),
-            out_hi.data_ptr(), None if state is None else state.data_ptr(),
-            lo.shape[1] if lo.dim() == 2 else 0,
+            out_hi.data_ptr(), ex, row_stride,
             None if pre is None else pre.data_ptr(), N, batch_rounds,
             stream)
     _raise_if(rc, "climb_tail")

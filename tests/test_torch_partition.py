@@ -189,17 +189,45 @@ def test_text_grammar_partition_matches(tmp_path):
     assert res.tree["deg"].tolist() == [1, 1, 2, 2, 2, 2, 3, 3]
 
 
+ADAPTIVE_COUNTERS = ("warm_segments", "full_segments", "small_segments",
+                     "stack_rebuilds", "compactions", "host_tails",
+                     "host_tail_live", "host_syncs", "device_rounds")
+
+
 @pytest.mark.parametrize("inflight", [0, 1])
-def test_single_chunk_batch_at_depth_one_is_refused(inflight):
-    """At dispatch_batch=1 and depth 1 the reference runs its adaptive
-    per-segment driver, which the port lacks; the port refuses rather
-    than count other rounds. On the CPU the auto depth is 1."""
-    be = TorchBackend(dispatch_batch=1, device="cpu", inflight=inflight)
-    with pytest.raises(ValueError, match="adaptive per-segment driver"):
-        be.partition(edgestream.open_input("rmat-hash:8:4:1"), 2)
-    with pytest.raises(ValueError, match="adaptive per-segment driver"):
-        sheep_tpu_torch.partition("rmat-hash:8:4:1", 2, device="cpu",
-                                  dispatch_batch=1, inflight=inflight)
+def test_single_chunk_batch_at_depth_one_matches(inflight):
+    """At dispatch_batch=1 and depth 1 (on the CPU the auto depth is 1)
+    both run the adaptive per-segment driver: the same forest, partition,
+    scores, device rounds and driver counters."""
+    spec, k, cs = "rmat-hash:14:8:1", 8, 1 << 15
+    be = TpuBackend(chunk_edges=cs, dispatch_batch=1, inflight=inflight)
+    with jes.open_input(spec) as s:
+        ref = be.partition(s, k, keep_tree=True)
+    res = sheep_tpu_torch.partition(spec, k, device="cpu", chunk_edges=cs,
+                                    dispatch_batch=1, inflight=inflight,
+                                    keep_tree=True)
+    _assert_equal(res, ref)
+    for key in ADAPTIVE_COUNTERS:
+        assert res.diagnostics.get(key) == ref.diagnostics.get(key), key
+    assert res.diagnostics["host_syncs"] == sum(
+        res.diagnostics.get(key, 0) for key in
+        ("warm_segments", "full_segments", "small_segments"))
+
+
+def test_defaults_match_the_reference():
+    """``TorchBackend(device="cpu")`` and ``TpuBackend()`` with their
+    defaults (auto dispatch batch and depth: 1 and 1 on the CPU) run the
+    same driver to the same result."""
+    spec, k = "rmat-hash:15:8:2", 16
+    with jes.open_input(spec) as s:
+        ref = TpuBackend().partition(s, k, keep_tree=True)
+    res = TorchBackend(device="cpu").partition(
+        edgestream.open_input(spec), k, keep_tree=True)
+    _assert_equal(res, ref)
+    for key in ADAPTIVE_COUNTERS:
+        assert res.diagnostics.get(key) == ref.diagnostics.get(key), key
+    assert res.diagnostics["dispatch_batch"] == 1
+    assert res.diagnostics["inflight_depth"] == 1
 
 
 def test_single_chunk_batch_at_depth_two_matches():
