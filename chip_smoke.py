@@ -52,6 +52,13 @@ line is printed:
      plain version, ``torch.unique`` of the packed keys with a masked
      select, and its bytes bound; ``climb_jumps`` (``climb_tail``'s jump
      mode, 16 steps) at C' = 2^14 on a chain forest;
+  3f. the chunk synthesis ``hash_chunk`` (``csrc/synth.cu``, B12) against
+     its plain version on the card, exactly: R-MAT at scale 22 (2^23 rows)
+     at counter 0, across the 2^32 carry and with a ragged count; SBM at
+     scale 22 with 64 blocks, with 2 blocks at p_out 1.0, and near-clique
+     with clique bits 8; each timed beside its plain version (the int64
+     passes), with its bound: bytes, or the SASS instructions its rows
+     execute (``cuobjdump -sass``) over the card's instruction rate;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -69,6 +76,13 @@ line is printed:
      segment and compaction counter equal; then one chunk's adaptive fold
      with ``host_tail=False``, whose tail runs as jump-mode segments
      (``climb_jumps``);
+  4e. the new inputs, CUDA against the CPU at depth 2 (chunk 2^17):
+     sbm-hash, nearclique-hash (through ``hash_chunk``), plsbm-hash,
+     bipartite-hash and the rmat replay stream (through the ring) at scale
+     16, forest, assignment, scores and device rounds equal;
+     ``partition_multi`` at k = 4, 16, 64 equal on both; a ``.csr`` file
+     and an ``.edges.gz`` of the same edges as a ``.bin32`` give its
+     partition;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
      the card at the default depth (2), with the native split; the
@@ -76,7 +90,8 @@ line is printed:
      "error". Every kernel of the path launched once a round enqueued
      (``exec_finish`` once an execution; the round's end has no launch of
      its own), one host read per confirmed execution, the device's round
-     log one entry per counted round; the rounds' live-slot share and
+     log one entry per counted round, ``hash_chunk`` once a chunk and
+     pass; the rounds' live-slot share and
      depth summarized; edge cut, total edges and comm volume equal to the
      JAX package's values;
   5b. one more phase 3c case, one more scatter case and K1's case (the
@@ -96,12 +111,19 @@ line is printed:
      batch and depth, chunk 2^22): the JAX package's cut, total and comm
      volume, the dispatch batch the auto rule gives, and the peak device
      memory beside the model's total and within 0.9 of the card's;
+  5f. the planted partition at full size, sbm-hash:22:64:0.05:16:42
+     (4,194,304 vertices, 67,108,864 edges, 64 blocks), through
+     ``partition_multi`` at k = 64, 8, 256 and the entry point's defaults:
+     one build, the JAX package's cut, total and comm volume at each k,
+     the planted cut ratio beside the cut ratio, ``hash_chunk``'s
+     launches;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
      pass's less the plain pass's); ``climb_level``'s, ``lift_stack``'s
      and ``compact_live``'s launches from 5d, ``climb_jumps``'s from the
-     jump-mode fold of 4d;
+     jump-mode fold of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
+     mode from 5f;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -111,6 +133,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -123,6 +147,16 @@ S22_SPEC, S22_K = "rmat-hash:22:16:42", 64
 S22_EDGE_CUT = 62191637
 S22_TOTAL_EDGES = 67107073
 S22_COMM_VOLUME = 18440186
+# ... and for the planted partition at the same size (64 blocks), one
+# build split at three k, from its cpu backend:
+#   JAX_PLATFORMS=cpu python -c 'import sheep_tpu; [print(r.summary()) for
+#       r in sheep_tpu.partition_multi("sbm-hash:22:64:0.05:16:42",
+#       [64, 8, 256], backend="cpu")]'
+SBM22_SPEC, SBM22_KS = "sbm-hash:22:64:0.05:16:42", (64, 8, 256)
+# k -> (edge cut, total edges, comm volume)
+SBM22_SCORES = {64: (63429157, 67107864, 67362086),
+                8: (58102508, 67107864, 28448493),
+                256: (63713463, 67107864, 72638671)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -868,16 +902,27 @@ def per_segment(card, counters):
             check(a.get(key) == b.get(key),
                   f"{what}: {key} {a.get(key)} != {b.get(key)}")
 
+    drain = elim.TailOverlap.drain
     for name, extra in (("stale_reuse1", {}),
                         ("stale_reuse2", dict(stale_reuse=2)),
                         ("carry_tail", dict(carry_tail=True)),
                         ("tail_overlap", dict(tail_overlap=True))):
-        t0 = time.perf_counter()
-        on_gpu, launches = counted(lambda: sheep_tpu_torch.partition(
-            spec16, 64, device="cuda", **base, **extra))
-        t_gpu = time.perf_counter() - t0
-        on_cpu = sheep_tpu_torch.partition(spec16, 64, device="cpu", **base,
-                                           **extra)
+        # which fold a tail resolved by the worker thread joins depends on
+        # whether the worker has finished when the next chunk starts (the
+        # reference's drain without waiting), and so do the rounds; here
+        # every drain waits, on both devices, so that the two runs fold
+        # the same pairs in the same order
+        if name == "tail_overlap":
+            elim.TailOverlap.drain = lambda self, block: drain(self, True)
+        try:
+            t0 = time.perf_counter()
+            on_gpu, launches = counted(lambda: sheep_tpu_torch.partition(
+                spec16, 64, device="cuda", **base, **extra))
+            t_gpu = time.perf_counter() - t0
+            on_cpu = sheep_tpu_torch.partition(spec16, 64, device="cpu",
+                                               **base, **extra)
+        finally:
+            elim.TailOverlap.drain = drain
         what = f"{spec16} per segment, {name}"
         same_result(on_gpu, on_cpu, what)
         same_counts(on_gpu.diagnostics, on_cpu.diagnostics, what)
@@ -927,6 +972,223 @@ def per_segment(card, counters):
                                         "climb_tail")},
         "card": card}), flush=True)
     return gl
+
+
+# SASS of hash_chunk: "/*0230*/  ULDC UR6, c[0x0][UR5+0x210] ;"
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_BRANCH = re.compile(r"\bBRA\s+(0x[0-9a-f]+)")
+
+
+def sass_row_ops(lib_path: str) -> dict:
+    """The SASS instructions a row of ``hash_chunk`` executes, by mode, from
+    ``cuobjdump -sass`` of the built library: {mode: (straight, loop,
+    sentinel)}, where a row of the chunk's edges executes ``straight``
+    instructions (through the first unpredicated EXIT, predicated ones
+    included) plus ``loop`` more for each level past the first (the
+    rolled level loop, the one backward branch; 0 in SBM mode), and a
+    sentinel row ``sentinel`` (through its predicated EXIT)."""
+    from sheep_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    funcs, cur = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            cur = line.split("Function : ")[1].strip()
+            funcs[cur] = []
+            continue
+        m = _SASS_LINE.match(line)
+        if m and cur is not None:
+            funcs[cur].append((int(m.group(1), 16), m.group(2).strip()))
+    ops = {}
+    for mode, tag in (("rmat", "ILi0E"), ("sbm", "ILi1E")):
+        names = [f for f in funcs if "hash_chunk_kernel" in f and tag in f]
+        check(len(names) == 1, f"hash_chunk<{mode}> not found in the SASS")
+        instrs = funcs[names[0]]
+        end = next(i for i, (_, t) in enumerate(instrs) if t == "EXIT")
+        path = instrs[:end + 1]
+        exits = [i for i, (_, t) in enumerate(path) if t.endswith(" EXIT")]
+        loops = []
+        for addr, text in path:
+            m = _BRANCH.search(text)
+            if m and int(m.group(1), 16) < addr:
+                loops.append(sum(1 for a, _ in path
+                                 if int(m.group(1), 16) <= a <= addr))
+        check(len(loops) == (1 if mode == "rmat" else 0),
+              f"hash_chunk<{mode}>: {len(loops)} loops in the SASS")
+        ops[mode] = (len(path), loops[0] if loops else 0, exits[-1] + 1)
+    return ops
+
+
+def hash_chunks(card):
+    """Phase 3f: ``hash_chunk`` (B12) against its plain version on the
+    card, exactly: R-MAT at scale 22 (pad 2^23) at counter 0, at 2^32 -
+    2^20 (the 64-bit carry) and with a ragged count (2^23 - 12,345); SBM
+    at scale 22 with 64 blocks at p_out 0.05, with 2 blocks at p_out 1.0,
+    and near-clique with clique bits 8 (2^14 blocks). Each timed beside
+    its plain version (the int64 passes the main path ran before). The
+    bound is the larger of the bytes (8 a row written, nothing read) over
+    3.35 TB/s and the instructions the rows execute (``sass_row_ops``) over
+    the instruction rate: one warp instruction a clock on each of an SM's four
+    schedulers, at the SMs and the maximum SM clock the card reports."""
+    import torch
+
+    from sheep_tpu_torch.io import generators as g
+    from sheep_tpu_torch.ops import _build, synth
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    row_ops = sass_row_ops(_build.build_all(["synth"])["synth"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    clock_hz = float(smi.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    instr_per_s = sms * 4 * 32 * clock_hz
+    n, pad = 1 << 22, 1 << 23
+    rk = g._rmat_hash_keys(22, 42)
+    th = g._rmat_hash_thresholds(0.57, 0.19, 0.19)
+    sk = g._sbm_hash_keys(42)
+    carry = (1 << 32) - (1 << 20)
+    cases = [("rmat-s22", synth.RMAT, 0, pad, rk, th),
+             ("rmat-s22-carry", synth.RMAT, carry, pad, rk, th),
+             ("rmat-s22-ragged", synth.RMAT, 5 * pad, pad - 12_345, rk, th),
+             ("sbm-s22-b64", synth.SBM, 0, pad, sk,
+              (g._sbm_t_out(0.05), 64, 16)),
+             ("sbm-s22-b2-p1", synth.SBM, carry, pad, sk,
+              (g._sbm_t_out(1.0), 2, 21)),
+             ("nearclique-s22-c8", synth.SBM, 0, pad, sk,
+              (g._sbm_t_out(0.02), 1 << 14, 8))]
+    records = {}
+    for name, mode, start, count, keys, params in cases:
+        args = (mode, start, count, pad, n, keys, params, dev)
+        got = synth.hash_chunk(*args)
+        want = synth.hash_chunk_plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0, f"hash_chunk {name} disagrees with its plain "
+                        f"version")
+        straight, loop, sentinel = row_ops["rmat" if mode == synth.RMAT
+                                           else "sbm"]
+        per_row = straight + loop * (len(keys) - 1)
+        ops = count * per_row + (pad - count) * sentinel
+        bytes_ms = gs.bound_ms(8 * pad)
+        ops_ms = ops / instr_per_s * 1e3
+        rec = {"case": name, "mode": "rmat" if mode == synth.RMAT else "sbm",
+               "start": start, "count": count, "pad_to": pad,
+               "levels": len(keys), "max_abs_err": err,
+               "ms": gs.time_ms(lambda: synth.hash_chunk(*args)),
+               "plain_ms": gs.time_ms(lambda: synth.hash_chunk_plain(*args),
+                                      iters=5),
+               "library_ms": None, "sass_ops_per_row": per_row,
+               "ops": ops, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "sms": sms, "clock_mhz": clock_hz / 1e6, "card": card}
+        print("hash_chunk " + json.dumps(rec), flush=True)
+        records[name] = rec
+    return records
+
+
+def write_csr(path: str, edges, n: int) -> None:
+    """``edges`` as a ``.csr`` file of the JAX package's layout (the port
+    reads it, and does not write it): edges grouped by source in a stable
+    order, int32 destinations."""
+    import numpy as np
+
+    order = np.argsort(edges[:, 0], kind="stable")
+    indptr = np.zeros(n + 1, dtype="<i8")
+    np.cumsum(np.bincount(edges[:, 0], minlength=n), out=indptr[1:])
+    with open(path, "wb") as f:
+        f.write(struct.pack("<8sIIQQ", b"SHEEPCSR", 1, 0, n, len(edges)))
+        f.write(indptr.tobytes())
+        f.write(edges[order, 1].astype("<i4").tobytes())
+
+
+PLANTED_SPECS = ("sbm-hash:16:16:0.05:16:7", "nearclique-hash:16:6:0.02:16:7",
+                 "plsbm-hash:16:16:0.05:16:7", "bipartite-hash:16:8:0.02:16:7",
+                 "rmat:16:16:7")
+
+
+def planted_parity(card, counters):
+    """Phase 4e: the new inputs, CUDA against the CPU at depth 2: the
+    five specs of ``PLANTED_SPECS`` (chunk 2^17, dispatch batch 3): forest,
+    assignment, scores and device rounds equal, the device-synthesized
+    ones through ``hash_chunk``, the others through the H2D ring;
+    ``partition_multi`` at k = 4, 16, 64 equal on both devices; a ``.csr``
+    file and an ``.edges.gz`` of the same edges as a ``.bin32`` give its
+    partition on the card."""
+    import numpy as np
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.io import formats, generators
+    from sheep_tpu_torch.ops import synth
+
+    opts = dict(chunk_edges=1 << 17, dispatch_batch=3, keep_tree=True,
+                inflight=2)
+    for spec in PLANTED_SPECS:
+        for c in counters:
+            c.reset_launches()
+        t0 = time.perf_counter()
+        on_gpu = sheep_tpu_torch.partition(spec, 16, device="cuda", **opts)
+        t_gpu = time.perf_counter() - t0
+        synthesized = synth.LAUNCHES["hash_chunk"]
+        on_cpu = sheep_tpu_torch.partition(spec, 16, device="cpu", **opts)
+        same_result(on_gpu, on_cpu, f"{spec} cuda D=2, cpu D=2")
+        dg = on_gpu.diagnostics
+        device_synth = spec.startswith(("sbm-hash", "nearclique-hash"))
+        check(synthesized > 0 if device_synth else
+              synthesized == 0 and dg.get("h2d_staged_bytes", 0) > 0,
+              f"{spec}: {synthesized} hash_chunk launches, "
+              f"{dg.get('h2d_staged_bytes', 0):.0f} B staged")
+        print("planted " + json.dumps({
+            "spec": spec, "k": 16, "edge_cut": on_gpu.edge_cut,
+            "total_edges": on_gpu.total_edges,
+            "comm_volume": on_gpu.comm_volume,
+            "device_rounds": dg["device_rounds"],
+            "hash_chunk_launches": synthesized,
+            "h2d_staged_bytes": dg.get("h2d_staged_bytes", 0),
+            "cuda_s": t_gpu,
+            "card": card}), flush=True)
+    spec, ks = PLANTED_SPECS[0], [4, 16, 64]
+    multi = [sheep_tpu_torch.partition_multi(spec, ks, device=dev,
+                                             chunk_edges=1 << 17,
+                                             dispatch_batch=3, inflight=2)
+             for dev in ("cuda", "cpu")]
+    for a, b in zip(*multi):
+        # a further k is a re-split: no rounds of its own
+        same_result(a, b, f"{spec} partition_multi k={a.k}",
+                    rounds=a is multi[0][0])
+    print("planted-multi " + json.dumps({
+        "spec": spec, "ks": ks, "edge_cut": [r.edge_cut for r in multi[0]],
+        "comm_volume": [r.comm_volume for r in multi[0]], "card": card}),
+        flush=True)
+    n = 1 << 14
+    edges = generators.sbm_hash_range(14, 0, 16 << 14, 16, 0.05, seed=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {ext: os.path.join(tmp, f"sbm14{ext}")
+                 for ext in (".bin32", ".edges.gz", ".csr")}
+        formats.write_edges(paths[".bin32"], edges)
+        formats.write_edges(paths[".edges.gz"], edges)
+        write_csr(paths[".csr"], edges, n)
+        opts = dict(chunk_edges=1 << 15, dispatch_batch=3, keep_tree=True,
+                    inflight=2)
+        ref = sheep_tpu_torch.partition(paths[".bin32"], 16, device="cuda",
+                                        **opts)
+        for ext in (".edges.gz", ".csr"):
+            got = sheep_tpu_torch.partition(paths[ext], 16, device="cuda",
+                                            **opts)
+            # the .csr file regroups the edges by source: the same forest
+            # and partition, other rounds
+            same_result(got, ref, f"sbm14{ext} against .bin32",
+                        rounds=ext != ".csr")
+            check(np.array_equal(got.tree["deg"], ref.tree["deg"]),
+                  f"sbm14{ext}: degrees differ")
+    print(f"planted-files sbm14 k=16: .edges.gz == .csr == .bin32 on cuda "
+          f"(edge_cut {ref.edge_cut})", flush=True)
 
 
 def lift_entries(head, cases, launches) -> list:
@@ -1008,9 +1270,9 @@ def main() -> int:
     from sheep_tpu_torch.backends import torch_backend
     from sheep_tpu_torch.backends.torch_backend import LAUNCH_KEYS
     from sheep_tpu_torch.ops import (_build, compact, elim, fixpoint, gather,
-                                     lift)
+                                     lift, synth)
 
-    counters = (gather, lift, fixpoint, compact)
+    counters = (gather, lift, fixpoint, compact, synth)
     # kernel -> its launches' diagnostics key, for the kernels of the
     # batched driver's exact descent (not the stream descent's level, nor
     # the per-segment driver's own kernels)
@@ -1053,6 +1315,8 @@ def main() -> int:
     # 3e. the per-segment driver's kernels against their plain versions
     compact_cases = compactions(card)
     jumps_case = jump_climbs(card)
+    # 3f. the chunk synthesis against its plain version
+    synth_cases = hash_chunks(card)
 
     # 4. the port on CUDA (auto depth: 2) against the port on the CPU at
     # depths 1 (its auto) and 2
@@ -1134,6 +1398,9 @@ def main() -> int:
 
     # 4d. the per-segment driver, CUDA against the CPU
     jump_launches = per_segment(card, counters)
+    # 4e. the planted-partition and replay inputs, partition_multi, .csr
+    # and gzip text, CUDA against the CPU
+    planted_parity(card, counters)
 
     # 5. the full-size build on the card, through the user's entry point,
     # at the default depth; fold_segments_pipelined runs its dispatch loop
@@ -1165,6 +1432,10 @@ def main() -> int:
     for name in ("gather_clip", "scatter_min", "lift_stack", "climb_tail"):
         check(launches[name] == enqueued,
               f"{name}: {launches[name]} launches in {enqueued} rounds")
+    # each chunk synthesized once a pass: degrees, build and score
+    check(launches["hash_chunk"] == 3 * 8,
+          f"hash_chunk: {launches['hash_chunk']} launches for 8 chunks in "
+          f"3 passes")
     # the round's end runs in climb_tail's last block: no launch of its own
     check("round_end" not in launches and
           "round_end_launches" not in d, "a stand-alone round_end ran")
@@ -1188,6 +1459,7 @@ def main() -> int:
         "host_blocked_ms": d["host_blocked_ms"],
         "device_gap_ms": d["device_gap_ms"],
         "launches": launches, "round_end_launches": 0,
+        "hash_chunk_launches": launches["hash_chunk"],
         "peak_mem_bytes": peak,
         "live_share_mean": d["live_sum"] / (rounds * slots),
         "live_share_max": d["live_max"] / slots,
@@ -1315,6 +1587,54 @@ def main() -> int:
             model["total_bytes"], "allowed_bytes": allowed,
         "card": card}), flush=True)
 
+    # 5f. the planted partition at full size through partition_multi at
+    # the entry point's defaults: one build, split at three k
+    from sheep_tpu_torch.io.generators import SbmHashStream
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters:
+        counter.reset_launches()
+    t0 = time.perf_counter()
+    multi = sheep_tpu_torch.partition_multi(SBM22_SPEC, SBM22_KS,
+                                            device="cuda")
+    sbm_wall = time.perf_counter() - t0
+    sbm_launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    check([r.k for r in multi] == list(SBM22_KS), "sbm22: k order")
+    for r in multi:
+        want = SBM22_SCORES[r.k]
+        check(len(r.assignment) == 1 << 22 and
+              int(r.assignment.min()) >= 0 and
+              int(r.assignment.max()) < r.k, f"sbm22 k={r.k}: bad parts")
+        check((r.edge_cut, r.total_edges, r.comm_volume) == want,
+              f"sbm22 k={r.k}: (cut, total, cv) "
+              f"{(r.edge_cut, r.total_edges, r.comm_volume)} != JAX {want}")
+    # 16 chunks of 2^22: degrees, build, score, and the further k's pass
+    check(sbm_launches["hash_chunk"] == 4 * 16,
+          f"sbm22: {sbm_launches['hash_chunk']} hash_chunk launches")
+    for name in path_keys:
+        check(sbm_launches[name] > 0, f"sbm22: no {name} launch")
+    sbm = SbmHashStream(22, 64, 0.05, 16, 42)
+    sd = multi[0].diagnostics
+    print("sbm22 " + json.dumps({
+        "spec": SBM22_SPEC, "ks": list(SBM22_KS), "wall_s": sbm_wall,
+        "phase_s": multi[0].phase_times,
+        "further_k_phase_s": {r.k: r.phase_times for r in multi[1:]},
+        "edge_cut": {r.k: r.edge_cut for r in multi},
+        "cut_ratio": {r.k: r.cut_ratio for r in multi},
+        "planted_cut_ratio": {k: sbm.planted_cut_ratio(k) for k in SBM22_KS
+                              if sbm.n_blocks % k == 0},
+        "comm_volume": {r.k: r.comm_volume for r in multi},
+        "balance": {r.k: r.balance for r in multi},
+        "total_edges": multi[0].total_edges,
+        "dispatch_batch": sd["dispatch_batch"],
+        "inflight": sd["inflight_depth"],
+        "device_rounds": sd["device_rounds"], "host_syncs": sd["host_syncs"],
+        "hash_chunk_launches": sbm_launches["hash_chunk"],
+        "launches": sbm_launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "card": card}), flush=True)
+
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b) and climb_level's the stream
     # descent's (phase 4b), their only paths
@@ -1323,7 +1643,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": "bytes", "library_ms": rec["library_ms"],
+                "bound_by": rec.get("bound_by", "bytes"),
+                "library_ms": rec["library_ms"],
                 "case": rec.get("form", rec.get("case")), **extra}
 
     def max_err(kernel):
@@ -1422,6 +1743,27 @@ def main() -> int:
                   "bound_ms", "live", "size")} for r in compact_cases},
               cases_max_abs_err=max(r["max_abs_err"]
                                     for r in compact_cases))]
+    # the chunk synthesis, one entry a mode: R-MAT on the main path (5),
+    # SBM on the planted build (5f); no library call computes the hash
+    synth_src = "sheep_tpu_torch/csrc/synth.cu"
+    for mode, head, launched, replaces, also in (
+            ("rmat", "rmat-s22", launches["hash_chunk"],
+             "sheep_tpu/io/generators.py:252",
+             "sheep_tpu/io/generators.py:241 (_device_chunk_fn)"),
+            ("sbm", "sbm-s22-b64", sbm_launches["hash_chunk"],
+             "sheep_tpu/io/generators.py:551",
+             "sheep_tpu/io/generators.py:542 (_sbm_device_chunk_fn)")):
+        mode_cases = [r for r in synth_cases.values() if r["mode"] == mode]
+        kernels.append(entry(
+            f"hash_chunk<{mode}>", synth_src, replaces, synth_cases[head],
+            launched, also_replaces=[also], replaces_kind="XLA program",
+            ops_bound_ms=synth_cases[head]["ops_bound_ms"],
+            bytes_bound_ms=synth_cases[head]["bytes_bound_ms"],
+            sass_ops_per_row=synth_cases[head]["sass_ops_per_row"],
+            cases={r["case"]: {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "count")}
+                for r in mode_cases},
+            cases_max_abs_err=max(r["max_abs_err"] for r in mode_cases)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

@@ -13,7 +13,9 @@ and fault handling).
               warm, stale and jump-mode segments, compaction, the host
               tail, or ``carry_tail`` / ``tail_overlap``)
   split     tree split on the host
-  score     per-chunk cut counts and comm-volume keys
+  score     per-chunk cut counts and comm-volume keys on the device, for
+            one assignment or, in ``partition_multi`` and
+            ``score_stream``, several in one pass
 
 Chunks are padded to a fixed (C, 2) shape with the sentinel vertex n, and
 the last group of ``dispatch_batch`` chunks is filled with all-sentinel
@@ -347,25 +349,12 @@ class TorchBackend:
         w = deg_host.astype(np.float64) if weights == "degree" else None
         assign_host = split_ops.tree_split_host(parent, pos_host, k,
                                                 weights=w, alpha=self.alpha)
-        assign = torch.from_numpy(np.concatenate(
-            [assign_host.astype(np.int32), np.zeros(1, np.int32)])).to(dev)
         t["split"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        cut = torch.zeros((), dtype=torch.int64, device=dev)
-        total = torch.zeros((), dtype=torch.int64, device=dev)
-        cv_chunks: list = []
-        for chunk in chunks():
-            c, tt = score_ops.score_chunk(chunk, assign, n)
-            cut += c
-            total += tt
-            if comm_volume:
-                score_ops.accumulate_cv_keys(
-                    cv_chunks, score_ops.cut_pair_keys(chunk, assign, n, k))
-        cut, total = int(cut), int(total)
-        cv = score_ops.comm_volume(cv_chunks) if comm_volume else None
-        balance = pure.part_balance(
-            assign_host, k, deg_host if weights == "degree" else None)
+        cut, total, balance, cv = self.score_stream(
+            stream, {k: assign_host}, comm_volume,
+            deg_host if weights == "degree" else None, stats)[k]
         t["score"] = time.perf_counter() - t0
 
         diagnostics = {"fixpoint_rounds": float(total_rounds)}
@@ -379,3 +368,76 @@ class TorchBackend:
             diagnostics=diagnostics,
             tree={"parent": parent, "pos": pos_host, "deg": deg_host}
             if keep_tree else None)
+
+    def score_stream(self, stream, assignments: dict,
+                     comm_volume: bool = True, weights=None,
+                     stats=None) -> dict:
+        """Score assignments ({k: int array[n]}) against the stream in one
+        pass over its device chunks, every assignment against each chunk:
+        {k: (cut, total, balance, comm volume)}, as the reference's
+        ``score_stream`` (``sheep_tpu/backends/base.py:136``). ``weights``
+        weigh the balance (None: unit); ``stats`` takes the H2D ring's
+        counters."""
+        dev = self.device
+        n = stream.num_vertices
+        cs = stream.clamp_chunk_edges(self.chunk_edges)
+        parts = {k: torch.from_numpy(np.concatenate(
+            [np.asarray(a, dtype=np.int32), np.zeros(1, np.int32)])).to(dev)
+            for k, a in assignments.items()}
+        cut = {k: torch.zeros((), dtype=torch.int64, device=dev)
+               for k in parts}
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        cv_keys: dict = {k: [] for k in parts}
+        for chunk in device_chunks(stream, cs, n, dev,
+                                   resolve_h2d_ring(self.h2d_ring, dev),
+                                   stats):
+            for i, (k, a) in enumerate(parts.items()):
+                c, tt = score_ops.score_chunk(chunk, a, n)
+                cut[k] += c
+                if i == 0:
+                    total += tt
+                if comm_volume:
+                    score_ops.accumulate_cv_keys(
+                        cv_keys[k], score_ops.cut_pair_keys(chunk, a, n, k))
+        total = int(total)
+        return {k: (int(cut[k]), total,
+                    pure.part_balance(assignments[k], k, weights),
+                    score_ops.comm_volume(cv_keys[k]) if comm_volume
+                    else None) for k in parts}
+
+    def partition_multi(self, stream, ks, weights: str = "unit",
+                        comm_volume: bool = True) -> list:
+        """One result per k in ``ks`` from one build, as the reference's
+        ``Partitioner.partition_multi``: the first k is a
+        ``keep_tree=True`` partition, every further k a re-split of its
+        forest by the native split, all of them scored in one more pass
+        over the stream."""
+        ks = [int(k) for k in ks]
+        if not ks:
+            raise ValueError("ks must be non-empty")
+        first = self.partition(stream, ks[0], weights=weights,
+                               comm_volume=comm_volume, keep_tree=True)
+        out = [first]
+        if len(ks) == 1:
+            return out
+        tree = first.tree
+        w = tree["deg"].astype(np.float64) if weights == "degree" else None
+        split_s, assigns = {}, {}
+        for k in ks[1:]:
+            t0 = time.perf_counter()
+            assigns[k] = split_ops.tree_split_host(
+                tree["parent"], tree["pos"], k, weights=w, alpha=self.alpha)
+            split_s[k] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scored = self.score_stream(stream, assigns, comm_volume=comm_volume,
+                                   weights=w)
+        score_s = time.perf_counter() - t0
+        for k in ks[1:]:
+            cut, total, balance, cv = scored[k]
+            out.append(PartitionResult(
+                assignment=assigns[k], k=k, edge_cut=cut, total_edges=total,
+                cut_ratio=cut / max(total, 1), balance=balance,
+                comm_volume=cv, phase_times={
+                    "split": split_s[k], "score": score_s / len(ks[1:])},
+                backend=first.backend, tree=tree))
+        return out

@@ -1,15 +1,18 @@
 """Command line of the port (a subset of ``sheep_tpu/cli.py``).
 
     python -m sheep_tpu_torch.cli --input rmat-hash:16 --k 8 --device cpu
+    python -m sheep_tpu_torch.cli --input g.edges.gz --k 8,64 --output g.parts
+    python -m sheep_tpu_torch.cli --input g.csr --score-only g.parts
 
-prints the phase times and scores, then one JSON result line (the same
-fields as the reference's) as the last line.
+prints the phase times and scores, then one JSON result line per k (the
+same fields as the reference's) last.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -18,9 +21,28 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sheep-torch",
                                 description="SHEEP graph partitioning on "
                                             "PyTorch/CUDA")
-    p.add_argument("--input", required=True,
-                   help="edge-list file or rmat-hash:SCALE[:EF[:SEED]]")
-    p.add_argument("--k", type=int, required=True, help="number of parts")
+    p.add_argument("--input",
+                   help="edge list (text, .gz text, .bin32/.bin64, .csr) or "
+                        "a synthetic spec: rmat-hash:SCALE[:EF[:SEED]], "
+                        "rmat:SCALE[:EF[:SEED]], sbm-hash/plsbm-hash/"
+                        "bipartite-hash:SCALE:BLOCKS:POUT[:EF[:SEED]], "
+                        "nearclique-hash:SCALE:CLIQUE_BITS:POUT[:EF[:SEED]]")
+    p.add_argument("--k", help="number of parts; a comma list (e.g. "
+                               "--k 8,64,256) splits one elimination-tree "
+                               "build for every k, one result line each")
+    p.add_argument("--score-only", default=None, metavar="PARTS",
+                   help="skip partitioning: score this partition map "
+                        "(.parts/.pbin) against --input on the device; --k "
+                        "is inferred from the map if omitted")
+    p.add_argument("--weights", choices=["unit", "degree"], default="unit",
+                   help="vertex weights for balance (default unit)")
+    p.add_argument("--alpha", type=float, default=1.0,
+                   help="bag capacity factor for the tree split (default "
+                        "1.0)")
+    p.add_argument("--no-comm-volume", action="store_true",
+                   help="skip the communication-volume count")
+    p.add_argument("--num-vertices", type=int, default=None,
+                   help="vertex count if known (skips a counting pass)")
     p.add_argument("--chunk-edges", type=int, default=1 << 22)
     p.add_argument("--dispatch-batch", type=int, default=None, metavar="N",
                    help="chunks folded by one fixpoint execution (0 = "
@@ -73,36 +95,134 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true",
                    help="print only the JSON result line")
     args = p.parse_args(argv)
+    if args.input is None or (args.k is None and not args.score_only):
+        p.error("--input and --k are required")
     opts = _build_options(p, args)
+    if args.score_only:
+        if args.k is not None:
+            raw_k = args.k
+            try:
+                args.k = int(raw_k)
+            except ValueError:
+                args.k = 0
+            if args.k < 1:
+                p.error(f"--score-only takes a single positive --k "
+                        f"(got {raw_k!r})")
+        return _score_only(args, opts.get("h2d_ring", 0))
+    try:
+        ks = [int(x) for x in str(args.k).split(",") if x != ""]
+    except ValueError:
+        ks = []
+    if not ks or any(k < 1 for k in ks):
+        p.error(f"--k must be a positive int or comma list of them "
+                f"(got {args.k!r})")
+    # a repeated k would alias its output path: keep the first
+    ks = list(dict.fromkeys(ks))
 
     import sheep_tpu_torch
     from sheep_tpu_torch.io import formats
+    from sheep_tpu_torch.types import UnsupportedGraphError
 
+    run = dict(device=args.device, chunk_edges=args.chunk_edges,
+               weights=args.weights, alpha=args.alpha,
+               comm_volume=not args.no_comm_volume,
+               n_vertices=args.num_vertices, **opts)
     t0 = time.perf_counter()
-    res = sheep_tpu_torch.partition(args.input, args.k, device=args.device,
-                                    chunk_edges=args.chunk_edges, **opts)
+    try:
+        if len(ks) > 1:
+            results = sheep_tpu_torch.partition_multi(args.input, ks, **run)
+        else:
+            results = [sheep_tpu_torch.partition(args.input, ks[0], **run)]
+    except UnsupportedGraphError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
     wall = time.perf_counter() - t0
+    res = results[0]
+
+    def out_path(k: int) -> str:
+        if len(ks) == 1:
+            return args.output
+        root, ext = os.path.splitext(args.output)
+        return f"{root}.k{k}{ext}"
+
     if args.output:
-        formats.write_partition(args.output, res.assignment)
+        for r in results:
+            formats.write_partition(out_path(r.k), r.assignment)
     m = res.total_edges
     n = len(res.assignment)
     if not args.json:
         print(f"graph: {args.input}  V={n:,}  E={m:,}")
-        print(f"backend: {res.backend}  k={res.k}")
+        print(f"backend: {res.backend}  k={','.join(str(k) for k in ks)}")
         for phase, secs in res.phase_times.items():
             print(f"  {phase:>16}: {secs:.3f}s")
-        print(f"k={res.k}: edge cut {res.edge_cut:,} "
-              f"({100 * res.cut_ratio:.2f}%)  balance {res.balance:.4f}"
-              + (f"  comm volume {res.comm_volume:,}"
-                 if res.comm_volume is not None else ""))
-        if args.output:
-            print(f"partition map written to {args.output}")
+        for r in results:
+            print(f"k={r.k}: edge cut {r.edge_cut:,} "
+                  f"({100 * r.cut_ratio:.2f}%)  balance {r.balance:.4f}"
+                  + (f"  comm volume {r.comm_volume:,}"
+                     if r.comm_volume is not None else ""))
+            if args.output:
+                print(f"partition map written to {out_path(r.k)}")
         print(f"wall: {wall:.2f}s")
-    summary = res.summary()
-    summary["wall_seconds"] = round(wall, 4)
-    summary["edges_per_sec"] = round(m / wall, 1) if wall > 0 else None
-    summary["n_vertices"] = n
-    print(json.dumps(summary))
+    # one JSON line per k, last; a further k carries its marginal cost
+    # (its split and share of the scoring pass), the first the rest
+    marginal = {r.k: sum(r.phase_times.values()) for r in results[1:]}
+    for r in results:
+        summary = r.summary()
+        r_wall = marginal.get(r.k, wall - sum(marginal.values()))
+        summary["wall_seconds"] = round(r_wall, 4)
+        summary["edges_per_sec"] = round(m / r_wall, 1) if r_wall > 0 \
+            else None
+        summary["n_vertices"] = n
+        print(json.dumps(summary))
+    return 0
+
+
+def _score_only(args, h2d_ring: int) -> int:
+    """--score-only PARTS: the map's cut, total, balance and comm volume
+    against the input, scored on the device (the reference's
+    ``_score_only``)."""
+    from sheep_tpu_torch.backends.torch_backend import (TorchBackend,
+                                                        device_chunks)
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.io.formats import read_partition
+    from sheep_tpu_torch.ops import degrees
+
+    assignment = read_partition(args.score_only)
+    be = TorchBackend(chunk_edges=args.chunk_edges, device=args.device,
+                      h2d_ring=h2d_ring)
+    with open_input(args.input, n_vertices=args.num_vertices) as es:
+        n = es.num_vertices
+        if len(assignment) != n:
+            print(f"error: partition map has {len(assignment)} entries, "
+                  f"graph has {n} vertices", file=sys.stderr)
+            return 2
+        k = args.k if args.k is not None else int(assignment.max()) + 1
+        if assignment.min() < 0 or assignment.max() >= k:
+            print(f"error: partition map assigns parts outside [0, {k})",
+                  file=sys.stderr)
+            return 2
+        t0 = time.perf_counter()
+        w = None
+        if args.weights == "degree":
+            cs = es.clamp_chunk_edges(args.chunk_edges)
+            deg = degrees.init_degrees(n, be.device)
+            for chunk in device_chunks(es, cs, n, be.device):
+                degrees.degree_chunk(deg, chunk, n)
+            w = deg[:n].cpu().numpy()
+        cut, total, balance, cv = be.score_stream(
+            es, {k: assignment}, comm_volume=not args.no_comm_volume,
+            weights=w)[k]
+        wall = time.perf_counter() - t0
+    line = {"k": k, "edge_cut": cut, "total_edges": total,
+            "cut_ratio": cut / max(total, 1), "balance": balance,
+            "comm_volume": cv, "backend": "score-only",
+            "wall_seconds": round(wall, 4), "n_vertices": n}
+    if not args.json:
+        print(f"score-only: {args.score_only} vs {args.input}")
+        print(f"k={k}: edge cut {cut:,} ({100 * cut / max(total, 1):.2f}%)  "
+              f"balance {balance:.4f}"
+              + (f"  comm volume {cv:,}" if cv is not None else ""))
+    print(json.dumps(line))
     return 0
 
 

@@ -1,6 +1,6 @@
 """ctypes loader for the port's native host code (``csrc/sheep_core.cpp``;
-counterpart of ``tree_split``, ``parse_text`` and ``build_elim_tree`` in
-``sheep_tpu/core/native.py``).
+counterpart of ``tree_split``, ``parse_text``, ``build_elim_tree``,
+``rmat_hash_range`` and ``sbm_hash_range`` in ``sheep_tpu/core/native.py``).
 
 The library is built with the host C++ compiler at first use (no
 ``nvcc``), by ``sheep_tpu_torch.ops._build``. A failed build or load
@@ -15,11 +15,12 @@ from typing import Optional
 
 import numpy as np
 
-ABI_VERSION = 4
+ABI_VERSION = 5
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
+_u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
 
 
 class _f64p_or_null(_f64p):
@@ -58,6 +59,13 @@ def load() -> ctypes.CDLL:
         lib.sheep_build_elim_tree.argtypes = [_i64p, c_i64, _i64p, c_i64,
                                               _i64p]
         lib.sheep_build_elim_tree.restype = ctypes.c_int
+        u32 = ctypes.c_uint32
+        lib.sheep_rmat_hash_range.argtypes = [c_i64, c_i64, c_i64, _u32p,
+                                              _u32p, u32, u32, u32, _i64p]
+        lib.sheep_rmat_hash_range.restype = None
+        lib.sheep_sbm_hash_range.argtypes = [c_i64, c_i64, _u32p, _u32p,
+                                             u32, c_i64, c_i64, _i64p]
+        lib.sheep_sbm_hash_range.restype = None
         _LIB = lib
     return _LIB
 
@@ -138,3 +146,32 @@ def build_elim_tree(edges: np.ndarray, pos: np.ndarray,
     if rc == -2:
         raise ValueError(f"build_elim_tree: a parent is >= {n}")
     return parent
+
+
+def rmat_hash_range(scale: int, start: int, count: int, keys, keys2,
+                    thresholds) -> np.ndarray:
+    """Edges [start, start+count) of the counter-hash R-MAT stream, (count,
+    2) int64, by the native loop: bit-equal to
+    ``io/generators.py _rmat_hash_uv``. ``keys`` / ``keys2`` are the
+    per-level uint32 constants, ``thresholds`` (t_u, t_v0, t_v1)."""
+    lib = load()
+    out = np.empty((count, 2), dtype=np.int64)
+    lib.sheep_rmat_hash_range(
+        scale, start, count, np.ascontiguousarray(keys, dtype=np.uint32),
+        np.ascontiguousarray(keys2, dtype=np.uint32), *map(int, thresholds),
+        out.reshape(-1))
+    return out
+
+
+def sbm_hash_range(start: int, count: int, keys, keys2, t_out: int,
+                   n_blocks: int, block_bits: int) -> np.ndarray:
+    """Edges [start, start+count) of the counter-hash planted partition,
+    (count, 2) int64, by the native loop: bit-equal to
+    ``io/generators.py _sbm_hash_uv``."""
+    lib = load()
+    out = np.empty((count, 2), dtype=np.int64)
+    lib.sheep_sbm_hash_range(
+        start, count, np.ascontiguousarray(keys, dtype=np.uint32),
+        np.ascontiguousarray(keys2, dtype=np.uint32), int(t_out),
+        int(n_blocks), int(block_bits), out.reshape(-1))
+    return out

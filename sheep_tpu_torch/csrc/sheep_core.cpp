@@ -1,9 +1,9 @@
 // sheep_core — the port's native host code: the greedy tree split, the
-// text edge-list parser and the elimination-forest pass of the fixpoint's
-// host tail.
+// text edge-list parser, the elimination-forest pass of the fixpoint's
+// host tail and the host loops of the counter-hash generators.
 //
-// Copies of sheep_tree_split, sheep_parse_text and sheep_build_elim_tree
-// from the JAX package's
+// Copies of sheep_tree_split, sheep_parse_text, sheep_build_elim_tree,
+// sheep_rmat_hash_range and sheep_sbm_hash_range from the JAX package's
 // native core (sheep_tpu/core/csrc/sheep_core.cpp), so that the port
 // imports and builds nothing of that package. The Python copy of the spec
 // (sheep_tpu_torch/core/pure.py tree_split) and this function give
@@ -280,8 +280,69 @@ int sheep_build_elim_tree(const i64* edges, i64 m, const i64* pos, i64 n,
   return 0;
 }
 
+// ------------------------------------------------ counter-hash generators
+
+// murmur3 fmix32 over elo ^ key, folded with ehi ^ key2 mid-mix: one field
+// of edge counter (ehi, elo), as io/generators.py _hash_fields
+static inline uint32_t hash_field(uint32_t elo, uint32_t ehi, uint32_t key,
+                                  uint32_t key2) {
+  uint32_t h = elo ^ key;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= ehi ^ key2;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// Edges [start, start+count) of the counter-hash R-MAT stream into out
+// (count, 2), bit-equal to io/generators.py _rmat_hash_uv: one field a
+// bit level, the two 16-bit halves against the integer thresholds.
+void sheep_rmat_hash_range(i64 scale, i64 start, i64 count,
+                           const uint32_t* keys, const uint32_t* keys2,
+                           uint32_t t_u, uint32_t t_v0, uint32_t t_v1,
+                           i64* out) {
+  for (i64 i = 0; i < count; ++i) {
+    uint64_t e = (uint64_t)(start + i);
+    uint32_t elo = (uint32_t)e, ehi = (uint32_t)(e >> 32);
+    uint32_t u = 0, v = 0;
+    for (i64 b = 0; b < scale; ++b) {
+      uint32_t h = hash_field(elo, ehi, keys[b], keys2[b]);
+      uint32_t ubit = (h >> 16) < t_u;
+      uint32_t vbit = (h & 0xFFFFu) < (ubit ? t_v1 : t_v0);
+      u |= ubit << b;
+      v |= vbit << b;
+    }
+    out[2 * i] = (i64)u;
+    out[2 * i + 1] = (i64)v;
+  }
+}
+
+// Edges [start, start+count) of the counter-hash planted partition into
+// out (count, 2), bit-equal to io/generators.py _sbm_hash_uv: five fields
+// (decide, bu, bv, uoff, voff).
+void sheep_sbm_hash_range(i64 start, i64 count, const uint32_t* keys,
+                          const uint32_t* keys2, uint32_t t_out,
+                          i64 n_blocks, i64 block_bits, i64* out) {
+  uint32_t nb1 = (uint32_t)(n_blocks - 1);
+  uint32_t off_mask = (uint32_t)((1u << block_bits) - 1u);
+  for (i64 i = 0; i < count; ++i) {
+    uint64_t e = (uint64_t)(start + i);
+    uint32_t elo = (uint32_t)e, ehi = (uint32_t)(e >> 32);
+    uint32_t f[5];
+    for (int j = 0; j < 5; ++j) f[j] = hash_field(elo, ehi, keys[j], keys2[j]);
+    uint32_t bu = f[1] & nb1;
+    uint32_t bvr = f[2] % nb1;  // [0, n_blocks-1)
+    uint32_t bv = bvr + (bvr >= bu ? 1u : 0u);
+    uint32_t b2 = (f[0] < t_out) ? bv : bu;
+    out[2 * i] = (i64)(((uint64_t)bu << block_bits) | (f[3] & off_mask));
+    out[2 * i + 1] = (i64)(((uint64_t)b2 << block_bits) | (f[4] & off_mask));
+  }
+}
+
 // ------------------------------------------------------------- utilities
 
-i64 sheep_core_abi_version() { return 4; }
+i64 sheep_core_abi_version() { return 5; }
 
 }  // extern "C"

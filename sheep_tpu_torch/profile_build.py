@@ -68,9 +68,9 @@ def profile_one(args, inflight: int) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import sheep_tpu_torch
-    from sheep_tpu_torch.ops import elim, fixpoint, gather, lift
+    from sheep_tpu_torch.ops import elim, fixpoint, gather, lift, synth
 
-    counters = (gather, lift, fixpoint)
+    counters = (gather, lift, fixpoint, synth)
     for c in counters:
         c.reset_launches()
     fold = elim.fold_segments_pipelined

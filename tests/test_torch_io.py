@@ -96,12 +96,34 @@ def test_write_edges_round_trip(tmp_path):
 
 
 def test_open_input_rejects_other_specs():
-    for spec in ("sbm-hash:10:4:0.1", "rmat:10", "rmat-hash:x",
+    # sbm-hash and rmat specs are read since the planted family and the
+    # replay stream were ported; delta logs are still refused
+    for spec in ("sbm-hash:10:4", "rmat:10:1:2:3", "rmat-hash:x",
                  "rmat-hash:10:1:2:3", "delta:/nonexistent"):
         with pytest.raises(ValueError):
             edgestream.open_input(spec)
     with pytest.raises(ValueError):
         edgestream.open_input("graph.unknown")
+
+
+def test_rmat_hash_scale_32_is_read_and_its_build_refused():
+    """The reference reads rmat-hash at scale 32 (its host ranges work)
+    and refuses the build with UnsupportedGraphError; the port did not
+    read the spec at all."""
+    import sheep_tpu_torch
+    from sheep_tpu_torch.types import UnsupportedGraphError
+
+    ts = edgestream.open_input("rmat-hash:32:1")
+    js = jes.open_input("rmat-hash:32:1")
+    assert ts.num_vertices == js.num_vertices == 1 << 32
+    for start, count in (((1 << 32) - 3, 6), ((1 << 32) - 5000, 9000)):
+        got = ts._range(start, count)
+        assert np.array_equal(got, js._range(start, count))
+    assert ts._range((1 << 32) - 3, 6)[:2].tolist() == [
+        [412485932, 24171806], [404833024, 268698312]]
+    with pytest.raises(UnsupportedGraphError) as exc:
+        sheep_tpu_torch.partition("rmat-hash:32:1", 4, device="cpu")
+    assert isinstance(exc.value, ValueError)
 
 
 def _random_forest(n, seed):
