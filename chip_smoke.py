@@ -59,6 +59,16 @@ line is printed:
      with clique bits 8; each timed beside its plain version (the int64
      passes), with its bound: bytes, or the SASS instructions its rows
      execute (``cuobjdump -sass``) over the card's instruction rate;
+  3g. the refinement's kernels (``csrc/refine.cu``, B11) against their
+     plain versions on the card, exactly, at s22 shapes: ``neighbor_hist``
+     on a 2^22-edge chunk of sbm-hash:22:64:0.05:16:42 and of
+     rmat-hash:22:16:42 at k = 8 and 64 (full, with the fused cut and
+     total) and at k = 256 blocked (vb = 2^22, base 0 and 2^22);
+     ``hist_stats`` on (2^22+1, 64) and (2^22, 256) histograms with planted
+     ties; ``plan_moves`` at n = 2^22, k = 64 with the cap filling some
+     parts, both parities; each timed beside its plain version, a library
+     yardstick (``torch.bincount``, ``torch.max`` + ``gather``,
+     ``torch.sort``) and its bytes bound, the planner's sort also alone;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -83,6 +93,12 @@ line is printed:
      ``partition_multi`` at k = 4, 16, 64 equal on both; a ``.csr`` file
      and an ``.edges.gz`` of the same edges as a ``.bin32`` give its
      partition;
+  4f. refinement and the hierarchy, CUDA against the CPU at
+     sbm-hash:16:16:0.05:16:1, k = 16: ``partition(refine=4)`` (full
+     histogram, spooled), ``refine_assignment`` blocked, host-planned and
+     degree-weighted, and ``partition_hierarchical`` [4, 4] with balance
+     1.1 and a final refine of 2: assignment, scores and every refine and
+     hierarchy statistic equal;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
      the card at the default depth (2), with the native split; the
@@ -117,13 +133,22 @@ line is printed:
      one build, the JAX package's cut, total and comm volume at each k,
      the planted cut ratio beside the cut ratio, ``hash_chunk``'s
      launches;
+  5g. the same graph through the port's CLI, in-process, ``--k 64
+     --auto-recipe --json``: the advisor picks [8, 8], a final refine of
+     10 and balance 1.05 (refine 8 a level); level 0 (build and refine at
+     k = 8, spooled), the spill, eight level-1 builds and refines, the
+     final refine at k = 64 (a 1 GiB histogram), the ledger and the score
+     equal the JAX package's (``HIER22_*``); each refinement call's
+     seconds, passes and cuts, the kernels' launches, the phase seconds
+     and the peak device memory; then a pass of the final refine against
+     its kernels' time at the phase 3g cases;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
      pass's less the plain pass's); ``climb_level``'s, ``lift_stack``'s
      and ``compact_live``'s launches from 5d, ``climb_jumps``'s from the
      jump-mode fold of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
-     mode from 5f;
+     mode from 5f, and the refinement's kernels from 5g;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -157,6 +182,23 @@ SBM22_SPEC, SBM22_KS = "sbm-hash:22:64:0.05:16:42", (64, 8, 256)
 SBM22_SCORES = {64: (63429157, 67107864, 67362086),
                 8: (58102508, 67107864, 28448493),
                 256: (63713463, 67107864, 72638671)}
+# ... and the same graph through the JAX package's CLI with the quality
+# advisor's recipe ([8, 8], refine 8 a level, final refine 10, balance
+# 1.05), from its cpu backend:
+#   JAX_PLATFORMS=cpu python -m sheep_tpu.cli --input
+#       sbm-hash:22:64:0.05:16:42 --k 64 --auto-recipe --json --backend cpu
+# (edge cut, total edges, balance, comm volume)
+HIER22_SCORES = (9941220, 67107864, 1.0492706298828125, 11113886)
+HIER22_DIAGNOSTICS = {
+    "level0_spill_bytes": 293172512, "refine_rounds_run": 10.0,
+    "refine_hist_blocks": 1.0, "refine_host_plan": 0.0,
+    "refine_moves_wanted": 10985373.0, "refine_moves_applied": 2845199.0,
+    "refine_moves_capacity_blocked": 8140174.0,
+    "refine_cut_before": 47445153.0, "refine_cut_after": 9941220.0,
+    "cut_level0": 6692778, "cut_ratio_level0": 0.099732,
+    "cut_level1": 3248442, "cut_ratio_level1": 0.048406,
+    "ledger_parts_at_capacity": 0, "ledger_frozen_load_fraction": 0.0,
+    "final_refine_repaired": 37503933}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1191,6 +1233,362 @@ def planted_parity(card, counters):
           f"(edge_cut {ref.edge_cut})", flush=True)
 
 
+def refine_kernels(card):
+    """Phase 3g: B11's kernels (``csrc/refine.cu``) against their plain
+    versions on the card, exactly, at the s22 shapes. ``neighbor_hist`` on
+    one 2^22-edge chunk of sbm-hash:22:64:0.05:16:42 and one of
+    rmat-hash:22:16:42 (its last 4096 rows sentinel padding), a random
+    assignment, at k = 8 and 64 (full, (2^22+1) rows, with the fused cut
+    and total) and at k = 256 blocked with vb = 2^22 at base 0 and 2^22;
+    ``hist_stats`` on (2^22+1, 64) and (2^22, 256) histograms of small
+    counts, with rows of zeros and ties planted across 32-wide strides;
+    ``plan_moves`` at n = 2^22, k = 64, loads skewed so that the cap fills
+    some parts and leaves others open, at both parities. Each timed beside
+    its plain version and a library yardstick (timed only):
+    ``torch.bincount`` of the precomputed row * k + part keys,
+    ``torch.max(dim=1)`` with ``torch.gather``, and ``torch.sort(stable)``
+    of the planner's keys; the planner's sort (cub) is also timed alone.
+    Bounds by bytes: ``neighbor_hist`` 8 B an edge, one 32 B sector read
+    and written back for each distinct histogram sector the edges touch,
+    and the assignment once; ``hist_stats`` the histogram and the current
+    parts read, four int32 outputs written; ``plan_moves`` 16 B a row."""
+    import torch
+
+    from sheep_tpu_torch.io.generators import RmatHashStream, SbmHashStream
+    from sheep_tpu_torch.ops import refine
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    n = C = 1 << 22
+    g = torch.Generator(device=dev).manual_seed(17)
+    records = {"neighbor_hist": [], "hist_stats": [], "plan_moves": []}
+    for src, stream in (("sbm", SbmHashStream(22, 64, 0.05, 16, 42)),
+                        ("rmat", RmatHashStream(22, 16, seed=42))):
+        chunk = stream.device_chunk(0, C, n, dev).clone()
+        chunk[-4096:] = n
+        for k, base in ((8, None), (64, None), (256, 0), (256, 1 << 22)):
+            assign = torch.randint(0, k, (n + 1,), device=dev, generator=g,
+                                   dtype=torch.int32)
+            vb = None if base is None else 1 << 22
+            rows = n + 1 if vb is None else vb
+            hist = torch.zeros((rows, k), dtype=torch.int32, device=dev)
+            want = torch.zeros_like(hist)
+            counts = want_counts = None
+            if vb is None:
+                counts = torch.zeros(2, dtype=torch.int64, device=dev)
+                want_counts = torch.zeros_like(counts)
+
+                def kernel():
+                    refine.neighbor_hist_chunk(hist, chunk, assign, n, k,
+                                               counts)
+            else:
+                def kernel():
+                    refine.neighbor_hist_block(hist, chunk, assign, base, n,
+                                               k, vb)
+            kernel()
+            refine.neighbor_hist_plain(want, chunk, assign, n, k, base or 0,
+                                       vb, want_counts)
+            torch.cuda.synchronize()
+            err = int((hist - want).abs().max())
+            if counts is not None:
+                err = max(err, int((counts - want_counts).abs().max()))
+            name = f"{src}-k{k}" + ("" if vb is None else f"-base{base}")
+            check(err == 0, f"neighbor_hist {name} disagrees with its plain "
+                            f"version")
+            del want
+            # the cells the valid edges touch, as row * k + part keys
+            u, v = chunk[:, 0].long(), chunk[:, 1].long()
+            ok = (u < n) & (v < n) & (u != v)
+            u, v = u[ok], v[ok]
+            rows_all = torch.cat([u, v]) - (base or 0)
+            cols = torch.cat([assign[v].long(), assign[u].long()])
+            if vb is not None:
+                keep = (rows_all >= 0) & (rows_all < vb)
+                rows_all, cols = rows_all[keep], cols[keep]
+            keys = rows_all * k + cols
+            sectors = int(torch.unique(keys >> 3).numel())
+            del u, v, ok, rows_all, cols
+            plain_hist = torch.zeros_like(hist)
+            rec = {"case": name, "C": C, "k": k, "rows": rows,
+                   "valid": int(want_counts[1]) if vb is None else None,
+                   "cells_added": int(keys.numel()), "sectors": sectors,
+                   "max_abs_err": err, "ms": gs.time_ms(kernel),
+                   "plain_ms": gs.time_ms(
+                       lambda: refine.neighbor_hist_plain(
+                           plain_hist, chunk, assign, n, k, base or 0, vb),
+                       iters=5),
+                   "library_ms": gs.time_ms(
+                       lambda: torch.bincount(keys, minlength=rows * k),
+                       iters=5),
+                   "bound_ms": gs.bound_ms(8 * C + 64 * sectors
+                                           + 4 * (n + 1)),
+                   "bound_by": "bytes", "card": card}
+            del plain_hist, hist, keys
+            torch.cuda.empty_cache()
+            print("neighbor_hist " + json.dumps(rec), flush=True)
+            records["neighbor_hist"].append(rec)
+    for rows, k in ((n + 1, 64), (n, 256)):
+        hist = torch.randint(0, 3, (rows, k), device=dev, generator=g,
+                             dtype=torch.int32)
+        hist[::7] = 0
+        # a tie across two 32-wide strides (the first wins), and one at
+        # the row's last column
+        hist[1::11, 31] = 9
+        hist[1::11, k - 1] = 9
+        hist[2::13, k - 1] = 8
+        cur = torch.randint(0, k, (rows,), device=dev, generator=g,
+                            dtype=torch.int32)
+        got = refine.hist_stats(hist, cur)
+        want = refine.hist_stats_plain(hist, cur)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        name = f"rows{rows}-k{k}"
+        check(err == 0, f"hist_stats {name} disagrees with its plain "
+                        f"version")
+
+        def library():
+            mx = torch.max(hist, dim=1)
+            return mx, hist.gather(1, cur.long()[:, None])
+
+        rec = {"case": name, "rows": rows, "k": k, "max_abs_err": err,
+               "ms": gs.time_ms(lambda: refine.hist_stats(hist, cur)),
+               "plain_ms": gs.time_ms(
+                   lambda: refine.hist_stats_plain(hist, cur), iters=5),
+               "library_ms": gs.time_ms(library, iters=5),
+               "bound_ms": gs.bound_ms(4 * rows * k + 4 * rows + 16 * rows),
+               "bound_by": "bytes", "card": card}
+        del hist, got, want
+        torch.cuda.empty_cache()
+        print("hist_stats " + json.dumps(rec), flush=True)
+        records["hist_stats"].append(rec)
+    k = 64
+    # skewed loads: low parts above the cap, high parts open
+    assign = torch.minimum(
+        torch.randint(0, k, (n + 1,), device=dev, generator=g),
+        torch.randint(0, k, (n + 1,), device=dev, generator=g)).int()
+    best = torch.randint(0, k, (n + 1,), device=dev, generator=g,
+                         dtype=torch.int32)
+    gain = torch.randint(-2, 40, (n + 1,), device=dev, generator=g,
+                         dtype=torch.int32)
+    cap = int(1.10 * (-(-n // k)))
+    loads = torch.bincount(assign[:n].long(), minlength=k)
+    full_parts = int((loads >= cap).sum())
+    check(0 < full_parts < k, f"plan_moves: {full_parts} of {k} parts at "
+                              f"the cap")
+    scratch = refine.PlanScratch(n, k, dev)
+    for parity in (0, 1):
+        got = refine.plan_moves(best, gain, assign, cap, parity, n, k,
+                                scratch)
+        want = refine.plan_moves_plain(best, gain, assign, cap, parity, n, k)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0, f"plan_moves parity {parity} disagrees with its "
+                        f"plain version")
+        moved = int((got != assign).sum())
+        new_loads = torch.bincount(got[:n].long(), minlength=k)
+        check(moved > 0 and bool(((new_loads <= cap) |
+                                  (new_loads <= loads)).all()),
+              f"plan_moves parity {parity}: no move, or a part grew past "
+              f"the cap")
+        rec = {"case": f"n{n}-k{k}-parity{parity}", "n": n, "k": k,
+               "cap": cap, "parts_at_cap": full_parts, "moved": moved,
+               "max_abs_err": err,
+               "ms": gs.time_ms(lambda: refine.plan_moves(
+                   best, gain, assign, cap, parity, n, k, scratch)),
+               "sort_ms": gs.time_ms(scratch.sort),
+               "plain_ms": gs.time_ms(lambda: refine.plan_moves_plain(
+                   best, gain, assign, cap, parity, n, k), iters=5),
+               "library_ms": gs.time_ms(lambda: torch.sort(
+                   scratch.keys_in, stable=True), iters=5),
+               "bound_ms": gs.bound_ms(16 * (n + 1)), "bound_by": "bytes",
+               "card": card}
+        print("plan_moves " + json.dumps(rec), flush=True)
+        records["plan_moves"].append(rec)
+    return records
+
+
+def refine_parity(card, counters):
+    """Phase 4f: refinement and the hierarchy, CUDA against the port's
+    CPU run, at sbm-hash:16:16:0.05:16:1, k = 16 (chunk 2^17): flat
+    ``partition(refine=4)`` (full histogram, spooled), and
+    ``refine_assignment`` of its unrefined partition with 4 rounds blocked
+    (a 1 MiB histogram budget, blocks of 2^14 rows), planned on the host
+    (a 1 MiB plan budget) and with degree weights; then
+    ``partition_hierarchical`` with [4, 4], balance 1.1 and a final
+    refine of 2. Assignment, scores and every refine and hierarchy
+    statistic equal."""
+    import numpy as np
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.ops import refine
+
+    spec, k = "sbm-hash:16:16:0.05:16:1", 16
+    n = 1 << 16
+    modes = {"blocked": dict(budget_bytes=1 << 20, min_block=1 << 14),
+             "host_plan": dict(plan_budget_bytes=1 << 20),
+             "weighted": {}}
+    devices = ("cuda", "cpu")
+    out = {}
+    for dev in devices:
+        for c in counters:
+            c.reset_launches()
+        t0 = time.perf_counter()
+        flat = sheep_tpu_torch.partition(spec, k, device=dev,
+                                          chunk_edges=1 << 17, refine=4)
+        plain = sheep_tpu_torch.partition(spec, k, device=dev,
+                                           chunk_edges=1 << 17)
+        runs = {}
+        with open_input(spec) as es:
+            deg = np.zeros(n, np.int64)
+            for c in es.chunks(1 << 22):
+                deg += np.bincount(c.ravel(), minlength=n)[:n]
+            for name, kw in modes.items():
+                if name == "weighted":
+                    kw = dict(weights=deg)
+                runs[name] = refine.refine_assignment(
+                    plain.assignment, es, n, k, rounds=4,
+                    chunk_edges=1 << 17, device=dev, **kw)
+        hier = sheep_tpu_torch.partition_hierarchical(
+            spec, [4, 4], device=dev, balance=1.1, final_refine=2,
+            chunk_edges=1 << 17)
+        out[dev] = {"flat": flat, "runs": runs, "hier": hier,
+                    "seconds": time.perf_counter() - t0,
+                    "launches": dict(refine.LAUNCHES)}
+    a, b = (out[d] for d in devices)
+    what = f"{spec} k={k}"
+    for key in ("edge_cut", "total_edges", "comm_volume", "balance"):
+        check(getattr(a["flat"], key) == getattr(b["flat"], key),
+              f"{what} refine=4: {key} differs")
+        check(getattr(a["hier"], key) == getattr(b["hier"], key),
+              f"{what} [4, 4]: {key} differs")
+    check(np.array_equal(a["flat"].assignment, b["flat"].assignment),
+          f"{what} refine=4: assignments differ")
+    check(a["flat"].diagnostics["refine_spooled"] ==
+          b["flat"].diagnostics["refine_spooled"],
+          f"{what} refine=4: refine_spooled differs")
+    for key in a["flat"].diagnostics:
+        if key.startswith("refine_"):
+            check(a["flat"].diagnostics[key] == b["flat"].diagnostics[key],
+                  f"{what} refine=4: {key} differs")
+    for name in modes:
+        (ga, sa), (gb, sb) = a["runs"][name], b["runs"][name]
+        check(np.array_equal(ga, gb) and sa == sb,
+              f"{what} refine {name}: assignment or stats differ")
+    check(a["runs"]["blocked"][1]["refine_hist_blocks"] > 1 and
+          a["runs"]["host_plan"][1]["refine_host_plan"] == 1,
+          f"{what}: the blocked or host-planned run was not")
+    check(np.array_equal(a["hier"].assignment, b["hier"].assignment) and
+          a["hier"].diagnostics == b["hier"].diagnostics,
+          f"{what} [4, 4]: assignment or diagnostics differ")
+    for name, launched in a["launches"].items():
+        check(launched > 0, f"{what}: no {name} launch on CUDA")
+    print("refine-parity " + json.dumps({
+        "spec": spec, "k": k, "devices": list(devices),
+        "flat": {key: getattr(a["flat"], key) for key in (
+            "edge_cut", "total_edges", "comm_volume", "balance")},
+        "flat_refine": {key: v for key, v in a["flat"].diagnostics.items()
+                        if key.startswith("refine_")},
+        "modes": {name: a["runs"][name][1] for name in modes},
+        "hier": {"edge_cut": a["hier"].edge_cut,
+                 "balance": a["hier"].balance,
+                 "diagnostics": a["hier"].diagnostics},
+        "seconds": {d: out[d]["seconds"] for d in devices},
+        "launches": a["launches"], "card": card}), flush=True)
+
+
+def hier_s22(card, counters):
+    """Phase 5g: the port's CLI in-process, --input sbm-hash:22:64:0.05:16:42
+    --k 64 --auto-recipe --json, on the card: the advisor must select
+    [8, 8], a final refine of 10 and balance 1.05 with refine 8 a level;
+    the result must equal the JAX package's (HIER22_*). Each call of the
+    refinement is recorded (rows, k, seconds, passes, rounds, cuts), with
+    each kernel's launches, the phase seconds and the peak device
+    memory."""
+    import contextlib
+    import io
+
+    import torch
+
+    from sheep_tpu_torch import cli
+    from sheep_tpu_torch.ops import refine
+
+    calls = []
+    inner = refine.refine_assignment
+
+    def recorded(assign, stream, n, k, **kw):
+        before = refine.LAUNCHES["neighbor_hist"]
+        chunks = -(-stream.num_edges_upper_bound //
+                   stream.clamp_chunk_edges(kw.get("chunk_edges", 1 << 22)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = inner(assign, stream, n, k, **kw)
+        torch.cuda.synchronize()
+        calls.append({"n": n, "k": k, "seconds": time.perf_counter() - t0,
+                      "chunks_a_pass": chunks,
+                      "passes": (refine.LAUNCHES["neighbor_hist"] - before)
+                      / max(chunks, 1),
+                      **{key[len("refine_"):]: stats[key] for key in stats}})
+        return out, stats
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset_launches()
+    out, err = io.StringIO(), io.StringIO()
+    refine.refine_assignment = recorded
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["--input", SBM22_SPEC, "--k", "64",
+                           "--auto-recipe", "--json"])
+    finally:
+        refine.refine_assignment = inner
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    check(rc == 0, f"hier22: the CLI exited {rc}: {err.getvalue()[-2000:]}")
+    check("recommended recipe: --k-levels 8,8 --final-refine 10 --balance "
+          "1.05" in err.getvalue(),
+          f"hier22: the advisor did not pick [8, 8] / 10 / 1.05: "
+          f"{err.getvalue()[-2000:]}")
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    d = line["diagnostics"]
+    check(line["backend"] == "torch:cuda+hier[8, 8]",
+          f"hier22: backend {line['backend']}")
+    got = (line["edge_cut"], line["total_edges"], line["balance"],
+           line["comm_volume"])
+    check(got == HIER22_SCORES, f"hier22: (cut, total, balance, cv) {got} "
+                                f"!= JAX {HIER22_SCORES}")
+    for key, want in HIER22_DIAGNOSTICS.items():
+        check(d.get(key) == want, f"hier22: {key} {d.get(key)} != JAX "
+                                  f"{want}")
+    # refine 8 a level: level 0 at k = 8, eight level-1 parts; then the
+    # final refine at k = 64, its rounds capped at 10
+    check([c["k"] for c in calls] == [8] * 9 + [64],
+          f"hier22: refinement calls at k {[c['k'] for c in calls]}")
+    for name in refine.LAUNCHES:
+        check(launches[name] > 0, f"hier22: no {name} launch")
+    total = line["total_edges"]
+    print("hier22 " + json.dumps({
+        "argv": ["--input", SBM22_SPEC, "--k", "64", "--auto-recipe",
+                 "--json"],
+        "wall_s": wall, "phase_s": line["phase_times"],
+        "edge_cut": line["edge_cut"], "cut_ratio": line["cut_ratio"],
+        "cut_ratio_before_final_refine":
+            d["refine_cut_before"] / max(total, 1),
+        "cut_ratio_level0": d["cut_ratio_level0"],
+        "cut_ratio_level1": d["cut_ratio_level1"],
+        "balance": line["balance"], "comm_volume": line["comm_volume"],
+        "refine_calls": calls,
+        "refine_spooled": d.get("refine_spooled"),
+        "launches": launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "card": card}), flush=True)
+    return {"launches": launches, "calls": calls, "wall_s": wall,
+            "phase_s": line["phase_times"]}
+
+
 def lift_entries(head, cases, launches) -> list:
     """The kernels-line entries of ``lift_stack`` and ``climb_tail``: each
     at ``head``, the phase 3c case at the main path's median depth and
@@ -1270,9 +1668,9 @@ def main() -> int:
     from sheep_tpu_torch.backends import torch_backend
     from sheep_tpu_torch.backends.torch_backend import LAUNCH_KEYS
     from sheep_tpu_torch.ops import (_build, compact, elim, fixpoint, gather,
-                                     lift, synth)
+                                     lift, refine, synth)
 
-    counters = (gather, lift, fixpoint, compact, synth)
+    counters = (gather, lift, fixpoint, compact, synth, refine)
     # kernel -> its launches' diagnostics key, for the kernels of the
     # batched driver's exact descent (not the stream descent's level, nor
     # the per-segment driver's own kernels)
@@ -1317,6 +1715,8 @@ def main() -> int:
     jumps_case = jump_climbs(card)
     # 3f. the chunk synthesis against its plain version
     synth_cases = hash_chunks(card)
+    # 3g. the refinement's kernels against their plain versions
+    refine_cases = refine_kernels(card)
 
     # 4. the port on CUDA (auto depth: 2) against the port on the CPU at
     # depths 1 (its auto) and 2
@@ -1401,6 +1801,8 @@ def main() -> int:
     # 4e. the planted-partition and replay inputs, partition_multi, .csr
     # and gzip text, CUDA against the CPU
     planted_parity(card, counters)
+    # 4f. refinement and the hierarchy, CUDA against the CPU
+    refine_parity(card, counters)
 
     # 5. the full-size build on the card, through the user's entry point,
     # at the default depth; fold_segments_pipelined runs its dispatch loop
@@ -1635,6 +2037,26 @@ def main() -> int:
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "card": card}), flush=True)
 
+    # 5g. the planted graph at full size through the CLI with the quality
+    # advisor's recipe: level 0, eight level-1 parts, the final refine
+    hier = hier_s22(card, counters)
+    # a pass of the final refine (k = 64, 16 chunks) against the kernels'
+    # time in it at the phase 3g cases
+    final = hier["calls"][-1]
+    refine_head = {
+        name: recs[0] if name == "plan_moves" else
+        next(r for r in recs if r["case"] in ("sbm-k64",
+                                              f"rows{n22 + 1}-k64"))
+        for name, recs in refine_cases.items()}
+    pass_s = final["seconds"] / max(final["passes"], 1)
+    kernels_s = (final["chunks_a_pass"] * refine_head["neighbor_hist"]["ms"]
+                 + refine_head["hist_stats"]["ms"]
+                 + refine_head["plan_moves"]["ms"]) / 1e3
+    print("hier22-pass " + json.dumps({
+        "final_refine_s": final["seconds"], "passes": final["passes"],
+        "pass_s": pass_s, "kernels_s_a_pass": kernels_s,
+        "kernels_share": kernels_s / pass_s, "card": card}), flush=True)
+
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b) and climb_level's the stream
     # descent's (phase 4b), their only paths
@@ -1764,6 +2186,28 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "count")}
                 for r in mode_cases},
             cases_max_abs_err=max(r["max_abs_err"] for r in mode_cases)))
+    # the refinement's kernels: launches on the hierarchy at full size (5g),
+    # each at the phase 3g case of its final refine (k = 64)
+    refine_src = "sheep_tpu_torch/csrc/refine.cu"
+    for name, replaces, also, scope in (
+            ("neighbor_hist", "sheep_tpu/ops/refine.py:42",
+             ["sheep_tpu/ops/refine.py:63 (neighbor_hist_block)"],
+             "torch.bincount of the precomputed row * k + part keys"),
+            ("hist_stats", "sheep_tpu/ops/refine.py:83", [],
+             "torch.max(dim=1) + torch.gather"),
+            ("plan_moves", "sheep_tpu/ops/refine.py:100", [],
+             "torch.sort(stable=True) of the planner's keys")):
+        recs = refine_cases[name]
+        extra = {"sort_ms": refine_head[name]["sort_ms"]} \
+            if name == "plan_moves" else {}
+        kernels.append(entry(
+            name, refine_src, replaces, refine_head[name],
+            hier["launches"][name], also_replaces=also,
+            replaces_kind="XLA program", library_scope=scope, **extra,
+            cases={r["case"]: {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")}
+                for r in recs},
+            cases_max_abs_err=max(r["max_abs_err"] for r in recs)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

@@ -10,10 +10,19 @@ raises.
 __version__ = "0.1.0"
 
 
+def partition_hierarchical(path, k_levels, **kw):
+    """Lazy re-export of
+    :func:`sheep_tpu_torch.hierarchy.partition_hierarchical` (k =
+    prod(k_levels), one level at a time)."""
+    from sheep_tpu_torch.hierarchy import partition_hierarchical as ph
+
+    return ph(path, k_levels, **kw)
+
+
 def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
               comm_volume=True, weights="unit", alpha=1.0, keep_tree=False,
               inflight=0, h2d_ring=0, round_log=None, n_vertices=None,
-              **build_opts):
+              refine=0, refine_alpha=1.10, **build_opts):
     """Partition the graph at *path* (a file or a synthetic spec of
     :func:`sheep_tpu_torch.io.edgestream.open_input`) into *k* parts with
     the single-device build; returns a
@@ -28,15 +37,36 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
     ``carry_tail``, ``tail_overlap``, ``stale_reuse``, ``lift_levels``).
     ``round_log``, a list, receives (depth, live slots) of every counted
     round of the batched driver. ``n_vertices``, when known, spares a
-    file's counting pass."""
+    file's counting pass. ``refine=N`` runs up to N rounds of
+    capacity-capped label propagation after the build
+    (:func:`refine_result`, cap ``refine_alpha * ceil(n / k)``); the
+    refined cut is never worse than the unrefined one."""
     from sheep_tpu_torch.io.edgestream import open_input
 
+    with open_input(path, n_vertices=n_vertices) as stream:
+        return _partition_stream(
+            stream, k, device=device, chunk_edges=chunk_edges,
+            dispatch_batch=dispatch_batch, comm_volume=comm_volume,
+            weights=weights, alpha=alpha, keep_tree=keep_tree,
+            inflight=inflight, h2d_ring=h2d_ring, round_log=round_log,
+            refine=refine, refine_alpha=refine_alpha, **build_opts)
+
+
+def _partition_stream(stream, k, device=None, chunk_edges=1 << 22,
+                      dispatch_batch=0, comm_volume=True, weights="unit",
+                      alpha=1.0, keep_tree=False, inflight=0, h2d_ring=0,
+                      round_log=None, refine=0, refine_alpha=1.10,
+                      **build_opts):
+    """:func:`partition` over an open stream (shared with the hierarchy,
+    whose parts' subgraphs are streams of their own)."""
     be = _backend(device, chunk_edges, dispatch_batch, alpha, inflight,
                   h2d_ring, build_opts)
-    with open_input(path, n_vertices=n_vertices) as stream:
-        return be.partition(stream, k, weights=weights,
-                            comm_volume=comm_volume, keep_tree=keep_tree,
-                            round_log=round_log)
+    res = be.partition(stream, k, weights=weights, comm_volume=comm_volume,
+                       keep_tree=keep_tree, round_log=round_log)
+    if refine:
+        res = refine_result(res, stream, rounds=refine, alpha=refine_alpha,
+                            weights=weights, device=be.device)
+    return res
 
 
 def partition_multi(path, ks, device=None, chunk_edges=1 << 22,
@@ -64,3 +94,65 @@ def _backend(device, chunk_edges, dispatch_batch, alpha, inflight, h2d_ring,
                         dispatch_batch=dispatch_batch, alpha=alpha,
                         device=device, inflight=inflight, h2d_ring=h2d_ring,
                         **build_opts)
+
+
+def comm_volume_of(assignment, stream, n, k, chunk_edges=1 << 22,
+                   device=None):
+    """The distinct (vertex, foreign part) pairs of an assignment's cut
+    edges over one pass of the stream: the count every partition reports,
+    for passes that change the assignment after it was scored (refinement,
+    the hierarchy). ``n`` is the stream's vertex count."""
+    from sheep_tpu_torch.backends.torch_backend import TorchBackend
+
+    scorer = TorchBackend(chunk_edges=chunk_edges, device=device)
+    return scorer.score_stream(stream, {k: assignment})[k][3]
+
+
+def refine_result(res, stream, rounds=3, alpha=1.10, weights="unit",
+                  degrees=None, budget_bytes: int = 4 << 30, device=None):
+    """Refine a PartitionResult (``ops/refine.refine_assignment``) and
+    rescore its cut and balance, and its comm volume when it has one, as
+    the reference's ``refine_result``. ``weights="degree"`` caps parts by
+    degree weight, counted in one more pass unless ``degrees`` gives them.
+    ``budget_bytes`` bounds the (n+1) x k histogram before the blocked
+    mode. A ``ValueError`` of the refinement leaves the result unrefined,
+    with the reason under ``refine_skipped``. Runs on ``device`` (None:
+    CUDA)."""
+    import dataclasses
+
+    import numpy as np
+
+    from sheep_tpu_torch.core import pure
+    from sheep_tpu_torch.ops.refine import refine_assignment
+
+    n = stream.num_vertices
+    w = degrees
+    if weights == "degree" and w is None:
+        w = np.zeros(n, dtype=np.int64)
+        for c in stream.chunks(1 << 22):
+            w += np.bincount(np.asarray(c, np.int64).ravel(),
+                             minlength=n)[:n]
+    try:
+        new_assign, rstats = refine_assignment(
+            res.assignment, stream, n, res.k, rounds=rounds, alpha=alpha,
+            weights=w, budget_bytes=budget_bytes, device=device)
+    except ValueError as e:
+        # a finished partition is never lost to a refinement that cannot
+        # run: it comes back unrefined, with the reason
+        import sys
+
+        print(f"refine skipped: {e}", file=sys.stderr)
+        return dataclasses.replace(
+            res, diagnostics={**(res.diagnostics or {}),
+                              "refine_skipped": str(e)})
+    cv = res.comm_volume
+    if cv is not None:
+        cv = comm_volume_of(new_assign, stream, n, res.k, device=device)
+    return dataclasses.replace(
+        res, assignment=new_assign,
+        edge_cut=rstats["refine_cut_after"],
+        cut_ratio=rstats["refine_cut_after"] / max(res.total_edges, 1),
+        balance=pure.part_balance(new_assign, res.k, w),
+        comm_volume=cv,
+        diagnostics={**(res.diagnostics or {}),
+                     **{kk: float(vv) for kk, vv in rstats.items()}})

@@ -3,6 +3,10 @@
     python -m sheep_tpu_torch.cli --input rmat-hash:16 --k 8 --device cpu
     python -m sheep_tpu_torch.cli --input g.edges.gz --k 8,64 --output g.parts
     python -m sheep_tpu_torch.cli --input g.csr --score-only g.parts
+    python -m sheep_tpu_torch.cli --input sbm-hash:16:16:0.05 --k 16 --refine 4
+    python -m sheep_tpu_torch.cli --input sbm-hash:16:16:0.05 --k-levels 4,4
+    python -m sheep_tpu_torch.cli --input sbm-hash:22:64:0.05 --k 64 \
+        --auto-recipe
 
 prints the phase times and scores, then one JSON result line per k (the
 same fields as the reference's) last.
@@ -30,6 +34,41 @@ def main(argv=None) -> int:
     p.add_argument("--k", help="number of parts; a comma list (e.g. "
                                "--k 8,64,256) splits one elimination-tree "
                                "build for every k, one result line each")
+    p.add_argument("--k-levels", default=None, metavar="K1,K2",
+                   help="hierarchical partitioning into K1*K2*... parts: "
+                        "partition and refine at K1, then each part's "
+                        "induced subgraph at the remaining levels; --refine "
+                        "rounds apply at every level (default 8); replaces "
+                        "--k")
+    p.add_argument("--final-refine", type=int, default=None, metavar="N",
+                   help="with --k-levels (or --auto-recipe): N warm-start "
+                        "refine rounds at the full k after the hierarchy")
+    p.add_argument("--auto-recipe", action="store_true",
+                   help="let the quality advisor pick the hierarchy recipe "
+                        "when the intra-degree/k signal says flat "
+                        "refinement will stall at --k; without it the "
+                        "advisor only prints its recommendation")
+    p.add_argument("--spill-dir", default=None, metavar="DIR",
+                   help="with --k-levels: where each part's intra-edge "
+                        "shard spills (default: the system's temporary "
+                        "directory); 8 bytes an intra edge of a level")
+    p.add_argument("--refine", type=int, default=None, metavar="N",
+                   help="up to N rounds of capacity-capped label "
+                        "propagation after the build (the cut never gets "
+                        "worse); default 0 for flat runs, 8 a level with "
+                        "--k-levels")
+    p.add_argument("--refine-alpha", type=float, default=1.10,
+                   help="refinement balance cap (x ceil(V/k) a part)")
+    p.add_argument("--refine-budget-gb", type=float, default=4.0,
+                   metavar="GB",
+                   help="histogram budget of the refinement: above "
+                        "(V+1)*k*4 bytes it takes the histogram in vertex "
+                        "blocks, one stream pass each (same result)")
+    p.add_argument("--balance", type=float, default=None, metavar="BETA",
+                   help="balance bound: runs the split at alpha = BETA - 1 "
+                        "(at most 1) and clamps --refine-alpha to BETA; "
+                        "with --k-levels, BETA**(1/levels) a level; BETA > "
+                        "1, excludes --alpha")
     p.add_argument("--score-only", default=None, metavar="PARTS",
                    help="skip partitioning: score this partition map "
                         "(.parts/.pbin) against --input on the device; --k "
@@ -95,10 +134,28 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true",
                    help="print only the JSON result line")
     args = p.parse_args(argv)
-    if args.input is None or (args.k is None and not args.score_only):
+    if args.input is None or (args.k is None and not args.score_only
+                              and not args.k_levels):
         p.error("--input and --k are required")
     opts = _build_options(p, args)
+    if args.k_levels:
+        if args.score_only:
+            p.error("--k-levels does not combine with --score-only")
+        if args.auto_recipe:
+            p.error("--auto-recipe asks the advisor to pick the levels; it "
+                    "replaces --k-levels")
+        return _k_levels(p, args)
+    if (args.final_refine and not args.auto_recipe) or args.spill_dir:
+        p.error("--final-refine/--spill-dir require --k-levels (the flat "
+                "pipeline has no hierarchy to repair or spill; "
+                "--final-refine also composes with --auto-recipe)")
+    if args.auto_recipe and args.score_only:
+        p.error("--auto-recipe has no effect with --score-only (nothing is "
+                "partitioned)")
     if args.score_only:
+        if args.balance is not None:
+            p.error("--balance has no effect with --score-only (the split "
+                    "already happened)")
         if args.k is not None:
             raw_k = args.k
             try:
@@ -118,21 +175,65 @@ def main(argv=None) -> int:
                 f"(got {args.k!r})")
     # a repeated k would alias its output path: keep the first
     ks = list(dict.fromkeys(ks))
+    if len(ks) > 1 and args.refine:
+        p.error("--k lists do not combine with --checkpoint-dir or "
+                "--refine; run those single-k")
+    if args.auto_recipe and len(ks) > 1:
+        p.error("--auto-recipe takes a single --k (the recipe is per "
+                "target k)")
+    if args.auto_recipe:
+        # the applied recipe is a --k-levels run: what it cannot take is
+        # refused whatever the input's signal says
+        unsupported = _build_flags(args)
+        if unsupported:
+            p.error(f"{', '.join(unsupported)} not supported with "
+                    f"--auto-recipe (the applied recipe is a --k-levels "
+                    f"run, which does not take them)")
+    if len(ks) == 1:
+        applied = _advise(p, args, ks[0])
+        if applied is not None:
+            return applied
 
     import sheep_tpu_torch
     from sheep_tpu_torch.io import formats
+    from sheep_tpu_torch.io.edgestream import open_input
     from sheep_tpu_torch.types import UnsupportedGraphError
 
+    if args.balance is not None:
+        if args.balance <= 1.0:
+            p.error("--balance must be > 1 (it bounds max part load at "
+                    "BETA * total/k)")
+        if args.alpha != 1.0:
+            p.error("--balance sets alpha = BETA - 1; do not also pass "
+                    "--alpha")
+        args.alpha = min(args.balance - 1.0, 1.0)
+        if args.refine and args.refine_alpha > args.balance:
+            # a looser refine cap would void the bound
+            print(f"note: --balance {args.balance} clamps --refine-alpha "
+                  f"{args.refine_alpha} to the contract bound",
+                  file=sys.stderr)
+            args.refine_alpha = args.balance
     run = dict(device=args.device, chunk_edges=args.chunk_edges,
                weights=args.weights, alpha=args.alpha,
-               comm_volume=not args.no_comm_volume,
-               n_vertices=args.num_vertices, **opts)
+               comm_volume=not args.no_comm_volume, **opts)
     t0 = time.perf_counter()
     try:
         if len(ks) > 1:
-            results = sheep_tpu_torch.partition_multi(args.input, ks, **run)
+            results = sheep_tpu_torch.partition_multi(
+                args.input, ks, n_vertices=args.num_vertices, **run)
         else:
-            results = [sheep_tpu_torch.partition(args.input, ks[0], **run)]
+            res = sheep_tpu_torch.partition(
+                args.input, ks[0], n_vertices=args.num_vertices, **run)
+            if args.refine:
+                # the partition knows n: the stream need not count it again
+                with open_input(args.input,
+                                n_vertices=len(res.assignment)) as es:
+                    res = sheep_tpu_torch.refine_result(
+                        res, es, rounds=args.refine,
+                        alpha=args.refine_alpha, weights=args.weights,
+                        budget_bytes=int(args.refine_budget_gb * (1 << 30)),
+                        device=args.device)
+            results = [res]
     except UnsupportedGraphError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
@@ -175,6 +276,139 @@ def main(argv=None) -> int:
         summary["n_vertices"] = n
         print(json.dumps(summary))
     return 0
+
+
+# the build's flags, which a --k-levels run refuses rather than ignores
+_BUILD_FLAGS = (("--segment-rounds", "segment_rounds"),
+                ("--warm-schedule", "warm_schedule"),
+                ("--host-tail-threshold", "host_tail_threshold"),
+                ("--carry-tail", "carry_tail"),
+                ("--tail-overlap", "tail_overlap"),
+                ("--stale-reuse", "stale_reuse"),
+                ("--dispatch-batch", "dispatch_batch"),
+                ("--inflight", "inflight"), ("--h2d-ring", "h2d_ring"),
+                ("--lift-levels", "lift_levels"))
+
+
+def _build_flags(args) -> list:
+    return [flag for flag, name in _BUILD_FLAGS
+            if getattr(args, name) is not None]
+
+
+def _k_levels(parser, args) -> int:
+    """--k-levels K1,K2,...: the hierarchy
+    (:func:`sheep_tpu_torch.partition_hierarchical`), one JSON line."""
+    import sheep_tpu_torch
+    from sheep_tpu_torch.io import formats
+
+    if args.k is not None:
+        parser.error("--k-levels replaces --k")
+    if args.balance is not None and args.alpha != 1.0:
+        parser.error("--balance sets the per-level alpha (BETA**(1/levels) "
+                     "per level); do not also pass --alpha")
+    ignored = _build_flags(args)
+    if ignored:
+        parser.error(f"{', '.join(ignored)} not supported with --k-levels "
+                     f"(would be silently ignored)")
+    try:
+        levels = [int(x) for x in args.k_levels.split(",") if x != ""]
+    except ValueError:
+        levels = []
+    if not levels or any(k < 1 for k in levels):
+        parser.error(f"--k-levels must be a comma list of positive ints "
+                     f"(got {args.k_levels!r})")
+    t0 = time.perf_counter()
+    res = sheep_tpu_torch.partition_hierarchical(
+        args.input, levels, device=args.device,
+        refine=8 if args.refine is None else args.refine,
+        refine_alpha=args.refine_alpha, chunk_edges=args.chunk_edges,
+        comm_volume=not args.no_comm_volume, weights=args.weights,
+        balance=args.balance, final_refine=args.final_refine or 0,
+        spill_dir=args.spill_dir, n_vertices=args.num_vertices,
+        refine_budget_bytes=int(args.refine_budget_gb * (1 << 30)),
+        **({} if args.balance is not None else {"alpha": args.alpha}))
+    wall = time.perf_counter() - t0
+    if args.output:
+        formats.write_partition(args.output, res.assignment)
+    summary = res.summary()
+    summary["wall_seconds"] = round(wall, 4)
+    summary["n_vertices"] = int(len(res.assignment))
+    if not args.json:
+        print(f"graph: {args.input}  k-levels: {levels}")
+        print(f"k={res.k}: edge cut {res.edge_cut:,} "
+              f"({100 * res.cut_ratio:.2f}%)  balance {res.balance:.4f}"
+              + (f"  comm volume {res.comm_volume:,}"
+                 if res.comm_volume is not None else ""))
+        if args.output:
+            print(f"partition map written to {args.output}")
+        print(f"wall: {wall:.2f}s")
+    print(json.dumps(summary))
+    return 0
+
+
+def _advise(parser, args, k: int):
+    """The quality advisor before a single-k flat run: from 2E/V, known in
+    O(1) or not at all, it notes on stderr when flat refinement will stall
+    at k and what recipe it recommends; with --auto-recipe the run becomes
+    that --k-levels run (its exit code is returned), else None."""
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.ops.degrees import advise_recipe
+
+    advice = None
+    try:
+        with open_input(args.input, n_vertices=args.num_vertices) as es0:
+            m = es0.num_edges_cheap
+            # the vertex count must be O(1) too: synthetic and in-memory
+            # streams (no path), .csr headers, or --num-vertices
+            cheap_v = (getattr(es0, "path", None) is None
+                       or getattr(es0, "fmt", None) == "csr"
+                       or getattr(es0, "_n_vertices", None) is not None)
+            if m is not None and cheap_v:
+                advice = advise_recipe(es0.num_vertices, m, k)
+            else:
+                advice = {"mode": "unknown", "signal": None, "k": k}
+    except (OSError, ValueError):
+        pass  # an unopenable input: the run itself raises the real error
+    if advice is not None and advice["mode"] == "hier":
+        lv = ",".join(str(x) for x in advice["k_levels"])
+        # an explicit --final-refine 0 or --balance survives
+        fr = advice["final_refine"] if args.final_refine is None \
+            else args.final_refine
+        bal = args.balance if args.balance is not None \
+            else advice["balance"]
+        flags = f"--k-levels {lv} --final-refine {fr} --balance {bal}"
+        if args.refine is not None:
+            flags += f" --refine {args.refine}"
+        print(f"note: quality advisor: intra-degree/k signal "
+              f"{advice['signal']:.2f} < {advice['threshold']:.2f} at "
+              f"k={k} — flat label propagation stalls below the signal "
+              f"threshold (BASELINE.md 'SBM quality'); recommended "
+              f"recipe: {flags}"
+              + ("" if args.auto_recipe else
+                 "  (pass --auto-recipe to apply)"), file=sys.stderr)
+        if args.auto_recipe:
+            args.k_levels = lv
+            args.k = None
+            args.final_refine = fr
+            args.balance = bal
+            return _k_levels(parser, args)
+    elif args.auto_recipe:
+        if advice is None or advice.get("signal") is None:
+            why = ("the stream's size is not O(1)-knowable (text inputs, "
+                   "or binary without --num-vertices), so the signal is "
+                   "unknown")
+        elif advice["signal"] >= advice["threshold"]:
+            why = (f"signal {advice['signal']:.2f} >= "
+                   f"{advice['threshold']:.2f} (flat LP is fine)")
+        else:
+            why = (f"signal {advice['signal']:.2f} is low but k={k} has no "
+                   f"usable level split (prime past the per-level cap)")
+        print(f"note: quality advisor: {why}; running the flat path as "
+              f"asked"
+              + (" (--final-refine only applies when the advisor selects a "
+                 "hierarchy; ignored)" if args.final_refine else ""),
+              file=sys.stderr)
+    return None
 
 
 def _score_only(args, h2d_ring: int) -> int:

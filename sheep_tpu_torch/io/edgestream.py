@@ -1,10 +1,10 @@
 """Chunked edge streams of the port (a subset of ``sheep_tpu/io/edgestream.py``).
 
-Every stream provides ``num_vertices``, ``num_edges_upper_bound``,
-``clamp_chunk_edges`` and ``chunks(cs)``, which yields (<= cs, 2) int64
-host arrays: chunk i holds edges [i*cs, (i+1)*cs) in stream order, exactly
-as the reference cuts them, so the fixpoint sees the same segments and
-counts the same rounds. Text (plain or gzip) is parsed by the port's copy
+Every stream provides ``num_vertices``, ``num_edges_cheap``,
+``num_edges_upper_bound``, ``clamp_chunk_edges`` and ``chunks(cs)``, which
+yields (<= cs, 2) int64 host arrays: chunk i holds edges [i*cs, (i+1)*cs)
+in stream order, exactly as the reference cuts them, so the fixpoint sees
+the same segments and counts the same rounds. Text (plain or gzip) is parsed by the port's copy
 of the reference's native parser, so both read the same edges from the
 same file; ``.csr`` files are read through ``io/csr.py``; a generator
 stream regroups the blocks of a re-openable factory.
@@ -66,6 +66,19 @@ class EdgeStream:
 
     def _pair_bytes(self) -> int:
         return 8 if self.fmt == "bin32" else 16
+
+    @property
+    def num_edges_cheap(self) -> Optional[int]:
+        """The edge count when it costs O(1): memory, binary, ``.csr`` and
+        sized generator streams; None where it needs a pass (text, gzip
+        text, unsized generators)."""
+        if self._edges is not None:
+            return len(self._edges)
+        if self._n_edges is not None:
+            return self._n_edges
+        if self.fmt in ("bin32", "bin64", "csr"):
+            return self.num_edges_upper_bound
+        return None
 
     @property
     def num_edges_upper_bound(self) -> Optional[int]:

@@ -249,6 +249,10 @@ class _CounterHashStream:
         return self._m
 
     @property
+    def num_edges_cheap(self) -> int:
+        return self._m
+
+    @property
     def num_edges_upper_bound(self) -> int:
         return self._m
 

@@ -63,3 +63,33 @@ def comm_volume(cv_chunks: list) -> int:
     if not cv_chunks:
         return 0
     return int(torch.unique(torch.cat(cv_chunks)).numel())
+
+
+def part_loads_accounting(assign, k: int, weights=None,
+                          cap: float = None) -> dict:
+    """Balance and capacity accounting of one assignment (the reference's
+    ``part_loads_accounting``, host numpy): the spread of the part loads
+    and, with ``cap``, how many parts sit at or above it and their share
+    of the load. A part at the cap can only shrink under a
+    capacity-respecting repair, so cut held behind such parts belongs to
+    the balance budget."""
+    import numpy as np
+
+    a = np.asarray(assign)
+    if weights is None:
+        loads = np.bincount(a, minlength=k).astype(np.float64)
+    else:
+        loads = np.bincount(a, weights=np.asarray(weights, np.float64),
+                            minlength=k)
+    total = float(loads.sum())
+    mean = total / max(k, 1)
+    out = {"balance": float(loads.max() / mean) if mean > 0 else 1.0,
+           "max_load": float(loads.max()), "min_load": float(loads.min()),
+           "empty_parts": int((loads == 0).sum())}
+    if cap is not None:
+        at_cap = loads >= float(cap)
+        out["cap"] = float(cap)
+        out["parts_at_capacity"] = int(at_cap.sum())
+        out["frozen_load_fraction"] = round(
+            float(loads[at_cap].sum() / total) if total else 0.0, 6)
+    return out
