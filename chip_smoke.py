@@ -99,6 +99,19 @@ line is printed:
      degree-weighted, and ``partition_hierarchical`` [4, 4] with balance
      1.1 and a final refine of 2: assignment, scores and every refine and
      hierarchy statistic equal;
+  4g. checkpoints, recovery and residency, CUDA against the CPU at
+     rmat-hash:16:16:7, k = 64, chunk 2^17, a checkpoint every 2 chunks:
+     killed (``SHEEP_FAULT_INJECT``) at degrees:3, build:5 and score:3,
+     batched (N = D = 2) and per segment with ``carry_tail``, the same step
+     and arrays saved on both devices, and the card resuming its own step
+     and the CPU's to the uninterrupted partition; ``oom@dispatch:2`` and
+     ``device@dispatch:2`` recovered in process with the same counters on
+     both; the class a real out-of-memory error of the card gets; a
+     ``.bin32`` under a quarter of the stream resident, the same spill and
+     reload counters on both and the unconstrained partition;
+     ``partition_hierarchical`` [4, 4] at sbm-hash:16:16:0.05:16:1 killed
+     at level:2 and resumed from the level boundary with its spill shards
+     reused;
   5. the full-size build rmat-hash:22:16:42 (Graph500 R-MAT, 4,194,304
      vertices, 67,108,864 edges), k=64, chunk 2^23, dispatch batch 8, on
      the card at the default depth (2), with the native split; the
@@ -106,8 +119,9 @@ line is printed:
      "error". Every kernel of the path launched once a round enqueued
      (``exec_finish`` once an execution; the round's end has no launch of
      its own), one host read per confirmed execution, the device's round
-     log one entry per counted round, ``hash_chunk`` once a chunk and
-     pass; the rounds' live-slot share and
+     log one entry per counted round, ``hash_chunk`` once a chunk (the
+     degrees pass synthesizes the 8 chunks, which stay on the card for the
+     build and the score); the rounds' live-slot share and
      depth summarized; edge cut, total edges and comm volume equal to the
      JAX package's values;
   5b. one more phase 3c case, one more scatter case and K1's case (the
@@ -142,6 +156,18 @@ line is printed:
      seconds, passes and cuts, the kernels' launches, the phase seconds
      and the peak device memory; then a pass of the final refine against
      its kernels' time at the phase 3g cases;
+  5h. faults at full size, rmat-hash:22:16:42, k = 64, chunk 2^22: (a)
+     N = 4, D = 2, a checkpoint every 4 chunks, killed at build:10 and
+     resumed from its last build step, each save's seconds and bytes and
+     the resumed run's phase seconds; (b) a real out-of-memory error of
+     the card, under ``torch.cuda.set_per_process_memory_fraction``: at
+     the default cache budget, where the ladder's retries run out on
+     spills (ROADMAP Queue 3 item 8), its outcome recorded; then with one
+     chunk cached, recovered in process through each rung (printed); (c)
+     the graph as a .bin32 file with the default cache (the build and the
+     score stage nothing), without it, and under a 128 MiB budget (spill
+     and reload); each against the JAX package's cut, total and comm
+     volume;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
@@ -1589,6 +1615,436 @@ def hier_s22(card, counters):
             "phase_s": line["phase_times"]}
 
 
+# recovery counters a fault leaves, which the CPU and the card must share
+RECOVERY_KEYS = ("dispatch_retries", "spill_degrades",
+                 "degraded_dispatch_batch", "degraded_inflight",
+                 "degraded_h2d_ring", "device_loss_recoveries",
+                 "device_rounds")
+RESIDENCY_KEYS = ("spill_evictions", "spill_reloads", "spill_reload_bytes",
+                  "spill_resident_bytes", "residency_hits",
+                  "residency_boundary_evictions")
+
+
+def _armed(env: dict):
+    """A context that sets ``env`` (with the retry's backoff at 0) for
+    one run, re-arms the fault injection and restores both after."""
+    import contextlib
+
+    from sheep_tpu_torch.utils import fault
+
+    @contextlib.contextmanager
+    def ctx():
+        full = {"SHEEP_RETRY_BASE_S": "0", **env}
+        saved = {key: os.environ.get(key) for key in full}
+        os.environ.update(full)
+        fault.reset()
+        try:
+            yield
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+            fault.reset()
+    return ctx()
+
+
+def _killed(run, point: str) -> None:
+    """``run()`` under ``SHEEP_FAULT_INJECT=point``: it must raise the
+    injected kill, and nothing else."""
+    from sheep_tpu_torch.utils import fault
+
+    fired = False
+    with _armed({"SHEEP_FAULT_INJECT": point}):
+        try:
+            run()
+        except fault.InjectedFault:
+            fired = True
+    check(fired, f"the injected kill at {point} did not fire")
+
+
+def fault_parity(card):
+    """Phase 4g: checkpoints, recovery and the residency tier, CUDA against
+    the CPU at rmat-hash:16:16:7, k = 64, chunk 2^17 (8 chunks)."""
+    import numpy as np
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch import hierarchy
+    from sheep_tpu_torch.backends.torch_backend import TorchBackend
+    from sheep_tpu_torch.io import formats, generators
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.utils import checkpoint, fault, retry
+
+    spec, k, cs = "rmat-hash:16:16:7", 64, 1 << 17
+    drivers = {"batched": dict(dispatch_batch=2, inflight=2),
+               "carry-tail": dict(dispatch_batch=1, inflight=1,
+                                  carry_tail=True)}
+
+    def run(device, opts, ck=None, resume=False, path=spec):
+        with open_input(path) as s:
+            return TorchBackend(device=device, chunk_edges=cs,
+                                **opts).partition(
+                s, k, checkpointer=ck, resume=resume, keep_tree=True)
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, opts in drivers.items():
+            base = run("cuda", opts)
+            for point in ("degrees:3", "build:5", "score:3"):
+                dirs = {dev: os.path.join(tmp, f"{name}-{point}-{dev}")
+                        for dev in ("cuda", "cpu")}
+                for dev, d in dirs.items():
+                    _killed(lambda: run(dev, opts,
+                                        checkpoint.Checkpointer(d, every=2)),
+                            point)
+                got = {dev: checkpoint.Checkpointer(d).load()
+                       for dev, d in dirs.items()}
+                a, b = got["cuda"], got["cpu"]
+                what = f"4g {name} killed at {point}"
+                check(a is not None and a.phase == point.split(":")[0],
+                      f"{what}: no checkpoint of the phase")
+                check((a.phase, a.chunk_idx, a.meta) ==
+                      (b.phase, b.chunk_idx, b.meta),
+                      f"{what}: step or fingerprint differs on the CPU")
+                check(sorted(a.arrays) == sorted(b.arrays) and all(
+                    a.arrays[key].dtype == b.arrays[key].dtype and
+                    np.array_equal(a.arrays[key], b.arrays[key])
+                    for key in a.arrays), f"{what}: saved arrays differ")
+                # the card resumes its own checkpoint and the CPU's
+                for dev, d in dirs.items():
+                    res = run("cuda", opts, checkpoint.Checkpointer(d),
+                              resume=True)
+                    same_result(res, base, f"{what}, resumed from the "
+                                           f"{dev}'s step", rounds=False)
+                out[f"{name} {point}"] = [a.phase, a.chunk_idx]
+        # injected faults recovered in process, the same counters on both,
+        # with the cache holding the whole stream on both (the CPU's is
+        # off by default): out of memory spills it first
+        opts = drivers["batched"]
+        base = run("cuda", opts)
+        stream_bytes = 8 * cs * 2 * 4
+        for inject in ("oom@dispatch:2", "device@dispatch:2"):
+            got = {}
+            for dev in ("cuda", "cpu"):
+                with _armed({"SHEEP_FAULT_INJECT": inject,
+                             "SHEEP_CACHE_BYTES": str(stream_bytes)}):
+                    got[dev] = run(dev, opts)
+                same_result(got[dev], base, f"4g {inject} on {dev}",
+                            rounds=False)
+            a, b = (got[dev].diagnostics for dev in ("cuda", "cpu"))
+            check(a.get("dispatch_retries", 0) >= 1,
+                  f"4g {inject}: no retry")
+            check(all(a.get(key) == b.get(key) for key in RECOVERY_KEYS),
+                  f"4g {inject}: counters differ: "
+                  f"{[(k, a.get(k), b.get(k)) for k in RECOVERY_KEYS]}")
+            out[inject] = {key: a[key] for key in RECOVERY_KEYS if key in a}
+        # which class a real out-of-memory error and an injected device
+        # loss get on the card
+        try:
+            torch.empty(1 << 45, dtype=torch.uint8, device="cuda")
+            real = None
+        except torch.OutOfMemoryError as exc:
+            real = (type(exc).__name__, retry.classify(exc))
+        check(real is not None and real[1] == retry.RESOURCE,
+              f"4g: a real out-of-memory error classifies as {real}")
+        out["real_oom_class"] = real
+        out["injected_device_loss_class"] = retry.classify(
+            fault.InjectedDeviceLoss("x"))
+        out["reinit_devices"] = retry.reinit_devices("cuda")
+        check(out["reinit_devices"], "4g: the card did not answer the probe")
+        # a quarter of the stream resident through a .bin32 file: the
+        # same spill and reload counters on both, the partition unchanged
+        path = os.path.join(tmp, "rmat16.bin32")
+        formats.write_edges(path, generators.rmat_hash_range(16, 0, 16 << 16,
+                                                             seed=7))
+        quarter = stream_bytes // 4
+        unconstrained = run("cuda", opts, path=path)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            with _armed({"SHEEP_CACHE_BYTES": str(quarter)}):
+                got[dev] = run(dev, opts, path=path)
+            same_result(got[dev], unconstrained, f"4g .bin32 under a quarter "
+                                                 f"of the stream on {dev}")
+        a, b = (got[dev].diagnostics for dev in ("cuda", "cpu"))
+        check(a.get("spill_evictions", 0) > 0 and
+              a.get("spill_reload_bytes", 0) > 0,
+              "4g: the budget of a quarter spilled nothing")
+        check(all(a.get(key) == b.get(key) for key in RESIDENCY_KEYS),
+              f"4g: residency counters differ: "
+              f"{[(key, a.get(key), b.get(key)) for key in RESIDENCY_KEYS]}")
+        out["quarter_budget"] = {key: a[key] for key in RESIDENCY_KEYS
+                                 if key in a}
+        # the hierarchy killed after its second top-level part: resumed
+        # from the level boundary, its spill shards reused
+        hspec, kw = "sbm-hash:16:16:0.05:16:1", dict(refine=2,
+                                                     chunk_edges=cs)
+        whole = sheep_tpu_torch.partition_hierarchical(hspec, [4, 4],
+                                                       device="cuda", **kw)
+        ck = checkpoint.Checkpointer(os.path.join(tmp, "hier"), every=1)
+        _killed(lambda: sheep_tpu_torch.partition_hierarchical(
+            hspec, [4, 4], device="cuda", checkpointer=ck, **kw), "level:2")
+        st = ck.load()
+        check(st is not None and (st.phase, st.chunk_idx) == ("hier", 2),
+              "4g hierarchy: no level-boundary step 2")
+        spills = []
+        spill = hierarchy._spill_intra
+        hierarchy._spill_intra = \
+            lambda *a, **kk: spills.append(1) or spill(*a, **kk)
+        try:
+            res = sheep_tpu_torch.partition_hierarchical(
+                hspec, [4, 4], device="cuda", checkpointer=ck, resume=True,
+                **kw)
+        finally:
+            hierarchy._spill_intra = spill
+        check(not spills, "4g hierarchy: the resume spilled again")
+        check(np.array_equal(res.assignment, whole.assignment) and all(
+            getattr(res, key) == getattr(whole, key) for key in (
+                "edge_cut", "total_edges", "comm_volume", "balance")),
+              "4g hierarchy: the resumed result differs")
+        check(os.listdir(ck.dir) == [], "4g hierarchy: left files behind")
+    out["wall_s"] = time.perf_counter() - t0
+    print("faults16 " + json.dumps(out), flush=True)
+
+
+def _spec_bin32(spec: str, path: str, cs: int) -> int:
+    """An rmat-hash spec as a .bin32 file (512 MiB at s22): its chunks of
+    ``cs`` edges synthesized on the card by ``hash_chunk`` and written in
+    order. Returns the number of chunks and of vertices (the file's
+    highest id may fall short of the spec's)."""
+    from sheep_tpu_torch.io.edgestream import open_input
+
+    s = open_input(spec)
+    with open(path, "wb") as f:
+        for i in range(s.num_chunks(cs)):
+            rows = min(cs, s.num_edges - i * cs)
+            f.write(s.device_chunk(i, cs, s.num_vertices, "cuda")[:rows]
+                    .cpu().numpy().astype("<u4").tobytes())
+    return s.num_chunks(cs), s.num_vertices
+
+
+def s22_real_oom(kw):
+    """Phase 5h (b): a real out-of-memory error of the card under the
+    degrade ladder. The limit (``torch.cuda.set_per_process_memory_fraction``)
+    lies midway between the measured peaks of the auto dispatch (N = 16,
+    D = 2: the 16 chunks one group) and of the rung that must fit (N = 8,
+    D = 1), each measured here first with one chunk cached; the memory
+    model's totals are printed beside them. Two runs under the limit:
+
+    - ``default_budget``: the cache's budget from the card's memory, what a
+      user gets. Each fault finds the cached chunks unleased, so each rung
+      is a spill that halves a budget far above the 512 MiB in use, the
+      next attempt caches the stream again, and the retries run out before
+      a knob halves (ROADMAP Queue 3 item 8). The run either ends in that
+      error (of class resource, after ``SHEEP_RETRY_MAX`` rungs that all
+      spilled), which is recorded as the outcome, or fits and holds the
+      JAX package's numbers; anything else fails the phase.
+    - ``one_chunk``: ``SHEEP_CACHE_BYTES`` at one chunk (32 MiB), to show
+      each rung: a spill, then the model halves D, then N. It must
+      recover in process to the JAX package's numbers."""
+    import gc
+
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.utils import membudget, retry
+
+    cs = kw["chunk_edges"]
+    one_chunk = {"SHEEP_CACHE_BYTES": str(cs * 8)}
+    check("SHEEP_CACHE_BYTES" not in os.environ,
+          "s22 OOM: SHEEP_CACHE_BYTES is set; the default budget's run "
+          "needs it unset")
+    peaks = {}
+    for batch, depth in ((0, 0), (8, 1)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _armed(one_chunk):
+            r = sheep_tpu_torch.partition(S22_SPEC, S22_K,
+                                          dispatch_batch=batch,
+                                          inflight=depth, **kw)
+        s22_check(r, f"s22 N={batch} D={depth} unconstrained")
+        d = r.diagnostics
+        peaks[(int(d["dispatch_batch"]), int(d["inflight_depth"]))] = \
+            torch.cuda.max_memory_allocated()
+    (auto, auto_peak), (half, half_peak) = peaks.items()
+    check(auto == (16, 2) and auto_peak > 1.1 * half_peak,
+          f"s22 OOM: auto {auto} peaks {auto_peak} B, the halved one "
+          f"{half_peak} B: no room for a limit between them")
+    limit = (auto_peak + half_peak) // 2
+    total = torch.cuda.mem_get_info()[1]
+    model = {f"{b},{dd}": membudget.build_phase_bytes(
+        1 << 22, cs, dispatch_batch=b, inflight=dd, donate=True)[
+        "total_bytes"] for b, dd in (auto, half)}
+    ladder = retry.degrade_dispatch
+
+    def limited(env):
+        rungs = []
+
+        def recorded(n, chunk_edges, batch, inflight, donate, stats, *a,
+                     **k):
+            spills = stats.get("spill_degrades", 0)
+            nxt = ladder(n, chunk_edges, batch, inflight, donate, stats, *a,
+                         **k)
+            rm = k.get("residency")
+            rungs.append({"from": [batch, inflight],
+                          "to": None if nxt is None else list(nxt[:2]),
+                          "spill": stats.get("spill_degrades", 0) > spills,
+                          "residency_budget": None if rm is None
+                          else rm.budget})
+            return nxt
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        retry.degrade_dispatch = recorded
+        torch.cuda.set_per_process_memory_fraction(limit / total)
+        res = error = None
+        t0 = time.perf_counter()
+        try:
+            with _armed(env):
+                res = sheep_tpu_torch.partition(S22_SPEC, S22_K, **kw)
+        except Exception as exc:  # noqa: BLE001, judged by the caller
+            # only its name and class: the exception's frames hold the
+            # failed attempt's tensors
+            error = {"type": type(exc).__name__,
+                     "class": retry.classify(exc), "text": str(exc)[:300]}
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            retry.degrade_dispatch = ladder
+        run = {"wall_s": time.perf_counter() - t0, "rungs": rungs,
+               "error": error,
+               "peak_under_limit": torch.cuda.max_memory_allocated()}
+        if res is not None:
+            d = res.diagnostics
+            run.update({k: d[k] for k in RECOVERY_KEYS if k in d})
+            run.update(dispatch_batch=d["dispatch_batch"],
+                       inflight=d["inflight_depth"],
+                       phase_s=res.phase_times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res, run
+
+    out = {"limit_bytes": limit, "fraction": limit / total,
+           "peak_bytes": {f"{b},{dd}": p for (b, dd), p in peaks.items()},
+           "model_bytes": model}
+    res, run = limited({})
+    if res is None:
+        retries = retry.RetryPolicy().max_retries
+        check(run["error"]["class"] == retry.RESOURCE
+              and len(run["rungs"]) == retries
+              and all(r["spill"] for r in run["rungs"]),
+              f"s22 OOM at the default budget: not the ladder's known "
+              f"fault (ROADMAP Queue 3 item 8): {run}")
+        run["outcome"] = ("error: every rung spilled, the retries ran out "
+                          "(ROADMAP Queue 3 item 8)")
+    else:
+        s22_check(res, "s22 at the default budget under the limit")
+        run["outcome"] = "recovered"
+    out["default_budget"] = run
+    res, run = limited(one_chunk)
+    check(res is not None, f"s22 OOM with one chunk cached: {run}")
+    s22_check(res, "s22 recovered from a real OOM")
+    check(run.get("dispatch_retries", 0) >= 1 and run["rungs"]
+          and run["rungs"][0]["spill"] and run["dispatch_batch"] < auto[0],
+          f"s22 OOM with one chunk cached: {run}")
+    out["one_chunk"] = run
+    print("s22-oom " + json.dumps(out), flush=True)
+    return out
+
+
+def s22_faults(card):
+    """Phase 5h: rmat-hash:22:16:42, k = 64, chunk 2^22 (16 chunks): (a)
+    killed at build:10 with a checkpoint every 4 chunks at N = 4, D = 2,
+    then resumed; (b) a real out-of-memory error (:func:`s22_real_oom`);
+    (c) a .bin32 of the graph with the default cache, with
+    ``cache_chunks=False`` and with a 128 MiB budget. Every run holds the
+    JAX package's cut, total and comm volume."""
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.utils import checkpoint
+
+    saves = []
+
+    class Timed(checkpoint.Checkpointer):
+        def save(self, phase, chunk_idx, arrays, meta=None):
+            t0 = time.perf_counter()
+            super().save(phase, chunk_idx, arrays, meta)
+            saves.append({"phase": phase, "chunk": chunk_idx,
+                          "seconds": time.perf_counter() - t0,
+                          "npz_bytes": os.path.getsize(os.path.join(
+                              self.dir, self._data_name(phase,
+                                                        chunk_idx)))})
+
+    cs = 1 << 22
+    kw = dict(device="cuda", chunk_edges=cs)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) kill and resume
+        ck = Timed(os.path.join(tmp, "ck"), every=4)
+        opts = dict(dispatch_batch=4, inflight=2, **kw)
+        t0 = time.perf_counter()
+        _killed(lambda: sheep_tpu_torch.partition(
+            S22_SPEC, S22_K, checkpointer=ck, **opts), "build:10")
+        killed_s = time.perf_counter() - t0
+        st = ck.load()
+        check(st is not None and st.phase == "build" and st.chunk_idx > 0,
+              f"s22 kill: resumes from {st and (st.phase, st.chunk_idx)}, "
+              f"not a build step past chunk 0")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sheep_tpu_torch.partition(S22_SPEC, S22_K, checkpointer=ck,
+                                        resume=True, **opts)
+        resumed_s = time.perf_counter() - t0
+        s22_check(res, "s22 resumed")
+        out["kill"] = {"killed_at": "build:10", "every": 4,
+                       "resumed_from": [st.phase, st.chunk_idx],
+                       "saves": saves, "killed_run_s": killed_s,
+                       "resumed_wall_s": resumed_s,
+                       "resumed_phase_s": res.phase_times}
+        out["oom"] = s22_real_oom(kw)
+        # (c) the cache on a file: the degrees pass stages every chunk, the
+        # build and the score read them from the card
+        path = os.path.join(tmp, "rmat22.bin32")
+        chunks, n = _spec_bin32(S22_SPEC, path, cs)
+        chunk_bytes = cs * 8
+        runs = {}
+        for name, env, extra in (("cache", {}, {}),
+                                 ("no_cache", {}, {"cache_chunks": False}),
+                                 ("budget_128MiB",
+                                  {"SHEEP_CACHE_BYTES": str(128 << 20)}, {})):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _armed(env):
+                r = sheep_tpu_torch.partition(path, S22_K, n_vertices=n,
+                                              **kw, **extra)
+            wall = time.perf_counter() - t0
+            s22_check(r, f"s22 .bin32 {name}")
+            d = r.diagnostics
+            runs[name] = {"wall_s": wall, "phase_s": r.phase_times,
+                          "h2d_staged_bytes": d.get("h2d_staged_bytes"),
+                          **{key: d[key] for key in RESIDENCY_KEYS
+                             if key in d},
+                          "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        staged = {name: runs[name]["h2d_staged_bytes"] for name in runs}
+        check(staged["cache"] == chunks * chunk_bytes,
+              f"s22 .bin32 cached: {staged['cache']} B staged, not the "
+              f"degrees pass's {chunks * chunk_bytes}")
+        check(staged["no_cache"] == 3 * chunks * chunk_bytes,
+              f"s22 .bin32 uncached: {staged['no_cache']} B staged")
+        check(runs["budget_128MiB"].get("spill_evictions", 0) > 0 and
+              runs["budget_128MiB"].get("spill_reload_bytes", 0) > 0 and
+              runs["budget_128MiB"]["spill_resident_bytes"] <= 128 << 20,
+              "s22 .bin32 at 128 MiB: no spill and reload")
+        out["cache_runs"] = runs
+    print("s22-faults " + json.dumps(out), flush=True)
+    return out
+
+
 def lift_entries(head, cases, launches) -> list:
     """The kernels-line entries of ``lift_stack`` and ``climb_tail``: each
     at ``head``, the phase 3c case at the main path's median depth and
@@ -1803,6 +2259,8 @@ def main() -> int:
     planted_parity(card, counters)
     # 4f. refinement and the hierarchy, CUDA against the CPU
     refine_parity(card, counters)
+    # 4g. checkpoints, recovery and residency, CUDA against the CPU
+    fault_parity(card)
 
     # 5. the full-size build on the card, through the user's entry point,
     # at the default depth; fold_segments_pipelined runs its dispatch loop
@@ -1834,10 +2292,12 @@ def main() -> int:
     for name in ("gather_clip", "scatter_min", "lift_stack", "climb_tail"):
         check(launches[name] == enqueued,
               f"{name}: {launches[name]} launches in {enqueued} rounds")
-    # each chunk synthesized once a pass: degrees, build and score
-    check(launches["hash_chunk"] == 3 * 8,
-          f"hash_chunk: {launches['hash_chunk']} launches for 8 chunks in "
-          f"3 passes")
+    # each chunk synthesized once, by the degrees pass: the build and the
+    # score read the chunks the cache keeps on the card
+    check(launches["hash_chunk"] == 8,
+          f"hash_chunk: {launches['hash_chunk']} launches for 8 chunks")
+    check(d["residency_hits"] == 2 * 8,
+          f"{d['residency_hits']} cached chunks served, not 16")
     # the round's end runs in climb_tail's last block: no launch of its own
     check("round_end" not in launches and
           "round_end_launches" not in d, "a stand-alone round_end ran")
@@ -1966,9 +2426,11 @@ def main() -> int:
     check(dd["host_syncs"] == dd["batch_execs"],
           f"s22 defaults: {dd['host_syncs']} host reads for "
           f"{dd['batch_execs']} executions")
+    # the model with the chunks the cache held
     model = build_phase_bytes(1 << 22, 1 << 22, dispatch_batch=auto_batch,
                               inflight=int(dd["inflight_depth"]),
-                              donate=True)
+                              donate=True,
+                              resident_bytes=int(dd["spill_resident_bytes"]))
     allowed = int(0.9 * torch_backend.device_memory_bytes(
         torch.device("cuda")))
     check(dflt_peak <= allowed,
@@ -1986,7 +2448,8 @@ def main() -> int:
         "host_blocked_ms": dd["host_blocked_ms"],
         "device_gap_ms": dd["device_gap_ms"],
         "peak_mem_bytes": dflt_peak, "model_total_bytes":
-            model["total_bytes"], "allowed_bytes": allowed,
+            model["total_bytes"], "resident_bytes": model["resident_bytes"],
+        "allowed_bytes": allowed,
         "card": card}), flush=True)
 
     # 5f. the planted partition at full size through partition_multi at
@@ -2011,8 +2474,9 @@ def main() -> int:
         check((r.edge_cut, r.total_edges, r.comm_volume) == want,
               f"sbm22 k={r.k}: (cut, total, cv) "
               f"{(r.edge_cut, r.total_edges, r.comm_volume)} != JAX {want}")
-    # 16 chunks of 2^22: degrees, build, score, and the further k's pass
-    check(sbm_launches["hash_chunk"] == 4 * 16,
+    # 16 chunks of 2^22: the degrees pass (the build and the score read
+    # the cache), and the further k's pass
+    check(sbm_launches["hash_chunk"] == 2 * 16,
           f"sbm22: {sbm_launches['hash_chunk']} hash_chunk launches")
     for name in path_keys:
         check(sbm_launches[name] > 0, f"sbm22: no {name} launch")
@@ -2056,6 +2520,10 @@ def main() -> int:
         "final_refine_s": final["seconds"], "passes": final["passes"],
         "pass_s": pass_s, "kernels_s_a_pass": kernels_s,
         "kernels_share": kernels_s / pass_s, "card": card}), flush=True)
+
+    # 5h. faults at full size: kill and resume, a real out-of-memory error,
+    # the cache on a file
+    s22_faults(card)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b) and climb_level's the stream

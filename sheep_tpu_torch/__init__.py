@@ -22,7 +22,8 @@ def partition_hierarchical(path, k_levels, **kw):
 def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
               comm_volume=True, weights="unit", alpha=1.0, keep_tree=False,
               inflight=0, h2d_ring=0, round_log=None, n_vertices=None,
-              refine=0, refine_alpha=1.10, **build_opts):
+              refine=0, refine_alpha=1.10, checkpointer=None, resume=False,
+              cache_chunks=True, **build_opts):
     """Partition the graph at *path* (a file or a synthetic spec of
     :func:`sheep_tpu_torch.io.edgestream.open_input`) into *k* parts with
     the single-device build; returns a
@@ -40,7 +41,13 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
     file's counting pass. ``refine=N`` runs up to N rounds of
     capacity-capped label propagation after the build
     (:func:`refine_result`, cap ``refine_alpha * ceil(n / k)``); the
-    refined cut is never worse than the unrefined one."""
+    refined cut is never worse than the unrefined one.
+    ``checkpointer`` (a
+    :class:`~sheep_tpu_torch.utils.checkpoint.Checkpointer`) saves the
+    build every ``checkpointer.every`` chunks, and ``resume`` continues
+    from its latest step (the refinement after it is not checkpointed, as
+    in the reference); ``cache_chunks`` keeps the chunks on the device
+    across the passes (``SHEEP_CACHE_BYTES`` sets its budget)."""
     from sheep_tpu_torch.io.edgestream import open_input
 
     with open_input(path, n_vertices=n_vertices) as stream:
@@ -49,20 +56,23 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
             dispatch_batch=dispatch_batch, comm_volume=comm_volume,
             weights=weights, alpha=alpha, keep_tree=keep_tree,
             inflight=inflight, h2d_ring=h2d_ring, round_log=round_log,
-            refine=refine, refine_alpha=refine_alpha, **build_opts)
+            refine=refine, refine_alpha=refine_alpha,
+            checkpointer=checkpointer, resume=resume,
+            cache_chunks=cache_chunks, **build_opts)
 
 
 def _partition_stream(stream, k, device=None, chunk_edges=1 << 22,
                       dispatch_batch=0, comm_volume=True, weights="unit",
                       alpha=1.0, keep_tree=False, inflight=0, h2d_ring=0,
                       round_log=None, refine=0, refine_alpha=1.10,
-                      **build_opts):
+                      checkpointer=None, resume=False, **build_opts):
     """:func:`partition` over an open stream (shared with the hierarchy,
     whose parts' subgraphs are streams of their own)."""
     be = _backend(device, chunk_edges, dispatch_batch, alpha, inflight,
                   h2d_ring, build_opts)
     res = be.partition(stream, k, weights=weights, comm_volume=comm_volume,
-                       keep_tree=keep_tree, round_log=round_log)
+                       keep_tree=keep_tree, round_log=round_log,
+                       checkpointer=checkpointer, resume=resume)
     if refine:
         res = refine_result(res, stream, rounds=refine, alpha=refine_alpha,
                             weights=weights, device=be.device)

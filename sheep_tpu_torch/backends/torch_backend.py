@@ -1,6 +1,5 @@
 """Single-device PyTorch backend (counterpart of ``TpuBackend.partition`` in
-``sheep_tpu/backends/tpu_backend.py``, without its checkpoints, chunk cache
-and fault handling).
+``sheep_tpu/backends/tpu_backend.py``).
 
   degrees   scatter-add per chunk, int64 on the device
   sort      stable argsort of the degrees -> pos / order
@@ -27,12 +26,28 @@ blocks ahead. ``inflight`` and ``h2d_ring`` of 0 resolve as the
 reference's accelerator defaults: 2 on CUDA, 1 on the CPU;
 ``dispatch_batch`` of 0 as its auto sizing (:func:`resolve_dispatch_batch`:
 1 on the CPU, which selects the per-segment driver there as in cpu-jax).
+
+As the reference's, a partition keeps the padded chunks on the device
+across its three passes within a budget (``cache_chunks``; the residency
+tier of ``utils/residency.py``, spilling and reloading when the stream
+outgrows it; the budget is the card's memory less the build's model on
+CUDA, 0 on the CPU, ``SHEEP_CACHE_BYTES`` when set); it saves and resumes
+chunk-level checkpoints (``utils/checkpoint.py``; the batched build only
+at the pipeline's flush barrier); and it runs the build as one retryable
+attempt from its last confirmed snapshot, spilling the cached chunks and
+then halving the dispatch batch, depth or ring after an out-of-memory
+fault, saving the snapshot and checking the device after a device loss
+(``utils/retry.py``). The injection points of ``utils/fault.py`` are the
+reference's: ``degrees``, ``build`` and ``score`` a chunk, ``dispatch`` an
+execution issued.
 """
 
 from __future__ import annotations
 
+import gc
+import os
 import time
-from contextlib import nullcontext
+from contextlib import closing, nullcontext
 
 import numpy as np
 import torch
@@ -50,6 +65,7 @@ from sheep_tpu_torch.ops import split as split_ops
 from sheep_tpu_torch.ops import fixpoint as fixpoint_ops
 from sheep_tpu_torch.types import PartitionResult, check_vertex_range
 from sheep_tpu_torch.utils.prefetch import H2DRing, prefetch
+from sheep_tpu_torch.utils.residency import ResidencyManager
 
 
 # diagnostics key -> kernel: the build's launches of each kernel
@@ -74,18 +90,74 @@ def pad_chunk(chunk: np.ndarray, size: int, n: int) -> np.ndarray:
 
 
 def device_chunks(stream, cs: int, n: int, device, ring: int = 1,
-                  stats=None):
-    """Padded (cs, 2) int32 chunks on ``device``, in stream order. A
-    stream with ``device_chunk`` synthesizes them in place; any other is
-    read and padded on a worker thread and staged through an
-    :class:`H2DRing` of depth ``ring`` (counters into ``stats``)."""
+                  stats=None, start_chunk: int = 0):
+    """Padded (cs, 2) int32 chunks on ``device``, in stream order from
+    chunk ``start_chunk`` (the reference's ``_upload_chunks``). A stream
+    with ``device_chunk`` synthesizes them in place; any other is read and
+    padded on a worker thread and staged through an :class:`H2DRing` of
+    depth ``ring`` (counters into ``stats``)."""
     if hasattr(stream, "device_chunk"):
-        for i in range(stream.num_chunks(cs)):
+        for i in range(start_chunk, stream.num_chunks(cs)):
             yield stream.device_chunk(i, cs, n, device)
         return
-    with prefetch(pad_chunk(c, cs, n) for c in stream.chunks(cs)) as pf, \
+    with prefetch(pad_chunk(c, cs, n)
+                  for c in stream.chunks(cs, start_chunk=start_chunk)) as pf, \
             H2DRing(pf, device, depth=ring, stats=stats) as staged:
         yield from staged
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _residency_chunks(stream, cs: int, n: int, device, rm, start_chunk: int,
+                      ring: int = 1, stats=None):
+    """Chunks served through a :class:`ResidencyManager` (the reference's
+    ``_residency_chunks``): resident ones from the device, and from the
+    first miss on read from the stream again, each offered for residence.
+    The chunk just served stays leased until the next admission, so the
+    eviction that admission may trigger does not count it reclaimable."""
+    idx = start_chunk
+    leased = None
+    try:
+        while True:
+            ref = rm.get(idx)
+            if ref is None:
+                break
+            rm.lease(idx)
+            if leased is not None:
+                rm.release(leased)
+            leased = idx
+            yield ref
+            idx += 1
+        if not rm.complete:
+            for d in device_chunks(stream, cs, n, device, ring, stats, idx):
+                if leased is not None:
+                    rm.release(leased)
+                    leased = None
+                rm.admit(idx, d, _nbytes(d))
+                rm.lease(idx)
+                leased = idx
+                yield d
+                idx += 1
+            if start_chunk == 0:
+                rm.note_stream_end(idx)
+    finally:
+        if leased is not None:
+            rm.release(leased)
+
+
+def _device_chunks(stream, cs: int, n: int, device, cache, start_chunk: int,
+                   ring: int = 1, stats=None):
+    """Padded (cs, 2) int32 chunks on the device from ``start_chunk``,
+    through ``cache``: a :class:`ResidencyManager`, or None (the
+    reference's ``_device_chunks``)."""
+    if cache is None:
+        yield from device_chunks(stream, cs, n, device, ring, stats,
+                                 start_chunk)
+    else:
+        yield from _residency_chunks(stream, cs, n, device, cache,
+                                     start_chunk, ring, stats)
 
 
 def resolve_inflight(inflight: int, device) -> int:
@@ -133,20 +205,63 @@ def resolve_dispatch_batch(dispatch_batch: int, n: int, cs: int, device,
                               h2d_ring=h2d_ring)
 
 
+def _chunk_cache_budget(n: int, chunk_edges: int, device,
+                        dispatch_batch: int = 1, inflight: int = 1,
+                        donate: bool = False, h2d_ring: int = 0) -> int:
+    """Device bytes the chunk cache may hold (the reference's
+    ``_chunk_cache_budget``): ``SHEEP_CACHE_BYTES`` when set, on any
+    device; else 0 on the CPU, where a cache would copy the stream in host
+    memory to save a copy that does not exist; else 0.9 of the card's
+    memory less the build's modeled peak and 1 GiB."""
+    from sheep_tpu_torch.utils.membudget import build_phase_bytes
+
+    env = os.environ.get("SHEEP_CACHE_BYTES")
+    if env is not None:
+        return max(0, int(env))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    reserve = build_phase_bytes(
+        n, chunk_edges, dispatch_batch=dispatch_batch, inflight=inflight,
+        donate=donate, h2d_ring=h2d_ring)["total_bytes"] + (1 << 30)
+    return max(0, int(0.9 * device_memory_bytes(device)) - reserve)
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
+def _score_chunks(chunks, parts: dict, n: int, comm_volume: bool, cut: dict,
+                  total: torch.Tensor, cv_keys: dict, chunk_done=None) -> None:
+    """Score every assignment of ``parts`` ({k: int32[n+1] on the device})
+    against each chunk, into ``cut`` ({k: 0-d int64}), ``total`` and the
+    key lists ``cv_keys`` in place; ``chunk_done()`` runs after each
+    chunk."""
+    for chunk in chunks:
+        for i, (k, a) in enumerate(parts.items()):
+            c, tt = score_ops.score_chunk(chunk, a, n)
+            cut[k] += c
+            if i == 0:
+                total += tt
+            if comm_volume:
+                score_ops.accumulate_cv_keys(
+                    cv_keys[k], score_ops.cut_pair_keys(chunk, a, n, k))
+        if chunk_done is not None:
+            chunk_done()
+
+
 class TorchBackend:
     name = "torch"
+    supports_checkpoint = True
 
     def __init__(self, chunk_edges: int = 1 << 22, dispatch_batch: int = 0,
                  alpha: float = 1.0, device=None, inflight: int = 0,
                  h2d_ring: int = 0, lift_levels: int = 0,
                  segment_rounds: int = 2, warm_schedule=None,
                  host_tail_threshold: int = -1, carry_tail=None,
-                 tail_overlap=None, stale_reuse: int = 1):
+                 tail_overlap=None, stale_reuse: int = 1,
+                 cache_chunks: bool = True):
         """The reference's knobs and defaults. ``dispatch_batch``,
         ``inflight`` and ``h2d_ring`` of 0 are auto. The per-segment
         driver's: ``segment_rounds`` (rounds a segment; also the batched
@@ -155,7 +270,9 @@ class TorchBackend:
         on the CPU), ``carry_tail`` / ``tail_overlap`` (the per-chunk tail
         strategies; either one selects the per-segment driver),
         ``stale_reuse`` (full segments a lifting stack), ``lift_levels``
-        (0: from n)."""
+        (0: from n). ``cache_chunks`` keeps the chunks on the device
+        across the passes, within the budget of
+        :func:`_chunk_cache_budget`."""
         if dispatch_batch < 0:
             raise ValueError("dispatch_batch must be >= 0 (0 = auto)")
         if inflight < 0:
@@ -190,35 +307,43 @@ class TorchBackend:
         self.carry_tail = bool(carry_tail)
         self.tail_overlap = bool(tail_overlap)
         self.stale_reuse = int(stale_reuse)
+        self.cache_chunks = bool(cache_chunks)
+
 
     def _tail_strategy(self) -> bool:
         return self.carry_tail or self.tail_overlap
 
     def _staged_groups(self, chunks, cs: int, n: int, pos: torch.Tensor,
                        N: int):
-        """[N, C] oriented position blocks, one per group of N chunks; the
-        last group is filled with all-sentinel chunks."""
+        """([N, C] oriented position blocks, real chunks in the group), one
+        per group of N chunks; the last group is filled with all-sentinel
+        chunks."""
         dev = self.device
         group: list = []
         for chunk in chunks:
             group.append(chunk)
             if len(group) == N:
-                yield elim_ops.orient_chunks_batch_pos(
-                    torch.stack(group), pos, n)
+                yield (*elim_ops.orient_chunks_batch_pos(
+                    torch.stack(group), pos, n), N)
                 group = []
         if group:
+            real = len(group)
             sentinel = torch.full((cs, 2), n, dtype=torch.int32, device=dev)
-            group += [sentinel] * (N - len(group))
-            yield elim_ops.orient_chunks_batch_pos(torch.stack(group), pos, n)
+            group += [sentinel] * (N - real)
+            yield (*elim_ops.orient_chunks_batch_pos(
+                torch.stack(group), pos, n), real)
 
-    def _build_per_segment(self, P, chunks, cs: int, n: int, pos, stats):
+    def _build_per_segment(self, P, chunks, cs: int, n: int, pos, pos_host,
+                           stats, carry=None, chunk_done=None):
         """The build at N == 1 == D, as the reference's: each chunk through
         the adaptive driver, its tail finished on the host, carried into
-        the next chunk (``carry_tail``) or resolved in a worker thread and
-        folded back as delta pairs (``tail_overlap``); a carried tail left
-        at the end is folded last. Returns ``(P, total_rounds)``."""
+        the next chunk (``carry_tail``, the first from ``carry``) or
+        resolved in a worker thread and folded back as delta pairs
+        (``tail_overlap``); a carried tail left at the end is folded last.
+        ``chunk_done(P, carry, flush)`` runs after each chunk and returns
+        P; ``flush(P)``, given under ``tail_overlap``, folds every tail in
+        flight into P and returns it. Returns ``(P, total_rounds)``."""
         dev = self.device
-        pos_host = pos[:n].cpu().numpy()
         tail_at = self.host_tail_threshold
         if tail_at < 0:
             tail_at = cs // 2 if dev.type == "cuda" else 0
@@ -228,10 +353,22 @@ class TorchBackend:
                        stale_reuse=self.stale_reuse, stats=stats)
         overlap = self.tail_overlap and not self.carry_tail
         total = 0
-        carry = None
         with (elim_ops.TailOverlap(n, pos_host, dev) if overlap
               else nullcontext()) as ov:
-            for padded in chunks():
+
+            def flush(P):
+                # the saved state, and the end of the stream, must hold
+                # the whole constraint multiset
+                nonlocal total
+                ov.drain(True)
+                inj = ov.take_inject()
+                if inj is not None:
+                    P, rounds = elim_ops.fold_edges_adaptive_pos(
+                        P, inj[0], inj[1], n, pos_host=pos_host, **fold_kw)
+                    total += rounds
+                return P
+
+            for padded in chunks:
                 if overlap:
                     # resolved tails, without waiting, join this fold
                     ov.drain(False)
@@ -252,13 +389,10 @@ class TorchBackend:
                 else:
                     P, rounds = step
                 total += rounds
+                if chunk_done is not None:
+                    P = chunk_done(P, carry, flush if overlap else None)
             if overlap:
-                ov.drain(True)
-                inj = ov.take_inject()
-                if inj is not None:
-                    P, rounds = elim_ops.fold_edges_adaptive_pos(
-                        P, inj[0], inj[1], n, pos_host=pos_host, **fold_kw)
-                    total += rounds
+                P = flush(P)
         if self.carry_tail and carry is not None and len(carry[0]):
             P, rounds = elim_ops.fold_edges_adaptive_pos(
                 P, carry[0], carry[1], n, pos_host=pos_host, **fold_kw)
@@ -267,11 +401,22 @@ class TorchBackend:
 
     def partition(self, stream, k: int, weights: str = "unit",
                   comm_volume: bool = True, keep_tree: bool = False,
-                  round_log=None) -> PartitionResult:
+                  round_log=None, checkpointer=None,
+                  resume: bool = False) -> PartitionResult:
         """``round_log``, a list, receives (depth, live slots) of every
         counted fixpoint round of the batched driver, from the executions'
-        device logs (the per-segment driver logs none)."""
+        device logs (the per-segment driver logs none). ``checkpointer``
+        (a :class:`~sheep_tpu_torch.utils.checkpoint.Checkpointer`) saves
+        the run every ``checkpointer.every`` chunks; ``resume`` starts from
+        its latest step, which must be of this run (the reference's
+        fingerprint and format, so a step of either package resumes in the
+        other)."""
+        from sheep_tpu_torch.utils import checkpoint as ckpt
+        from sheep_tpu_torch.utils import retry as retry_mod
+        from sheep_tpu_torch.utils.fault import maybe_fail
+
         dev = self.device
+        ckpt_degraded0 = ckpt.degraded_events()
         # auto defers to an explicit per-chunk tail strategy, as the
         # reference's
         inflight = 1 if self.inflight == 0 and self._tail_strategy() \
@@ -281,28 +426,67 @@ class TorchBackend:
         t0 = time.perf_counter()
         n = stream.num_vertices
         check_vertex_range(n)
+        carry_mode = self.carry_tail
+        meta = ckpt.stream_meta(stream, k, cs, weights=weights,
+                                alpha=self.alpha, comm_volume=comm_volume,
+                                state_format="minp_carry" if carry_mode
+                                else "minp")
+        state = ckpt.resume_state(checkpointer, meta, resume)
+        from_phase = ckpt.phase_index(state.phase) if state else 0
         ring = resolve_h2d_ring(self.h2d_ring, dev)
+        # the model counts the ring only for streams that stage
+        ring_model = 0 if hasattr(stream, "device_chunk") else ring
         if self.dispatch_batch == 0 and self._tail_strategy():
             batch = 1
         else:
-            # the model counts the ring only for streams that stage, and
-            # donation as the reference's default does (the batched path
-            # updates its buffers in place)
+            # donation as the reference's default: the batched path
+            # updates its buffers in place
             batch = resolve_dispatch_batch(
                 self.dispatch_batch, n, cs, dev, inflight=inflight,
-                donate=True,
-                h2d_ring=0 if hasattr(stream, "device_chunk") else ring)
-        # one record across the three streaming passes: the ingest
-        # counters add up wherever chunks cross, the build adds its own
+                donate=True, h2d_ring=ring_model)
+        donate = batch > 1 or inflight > 1
+        cache_budget = _chunk_cache_budget(
+            n, cs, dev, dispatch_batch=batch, inflight=inflight,
+            donate=donate, h2d_ring=ring_model) if self.cache_chunks else 0
+        # one record across the three streaming passes: the ingest and
+        # residency counters add up wherever chunks cross, the build adds
+        # its own
         stats: dict = {"dispatch_batch": batch, "inflight_depth": inflight,
                        "h2d_staged_ms": 0.0, "h2d_blocked_ms": 0.0}
+        cache = ResidencyManager(cache_budget, stats=stats) \
+            if cache_budget > 0 else None
 
-        def chunks():
-            return device_chunks(stream, cs, n, dev, ring, stats)
+        def chunks(start: int, ring: int):
+            return closing(_device_chunks(stream, cs, n, dev, cache, start,
+                                          ring, stats))
+
+        def boundary(confirmed: int) -> None:
+            # a checkpoint is the residency tier's eviction point: no retry
+            # reads the chunks behind it again
+            if cache is not None:
+                cache.boundary(confirmed)
 
         deg = degrees_ops.init_degrees(n, dev)
-        for chunk in chunks():
-            degrees_ops.degree_chunk(deg, chunk, n)
+        deg_saved = state.arrays["deg"] if state else None
+        if from_phase == 0:
+            start = state.chunk_idx if state else 0
+            idx = start
+            with chunks(start, ring) as it:
+                for chunk in it:
+                    degrees_ops.degree_chunk(deg, chunk, n)
+                    idx += 1
+                    maybe_fail("degrees", idx - start)
+                    if checkpointer is not None and \
+                            checkpointer.due(idx - start):
+                        # the device keeps int64 totals: the saved ones
+                        # are pulled as they stand
+                        now = deg[:n].cpu().numpy()
+                        if deg_saved is not None:
+                            now = now + deg_saved
+                        checkpointer.save("degrees", idx, {"deg": now}, meta)
+                        boundary(idx)
+        if deg_saved is not None:
+            deg[:n] += torch.from_numpy(deg_saved).to(dev)
         deg_host = deg[:n].cpu().numpy()
         t["degrees"] = time.perf_counter() - t0
 
@@ -316,27 +500,155 @@ class TorchBackend:
         counters = (gather_ops.LAUNCHES, lift_ops.LAUNCHES,
                     fixpoint_ops.LAUNCHES, compact_ops.LAUNCHES)
         launches0 = {k: v for c in counters for k, v in c.items()}
-        P = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
-        if batch == 1 and inflight == 1:
-            P, total_rounds = self._build_per_segment(P, chunks, cs, n, pos,
-                                                      stats)
+        pos_l = pos.long()
+        pos_host = pos[:n].cpu().numpy()
+        total_rounds = 0
+        if state and from_phase >= 2:
+            minp = torch.from_numpy(state.arrays["minp"]).to(dev)
         else:
-            groups = chunks()
-            staged = self._staged_groups(groups, cs, n, pos, batch)
-            try:
-                P, total_rounds = elim_ops.fold_segments_pipelined(
-                    P, staged, n, inflight=inflight,
-                    lift_levels=self.lift_levels,
-                    segment_rounds=self.segment_rounds, stats=stats,
-                    round_log=round_log)
-            finally:
-                # a fold that stops early leaves both generators open:
-                # close them, and with them the prefetch worker and the
-                # ring
-                staged.close()
-                groups.close()
-        minp = P[pos.long()]
-        del P
+            # The build is one retryable attempt from ``snap``, the last
+            # confirmed state (vertex-space minp and the next chunk, a
+            # checkpoint's payload, banked at every save). Out of memory:
+            # spill the cached chunks or halve a dispatch knob, then fold
+            # again from the snapshot; device loss: save the snapshot,
+            # check the device, fold again. The forest is the same either
+            # way: it is the unique fixpoint of the constraint multiset at
+            # any batch shape.
+            snap = {"idx": 0, "minp": None, "carry": None}
+            if state and state.phase == "build":
+                snap["idx"] = state.chunk_idx
+                snap["minp"] = state.arrays["minp"]
+                if carry_mode and "carry_lo" in state.arrays:
+                    snap["carry"] = (state.arrays["carry_lo"],
+                                     state.arrays["carry_hi"])
+            cfg = {"batch": batch, "inflight": inflight, "ring": ring}
+
+            def save(idx: int, arrays: dict) -> None:
+                snap["idx"] = idx
+                snap["minp"] = arrays["minp"]
+                if carry_mode:
+                    snap["carry"] = (arrays["carry_lo"], arrays["carry_hi"])
+                if checkpointer is not None:
+                    checkpointer.save("build", idx, arrays, meta)
+                boundary(idx)
+
+            def attempt():
+                nonlocal total_rounds
+                start = idx = snap["idx"]
+                if snap["minp"] is not None:
+                    P = torch.from_numpy(snap["minp"]).to(dev)[order.long()]
+                else:
+                    P = torch.full((n + 1,), n, dtype=torch.int32,
+                                   device=dev)
+                carry = None
+                if carry_mode and snap["carry"] is not None:
+                    carry = tuple(torch.from_numpy(c).to(dev)
+                                  for c in snap["carry"])
+                N, D = cfg["batch"], cfg["inflight"]
+                stats["dispatch_batch"], stats["inflight_depth"] = N, D
+                if N == 1 and D == 1:
+                    def chunk_done(P, carry, flush):
+                        nonlocal idx
+                        idx += 1
+                        maybe_fail("build", idx - start,
+                                   kinds=("kill", "oom", "device"))
+                        if checkpointer is not None and \
+                                checkpointer.due(idx - start):
+                            if flush is not None:
+                                P = flush(P)
+                            arrays = {"deg": deg_host,
+                                      "minp": P[pos_l].cpu().numpy()}
+                            if carry_mode:
+                                arrays["carry_lo"] = carry[0].cpu().numpy()
+                                arrays["carry_hi"] = carry[1].cpu().numpy()
+                            save(idx, arrays)
+                        return P
+
+                    with chunks(start, cfg["ring"]) as it:
+                        P, rounds = self._build_per_segment(
+                            P, it, cs, n, pos, pos_host, stats, carry,
+                            chunk_done)
+                    total_rounds += rounds
+                    return P
+
+                def confirmed(real, rounds, tipP):
+                    # asks for a flush barrier when a checkpoint is due:
+                    # mid-pipeline the tip table can miss a confirmed
+                    # group's leftovers still queued, so the save waits
+                    # for flushed(), after the driver drains them
+                    nonlocal idx
+                    if real is None:
+                        return False
+                    prev = idx
+                    idx += real
+                    for i in range(prev + 1, idx + 1):
+                        maybe_fail("build", i - start,
+                                   kinds=("kill", "oom", "device"))
+                    return checkpointer is not None and \
+                        checkpointer.due_span(prev - start, idx - start)
+
+                def flushed(tipP):
+                    # drained: idx, advanced through every group confirmed
+                    # in the drain, and the table agree
+                    save(idx, {"deg": deg_host,
+                               "minp": tipP[pos_l].cpu().numpy()})
+
+                with chunks(start, cfg["ring"]) as groups, \
+                        closing(self._staged_groups(groups, cs, n, pos,
+                                                    N)) as staged:
+                    # a fold that stops early leaves both generators open:
+                    # closing them stops the prefetch worker and the ring
+                    P, rounds = elim_ops.fold_segments_pipelined(
+                        P, staged, n, inflight=D,
+                        lift_levels=self.lift_levels,
+                        segment_rounds=self.segment_rounds, stats=stats,
+                        on_confirm=confirmed, on_flush=flushed,
+                        round_log=round_log)
+                total_rounds += rounds
+                return P
+
+            def on_resource():
+                # spill before shrink: the cached chunks come back for
+                # free; only with nothing left to spill does a knob halve
+                nonlocal cache
+                nxt = retry_mod.degrade_dispatch(
+                    n, cs, cfg["batch"], cfg["inflight"], donate, stats,
+                    snap["idx"],
+                    h2d_ring=None if ring_model == 0 else cfg["ring"],
+                    residency=cache)
+                if cache is not None and cache.budget <= 0:
+                    cache = None
+                if nxt is not None:
+                    cfg["batch"], cfg["inflight"] = nxt[0], nxt[1]
+                    if len(nxt) > 2:
+                        cfg["ring"] = nxt[2]
+
+            def save_snapshot():
+                if checkpointer is not None and snap["minp"] is not None:
+                    arrays = {"deg": deg_host, "minp": snap["minp"]}
+                    if carry_mode and snap["carry"] is not None:
+                        arrays["carry_lo"], arrays["carry_hi"] = snap["carry"]
+                    checkpointer.save("build", snap["idx"], arrays, meta)
+
+            policy = retry_mod.RetryPolicy()
+            while True:
+                try:
+                    P = attempt()
+                    break
+                except Exception as exc:  # noqa: BLE001, classified there
+                    retry_mod.handle_build_fault(
+                        policy, exc, "torch.build", stats,
+                        on_resource=on_resource,
+                        on_device_loss=lambda: retry_mod.recover_device_loss(
+                            stats, snap["idx"], save_snapshot, device=dev))
+                # the failed attempt's tensors die with the frames its
+                # exception held: collect them before the next allocates
+                gc.collect()
+            # a degraded ring carries into the score pass, which runs
+            # outside the retry
+            ring = cfg["ring"]
+            minp = P[pos_l]
+            del P
         _sync(dev)
         launches = {k: v for c in counters for k, v in c.items()}
         for key, name in LAUNCH_KEYS.items():
@@ -345,25 +657,64 @@ class TorchBackend:
 
         t0 = time.perf_counter()
         parent = elim_ops.minp_to_parent(minp, order, n)
-        pos_host = pos[:n].cpu().numpy()
         w = deg_host.astype(np.float64) if weights == "degree" else None
         assign_host = split_ops.tree_split_host(parent, pos_host, k,
                                                 weights=w, alpha=self.alpha)
         t["split"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        cut, total, balance, cv = self.score_stream(
-            stream, {k: assign_host}, comm_volume,
-            deg_host if weights == "degree" else None, stats)[k]
+        parts = {k: torch.from_numpy(np.concatenate(
+            [assign_host.astype(np.int32), np.zeros(1, np.int32)])).to(dev)}
+        cut = {k: torch.zeros((), dtype=torch.int64, device=dev)}
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        cv_keys: dict = {k: []}
+        start = 0
+        if state and state.phase == "score":
+            start = state.chunk_idx
+            cut[k] += int(state.arrays["cut"])
+            total += int(state.arrays["total"])
+            if comm_volume:
+                cv_keys[k].append(
+                    torch.from_numpy(state.arrays["cv_keys"]).to(dev))
+        idx = start
+        minp_host = None
+
+        def score_done():
+            nonlocal idx, minp_host
+            idx += 1
+            maybe_fail("score", idx - start)
+            if checkpointer is not None and checkpointer.due(idx - start):
+                if minp_host is None:
+                    minp_host = minp.cpu().numpy()
+                keys = score_ops.comm_volume_keys(cv_keys[k]).cpu().numpy()
+                kept = ckpt.save_score_state(
+                    checkpointer, idx, int(cut[k]), int(total), [keys],
+                    {"deg": deg_host, "minp": minp_host}, meta, comm_volume)
+                cv_keys[k] = [torch.from_numpy(c).to(dev) for c in kept]
+                boundary(idx)
+
+        with chunks(start, ring) as it:
+            _score_chunks(it, parts, n, comm_volume, cut, total, cv_keys,
+                          score_done)
+        cv = score_ops.comm_volume(cv_keys[k]) if comm_volume else None
+        balance = pure.part_balance(assign_host, k, w)
         t["score"] = time.perf_counter() - t0
+        if checkpointer is not None:
+            checkpointer.clear()
+        if ckpt.degraded_events() > ckpt_degraded0:
+            # a lossy recovery in this run
+            stats["checkpoint_degraded"] = \
+                ckpt.degraded_events() - ckpt_degraded0
 
         diagnostics = {"fixpoint_rounds": float(total_rounds)}
         diagnostics.update({key: (round(float(v), 3) if key.startswith("t_")
                                   else float(v))
                             for key, v in stats.items()})
+        edge_cut, total = int(cut[k]), int(total)
         return PartitionResult(
-            assignment=assign_host, k=k, edge_cut=cut, total_edges=total,
-            cut_ratio=cut / max(total, 1), balance=balance, comm_volume=cv,
+            assignment=assign_host, k=k, edge_cut=edge_cut,
+            total_edges=total, cut_ratio=edge_cut / max(total, 1),
+            balance=balance, comm_volume=cv,
             phase_times=t, backend=f"{self.name}:{dev.type}",
             diagnostics=diagnostics,
             tree={"parent": parent, "pos": pos_host, "deg": deg_host}
@@ -388,23 +739,15 @@ class TorchBackend:
                for k in parts}
         total = torch.zeros((), dtype=torch.int64, device=dev)
         cv_keys: dict = {k: [] for k in parts}
-        for chunk in device_chunks(stream, cs, n, dev,
+        with closing(device_chunks(stream, cs, n, dev,
                                    resolve_h2d_ring(self.h2d_ring, dev),
-                                   stats):
-            for i, (k, a) in enumerate(parts.items()):
-                c, tt = score_ops.score_chunk(chunk, a, n)
-                cut[k] += c
-                if i == 0:
-                    total += tt
-                if comm_volume:
-                    score_ops.accumulate_cv_keys(
-                        cv_keys[k], score_ops.cut_pair_keys(chunk, a, n, k))
+                                   stats)) as it:
+            _score_chunks(it, parts, n, comm_volume, cut, total, cv_keys)
         total = int(total)
         return {k: (int(cut[k]), total,
                     pure.part_balance(assignments[k], k, weights),
                     score_ops.comm_volume(cv_keys[k]) if comm_volume
                     else None) for k in parts}
-
     def partition_multi(self, stream, ks, weights: str = "unit",
                         comm_volume: bool = True) -> list:
         """One result per k in ``ks`` from one build, as the reference's

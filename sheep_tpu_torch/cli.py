@@ -7,6 +7,8 @@
     python -m sheep_tpu_torch.cli --input sbm-hash:16:16:0.05 --k-levels 4,4
     python -m sheep_tpu_torch.cli --input sbm-hash:22:64:0.05 --k 64 \
         --auto-recipe
+    python -m sheep_tpu_torch.cli --input rmat-hash:22 --k 64 \
+        --checkpoint-dir ck --resume
 
 prints the phase times and scores, then one JSON result line per k (the
 same fields as the reference's) last.
@@ -127,6 +129,16 @@ def main(argv=None) -> int:
     p.add_argument("--h2d-ring", type=int, default=None, metavar="D",
                    help="file chunks staged to the device ahead of use "
                         "(0 = auto: 2 on CUDA, 1 on the CPU)")
+    p.add_argument("--no-cache-chunks", action="store_true",
+                   help="disable the device-resident edge-chunk cache "
+                        "(each pass re-streams)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save O(V) chunk-level checkpoints to this dir")
+    p.add_argument("--checkpoint-every", type=int, default=64,
+                   help="checkpoint cadence in chunks (default 64)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint-dir")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--output", default=None,
@@ -137,6 +149,8 @@ def main(argv=None) -> int:
     if args.input is None or (args.k is None and not args.score_only
                               and not args.k_levels):
         p.error("--input and --k are required")
+    if args.resume and not args.checkpoint_dir:
+        p.error("--resume requires --checkpoint-dir")
     opts = _build_options(p, args)
     if args.k_levels:
         if args.score_only:
@@ -175,7 +189,7 @@ def main(argv=None) -> int:
                 f"(got {args.k!r})")
     # a repeated k would alias its output path: keep the first
     ks = list(dict.fromkeys(ks))
-    if len(ks) > 1 and args.refine:
+    if len(ks) > 1 and (args.checkpoint_dir or args.refine):
         p.error("--k lists do not combine with --checkpoint-dir or "
                 "--refine; run those single-k")
     if args.auto_recipe and len(ks) > 1:
@@ -223,7 +237,8 @@ def main(argv=None) -> int:
                 args.input, ks, n_vertices=args.num_vertices, **run)
         else:
             res = sheep_tpu_torch.partition(
-                args.input, ks[0], n_vertices=args.num_vertices, **run)
+                args.input, ks[0], n_vertices=args.num_vertices,
+                **_checkpoint_options(args), **run)
             if args.refine:
                 # the partition knows n: the stream need not count it again
                 with open_input(args.input,
@@ -282,6 +297,7 @@ def main(argv=None) -> int:
 _BUILD_FLAGS = (("--segment-rounds", "segment_rounds"),
                 ("--warm-schedule", "warm_schedule"),
                 ("--host-tail-threshold", "host_tail_threshold"),
+                ("--no-cache-chunks", "no_cache_chunks"),
                 ("--carry-tail", "carry_tail"),
                 ("--tail-overlap", "tail_overlap"),
                 ("--stale-reuse", "stale_reuse"),
@@ -291,8 +307,21 @@ _BUILD_FLAGS = (("--segment-rounds", "segment_rounds"),
 
 
 def _build_flags(args) -> list:
-    return [flag for flag, name in _BUILD_FLAGS
-            if getattr(args, name) is not None]
+    # --no-cache-chunks is a store_true flag: False is its default
+    values = {**vars(args), "no_cache_chunks": args.no_cache_chunks or None}
+    return [flag for flag, name in _BUILD_FLAGS if values[name] is not None]
+
+
+def _checkpoint_options(args) -> dict:
+    """``checkpointer`` and ``resume`` from --checkpoint-dir,
+    --checkpoint-every and --resume (none without a directory)."""
+    if not args.checkpoint_dir:
+        return {}
+    from sheep_tpu_torch.utils.checkpoint import Checkpointer
+
+    return {"checkpointer": Checkpointer(args.checkpoint_dir,
+                                         every=args.checkpoint_every),
+            "resume": args.resume}
 
 
 def _k_levels(parser, args) -> int:
@@ -326,6 +355,7 @@ def _k_levels(parser, args) -> int:
         balance=args.balance, final_refine=args.final_refine or 0,
         spill_dir=args.spill_dir, n_vertices=args.num_vertices,
         refine_budget_bytes=int(args.refine_budget_gb * (1 << 30)),
+        **_checkpoint_options(args),
         **({} if args.balance is not None else {"alpha": args.alpha}))
     wall = time.perf_counter() - t0
     if args.output:
@@ -501,6 +531,8 @@ def _build_options(parser, args) -> dict:
                 parser.error(f"{flag} must be >= {low}"
                              + (" (0 = auto)" if name == "h2d_ring" else ""))
             opts[name] = value
+    if args.no_cache_chunks:
+        opts["cache_chunks"] = False
     tails = args.carry_tail or args.tail_overlap
     for name, flag, why in (
             ("dispatch_batch", "--dispatch-batch",

@@ -19,17 +19,27 @@ and clamps each level's refine cap to it; ``final_refine=N`` runs N
 warm-start refine rounds at the full k after assembly. The result carries
 the level ledger: the cut of each level, summing to the final cut.
 
-The reference's checkpoint and multi-process options are not ported
-(ROADMAP Queue 1 items 5 and 7); this signature does not take them.
+With a checkpointer the run recovers at two granularities, as the
+reference's: inside level 0 at chunk granularity (its partition saves
+into the nested ``level0/`` domain, under fault scope ``level0``), and at
+the top level's part boundaries (phase ``hier``: the level-0 assignment,
+the partial final one and the manifest of the spill shards, which then
+live under ``<checkpoint dir>/hier_spill_p<process>``, are kept on a fault
+and reused on resume; ``level`` is the injection point, a part). A shard
+missing or torn on resume rebuilds the level from scratch, with a
+warning. The reference's multi-process option is not ported (ROADMAP
+Queue 1 item 7); this signature does not take it.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import shutil
 import tempfile
 import time
 from collections import OrderedDict
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -122,13 +132,50 @@ def _spill_intra(stream, assign, k1, chunk_edges, tmpdir, local_id):
     return paths
 
 
+def _save_hier(checkpointer, parts_done, assign, final, spill_names,
+               spill_sizes, meta):
+    """The level-boundary checkpoint (phase ``hier``, chunk index = the
+    next top-level part): the level-0 assignment, the partial final one,
+    and the spill shards' names and byte sizes (-1: consumed by a finished
+    subtree), as the reference saves them."""
+    checkpointer.save(
+        "hier", int(parts_done),
+        {"assign": np.asarray(assign, np.int32),
+         "final": np.asarray(final, np.int32),
+         "level": np.int64(0),
+         "spill_names": np.asarray(list(spill_names)),
+         "spill_sizes": np.asarray(spill_sizes, np.int64)}, meta)
+
+
+def _spill_manifest_problem(level_dir, names, sizes, parts_done):
+    """None when every shard still pending exists at its recorded size;
+    else what is wrong (the caller rebuilds the level, with a warning)."""
+    for p, (name, size) in enumerate(zip(names, sizes)):
+        if p < parts_done or int(size) < 0:
+            continue
+        shard = os.path.join(level_dir, str(name))
+        try:
+            got = os.path.getsize(shard)
+        except OSError:
+            return f"spill shard {name} missing"
+        if got != int(size):
+            return f"spill shard {name} is {got} bytes, manifest says " \
+                   f"{int(size)}"
+    return None
+
+
 def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
-                 tmpdir, opts, timings=None, spill_bytes=None, depth=0):
+                 tmpdir, opts, timings=None, spill_bytes=None, depth=0,
+                 checkpointer=None, resume=False, meta=None):
     """The assignment of ``stream`` at k = prod(k_levels), recursing.
     ``timings`` gathers ``level{d}_partition`` / ``level{d}_spill``
-    seconds, ``spill_bytes`` the ``level{d}_spill_bytes``."""
+    seconds, ``spill_bytes`` the ``level{d}_spill_bytes``.
+    ``checkpointer`` (depth 0 only) arms the recovery of the module
+    docstring; ``meta`` is the fingerprint its saves carry."""
     from sheep_tpu_torch import _partition_stream
     from sheep_tpu_torch.io.edgestream import EdgeStream
+    from sheep_tpu_torch.utils import checkpoint as ckpt_mod
+    from sheep_tpu_torch.utils import fault
 
     def t_add(key, dt):
         if timings is not None:
@@ -137,14 +184,49 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
     n = stream.num_vertices
     k1 = k_levels[0]
     k_sub = int(np.prod(k_levels[1:])) if len(k_levels) > 1 else 1
-    t0 = time.perf_counter()
-    # inner levels' comm volume is not needed: the final score counts it
-    res = _partition_stream(stream, k1, refine=refine,
-                            refine_alpha=refine_alpha,
-                            chunk_edges=chunk_edges,
-                            **{**opts, "comm_volume": False})
-    assign = np.asarray(res.assignment, np.int32)
-    t_add(f"level{depth}_partition", time.perf_counter() - t0)
+    state = ckpt_mod.resume_state(checkpointer, meta, resume)
+    level_dir = None
+    if checkpointer is not None:
+        # the shards' home, the same across resumes; the inner levels'
+        # transient directories of a killed attempt are reclaimed
+        level_dir = os.path.join(tmpdir, "level0_shards")
+        for stale in glob.glob(os.path.join(tmpdir, "lvl_*")):
+            shutil.rmtree(stale, ignore_errors=True)
+    parts_done = 0
+    spill_names: list = []
+    spill_sizes = np.zeros(0, np.int64)
+    if state is not None:
+        assign = np.asarray(state.arrays["assign"], np.int32)
+        final = np.asarray(state.arrays["final"], np.int32).copy()
+        parts_done = int(state.chunk_idx)
+        spill_names = [str(x) for x in state.arrays["spill_names"]]
+        spill_sizes = np.asarray(state.arrays["spill_sizes"],
+                                 np.int64).copy()
+        problem = _spill_manifest_problem(level_dir, spill_names,
+                                          spill_sizes, parts_done)
+        if problem is not None:
+            ckpt_mod._warn(f"hierarchy resume: {problem}; rebuilding the "
+                           f"level from scratch")
+            state = None
+        else:
+            # a level-boundary checkpoint makes the level-0 domain
+            # obsolete
+            checkpointer.child("level0").clear(force=True)
+    level0_ck = None
+    if state is None:
+        if checkpointer is not None:
+            level0_ck = checkpointer.child("level0")
+        t0 = time.perf_counter()
+        # inner levels' comm volume is not needed: the final score counts
+        # it
+        with fault.scope("level0") if depth == 0 else nullcontext():
+            res = _partition_stream(stream, k1, refine=refine,
+                                    refine_alpha=refine_alpha,
+                                    chunk_edges=chunk_edges,
+                                    checkpointer=level0_ck, resume=resume,
+                                    **{**opts, "comm_volume": False})
+        assign = np.asarray(res.assignment, np.int32)
+        t_add(f"level{depth}_partition", time.perf_counter() - t0)
     if len(k_levels) == 1:
         return assign
 
@@ -153,11 +235,14 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
     counts = np.bincount(assign, minlength=k1).astype(np.int64)
     offsets = np.zeros(k1 + 1, np.int64)
     np.cumsum(counts, out=offsets[1:])
-    local_id = np.empty(n, np.int32)
-    local_id[order] = (np.arange(n, dtype=np.int64)
-                       - np.repeat(offsets[:-1], counts)).astype(np.int32)
-    level_dir = tempfile.mkdtemp(prefix="lvl_", dir=tmpdir)
-    try:
+    if state is None:
+        local_id = np.empty(n, np.int32)
+        local_id[order] = (np.arange(n, dtype=np.int64)
+                           - np.repeat(offsets[:-1], counts)).astype(np.int32)
+        if level_dir is None:
+            level_dir = tempfile.mkdtemp(prefix="lvl_", dir=tmpdir)
+        else:
+            os.makedirs(level_dir, exist_ok=True)
         t0 = time.perf_counter()
         paths = _spill_intra(stream, assign, k1, chunk_edges, level_dir,
                              local_id)
@@ -168,7 +253,42 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
                 os.path.getsize(p) for p in paths)
         del local_id
         final = np.zeros(n, np.int32)
-        for p in range(k1):
+        parts_done = 0
+        if checkpointer is not None:
+            spill_names = [os.path.basename(p) for p in paths]
+            spill_sizes = np.array([os.path.getsize(p) for p in paths],
+                                   np.int64)
+            # bank level 0 and the shards before the level-0 chunk
+            # checkpoints go: at no instant is level 0 only in memory
+            _save_hier(checkpointer, 0, assign, final, spill_names,
+                       spill_sizes, meta)
+            level0_ck.clear(force=True)
+    else:
+        paths = [os.path.join(level_dir, nm) for nm in spill_names]
+
+    start_parts = parts_done
+    pending_rm: list = []
+    prev_rm: list = []
+
+    def save_boundary(p_next):
+        # consumed shards leave the manifest one save before they leave
+        # the disk: a resume may fall back to the previous step, whose
+        # manifest still names them
+        for q in pending_rm:
+            spill_sizes[q] = -1
+        _save_hier(checkpointer, p_next, assign, final, spill_names,
+                   spill_sizes, meta)
+        for q in prev_rm:
+            try:
+                os.remove(paths[q])
+            except OSError:
+                pass
+        prev_rm[:] = pending_rm
+        pending_rm.clear()
+
+    ok = False
+    try:
+        for p in range(parts_done, k1):
             members = order[offsets[p]:offsets[p + 1]]
             if len(members) == 0:
                 pass
@@ -185,9 +305,20 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
                                           spill_bytes=spill_bytes,
                                           depth=depth + 1)
                 final[members] = p * k_sub + sub_assign
-                os.remove(paths[p])  # subtree done: reclaim its shard
+                if checkpointer is None:
+                    os.remove(paths[p])  # subtree done: reclaim its shard
+                else:
+                    pending_rm.append(p)
+            if checkpointer is not None and (
+                    p == k1 - 1 or checkpointer.due_span(p, p + 1)):
+                save_boundary(p + 1)
+            if depth == 0:
+                fault.maybe_fail("level", p + 1 - start_parts)
+        ok = True
     finally:
-        shutil.rmtree(level_dir, ignore_errors=True)
+        # with a checkpointer, a fault leaves the shards for the resume
+        if ok or checkpointer is None:
+            shutil.rmtree(level_dir, ignore_errors=True)
     return final
 
 
@@ -198,7 +329,8 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
                            final_refine: int = 0,
                            spill_dir: str | None = None,
                            n_vertices: int | None = None,
-                           refine_budget_bytes: int = 4 << 30, **opts):
+                           refine_budget_bytes: int = 4 << 30,
+                           checkpointer=None, resume: bool = False, **opts):
     """Partition into prod(k_levels) parts, one level at a time, as the
     reference's ``partition_hierarchical``. ``refine`` rounds run at every
     level; ``balance=BETA`` sets each level's split alpha to
@@ -208,8 +340,10 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
     ``refine_alpha``), with ``refine_budget_bytes`` for its histogram.
     ``opts`` are :func:`sheep_tpu_torch.partition`'s (``weights``,
     ``alpha``, ``comm_volume`` and the build's knobs); any other raises
-    ``TypeError``. Runs on ``device`` (None: CUDA). Returns a
-    PartitionResult over the full stream with its backend tagged
+    ``TypeError``. ``checkpointer``/``resume`` make the run recoverable
+    (module docstring); a run that succeeds clears its checkpoint, the
+    level-0 domain and the spill shards. Runs on ``device`` (None: CUDA).
+    Returns a PartitionResult over the full stream with its backend tagged
     ``+hier[...]``, the level seconds in ``phase_times`` and the ledger in
     ``diagnostics``."""
     import dataclasses
@@ -242,14 +376,34 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
     comm_volume = opts.get("comm_volume", True)
     weights = opts.get("weights", "unit")
 
-    tmp_root = tempfile.mkdtemp(prefix="sheep_hier_", dir=spill_dir)
+    if checkpointer is not None:
+        # the shards outlive the process to be resumable
+        tmp_root = os.path.join(checkpointer.dir,
+                                f"hier_spill_p{checkpointer.process}")
+        os.makedirs(tmp_root, exist_ok=True)
+    else:
+        tmp_root = tempfile.mkdtemp(prefix="sheep_hier_", dir=spill_dir)
     timings: dict = {}
     spill_bytes: dict = {}
     try:
         with open_input(path, n_vertices=n_vertices) as es:
+            meta = None
+            if checkpointer is not None:
+                from sheep_tpu_torch.utils import checkpoint as ckpt_mod
+
+                # every option that changes the result, as the flat
+                # build's fingerprint
+                meta = ckpt_mod.stream_meta(
+                    es, k_total, chunk_edges, weights=weights,
+                    alpha=opts.get("alpha", 1.0), comm_volume=comm_volume,
+                    state_format="hier", k_levels=k_levels,
+                    refine=int(refine), refine_alpha=float(refine_alpha),
+                    final_refine=int(final_refine), inner_backend=be.name)
             final = _hier_assign(es, k_levels, refine, refine_alpha,
                                  chunk_edges, tmp_root, dict(opts),
-                                 timings=timings, spill_bytes=spill_bytes)
+                                 timings=timings, spill_bytes=spill_bytes,
+                                 checkpointer=checkpointer, resume=resume,
+                                 meta=meta)
             w = None
             if weights == "degree":
                 # balance is scored with the weights the levels used
@@ -319,6 +473,16 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
                     res.diagnostics["final_refine_repaired"] = \
                         int(before - after)
             timings["ledger"] = round(time.perf_counter() - t0, 3)
+            if checkpointer is not None:
+                # success: the boundary state, the level-0 domain and the
+                # spill root go
+                checkpointer.clear(force=True)
+                shutil.rmtree(os.path.join(checkpointer.dir, "level0"),
+                              ignore_errors=True)
+                shutil.rmtree(tmp_root, ignore_errors=True)
             return res
     finally:
-        shutil.rmtree(tmp_root, ignore_errors=True)
+        if checkpointer is None:
+            # a checkpointed run that failed keeps its shards for the
+            # resume
+            shutil.rmtree(tmp_root, ignore_errors=True)

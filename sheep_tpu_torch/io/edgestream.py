@@ -7,7 +7,19 @@ in stream order, exactly as the reference cuts them, so the fixpoint sees
 the same segments and counts the same rounds. Text (plain or gzip) is parsed by the port's copy
 of the reference's native parser, so both read the same edges from the
 same file; ``.csr`` files are read through ``io/csr.py``; a generator
-stream regroups the blocks of a re-openable factory.
+stream regroups the blocks of a re-openable factory. ``chunks(cs,
+start_chunk=i)`` starts at chunk i, where a resumed run goes on.
+
+Faults, as the reference handles them (``sheep_tpu/io/edgestream.py``):
+every physical open and read runs under the bounded retry of
+``utils/retry.py`` (a transient ``OSError`` backs off and reads again, from
+an explicit offset), and binary streams are validated: a torn trailing
+record, or a short read when the file shrank under a pass, is never
+folded in. ``SHEEP_IO_POLICY`` says what happens instead:
+
+    strict      (default) raise :class:`CorruptStreamError`
+    quarantine  warn on stderr, drop the damaged bytes and go on over the
+                intact prefix
 """
 
 from __future__ import annotations
@@ -19,6 +31,53 @@ from typing import Iterator, Optional
 import numpy as np
 
 from sheep_tpu_torch.io import formats
+
+IO_POLICY_ENV = "SHEEP_IO_POLICY"
+
+
+class CorruptStreamError(ValueError):
+    """Torn, corrupt or shrunken input under the strict IO policy."""
+
+
+def _io_policy() -> str:
+    v = os.environ.get(IO_POLICY_ENV, "strict") or "strict"
+    if v not in ("strict", "quarantine"):
+        raise ValueError(f"bad {IO_POLICY_ENV}={v!r}; "
+                         f"want 'strict' or 'quarantine'")
+    return v
+
+
+def _quarantine_or_raise(msg: str) -> None:
+    """Apply the IO policy to a detected corruption: raise (strict), or
+    warn and let the caller go on (quarantine)."""
+    if _io_policy() == "strict":
+        raise CorruptStreamError(
+            msg + " (set SHEEP_IO_POLICY=quarantine to drop the "
+                  "damaged bytes and continue)")
+    import sys
+
+    print(f"edgestream quarantine: {msg}", file=sys.stderr)
+
+
+def _read_retry_policy():
+    """A fresh read retry budget a pass, with the build's knobs."""
+    from sheep_tpu_torch.utils.retry import RetryPolicy
+
+    return RetryPolicy()
+
+
+def _retrying(policy, fn, where: str):
+    """``fn()``, a physical open or read, under the bounded transient
+    retry; other errors, and a spent budget, propagate."""
+    from sheep_tpu_torch.utils.retry import TRANSIENT, classify
+
+    while True:
+        try:
+            return fn()
+        except Exception as exc:  # noqa: BLE001, classified below
+            if classify(exc) != TRANSIENT or not policy.admit(TRANSIENT):
+                raise
+            policy.backoff(TRANSIENT, exc, where=where)
 
 
 class EdgeStream:
@@ -124,43 +183,73 @@ class EdgeStream:
             self._n_vertices = m + 1
         return self._n_vertices
 
-    def chunks(self, chunk_edges: int = 1 << 22) -> Iterator[np.ndarray]:
+    def chunks(self, chunk_edges: int = 1 << 22,
+               start_chunk: int = 0) -> Iterator[np.ndarray]:
+        """Chunks ``start_chunk``, ``start_chunk + 1``, ... of ``chunk_edges``
+        edges (the global chunk index of a checkpoint)."""
         cs = int(chunk_edges)
+        start = int(start_chunk)
         if self._factory is not None:
-            yield from _regroup(self._factory(), cs)
+            yield from _regroup(self._factory(), cs, start)
         elif self._edges is not None:
-            for off in range(0, len(self._edges), cs):
+            for off in range(start * cs, len(self._edges), cs):
                 yield self._edges[off:off + cs]
         elif self.fmt == "text":
             yield from _regroup(_text_blocks(lambda: open(self.path, "rb")),
-                                cs)
+                                cs, start)
         elif self.fmt == "text-gz":
             yield from _regroup(
-                _text_blocks(lambda: gzip.open(self.path, "rb")), cs)
+                _text_blocks(lambda: gzip.open(self.path, "rb")), cs, start)
         elif self.fmt == "csr":
-            yield from self._chunks_csr(cs)
+            yield from self._chunks_csr(cs, start)
         else:
-            yield from self._chunks_binary(cs)
+            yield from self._chunks_binary(cs, start)
 
-    def _chunks_binary(self, cs: int):
+    def _chunks_binary(self, cs: int, start: int):
+        """Validated reads under the read retry: a torn trailing record and
+        a short read go through the IO policy; ``"read"`` is the injection
+        point, counted a physical read."""
+        from sheep_tpu_torch.utils import fault
+
         dtype = np.dtype("<u4") if self.fmt == "bin32" else np.dtype("<u8")
         pair = self._pair_bytes()
+        policy = _read_retry_policy()
         size = os.path.getsize(self.path)
         if size % pair:
-            raise ValueError(f"{self.path}: {size} bytes is not a multiple "
-                             f"of the {pair}-byte edge record")
+            # the edge count floors a torn record away: without this check
+            # the damage would be a silent truncation
+            _quarantine_or_raise(
+                f"{self.path}: {size} bytes is not a multiple of the "
+                f"{pair}-byte edge record ({size % pair} torn trailing "
+                f"bytes)")
         total = size // pair
-        with open(self.path, "rb") as f:
-            for off in range(0, total, cs):
+        with _retrying(policy, lambda: open(self.path, "rb"),
+                       f"open {self.path}") as f:
+            for reads, off in enumerate(range(start * cs, total, cs), 1):
                 count = min(cs, total - off)
-                f.seek(off * pair)
-                flat = np.fromfile(f, dtype=dtype, count=2 * count)
+
+                def _read(off=off, count=count, reads=reads):
+                    fault.maybe_fail("read", reads, kinds=("read",))
+                    f.seek(off * pair)
+                    return np.fromfile(f, dtype=dtype, count=2 * count)
+
+                flat = _retrying(policy, _read,
+                                 f"read {self.path} chunk {off // cs}")
                 if len(flat) != 2 * count:
-                    raise ValueError(f"{self.path}: short read at edge "
-                                     f"{off}; the file changed mid-pass")
+                    # the file shrank under the pass: never fold a half
+                    # read; quarantine keeps the intact pairs before it
+                    _quarantine_or_raise(
+                        f"{self.path}: short read at chunk {off // cs} "
+                        f"(wanted {count} edges at offset {off * pair}, "
+                        f"got {len(flat) // 2} intact pairs) — stream "
+                        f"truncated mid-pass")
+                    flat = flat[: 2 * (len(flat) // 2)]
+                    if len(flat):
+                        yield flat.reshape(-1, 2).astype(np.int64)
+                    return
                 yield flat.reshape(-1, 2).astype(np.int64)
 
-    def _chunks_csr(self, cs: int):
+    def _chunks_csr(self, cs: int, start: int):
         """Chunk i is the edge ids [i*cs, (i+1)*cs) of the file, as the
         reference's ``_chunks_csr`` cuts them."""
         from sheep_tpu_torch.io import csr
@@ -168,28 +257,31 @@ class EdgeStream:
         g = csr.CsrGraph(self.path)
         try:
             total = g.n_edges
-            for off in range(0, total, cs):
+            for off in range(start * cs, total, cs):
                 yield g.edge_slice(off, min(off + cs, total))
         finally:
             g.close()
 
 
-def _regroup(blocks, cs: int):
+def _regroup(blocks, cs: int, start: int = 0):
     """Variable-size (c, 2) edge blocks regrouped into chunks of ``cs``
-    edges and a last, shorter one (the reference's
-    ``EdgeStream._regroup``)."""
+    edges and a last, shorter one, from chunk ``start`` on (the
+    reference's ``EdgeStream._regroup``)."""
     pend: list = []
     pend_n = 0
+    idx = 0
     for block in blocks:
         block = np.asarray(block, dtype=np.int64).reshape(-1, 2)
         pend.append(block)
         pend_n += len(block)
         while pend_n >= cs:
             cat = np.concatenate(pend)
-            yield cat[:cs]
+            if idx >= start:
+                yield cat[:cs]
             pend = [cat[cs:]]
             pend_n = len(pend[0])
-    if pend_n:
+            idx += 1
+    if pend_n and idx >= start:
         yield np.concatenate(pend)
 
 
@@ -201,14 +293,35 @@ def _text_blocks(open_fn):
     or gzip), one array per block of ``TEXT_BLOCK_BYTES`` read, as the
     reference's ``EdgeStream._text_blocks`` cuts them: the incomplete line
     at the end of a block is carried into the next, and a last line with
-    no newline is parsed with one appended. A failed build of the native
-    parser raises."""
+    no newline is parsed with one appended. Reads run under the read
+    retry, each from an explicit seek to the bytes consumed so far (a
+    failed read may have consumed bytes); a stream that cannot seek is not
+    retried. ``"read"`` is the injection point, counted a block. A failed
+    build of the native parser raises."""
     from sheep_tpu_torch.core import native
+    from sheep_tpu_torch.utils import fault
 
     tail = b""
-    with open_fn() as f:
+    policy = _read_retry_policy()
+    nblocks = 0
+    pos = 0  # bytes consumed, in the (decompressed) stream
+    with _retrying(policy, open_fn, "open text stream") as f:
+        try:
+            seekable = bool(f.seekable())
+        except Exception:  # noqa: BLE001, a stream without the query
+            seekable = False
         while True:
-            block = f.read(TEXT_BLOCK_BYTES)
+            nblocks += 1
+
+            def _read(nblocks=nblocks, pos=pos):
+                fault.maybe_fail("read", nblocks, kinds=("read",))
+                if seekable:
+                    f.seek(pos)
+                return f.read(TEXT_BLOCK_BYTES)
+
+            block = _retrying(policy, _read, f"read text block {nblocks}") \
+                if seekable else _read()
+            pos += len(block)
             data = tail + block
             if not data:
                 return

@@ -266,13 +266,23 @@ class _CounterHashStream:
     def num_chunks(self, chunk_edges: int) -> int:
         return -(-self._m // int(chunk_edges))
 
-    def chunks(self, chunk_edges: int = 1 << 22):
+    def chunks(self, chunk_edges: int = 1 << 22, start_chunk: int = 0):
         cs = int(chunk_edges)
-        for i in range(self.num_chunks(cs)):
+        for i in range(int(start_chunk), self.num_chunks(cs)):
             yield self._range(i * cs, min(cs, self._m - i * cs))
 
     def read_all(self) -> np.ndarray:
         return self._range(0, self._m)
+
+    def _fingerprint(self, tag: str) -> str:
+        """A cheap stable identity for the checkpoint fingerprint: the
+        parameters (``tag``) and a hash of the first 4096 edges, as the
+        reference's ``_CounterHashStream._fingerprint``."""
+        import hashlib
+
+        sample = self._range(0, min(4096, self._m))
+        return tag + hashlib.sha1(
+            np.ascontiguousarray(sample).tobytes()).hexdigest()
 
 
 class RmatHashStream(_CounterHashStream):
@@ -296,6 +306,11 @@ class RmatHashStream(_CounterHashStream):
     def _range(self, start: int, count: int) -> np.ndarray:
         return rmat_hash_range(self.scale, start, count, *self.abc,
                                seed=self.seed)
+
+    def content_fingerprint(self) -> str:
+        return self._fingerprint(f"rmat_hash/s{self.scale}/"
+                                 f"ef{self.edge_factor}/{self.abc}/"
+                                 f"{self.seed}/")
 
     def device_chunk(self, idx: int, chunk_edges: int, n: int, device):
         cs = int(chunk_edges)
@@ -418,6 +433,11 @@ class SbmHashStream(_CounterHashStream):
         return sbm_hash_range(self.scale, start, count, self.n_blocks,
                               self.p_out, seed=self.seed)
 
+    def content_fingerprint(self) -> str:
+        return self._fingerprint(
+            f"sbm_hash/s{self.scale}/b{self.n_blocks}/p{self.p_out}/"
+            f"ef{self.edge_factor}/{self.seed}/")
+
     def ground_truth(self, k: int | None = None) -> np.ndarray:
         """The planted assignment at ``k`` parts (default: one part per
         block); consecutive blocks group into a part."""
@@ -471,6 +491,11 @@ class NearCliqueStream(SbmHashStream):
                          seed=seed)
         self.clique_bits = cb
 
+    def content_fingerprint(self) -> str:
+        return self._fingerprint(
+            f"nearclique_hash/s{self.scale}/c{self.clique_bits}/"
+            f"p{self.p_out}/ef{self.edge_factor}/{self.seed}/")
+
 
 class PowerlawSbmHashStream(_CounterHashStream):
     """The planted partition with power-law within-block degrees: the
@@ -511,6 +536,11 @@ class PowerlawSbmHashStream(_CounterHashStream):
         u = (bu << np.uint32(self.block_bits)) | uo
         v = (b2 << np.uint32(self.block_bits)) | vo
         return np.stack([u.astype(np.int64), v.astype(np.int64)], axis=1)
+
+    def content_fingerprint(self) -> str:
+        return self._fingerprint(
+            f"plsbm_hash/s{self.scale}/b{self.n_blocks}/p{self.p_out}/"
+            f"ef{self.edge_factor}/{self.abc}/{self.seed}/")
 
     ground_truth = SbmHashStream.ground_truth
     planted_cut_ratio = SbmHashStream.planted_cut_ratio
@@ -554,6 +584,11 @@ class BipartiteHashStream(_CounterHashStream):
         v = half + ((b2.astype(np.int64) << self.block_bits)
                     | (h_vo & off_mask).astype(np.int64))
         return np.stack([u, v], axis=1)
+
+    def content_fingerprint(self) -> str:
+        return self._fingerprint(
+            f"bipartite_hash/s{self.scale}/b{self.n_blocks}/"
+            f"p{self.p_out}/ef{self.edge_factor}/{self.seed}/")
 
     def ground_truth(self, k: int | None = None) -> np.ndarray:
         """Planted assignment at ``k`` parts (default: one per

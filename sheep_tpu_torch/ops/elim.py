@@ -58,6 +58,7 @@ import torch
 from sheep_tpu_torch.core import native
 from sheep_tpu_torch.ops import compact, fixpoint, lift
 from sheep_tpu_torch.ops.gather import gather_clip
+from sheep_tpu_torch.utils import fault
 
 NO_PARENT = -1
 
@@ -330,7 +331,7 @@ def fold_segments_pipelined(P: torch.Tensor, staged, n: int,
     leftovers: deque = deque()  # blocks of partly drained executions
     it = iter(staged)
     t_start = time.perf_counter()
-    tip = {"rec": None, "idle_since": None, "flushing": False}
+    tip = {"rec": None, "idle_since": None, "flushing": False, "issued": 0}
     total = 0
 
     def pull_group():
@@ -344,6 +345,11 @@ def fold_segments_pipelined(P: torch.Tensor, staged, n: int,
         if tip["idle_since"] is not None:
             _t_ms(stats, "device_gap_ms", now - tip["idle_since"])
             tip["idle_since"] = None
+        # the dispatch's injection point: its fault unwinds the driver
+        # with the chain un-drained, as an allocation failure in an
+        # execution does
+        tip["issued"] += 1
+        fault.maybe_fail("dispatch", tip["issued"], kinds=("oom", "device"))
         N = int(loB.shape[0])
         rounds = _resolve_batch_rounds(batch_rounds, segment_rounds, N)
         state = fixpoint.new_state(rounds, P.device)

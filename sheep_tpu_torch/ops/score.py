@@ -58,11 +58,17 @@ def accumulate_cv_keys(cv_chunks: list, keys: torch.Tensor) -> list:
     return cv_chunks
 
 
+def comm_volume_keys(cv_chunks: list) -> torch.Tensor:
+    """The distinct keys over all accumulated chunks, sorted (int64; a
+    score checkpoint saves them)."""
+    if not cv_chunks:
+        return torch.zeros(0, dtype=torch.int64)
+    return torch.unique(torch.cat(cv_chunks))
+
+
 def comm_volume(cv_chunks: list) -> int:
     """Number of distinct keys over all accumulated chunks."""
-    if not cv_chunks:
-        return 0
-    return int(torch.unique(torch.cat(cv_chunks)).numel())
+    return int(comm_volume_keys(cv_chunks).numel())
 
 
 def part_loads_accounting(assign, k: int, weights=None,

@@ -104,11 +104,11 @@ def test_arguments_refused_as_the_reference_does():
     with pytest.raises(ValueError, match="positive"):
         sheep_tpu_torch.partition_hierarchical("rmat-hash:8", [2, 0],
                                                device="cpu")
-    # checkpoints and processes are not ported: not silently ignored
-    for kw in (dict(checkpointer=object()), dict(nprocs=2)):
-        with pytest.raises(TypeError):
-            sheep_tpu_torch.partition_hierarchical("rmat-hash:8", [2, 2],
-                                                   device="cpu", **kw)
+    # processes are not ported: not silently ignored (the checkpointer
+    # is ported: tests/test_torch_checkpoint.py)
+    with pytest.raises(TypeError):
+        sheep_tpu_torch.partition_hierarchical("rmat-hash:8", [2, 2],
+                                               device="cpu", nprocs=2)
 
 
 @pytest.mark.parametrize("levels", [[4, 4], [2, 1, 4], [16]])
@@ -233,12 +233,20 @@ def test_cli_advisor_note_without_auto_recipe(capsys):
      "--alpha", "0.5"],
     ["--input", "rmat-hash:8", "--k-levels", "2,2", "--dispatch-batch", "2",
      "--inflight", "1"],
+    ["--input", "rmat-hash:8", "--k-levels", "4,4", "--inflight", "0"],
+    ["--input", "rmat-hash:8", "--k-levels", "2,2", "--no-carry-tail"],
+    ["--input", "rmat-hash:8", "--k-levels", "2,2", "--no-cache-chunks",
+     "--no-tail-overlap"],
     ["--input", "rmat-hash:8", "--k", "4", "--final-refine", "2"],
     ["--input", "rmat-hash:8", "--k", "4", "--spill-dir", "x"],
     ["--input", "rmat-hash:8", "--k", "4,8", "--refine", "2"],
     ["--input", "rmat-hash:8", "--k", "4,8", "--auto-recipe"],
     ["--input", "rmat-hash:8", "--k", "4", "--auto-recipe", "--h2d-ring",
      "1"],
+    ["--input", "rmat-hash:8", "--k", "4", "--auto-recipe",
+     "--dispatch-batch", "0"],
+    ["--input", "rmat-hash:8", "--k", "4", "--auto-recipe",
+     "--no-tail-overlap"],
     ["--input", "rmat-hash:8", "--score-only", "p", "--auto-recipe"],
     ["--input", "rmat-hash:8", "--score-only", "p", "--balance", "1.1"],
     ["--input", "rmat-hash:8", "--k", "4", "--balance", "1.0"],
