@@ -19,10 +19,10 @@
 Chunks are padded to a fixed (C, 2) shape with the sentinel vertex n, and
 the last group of ``dispatch_batch`` chunks is filled with all-sentinel
 chunks as the reference stages it, so the fixpoint runs the same rounds.
-Streams that can synthesize chunks on the device (``device_chunk``) do so
-and never stage; others are read and padded on a worker thread and copied
-over through the staged H2D ring (``utils/prefetch.py``), ``h2d_ring``
-blocks ahead. ``inflight`` and ``h2d_ring`` of 0 resolve as the
+Streams that can synthesize chunks on the device (``io/devicestream.py``)
+do so and never stage, each chunk counted in ``device_stream_chunks``;
+others are read and padded on a worker thread and copied over through
+the staged H2D ring (``utils/prefetch.py``), ``h2d_ring`` blocks ahead. ``inflight`` and ``h2d_ring`` of 0 resolve as the
 reference's accelerator defaults: 2 on CUDA, 1 on the CPU;
 ``dispatch_batch`` of 0 as its auto sizing (:func:`resolve_dispatch_batch`:
 1 on the CPU, which selects the per-segment driver there as in cpu-jax).
@@ -54,6 +54,8 @@ import torch
 
 from sheep_tpu_torch.core import pure
 from sheep_tpu_torch.device import resolve_device
+from sheep_tpu_torch.io.devicestream import (is_device_stream,
+                                             note_device_chunks)
 from sheep_tpu_torch.ops import compact as compact_ops
 from sheep_tpu_torch.ops import degrees as degrees_ops
 from sheep_tpu_torch.ops import elim as elim_ops
@@ -96,8 +98,9 @@ def device_chunks(stream, cs: int, n: int, device, ring: int = 1,
     with ``device_chunk`` synthesizes them in place; any other is read and
     padded on a worker thread and staged through an :class:`H2DRing` of
     depth ``ring`` (counters into ``stats``)."""
-    if hasattr(stream, "device_chunk"):
+    if is_device_stream(stream):
         for i in range(start_chunk, stream.num_chunks(cs)):
+            note_device_chunks(stats)
             yield stream.device_chunk(i, cs, n, device)
         return
     with prefetch(pad_chunk(c, cs, n)
@@ -435,7 +438,7 @@ class TorchBackend:
         from_phase = ckpt.phase_index(state.phase) if state else 0
         ring = resolve_h2d_ring(self.h2d_ring, dev)
         # the model counts the ring only for streams that stage
-        ring_model = 0 if hasattr(stream, "device_chunk") else ring
+        ring_model = 0 if is_device_stream(stream) else ring
         if self.dispatch_batch == 0 and self._tail_strategy():
             batch = 1
         else:
@@ -707,8 +710,9 @@ class TorchBackend:
                 ckpt.degraded_events() - ckpt_degraded0
 
         diagnostics = {"fixpoint_rounds": float(total_rounds)}
-        diagnostics.update({key: (round(float(v), 3) if key.startswith("t_")
-                                  else float(v))
+        diagnostics.update({key: (round(float(v), 3)
+                                  if key.startswith("t_") or
+                                  key.endswith("_ms") else float(v))
                             for key, v in stats.items()})
         edge_cut, total = int(cut[k]), int(total)
         return PartitionResult(

@@ -278,7 +278,8 @@ def main(argv=None) -> int:
                      if r.comm_volume is not None else ""))
             if args.output:
                 print(f"partition map written to {out_path(r.k)}")
-        print(f"wall: {wall:.2f}s")
+        print(f"wall: {wall:.2f}s  "
+              f"({m / wall if wall > 0 else 0:,.0f} edges/s)")
     # one JSON line per k, last; a further k carries its marginal cost
     # (its split and share of the scoring pass), the first the rest
     marginal = {r.k: sum(r.phase_times.values()) for r in results[1:]}
@@ -371,7 +372,8 @@ def _k_levels(parser, args) -> int:
                  if res.comm_volume is not None else ""))
         if args.output:
             print(f"partition map written to {args.output}")
-        print(f"wall: {wall:.2f}s")
+        print(f"wall: {wall:.2f}s  "
+              f"({m / wall if wall > 0 else 0:,.0f} edges/s)")
     print(json.dumps(summary))
     return 0
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sheep_tpu_torch.io.devicestream import DeviceStream
+
 # Zachary karate club, 34 vertices / 78 undirected edges (0-indexed),
 # the standard public edge list (W. W. Zachary, 1977).
 _KARATE = [
@@ -285,7 +287,7 @@ class _CounterHashStream:
             np.ascontiguousarray(sample).tobytes()).hexdigest()
 
 
-class RmatHashStream(_CounterHashStream):
+class RmatHashStream(DeviceStream, _CounterHashStream):
     """Counter-hash R-MAT stream: 2**scale vertices, edge_factor * 2**scale
     edges. ``device_chunk`` synthesizes the padded chunk straight into
     device memory."""
@@ -408,7 +410,7 @@ def sbm_hash_range(scale: int, start: int, count: int, n_blocks: int,
     return np.stack([u, v], axis=1)
 
 
-class SbmHashStream(_CounterHashStream):
+class SbmHashStream(DeviceStream, _CounterHashStream):
     """Planted-partition (stochastic block model) counter-hash stream:
     2**scale vertices in ``n_blocks`` equal contiguous blocks, each edge
     inter-block with probability ``p_out``. ``device_chunk`` synthesizes
