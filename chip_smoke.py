@@ -353,6 +353,36 @@ def chain_for_depth(depth: int, n: int) -> int:
     return min(3 << (depth - 3), n - 1) if depth >= 11 else 0
 
 
+def synthetic_forest(n: int, path: int, g):
+    """Phase 3c's position-space forest on ``g``'s device: parents a
+    geometric(1/50) step ahead, 10% roots, and a path through the first
+    ``path`` positions."""
+    import torch
+
+    dev = g.device
+    p = torch.arange(n, device=dev)
+    step = torch.empty(n, device=dev).geometric_(1 / 50, generator=g)
+    P = torch.minimum(p + step.long(), torch.tensor(n, device=dev))
+    P[torch.rand(n, device=dev, generator=g) < 0.1] = n
+    P[:max(path - 1, 0)] = torch.arange(1, max(path, 1), device=dev)
+    return torch.cat([P, torch.tensor([n], device=dev)]).int()
+
+
+def synthetic_slots(n: int, C: int, share: float, g):
+    """C slots (lo, hi), lo < hi < n, with ``share`` of them live; the
+    others dead (n, n)."""
+    import torch
+
+    dev = g.device
+    lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
+    u = torch.rand(C, device=dev, generator=g, dtype=torch.float64)
+    hi = lo + 1 + (u * (n - 1 - lo)).long()
+    dead = torch.rand(C, device=dev, generator=g) >= share
+    lo[dead] = n
+    hi[dead] = n
+    return lo.int(), hi.int()
+
+
 def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
           dev: str = "cuda", fused: bool = False):
     """Phase 3c: ``lift_stack`` and ``climb_tail`` against their plain
@@ -375,27 +405,10 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(13)
 
-    def forest(path):
-        p = torch.arange(n, device=dev)
-        step = torch.empty(n, device=dev).geometric_(1 / 50, generator=g)
-        P = torch.minimum(p + step.long(), torch.tensor(n, device=dev))
-        P[torch.rand(n, device=dev, generator=g) < 0.1] = n
-        P[:max(path - 1, 0)] = torch.arange(1, max(path, 1), device=dev)
-        return torch.cat([P, torch.tensor([n], device=dev)]).int()
-
-    def slots(share):
-        lo = torch.randint(0, n - 1, (C,), device=dev, generator=g)
-        u = torch.rand(C, device=dev, generator=g, dtype=torch.float64)
-        hi = lo + 1 + (u * (n - 1 - lo)).long()
-        dead = torch.rand(C, device=dev, generator=g) >= share
-        lo[dead] = n
-        hi[dead] = n
-        return lo.int(), hi.int()
-
     records = []
     for name, path, share in cases:
-        P0 = forest(path)
-        lo, hi = slots(share)
+        P0 = synthetic_forest(n, path, g)
+        lo, hi = synthetic_slots(n, C, share, g)
         old = gather_clip_plain(P0, lo)
         P = P0.clone()
         P.scatter_reduce_(0, lo.long(), hi, reduce="amin",
@@ -409,6 +422,8 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
                "retired": int(ret)}
         stack = lift.new_stack(T, L, dev)
         ctl = lift.new_ctl(dev)
+        if not records and dev.type == "cuda":
+            rec["ladder_kernels"] = one_launch_ladder(P, stack, ctl)
         lift.lift_stack(P, stack, ctl)
         out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl)
         torch.cuda.synchronize()
@@ -433,12 +448,119 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
             lambda: lift.climb_tail_plain(lo, hi, old, P, st, d), iters=5)
         P64 = P.long()
         rec["take_level_ms"] = gs.time_ms(lambda: torch.take(P, P64))
-        rec["lift_bound_ms"] = gs.bound_ms(4 * T * (1 + min(d, L - 1)))
+        rec["lift_bound_ms"] = gs.bound_ms(ladder_bytes(T, d))
         rec["climb_bound_ms"] = gs.bound_ms(climb_bytes(lo, hi, P, st, d, n))
         rec["card"] = card
         print("lift " + json.dumps(rec), flush=True)
         records.append(rec)
     return records
+
+
+def ladder_bytes(T: int, d: int) -> int:
+    """The bytes a ladder of depth d must move: P read once and the levels
+    t_1 .. t_{d-1} written once."""
+    return 4 * T * d
+
+
+def one_launch_ladder(P, stack, ctl) -> list:
+    """The device operations of one ``lift_stack`` call, by
+    ``torch.profiler``: checked to be one kernel and no memset."""
+    import torch
+
+    from sheep_tpu_torch.ops import lift
+
+    lift.lift_stack(P, stack, ctl)
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        lift.lift_stack(P, stack, ctl)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(ops) == 1 and "lift_ladder" in ops[0],
+          f"lift_stack is not one kernel launch a ladder: {ops}")
+    return ops
+
+
+def forest_table(res, n: int, dev: str = "cuda"):
+    """The position-space table of a result's forest on ``dev``:
+    P[pos[v]] = pos[parent[v]], roots -> n, P[n] = n."""
+    import torch
+
+    parent = torch.from_numpy(res.tree["parent"]).to(dev)
+    pos = torch.from_numpy(res.tree["pos"][:n].astype("int64")).to(dev)
+    P = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
+    has = parent >= 0
+    P[pos[has]] = pos[parent[has]].int()
+    return P
+
+
+def level_sectors(P, d: int, n: int) -> list:
+    """For each level j the ladder computes (gathering from t_j at t_j's
+    entries): the entries below n, and the distinct 32-byte sectors that
+    a warp's gathers reach (a warp takes 128 consecutive entries an
+    iteration: 32 lanes of a 16-byte quad), over all entries and over
+    those below n; by torch ops on the card."""
+    import torch
+
+    from sheep_tpu_torch.ops.gather import gather_clip_plain
+
+    T = len(P)
+    warp = torch.arange(T, device=P.device) >> 7
+    per_warp = (T >> 3) + 1
+    out, t = [], P
+    for j in range(max(d - 1, 1)):
+        key = warp * per_warp + (t.long() >> 3)
+        below = t != n
+        out.append({"level": j, "below_n": int(below.sum()),
+                    "sectors": torch.unique(key).numel(),
+                    "sectors_below_n": torch.unique(key[below]).numel()})
+        t = gather_clip_plain(t, t)
+    return out
+
+
+def forest_ladder(card, res, n: int = 1 << 22) -> dict:
+    """Phase 5b's s22-forest case: ``lift_stack`` on the table of the
+    full-size build's own forest (T = 2^22 + 1), exactly against its plain
+    version (stack rows 0 .. rows-1 and all five ctl words); its time, the
+    plain version's, ``torch.take(t, t)`` for one level, the stream floor
+    (one row copied on the ladder's grid, ``lift.copy_row``), the bytes
+    bound, and each level's entries below n and warp sectors."""
+    import torch
+
+    from sheep_tpu_torch.ops import lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    T, L = n + 1, n.bit_length()
+    P = forest_table(res, n)
+    st, d = lift.lift_stack_plain(P, L)
+    stack = lift.new_stack(T, L, P.device)
+    ctl = lift.new_ctl(P.device)
+    ctl.fill_(7)  # the ladder zeroes every word
+    lift.lift_stack(P, stack, ctl)
+    torch.cuda.synchronize()
+    err = int((stack[:d - 1, :T].long() - st[:d - 1].long()).abs().max()) \
+        if d > 1 else 0
+    check(err == 0 and ctl.tolist() == [d - 1, 0, 0, 0, 0],
+          f"s22 forest: lift_stack disagrees with its plain version (error "
+          f"{err}, ctl {ctl.tolist()}, depth {d})")
+    blocks, threads = lift.ladder_grid(T)
+    P64 = P.long()
+    rec = {"case": "s22-forest", "T": T, "L": L, "depth": d,
+           "levels_computed": max(d - 1, 1), "max_abs_err": err,
+           "lift_ms": gs.time_ms(lambda: lift.lift_stack(P, stack, ctl)),
+           "lift_plain_ms": gs.time_ms(lambda: lift.lift_stack_plain(P, L),
+                                       iters=3),
+           "take_level_ms": gs.time_ms(lambda: torch.take(P, P64)),
+           "floor_ms": gs.time_ms(lambda: lift.copy_row(P, stack[0])),
+           "floor_bound_ms": gs.bound_ms(8 * T),
+           "lift_bound_ms": gs.bound_ms(ladder_bytes(T, d)),
+           "grid": [blocks, threads],
+           "levels": level_sectors(P, d, n), "card": card}
+    rec["gather_bytes"] = 32 * sum(lv["sectors_below_n"]
+                                   for lv in rec["levels"])
+    print("lift-forest " + json.dumps(rec), flush=True)
+    return rec
 
 
 def fused_climb(lo, hi, old, P, stack, n: int, want_ctl, budget: int = 64):
@@ -2045,11 +2167,12 @@ def s22_faults(card):
     return out
 
 
-def lift_entries(head, cases, launches) -> list:
+def lift_entries(head, cases, launches, forest) -> list:
     """The kernels-line entries of ``lift_stack`` and ``climb_tail``: each
     at ``head``, the phase 3c case at the main path's median depth and
-    median live share, the other cases beside it; launches from the main
-    path."""
+    median live share, the other cases beside it (for ``lift_stack`` also
+    the s22-forest case, ``forest``, with its stream floor); launches from
+    the main path. ``lift_stack``'s times are of a ladder, one launch."""
     out = []
     for name, replaces, lib_key in (
             ("lift_stack", "sheep_tpu/ops/elim.py:295", "take_level_ms"),
@@ -2074,6 +2197,14 @@ def lift_entries(head, cases, launches) -> list:
                                   "bound_ms": r[f"{key}_bound_ms"],
                                   "depth": r["depth"]}
                       for r in cases}})
+    ladder = out[0]
+    ladder["max_abs_err"] = max(ladder["max_abs_err"], forest["max_abs_err"])
+    ladder["launches_a_ladder"] = len(cases[0]["ladder_kernels"])
+    ladder["bound_scope"] = "P read once, t_1 .. t_{d-1} written: 4 T d bytes"
+    ladder["cases"]["s22-forest"] = {
+        k: forest[k] for k in ("lift_ms", "lift_plain_ms", "lift_bound_ms",
+                               "take_level_ms", "floor_ms", "depth",
+                               "levels_computed", "gather_bytes")}
     return out
 
 
@@ -2107,6 +2238,148 @@ def same_result(a, b, what: str, rounds: bool = True) -> None:
     check(not rounds or
           a.diagnostics["device_rounds"] == b.diagnostics["device_rounds"],
           f"{what}: device_rounds differ")
+
+
+def ladder_ab() -> int:
+    """``python3 chip_smoke.py --ladder-ab``: PR 4's ladder (a launch a
+    level, ``lift.LADDER = "levels"``) against every variant of the
+    one-launch ladder, each exactly against the plain version, then timed
+    in turns (old, the variants, the variants reversed, old) on phase 3c's
+    tables, the main path's median case and the s22 forest; the stream
+    floor at both block sizes and the forest's per-level sectors; then
+    the s22 build (phase 5's settings) with the old ladder and the fastest
+    variant on the forest, in turns, unprofiled (build seconds) and
+    through ``profile_build`` (the ladder's device ms). One JSON line,
+    also written to chiprun_out/ladder_ab.json."""
+    import argparse
+
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch import profile_build
+    from sheep_tpu_torch.ops import _build, lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check",
+              file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build {time.perf_counter() - t0:.1f}s", flush=True)
+    nv = lift._lib().sheep_lift_variants()
+    n, C = 1 << 22, 1 << 23
+    T, L = n + 1, n.bit_length()
+    res = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
+                                    chunk_edges=1 << 23, dispatch_batch=8,
+                                    keep_tree=True)
+    s22_check(res, "ladder-ab s22 (variant 0)")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    tables = {}
+    for name, path, share in [("random-live1", 0, 1.0),
+                              ("random-live0.01", 0, 0.01),
+                              ("chain-live1", n // 2, 1.0),
+                              ("chain-live0.01", n // 2, 0.01),
+                              ("main-d20", chain_for_depth(20, n), 8 / C)]:
+        P = synthetic_forest(n, path, g)
+        lo, hi = synthetic_slots(n, C, share, g)
+        P.scatter_reduce_(0, lo.long(), hi, reduce="amin", include_self=True)
+        tables[name] = P
+    tables["s22-forest"] = forest_table(res, n)
+    stack = lift.new_stack(T, L, "cuda")
+    ctl = lift.new_ctl("cuda")
+
+    def use(v):
+        lift.LADDER = "levels" if v is None else None
+        if v is not None:
+            lift.set_variant(v)
+
+    out = {"card": card, "variants": nv, "cases": {}}
+    for name, P in tables.items():
+        st, d = lift.lift_stack_plain(P, L)
+        for v in [None] + list(range(nv)):
+            use(v)
+            stack.zero_()
+            ctl.fill_(7)
+            lift.lift_stack(P, stack, ctl)
+            torch.cuda.synchronize()
+            ok = ctl.tolist() == [d - 1, 0, 0, 0, 0] and (
+                d == 1 or torch.equal(stack[:d - 1, :T], st[:d - 1]))
+            check(ok, f"ladder-ab {name}: variant {v} disagrees "
+                      f"(ctl {ctl.tolist()}, depth {d})")
+        times: dict = {}
+        for v in [None] + list(range(nv)) + list(range(nv))[::-1] + [None]:
+            use(v)
+            times.setdefault("old" if v is None else v, []).append(
+                gs.time_ms(lambda: lift.lift_stack(P, stack, ctl), iters=20))
+        floors = {}
+        for v in (0, 12):
+            use(v)
+            floors[lift.ladder_grid(T)[1]] = gs.time_ms(
+                lambda: lift.copy_row(P, stack[0]))
+        out["cases"][name] = {
+            "depth": d, "bound_ms": gs.bound_ms(ladder_bytes(T, d)),
+            "old_ms": times.pop("old"), "ms": times, "floor_ms": floors,
+            "grids": {v: (use(v), lift.ladder_grid(T))[1]
+                      for v in (0, 1, 2, 12, 13, 14)}}
+        print(f"ladder-ab {name}: depth {d}, old "
+              f"{out['cases'][name]['old_ms']}, best "
+              f"{min(times.items(), key=lambda kv: sum(kv[1]))}", flush=True)
+    forest = out["cases"]["s22-forest"]
+    forest["levels"] = level_sectors(tables["s22-forest"],
+                                     forest["depth"], n)
+    best = min(range(nv), key=lambda v: sum(forest["ms"][v]))
+    out["best"] = best
+    del tables, stack
+    args = argparse.Namespace(input=S22_SPEC, k=S22_K, chunk_edges=1 << 23,
+                              dispatch_batch=8, top=40, out=None)
+    builds, profiles = [], []
+    for v in (None, best, best, None):
+        use(v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
+                                      chunk_edges=1 << 23, dispatch_batch=8)
+        wall = time.perf_counter() - t0
+        s22_check(r, f"ladder-ab s22 ({v})")
+        builds.append({"ladder": "old" if v is None else v, "wall_s": wall,
+                       "build_s": r.phase_times["build"],
+                       "device_rounds": r.diagnostics["device_rounds"],
+                       "depth_sum": r.diagnostics["depth_sum"],
+                       "depth_max": r.diagnostics["depth_max"]})
+    for v in (None, best, best, None):
+        use(v)
+        prof = profile_build.profile_one(args, 2)
+        top = prof["top_kernels"]
+        profiles.append({
+            "ladder": "old" if v is None else v,
+            "ladder_ms": sum(e["device_ms"] for e in top
+                             if "lift_l" in e["name"]),
+            "ladder_calls": sum(e["calls"] for e in top
+                                if "lift_l" in e["name"]),
+            "memset_ms": sum(e["device_ms"] for e in top
+                             if "emset" in e["name"]),
+            "memset_calls": sum(e["calls"] for e in top
+                                if "emset" in e["name"]),
+            "device_ms": prof["device_ms"], "build_s": prof["phase_s"]["build"],
+            "fixpoint": prof["fixpoint"],
+            "launches": prof["launches"]["lift_stack"], "top": top[:8]})
+    use(best)
+    out.update(s22_builds=builds, s22_profiles=profiles,
+               total_s=time.perf_counter() - t_all)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "ladder_ab.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print("ladder-ab " + json.dumps({k: out[k] for k in (
+        "card", "best", "s22_builds", "total_s")}), flush=True)
+    print("ladder-ab-profiles " + json.dumps(
+        [{k: p[k] for k in p if k != "top"} for p in profiles]), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -2274,7 +2547,7 @@ def main() -> int:
     t0 = time.perf_counter()
     res = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
                                     chunk_edges=1 << 23, dispatch_batch=8,
-                                    round_log=round_log)
+                                    round_log=round_log, keep_tree=True)
     wall = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -2338,6 +2611,8 @@ def main() -> int:
                               share_med)], fused=True)[0]
     main_scatter = scatters(card, (share_med,))[0]
     k1_case = k1_main(card, share_med)
+    # ... and the ladder on the table of this build's own forest
+    forest_case = forest_ladder(card, res)
 
     # 5c. s22 at depths 1 and 3: the same partition
     for depth in (1, 3):
@@ -2565,11 +2840,10 @@ def main() -> int:
               also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
                              "tools/pallas_smoke.py:420"],
               cases_max_abs_err=max_err("K3"))]
-    # lift_stack's launches are the per-segment build's (5d: once a stale
-    # segment, a warm segment none), the batched build's beside them
+    # launches from the main path (phase 5), the per-segment build's (5d:
+    # lift_stack once a stale segment, a warm segment none) beside them
     kernels += lift_entries(main_case, lift_cases + [main_case],
-                            {**launches,
-                             "lift_stack": seg_launches["lift_stack"]})
+                            launches, forest_case)
     for k in kernels[-2:]:
         k["batched_launches"] = launches[k["name"]]
         k["per_segment_launches"] = seg_launches[k["name"]]
@@ -2686,4 +2960,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ladder_ab() if sys.argv[1:] == ["--ladder-ab"] else main())

@@ -124,8 +124,9 @@ __device__ __forceinline__ int block_sum(int x, int* smem) {
   return s;
 }
 
-// blocks of kThreads for `work` items, capped at one wave: the blocks the
-// card holds resident for `kernel`, queried once per device
+// blocks of `threads` (kThreads unless given) for `work` items, capped at
+// one wave: the blocks the card holds resident for `kernel`, queried once
+// per device
 struct Wave {
   int dev = -1;
   long long cap = 0;
@@ -133,7 +134,7 @@ struct Wave {
 
 template <typename Kernel>
 cudaError_t wave_blocks(Wave& w, Kernel kernel, long long work,
-                        unsigned* blocks) {
+                        unsigned* blocks, int threads = kThreads) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -142,12 +143,12 @@ cudaError_t wave_blocks(Wave& w, Kernel kernel, long long work,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        threads, 0);
     if (err != cudaSuccess) return err;
     w.cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
     w.dev = dev;
   }
-  long long b = (work + kThreads - 1) / kThreads;
+  long long b = (work + threads - 1) / threads;
   if (b < 1) b = 1;
   *blocks = (unsigned)(b < w.cap ? b : w.cap);
   return cudaSuccess;

@@ -1,8 +1,8 @@
 // The exact-descent fixpoint round's lifting work as two kernels:
 //
-//   lift_stack   the lifting stack t_{j+1} = t_j[t_j] (t_0 = P), one
-//                launch per level, issued as one ladder by one host call,
-//                with an on-device depth cut;
+//   lift_stack   the lifting stack t_{j+1} = t_j[t_j] (t_0 = P): the
+//                whole ladder in one persistent launch, its levels apart
+//                by grid-wide barriers, stopping at the first all-n level;
 //   climb_tail   one fused pass per round over the slots: the binary-
 //                lifting climb, retire, displace, the round's `changed`
 //                flag and its retired and live counts;
@@ -22,13 +22,37 @@
 // zeroes all five and writes [0]; climb_tail reads [0] and adds to
 // [1..4].
 //
-// Depth cut. Level launch j computes t_{j+1} from t_j and raises rows to
-// j + 1 if any entry differs (a block vote, one atomicMax per block). If
-// none differs, t_j is idempotent, every higher level equals it, and the
-// later launches of the ladder read rows and return at once. The climb
-// applies levels d-1 .. 0: applying an idempotent table twice moves no
-// slot (cand = t[t[x]] = t[x] = cur), so this is bit for bit the climb
-// over L-1 .. 0.
+// Depth cut. Level j computes t_{j+1} from t_j; rows is raised to j + 1
+// when some entry differs from t_j, so rows = d - 1 counts the distinct
+// levels. The climb applies levels d-1 .. 0: applying an idempotent table
+// twice moves no slot (cand = t[t[x]] = t[x] = cur), so this is bit for
+// bit the climb over L-1 .. 0.
+//
+// Where the ladder stops. In position space P[p] lies in (p, n] and P[n]
+// = n, and squaring keeps that (t[t[p]] > t[p] > p, or n). So n is the
+// only fixed point, and a table is idempotent exactly when every entry is
+// n: an entry t[p] = q < n has t[q] > q = t[p], so t[t[p]] != t[p]; and an
+// all-n table maps every entry to t[n] = n. The first all-n level t_a is
+// therefore the last distinct one (rows = a), and every level above it
+// equals it. So each block also votes on whether any entry it wrote is
+// other than n, and a level that wrote none ends the ladder: t_{a+1},
+// which equals t_a, is never computed, and rows keeps its value. A level
+// with no entry changed ends it as well (the only stop on a table outside
+// position space, where it is the one the per-level ladder made). Edge
+// cases: P all-n computes one level (rows 0); no all-n level among
+// t_1 .. t_{L-1} computes all L-1 (rows L-1); L = 1 computes none.
+//
+// One launch a ladder. The kernel is launched cooperatively over one wave
+// of co-resident blocks (the launch fails, and the wrapper raises, if the
+// card will not hold them together) and loops over the levels. Between
+// levels a grid-wide barrier on a small scratch buffer of the wrapper's:
+// each block's thread 0 adds one 64-bit word that carries its arrival and
+// its two votes (acquire-release); the block that arrives last sees every
+// vote, writes rows to ctl, zeroes the count and releases the next
+// generation with the stop bit, which the others wait for (acquire). The
+// count is zero again when the kernel ends; ctl is zeroed by block 0
+// before its first arrival, so no separate memset. A wait that outlasts
+// kBarrierTimeoutNs traps instead of hanging the card.
 //
 // The stack is level-major: one row of `stride` (a multiple of 32) int32
 // per level, so the squaring streams a row with 16-byte loads and stores.
@@ -94,6 +118,213 @@ constexpr int kChanged = sheep::kCtlChanged;
 constexpr int kRetired = sheep::kCtlRetired;
 constexpr int kLive = sheep::kCtlLive;
 
+// The grid barrier's scratch (int32[kBarWords], zero when first
+// allocated): the arrival count and the votes in one 64-bit word at
+// kBarCount, the generation on a line of its own at kBarGen.
+constexpr int kBarCount = 0;
+constexpr int kBarGen = 32;
+constexpr int kBarWords = 64;
+constexpr int kVoteBits = 21;  // a field of the word: up to 2^21 - 1 blocks
+constexpr unsigned long long kField = (1ull << kVoteBits) - 1;
+constexpr unsigned long long kBarrierTimeoutNs = 10000000000ull;
+
+__device__ __forceinline__ unsigned long long arrive(unsigned long long* p,
+                                                     unsigned long long v) {
+  unsigned long long old;
+  asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], %2;"
+               : "=l"(old)
+               : "l"(p), "l"(v)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The barrier after level j, on thread 0 of every block, with the block's
+// votes: some entry changed (diff), some entry written is not n (live).
+// Returns 1 when the ladder stops after this level. The last block to
+// arrive writes rows = j + 1 to ctl if any entry changed.
+__device__ unsigned level_barrier(int32_t* bar, bool diff, bool live, int j,
+                                  int32_t* ctl) {
+  auto* count = reinterpret_cast<unsigned long long*>(bar + kBarCount);
+  auto* gen = reinterpret_cast<unsigned*>(bar + kBarGen);
+  // the generation cannot move before this block arrives
+  const unsigned g = *reinterpret_cast<volatile unsigned*>(gen);
+  const unsigned long long add = 1ull |
+                                 (unsigned long long)diff << kVoteBits |
+                                 (unsigned long long)live << 2 * kVoteBits;
+  __threadfence();  // the block's level, written before bar.sync
+  const unsigned long long tot = arrive(count, add) + add;
+  if ((tot & kField) == gridDim.x) {
+    const bool any_diff = (tot >> kVoteBits) & kField;
+    const bool any_live = (tot >> 2 * kVoteBits) & kField;
+    if (any_diff) ctl[kRows] = j + 1;
+    *reinterpret_cast<volatile unsigned long long*>(count) = 0;
+    const unsigned stop = any_diff && any_live ? 0u : 1u;
+    store_release(gen, ((g & ~1u) + 2u) | stop);
+    return stop;
+  }
+  const unsigned long long t0 = global_ns();
+  unsigned now;
+  while (((now = load_acquire(gen)) >> 1) == (g >> 1)) {
+    __nanosleep(64);
+    if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
+  }
+  __threadfence();
+  return now & 1u;
+}
+
+__device__ __forceinline__ unsigned long long policy_evict_last() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ unsigned long long policy_evict_first() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+template <bool kHint>
+__device__ __forceinline__ int4 load_quad(const int4* p,
+                                          unsigned long long policy) {
+  if (!kHint) return *p;
+  int4 v;
+  asm volatile("ld.global.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+template <bool kHint>
+__device__ __forceinline__ void store_quad(int4* p, int4 v,
+                                           unsigned long long policy) {
+  if (!kHint) {
+    *p = v;
+    return;
+  }
+  asm volatile(
+      "st.global.L2::cache_hint.v4.s32 [%0], {%1, %2, %3, %4}, %5;" ::"l"(p),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy)
+      : "memory");
+}
+
+// t[clip(v)]; with kSkip an entry n (v == last) takes top = t[n] without
+// a gather
+template <bool kSkip>
+__device__ __forceinline__ int32_t lift_one(const int32_t* t, int32_t v,
+                                            int32_t last, int32_t top) {
+  if (kSkip && v == last) return top;
+  return t[clip(v, last)];
+}
+
+// The ladder: levels t_1 .. t_{levels-1} of P into the stack (row k-1
+// holds t_k), each thread kQuads 16-byte loads of the source row in
+// flight an iteration before their 4 * kQuads gathers, a scalar tail for
+// the last T % 4 entries; a grid barrier after every level. The source
+// rows above P were written in this launch, so they are read with plain
+// (coherent) loads, never through the read-only path.
+template <int kQuads, bool kSkip, bool kHint, int kBlock>
+__global__ void __launch_bounds__(kBlock)
+lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
+            int levels, int32_t* ctl, const int64_t* ex, int32_t* bar) {
+  __shared__ unsigned stop;
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (int w = 0; w < sheep::kCtlWords; ++w) ctl[w] = 0;
+  if (sheep::stopped(ex)) return;
+  const int32_t last = (int32_t)(T - 1);
+  const int64_t quads = T >> 2;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  unsigned long long keep = 0, drop = 0;
+  if (kHint) {
+    keep = policy_evict_last();
+    drop = policy_evict_first();
+  }
+  for (int j = 0; j + 1 < levels; ++j) {
+    const int32_t* src = j == 0 ? P : stack + (int64_t)(j - 1) * stride;
+    int32_t* dst = stack + (int64_t)j * stride;
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    const int32_t top = src[last];
+    bool diff = false, live = false;
+    for (int64_t q0 = tid; q0 < quads; q0 += step * kQuads) {
+      int4 v[kQuads], w[kQuads];
+#pragma unroll
+      for (int i = 0; i < kQuads; ++i)
+        if (q0 + i * step < quads)
+          v[i] = load_quad<kHint>(s4 + q0 + i * step, drop);
+#pragma unroll
+      for (int i = 0; i < kQuads; ++i) {
+        if (q0 + i * step >= quads) continue;
+        w[i].x = lift_one<kSkip>(src, v[i].x, last, top);
+        w[i].y = lift_one<kSkip>(src, v[i].y, last, top);
+        w[i].z = lift_one<kSkip>(src, v[i].z, last, top);
+        w[i].w = lift_one<kSkip>(src, v[i].w, last, top);
+      }
+#pragma unroll
+      for (int i = 0; i < kQuads; ++i) {
+        if (q0 + i * step >= quads) continue;
+        store_quad<kHint>(d4 + q0 + i * step, w[i], keep);
+        diff |= (w[i].x != v[i].x) | (w[i].y != v[i].y) |
+                (w[i].z != v[i].z) | (w[i].w != v[i].w);
+        live |= (w[i].x != last) | (w[i].y != last) | (w[i].z != last) |
+                (w[i].w != last);
+      }
+    }
+    const int64_t p = (quads << 2) + tid;
+    if (p < T) {
+      const int32_t v = src[p];
+      const int32_t w = lift_one<kSkip>(src, v, last, top);
+      dst[p] = w;
+      diff |= w != v;
+      live |= w != last;
+    }
+    diff = __syncthreads_or(diff);
+    live = __syncthreads_or(live);
+    if (threadIdx.x == 0) stop = level_barrier(bar, diff, live, j, ctl);
+    __syncthreads();
+    if (stop) break;
+  }
+}
+
+// One row copied (T read, T written) on the ladder's grid: the stream
+// floor that a level's time is held against (chip_smoke.py phase 3c).
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
+copy_row(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
+         int64_t T) {
+  const int64_t quads = T >> 2;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int4* s4 = reinterpret_cast<const int4*>(src);
+  int4* d4 = reinterpret_cast<int4*>(dst);
+  for (int64_t q = tid; q < quads; q += step) d4[q] = __ldg(s4 + q);
+  const int64_t p = (quads << 2) + tid;
+  if (p < T) dst[p] = src[p];
+}
+
 // one atomicMax per block whose entries changed
 __device__ __forceinline__ void vote_rows(bool diff, int j, int32_t* ctl) {
   if (__syncthreads_or(diff) && threadIdx.x == 0 &&
@@ -101,8 +332,8 @@ __device__ __forceinline__ void vote_rows(bool diff, int j, int32_t* ctl) {
     atomicMax(ctl + kRows, j + 1);
 }
 
-// dst = src[src] over T entries, 4 entries a thread through 16-byte
-// loads and stores, a scalar tail for the last T % 4
+// PR 4's ladder level, kept while the two are compared: dst = src[src]
+// over T entries, one launch a level
 __global__ void __launch_bounds__(kThreads)
 lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
            int64_t T, int j, int32_t* ctl, const int64_t* ex) {
@@ -219,29 +450,120 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
   }
 }
 
-Wave wave_lift, wave_climb, wave_jumps;
+Wave wave_old, wave_climb, wave_jumps;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-}  // namespace
+using Ladder = void (*)(const int32_t*, int32_t*, int64_t, int64_t, int,
+                        int32_t*, const int64_t*, int32_t*);
 
-// The ladder of one round: ctl zeroed, then levels t_1 .. t_{levels-1}
-// into the stack, row k-1 (at stack + (k-1)*stride) holding t_k. ex: the
-// execution's state or null.
-extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
-                                long long stride, int levels, void* ctl,
-                                const void* ex, void* stream) {
+struct Variant {
+  Ladder kernel;
+  int block;
+  int quads;
+  Wave wave;
+};
+
+#define SHEEP_LADDER(q, skip, hint, block) \
+  { lift_ladder<q, skip, hint, block>, block, q, Wave() }
+#define SHEEP_LADDERS(block)                                             \
+  SHEEP_LADDER(1, false, false, block), SHEEP_LADDER(2, false, false, block), \
+      SHEEP_LADDER(4, false, false, block),                              \
+      SHEEP_LADDER(1, true, false, block),                               \
+      SHEEP_LADDER(2, true, false, block),                               \
+      SHEEP_LADDER(4, true, false, block),                               \
+      SHEEP_LADDER(1, false, true, block),                               \
+      SHEEP_LADDER(2, false, true, block),                               \
+      SHEEP_LADDER(4, false, true, block),                               \
+      SHEEP_LADDER(1, true, true, block),                                \
+      SHEEP_LADDER(2, true, true, block), SHEEP_LADDER(4, true, true, block)
+
+// variant v: quads 1, 2, 4 (v % 3), skip (v / 3 % 2), hints (v / 6 % 2),
+// blocks of 256 (v < 12) or 1024 threads
+Variant variants[] = {SHEEP_LADDERS(256), SHEEP_LADDERS(1024)};
+constexpr int kVariants = sizeof(variants) / sizeof(variants[0]);
+int ladder_variant = 0;
+
+cudaError_t ladder_grid(Variant& v, long long T, int levels,
+                        unsigned* blocks) {
+  if (levels < 2) {  // nothing but ctl to zero
+    *blocks = 1;
+    return cudaSuccess;
+  }
+  return wave_blocks(v.wave, v.kernel, (T / 4 + v.quads - 1) / v.quads,
+                     blocks, v.block);
+}
+
+int launch_ladder(Variant& v, const void* P, long long T, void* stack,
+                  long long stride, int levels, void* ctl, const void* ex,
+                  void* bar, cudaStream_t s) {
+  unsigned blocks = 0;
+  cudaError_t err = ladder_grid(v, T, levels, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const int32_t* p = (const int32_t*)P;
+  int32_t* st = (int32_t*)stack;
+  int64_t stride64 = stride, T64 = T;
+  int lv = levels;
+  int32_t* c = (int32_t*)ctl;
+  const int64_t* e = (const int64_t*)ex;
+  int32_t* b = (int32_t*)bar;
+  void* args[] = {&p, &st, &stride64, &T64, &lv, &c, &e, &b};
+  return (int)cudaLaunchCooperativeKernel((const void*)v.kernel, dim3(blocks),
+                                          dim3(v.block), args, 0, s);
+}
+
+int check_ladder(const void* P, long long T, const void* stack,
+                 long long stride, int levels) {
   if (T <= 0 || T > 0x7FFFFFFFLL || levels < 1 || levels > 32)
     return (int)cudaErrorInvalidValue;
   if (stride < T || stride % 4 || !aligned16(P) || !aligned16(stack))
     return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
+}  // namespace
+
+// The ladder of one round in one cooperative launch: ctl zeroed, then
+// levels t_1 .. t_{levels-1} into the stack, row k-1 (at stack +
+// (k-1)*stride) holding t_k, up to the first all-n level. ex: the
+// execution's state or null; bar: the barrier's int32[64] scratch, zero
+// when allocated, used by one ladder at a time.
+extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
+                                long long stride, int levels, void* ctl,
+                                const void* ex, void* bar, void* stream) {
+  const int rc = check_ladder(P, T, stack, stride, levels);
+  if (rc) return rc;
+  return launch_ladder(variants[ladder_variant], P, T, stack, stride, levels,
+                       ctl, ex, bar, (cudaStream_t)stream);
+}
+
+extern "C" int sheep_lift_bar_words() { return kBarWords; }
+
+// The variant of the level that sheep_lift_stack launches (0 ..
+// sheep_lift_variants() - 1), while the variants are compared.
+extern "C" int sheep_lift_variants() { return kVariants; }
+
+extern "C" int sheep_lift_set_variant(int v) {
+  if (v < 0 || v >= kVariants) return (int)cudaErrorInvalidValue;
+  ladder_variant = v;
+  return 0;
+}
+
+// PR 4's ladder, kept while the two are compared: a memset of ctl and
+// levels - 1 launches of lift_level.
+extern "C" int sheep_lift_stack_levels(const void* P, long long T,
+                                       void* stack, long long stride,
+                                       int levels, void* ctl, const void* ex,
+                                       void* stream) {
+  const int rc = check_ladder(P, T, stack, stride, levels);
+  if (rc) return rc;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* c = (int32_t*)ctl;
   cudaError_t err =
       cudaMemsetAsync(c, 0, sheep::kCtlWords * sizeof(int32_t), s);
   if (err != cudaSuccess) return (int)err;
   unsigned blocks = 0;
-  err = wave_blocks(wave_lift, lift_level, (T + 3) / 4, &blocks);
+  err = wave_blocks(wave_old, lift_level, (T + 3) / 4, &blocks);
   if (err != cudaSuccess) return (int)err;
   const int32_t* p = (const int32_t*)P;
   int32_t* st = (int32_t*)stack;
@@ -253,6 +575,36 @@ extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// One row of T entries copied on the grid of the ladder that
+// sheep_lift_stack launches: the stream floor of a level.
+extern "C" int sheep_lift_copy_row(const void* src, void* dst, long long T,
+                                   void* stream) {
+  if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (!aligned16(src) || !aligned16(dst))
+    return (int)cudaErrorMisalignedAddress;
+  Variant& v = variants[ladder_variant];
+  unsigned blocks = 0;
+  cudaError_t err = ladder_grid(v, T, 2, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  if (v.block == 256)
+    copy_row<256><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)src, (int32_t*)dst, T);
+  else
+    copy_row<1024><<<blocks, 1024, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)src, (int32_t*)dst, T);
+  return (int)cudaGetLastError();
+}
+
+// The ladder's grid for T entries: blocks (one wave) and threads a block.
+extern "C" int sheep_lift_grid(long long T, int* blocks, int* threads) {
+  Variant& v = variants[ladder_variant];
+  unsigned b = 0;
+  const cudaError_t err = ladder_grid(v, T, 2, &b);
+  *blocks = (int)b;
+  *threads = v.block;
+  return (int)err;
 }
 
 // One pass over m slots: out_lo/out_hi, and this pass's changed flag,

@@ -6,7 +6,9 @@ and the jump-mode climb of the adaptive driver's small buffers (of
 
 ``lift_stack(P, stack, ctl)`` fills the stack with the levels
 t_1 .. t_{d-1} of the table P (t_0 = P, t_{j+1} = t_j[t_j]), zeroes the
-control word and writes d - 1, the stack rows in use, to ``ctl[ROWS]``.
+control word and writes d - 1, the stack rows in use, to ``ctl[ROWS]``:
+on CUDA in one persistent launch a ladder, its levels apart by grid-wide
+barriers (``csrc/lift.cu``).
 ``climb_tail(lo, hi, old_at_lo, P, stack, ctl)`` runs the rest of the
 round over the slots in one pass: retire, displace, the binary-lifting
 climb over levels d-1 .. 0, and the pass's ``changed`` flag, retired
@@ -17,10 +19,14 @@ launch the kernels of ``csrc/lift.cu``; on CPU tensors they run the
 plain PyTorch versions :func:`lift_stack_plain` and
 :func:`climb_tail_plain`. Anything else raises.
 
-**The depth cut is exact.** The squaring stops at the first level j with
-t_{j+1} == t_j: such a t_j is idempotent (t_j[t_j] = t_j), so every
-higher level equals it, and d = j + 1 levels are distinct. The climb
-applies levels d-1 .. 0 instead of L-1 .. 0. The levels it skips all
+**The depth cut is exact.** d counts the distinct levels: the first
+level j with t_{j+1} == t_j is idempotent (t_j[t_j] = t_j), every higher
+level equals it, and d = j + 1. The squaring stops as soon as that is
+known: at the first level whose entries are all n, which in position
+space (P[p] in (p, n], P[n] = n) is exactly the first idempotent one
+(``csrc/lift.cu`` has the proof), so its copy t_{j+1} is never computed;
+or, outside position space, at the first level that changed nothing. The
+climb applies levels d-1 .. 0 instead of L-1 .. 0. The levels it skips all
 equal t_{d-1}, and applying an idempotent table again moves no slot: if
 the first application moved ``cur`` to ``cand = t[cur]``, the next reads
 ``t[cand] = t[t[cur]] = t[cur] = cand``; if it did not (``cand >= hi``),
@@ -52,8 +58,10 @@ CUDA in the last block of its kernel, on the CPU by
 ``fixpoint.round_end_plain`` after the plain climb.
 
 ``LAUNCHES`` counts the wrapper calls that launched their kernels: one
-``lift_stack`` call issues the whole ladder (a memset of ``ctl`` and L-1
-launches, those above d returning at once).
+``lift_stack`` call is one cooperative launch of the whole ladder, which
+also zeroes ``ctl``. Its grid barrier uses a small scratch buffer that
+the wrapper allocates once for each device and stream (:func:`_bar`), so
+two ladders on one stream never share it at once.
 
 The adaptive driver's stale round (``ops/elim.py``, the counterpart of
 ``_pos_round_body_stale``, ``:222``) calls ``lift_stack`` once a segment
@@ -75,6 +83,7 @@ LAUNCHES = {"lift_stack": 0, "climb_tail": 0, "climb_jumps": 0}
 
 ROWS, CHANGED, RETIRED, LIVE, TICKETS = range(5)
 CTL_WORDS = 5
+BAR_WORDS = 64  # the ladder's grid-barrier scratch (csrc/lift.cu kBarWords)
 ROW_ALIGN = 32  # int32: rows start on 128-byte boundaries
 
 
@@ -100,15 +109,20 @@ def new_ctl(device) -> torch.Tensor:
 def lift_stack_plain(P: torch.Tensor, levels: int):
     """The plain version of :func:`lift_stack`: ``(stack, d)`` with stack
     int32 [levels-1, T], rows 0 .. d-2 holding t_1 .. t_{d-1} and the rest
-    zero, and d the number of distinct levels."""
+    zero, and d the number of distinct levels. It stops at the first level
+    with every entry n (the last distinct one) or that changed nothing,
+    as the kernel does."""
     stack = torch.zeros((max(levels - 1, 0), len(P)), dtype=torch.int32,
                         device=P.device)
+    n = len(P) - 1
     t = P
     for j in range(levels - 1):
         t2 = gather_clip_plain(t, t)
         if torch.equal(t2, t):
             return stack, j + 1
         stack[j] = t2
+        if not bool((t2 != n).any()):
+            return stack, j + 2
         t = t2
     return stack, levels
 
@@ -226,8 +240,17 @@ def _lib():
 
         lib = _build.load("lift")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, p, p, p]
+        lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, p, p, p, p]
         lib.sheep_lift_stack.restype = ctypes.c_int
+        lib.sheep_lift_stack_levels.argtypes = [p, ll, p, ll, i, p, p, p]
+        lib.sheep_lift_stack_levels.restype = ctypes.c_int
+        lib.sheep_lift_set_variant.argtypes = [i]
+        lib.sheep_lift_set_variant.restype = ctypes.c_int
+        lib.sheep_lift_copy_row.argtypes = [p, p, ll, p]
+        lib.sheep_lift_copy_row.restype = ctypes.c_int
+        lib.sheep_lift_grid.argtypes = [ll, ctypes.POINTER(i),
+                                        ctypes.POINTER(i)]
+        lib.sheep_lift_grid.restype = ctypes.c_int
         lib.sheep_climb_tail.argtypes = [p, p, p, ll, p, ll, p, ll, p, p, p,
                                          p, ll, p, ll, ll, p]
         lib.sheep_climb_tail.restype = ctypes.c_int
@@ -246,10 +269,55 @@ def _raise_if(rc: int, fn: str) -> None:
                            + _lib().sheep_lift_error_string(rc).decode())
 
 
+_BARS: dict = {}
+# while the ladders are compared: None, the one-launch ladder's variant
+# set by set_variant; "levels", PR 4's ladder of a launch a level
+LADDER = None
+
+
+def _bar(device, stream: int) -> torch.Tensor:
+    """The grid barrier's scratch for ladders on ``stream`` of ``device``:
+    int32 zeros, allocated once, which every ladder leaves at zero."""
+    key = (device.index, stream)
+    bar = _BARS.get(key)
+    if bar is None:
+        bar = torch.zeros(BAR_WORDS, dtype=torch.int32, device=device)
+        _BARS[key] = bar
+    return bar
+
+
+def set_variant(v: int) -> None:
+    """The variant of the level the ladder launches, while they are
+    compared (``csrc/lift.cu``)."""
+    _raise_if(_lib().sheep_lift_set_variant(v), "lift_stack")
+
+
+def ladder_grid(T: int):
+    """(blocks, threads a block) of the ladder's grid for T entries."""
+    b, t = ctypes.c_int(), ctypes.c_int()
+    _raise_if(_lib().sheep_lift_grid(T, ctypes.byref(b), ctypes.byref(t)),
+              "lift_stack")
+    return b.value, t.value
+
+
+def copy_row(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """``dst[:T] = src`` on the ladder's grid, T = len(src): the stream
+    floor of one level (a yardstick; no kernel of the path)."""
+    _check_vec("copy_row: src", src)
+    if src.device.type == "cpu":
+        dst[:len(src)].copy_(src)
+        return
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = _lib().sheep_lift_copy_row(src.data_ptr(), dst.data_ptr(),
+                                        len(src), stream)
+    _raise_if(rc, "copy_row")
+
+
 def lift_stack(P: torch.Tensor, stack: torch.Tensor,
                ctl: torch.Tensor, state: torch.Tensor = None) -> None:
     """Fill ``stack`` with t_1 .. t_{d-1} of P and set ``ctl`` to
-    [d - 1, 0, 0, 0], for ``stack.shape[0] + 1`` levels. With an
+    [d - 1, 0, 0, 0, 0], for ``stack.shape[0] + 1`` levels. With an
     execution ``state`` that has stopped: only ``ctl`` is zeroed."""
     _check("lift_stack", P, stack, ctl, state=state)
     L = stack.shape[0] + 1
@@ -263,12 +331,18 @@ def lift_stack(P: torch.Tensor, stack: torch.Tensor,
         ctl[ROWS] = d - 1
         return
     lib = _lib()
+    ex = None if state is None else state.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        rc = lib.sheep_lift_stack(
-            P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1], L,
-            ctl.data_ptr(), None if state is None else state.data_ptr(),
-            stream)
+        if LADDER == "levels":
+            rc = lib.sheep_lift_stack_levels(
+                P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1], L,
+                ctl.data_ptr(), ex, stream)
+        else:
+            rc = lib.sheep_lift_stack(
+                P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1], L,
+                ctl.data_ptr(), ex, _bar(P.device, stream).data_ptr(),
+                stream)
     _raise_if(rc, "lift_stack")
     LAUNCHES["lift_stack"] += 1
 

@@ -253,8 +253,17 @@ def test_kernels_match_plain_on_card():
     Pc, loc, hic, oldc = (t.to(dev) for t in (P2, _t(lo), _t(hi), old))
     stack = lift.new_stack(n + 1, L, dev)
     ctl = lift.new_ctl(dev)
+    lift.lift_stack(Pc, stack, ctl)  # builds the library, allocates
+    torch.cuda.synchronize()
     n0 = dict(lift.LAUNCHES)
-    lift.lift_stack(Pc, stack, ctl)
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        lift.lift_stack(Pc, stack, ctl)
+        torch.cuda.synchronize()
+    # one kernel a ladder, no memset
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1 and "lift_ladder" in device[0], device
     out_lo, out_hi = lift.climb_tail(loc, hic, oldc, Pc, stack, ctl)
     torch.cuda.synchronize()
     assert lift.LAUNCHES["lift_stack"] == n0["lift_stack"] + 1
