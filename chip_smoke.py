@@ -29,7 +29,8 @@ line is printed:
      forests (P[p] in (p, n]; one random, one with a chain through half
      the positions) with live-slot shares of 100%, 10% and 1%, each timed
      beside its plain version, ``torch.take(t, t)`` for one squaring
-     level, and its bytes bound;
+     level, and its bytes bound; a ladder is one kernel launch and no
+     memset (``torch.profiler``);
   3d. the batched execution's kernels (``ops/fixpoint.py``) against their
      plain versions on the card, exactly: ``scatter_min`` at T = 2^22+1, C =
      2^23 with 100% and 1% of the slots live, also against the library pair
@@ -129,7 +130,11 @@ line is printed:
      depth and median live share; at that case ``climb_tail`` is also
      timed with the round's end folded in (``climb_rows`` on a one-row
      execution, in place, its live slots and state restored between
-     calls);
+     calls); then ``lift_stack`` on the table of phase 5's own forest
+     (P[pos[v]] = pos[parent[v]]), exactly against its plain version,
+     timed beside the stream floor (one row copied on the ladder's grid),
+     with each level's entries below n and the distinct 32-byte sectors
+     that a warp's gathers reach;
   5c. the full-size build at depths 1 and 3: the same partition, one host
      read per execution;
   5d. the full-size build through the per-segment driver (dispatch batch
@@ -171,8 +176,10 @@ line is printed:
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
-     pass's less the plain pass's); ``climb_level``'s, ``lift_stack``'s
-     and ``compact_live``'s launches from 5d, ``climb_jumps``'s from the
+     pass's less the plain pass's), ``lift_stack`` with the s22-forest
+     case beside it; ``climb_level``'s and ``compact_live``'s launches
+     from 5d (``lift_stack``'s from 5 with 5d's beside), ``climb_jumps``'s
+     from the
      jump-mode fold of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
      mode from 5f, and the refinement's kernels from 5g;
   7. the last line, {"ok": true, "device": {...}}.
@@ -2240,148 +2247,6 @@ def same_result(a, b, what: str, rounds: bool = True) -> None:
           f"{what}: device_rounds differ")
 
 
-def ladder_ab() -> int:
-    """``python3 chip_smoke.py --ladder-ab``: PR 4's ladder (a launch a
-    level, ``lift.LADDER = "levels"``) against every variant of the
-    one-launch ladder, each exactly against the plain version, then timed
-    in turns (old, the variants, the variants reversed, old) on phase 3c's
-    tables, the main path's median case and the s22 forest; the stream
-    floor at both block sizes and the forest's per-level sectors; then
-    the s22 build (phase 5's settings) with the old ladder and the fastest
-    variant on the forest, in turns, unprofiled (build seconds) and
-    through ``profile_build`` (the ladder's device ms). One JSON line,
-    also written to chiprun_out/ladder_ab.json."""
-    import argparse
-
-    import torch
-
-    import sheep_tpu_torch
-    from sheep_tpu_torch import profile_build
-    from sheep_tpu_torch.ops import _build, lift
-    from sheep_tpu_torch.tools import gather_smoke as gs
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to check",
-              file=sys.stderr)
-        return 2
-    t_all = time.perf_counter()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(f"card: {card}", flush=True)
-    t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build {time.perf_counter() - t0:.1f}s", flush=True)
-    nv = lift._lib().sheep_lift_variants()
-    n, C = 1 << 22, 1 << 23
-    T, L = n + 1, n.bit_length()
-    res = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
-                                    chunk_edges=1 << 23, dispatch_batch=8,
-                                    keep_tree=True)
-    s22_check(res, "ladder-ab s22 (variant 0)")
-    g = torch.Generator(device="cuda").manual_seed(13)
-    tables = {}
-    for name, path, share in [("random-live1", 0, 1.0),
-                              ("random-live0.01", 0, 0.01),
-                              ("chain-live1", n // 2, 1.0),
-                              ("chain-live0.01", n // 2, 0.01),
-                              ("main-d20", chain_for_depth(20, n), 8 / C)]:
-        P = synthetic_forest(n, path, g)
-        lo, hi = synthetic_slots(n, C, share, g)
-        P.scatter_reduce_(0, lo.long(), hi, reduce="amin", include_self=True)
-        tables[name] = P
-    tables["s22-forest"] = forest_table(res, n)
-    stack = lift.new_stack(T, L, "cuda")
-    ctl = lift.new_ctl("cuda")
-
-    def use(v):
-        lift.LADDER = "levels" if v is None else None
-        if v is not None:
-            lift.set_variant(v)
-
-    out = {"card": card, "variants": nv, "cases": {}}
-    for name, P in tables.items():
-        st, d = lift.lift_stack_plain(P, L)
-        for v in [None] + list(range(nv)):
-            use(v)
-            stack.zero_()
-            ctl.fill_(7)
-            lift.lift_stack(P, stack, ctl)
-            torch.cuda.synchronize()
-            ok = ctl.tolist() == [d - 1, 0, 0, 0, 0] and (
-                d == 1 or torch.equal(stack[:d - 1, :T], st[:d - 1]))
-            check(ok, f"ladder-ab {name}: variant {v} disagrees "
-                      f"(ctl {ctl.tolist()}, depth {d})")
-        times: dict = {}
-        for v in [None] + list(range(nv)) + list(range(nv))[::-1] + [None]:
-            use(v)
-            times.setdefault("old" if v is None else v, []).append(
-                gs.time_ms(lambda: lift.lift_stack(P, stack, ctl), iters=20))
-        floors = {}
-        for v in (0, 12):
-            use(v)
-            floors[lift.ladder_grid(T)[1]] = gs.time_ms(
-                lambda: lift.copy_row(P, stack[0]))
-        out["cases"][name] = {
-            "depth": d, "bound_ms": gs.bound_ms(ladder_bytes(T, d)),
-            "old_ms": times.pop("old"), "ms": times, "floor_ms": floors,
-            "grids": {v: (use(v), lift.ladder_grid(T))[1]
-                      for v in (0, 1, 2, 12, 13, 14)}}
-        print(f"ladder-ab {name}: depth {d}, old "
-              f"{out['cases'][name]['old_ms']}, best "
-              f"{min(times.items(), key=lambda kv: sum(kv[1]))}", flush=True)
-    forest = out["cases"]["s22-forest"]
-    forest["levels"] = level_sectors(tables["s22-forest"],
-                                     forest["depth"], n)
-    best = min(range(nv), key=lambda v: sum(forest["ms"][v]))
-    out["best"] = best
-    del tables, stack
-    args = argparse.Namespace(input=S22_SPEC, k=S22_K, chunk_edges=1 << 23,
-                              dispatch_batch=8, top=40, out=None)
-    builds, profiles = [], []
-    for v in (None, best, best, None):
-        use(v)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
-                                      chunk_edges=1 << 23, dispatch_batch=8)
-        wall = time.perf_counter() - t0
-        s22_check(r, f"ladder-ab s22 ({v})")
-        builds.append({"ladder": "old" if v is None else v, "wall_s": wall,
-                       "build_s": r.phase_times["build"],
-                       "device_rounds": r.diagnostics["device_rounds"],
-                       "depth_sum": r.diagnostics["depth_sum"],
-                       "depth_max": r.diagnostics["depth_max"]})
-    for v in (None, best, best, None):
-        use(v)
-        prof = profile_build.profile_one(args, 2)
-        top = prof["top_kernels"]
-        profiles.append({
-            "ladder": "old" if v is None else v,
-            "ladder_ms": sum(e["device_ms"] for e in top
-                             if "lift_l" in e["name"]),
-            "ladder_calls": sum(e["calls"] for e in top
-                                if "lift_l" in e["name"]),
-            "memset_ms": sum(e["device_ms"] for e in top
-                             if "emset" in e["name"]),
-            "memset_calls": sum(e["calls"] for e in top
-                                if "emset" in e["name"]),
-            "device_ms": prof["device_ms"], "build_s": prof["phase_s"]["build"],
-            "fixpoint": prof["fixpoint"],
-            "launches": prof["launches"]["lift_stack"], "top": top[:8]})
-    use(best)
-    out.update(s22_builds=builds, s22_profiles=profiles,
-               total_s=time.perf_counter() - t_all)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "ladder_ab.json"), "w") as f:
-        json.dump(out, f, indent=1)
-    print("ladder-ab " + json.dumps({k: out[k] for k in (
-        "card", "best", "s22_builds", "total_s")}), flush=True)
-    print("ladder-ab-profiles " + json.dumps(
-        [{k: p[k] for k in p if k != "top"} for p in profiles]), flush=True)
-    return 0
-
-
 def main() -> int:
     import torch
 
@@ -2601,6 +2466,12 @@ def main() -> int:
         "live_share_median": share_med,
         "depth_mean": d["depth_sum"] / rounds, "depth_max": d["depth_max"],
         "depth_median": depth_med,
+        # levels a ladder computes, max(d - 1, 1); a launch a level of
+        # PR 4's ladder computed min(d, L - 1)
+        "ladder_levels_mean": statistics.mean(
+            max(r[0] - 1, 1) for r in round_log),
+        "ladder_levels_per_level_launch_mean": statistics.mean(
+            min(r[0], 22) for r in round_log),
         "split": "native", "split_s": res.phase_times["split"],
         "card": card}), flush=True)
 
@@ -2960,4 +2831,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ladder_ab() if sys.argv[1:] == ["--ladder-ab"] else main())
+    sys.exit(main())

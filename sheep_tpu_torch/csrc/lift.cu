@@ -54,6 +54,19 @@
 // before its first arrival, so no separate memset. A wait that outlasts
 // kBarrierTimeoutNs traps instead of hanging the card.
 //
+// The level. On the table of the R-MAT s22 build's own forest a level's
+// 2-2.4 M entries below n reach about 2 M distinct 32-byte sectors (a
+// warp's 128 entries reach some 110 sectors): the gathers are random
+// reads of L2, 64 MB of sectors a level beside the 33.6 MB stream of
+// the row read and written, and they bound it (an H100 at 700 W: 0.0198
+// ms a level against a row copy's 0.0077 on the same grid). An entry n
+// needs no gather (its result is t[n], read once a level), which
+// measured 2-4% faster there. Of 1, 2 or 4 quads in flight a thread,
+// blocks of 256 or 1024 threads and L2 eviction hints (evict_last on the
+// row written, evict_first on the row read), two quads and blocks of 1024
+// with no hints were the fastest on that table, within 1-5% of the rest
+// (PERF.md, section 6).
+//
 // The stack is level-major: one row of `stride` (a multiple of 32) int32
 // per level, so the squaring streams a row with 16-byte loads and stores.
 // An entry-major stack ([T, 32], one 128-byte line per entry, so that a
@@ -127,6 +140,10 @@ constexpr int kBarWords = 64;
 constexpr int kVoteBits = 21;  // a field of the word: up to 2^21 - 1 blocks
 constexpr unsigned long long kField = (1ull << kVoteBits) - 1;
 constexpr unsigned long long kBarrierTimeoutNs = 10000000000ull;
+// the level's shape (PERF.md, section 6): blocks of 1024 threads, two
+// 16-byte loads a thread in flight
+constexpr int kLadderBlock = 1024;
+constexpr int kLadderQuads = 2;
 
 __device__ __forceinline__ unsigned long long arrive(unsigned long long* p,
                                                      unsigned long long v) {
@@ -192,61 +209,19 @@ __device__ unsigned level_barrier(int32_t* bar, bool diff, bool live, int j,
   return now & 1u;
 }
 
-__device__ __forceinline__ unsigned long long policy_evict_last() {
-  unsigned long long p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ unsigned long long policy_evict_first() {
-  unsigned long long p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
-
-template <bool kHint>
-__device__ __forceinline__ int4 load_quad(const int4* p,
-                                          unsigned long long policy) {
-  if (!kHint) return *p;
-  int4 v;
-  asm volatile("ld.global.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p), "l"(policy));
-  return v;
-}
-
-template <bool kHint>
-__device__ __forceinline__ void store_quad(int4* p, int4 v,
-                                           unsigned long long policy) {
-  if (!kHint) {
-    *p = v;
-    return;
-  }
-  asm volatile(
-      "st.global.L2::cache_hint.v4.s32 [%0], {%1, %2, %3, %4}, %5;" ::"l"(p),
-      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy)
-      : "memory");
-}
-
-// t[clip(v)]; with kSkip an entry n (v == last) takes top = t[n] without
-// a gather
-template <bool kSkip>
+// t[clip(v)], but an entry n (v == last) takes top = t[n] with no gather
 __device__ __forceinline__ int32_t lift_one(const int32_t* t, int32_t v,
                                             int32_t last, int32_t top) {
-  if (kSkip && v == last) return top;
-  return t[clip(v, last)];
+  return v == last ? top : t[clip(v, last)];
 }
 
 // The ladder: levels t_1 .. t_{levels-1} of P into the stack (row k-1
-// holds t_k), each thread kQuads 16-byte loads of the source row in
-// flight an iteration before their 4 * kQuads gathers, a scalar tail for
-// the last T % 4 entries; a grid barrier after every level. The source
-// rows above P were written in this launch, so they are read with plain
-// (coherent) loads, never through the read-only path.
-template <int kQuads, bool kSkip, bool kHint, int kBlock>
-__global__ void __launch_bounds__(kBlock)
+// holds t_k), each thread kLadderQuads 16-byte loads of the source row in
+// flight an iteration before their gathers, a scalar tail for the last
+// T % 4 entries; a grid barrier after every level. The source rows above
+// P were written in this launch, so they are read with plain (coherent)
+// loads, never through the read-only path.
+__global__ void __launch_bounds__(kLadderBlock)
 lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
             int levels, int32_t* ctl, const int64_t* ex, int32_t* bar) {
   __shared__ unsigned stop;
@@ -257,11 +232,6 @@ lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
   const int64_t quads = T >> 2;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  unsigned long long keep = 0, drop = 0;
-  if (kHint) {
-    keep = policy_evict_last();
-    drop = policy_evict_first();
-  }
   for (int j = 0; j + 1 < levels; ++j) {
     const int32_t* src = j == 0 ? P : stack + (int64_t)(j - 1) * stride;
     int32_t* dst = stack + (int64_t)j * stride;
@@ -269,24 +239,23 @@ lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
     int4* d4 = reinterpret_cast<int4*>(dst);
     const int32_t top = src[last];
     bool diff = false, live = false;
-    for (int64_t q0 = tid; q0 < quads; q0 += step * kQuads) {
-      int4 v[kQuads], w[kQuads];
+    for (int64_t q0 = tid; q0 < quads; q0 += step * kLadderQuads) {
+      int4 v[kLadderQuads], w[kLadderQuads];
 #pragma unroll
-      for (int i = 0; i < kQuads; ++i)
-        if (q0 + i * step < quads)
-          v[i] = load_quad<kHint>(s4 + q0 + i * step, drop);
+      for (int i = 0; i < kLadderQuads; ++i)
+        if (q0 + i * step < quads) v[i] = s4[q0 + i * step];
 #pragma unroll
-      for (int i = 0; i < kQuads; ++i) {
+      for (int i = 0; i < kLadderQuads; ++i) {
         if (q0 + i * step >= quads) continue;
-        w[i].x = lift_one<kSkip>(src, v[i].x, last, top);
-        w[i].y = lift_one<kSkip>(src, v[i].y, last, top);
-        w[i].z = lift_one<kSkip>(src, v[i].z, last, top);
-        w[i].w = lift_one<kSkip>(src, v[i].w, last, top);
+        w[i].x = lift_one(src, v[i].x, last, top);
+        w[i].y = lift_one(src, v[i].y, last, top);
+        w[i].z = lift_one(src, v[i].z, last, top);
+        w[i].w = lift_one(src, v[i].w, last, top);
       }
 #pragma unroll
-      for (int i = 0; i < kQuads; ++i) {
+      for (int i = 0; i < kLadderQuads; ++i) {
         if (q0 + i * step >= quads) continue;
-        store_quad<kHint>(d4 + q0 + i * step, w[i], keep);
+        d4[q0 + i * step] = w[i];
         diff |= (w[i].x != v[i].x) | (w[i].y != v[i].y) |
                 (w[i].z != v[i].z) | (w[i].w != v[i].w);
         live |= (w[i].x != last) | (w[i].y != last) | (w[i].z != last) |
@@ -296,7 +265,7 @@ lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
     const int64_t p = (quads << 2) + tid;
     if (p < T) {
       const int32_t v = src[p];
-      const int32_t w = lift_one<kSkip>(src, v, last, top);
+      const int32_t w = lift_one(src, v, last, top);
       dst[p] = w;
       diff |= w != v;
       live |= w != last;
@@ -311,8 +280,7 @@ lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
 
 // One row copied (T read, T written) on the ladder's grid: the stream
 // floor that a level's time is held against (chip_smoke.py phase 3c).
-template <int kBlock>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kLadderBlock)
 copy_row(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
          int64_t T) {
   const int64_t quads = T >> 2;
@@ -323,47 +291,6 @@ copy_row(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
   for (int64_t q = tid; q < quads; q += step) d4[q] = __ldg(s4 + q);
   const int64_t p = (quads << 2) + tid;
   if (p < T) dst[p] = src[p];
-}
-
-// one atomicMax per block whose entries changed
-__device__ __forceinline__ void vote_rows(bool diff, int j, int32_t* ctl) {
-  if (__syncthreads_or(diff) && threadIdx.x == 0 &&
-      volatile_load(ctl + kRows) < j + 1)
-    atomicMax(ctl + kRows, j + 1);
-}
-
-// PR 4's ladder level, kept while the two are compared: dst = src[src]
-// over T entries, one launch a level
-__global__ void __launch_bounds__(kThreads)
-lift_level(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
-           int64_t T, int j, int32_t* ctl, const int64_t* ex) {
-  if (sheep::stopped(ex)) return;
-  if (volatile_load(ctl + kRows) < j) return;  // t_j == t_{j-1}
-  const int32_t last = (int32_t)(T - 1);
-  const int64_t quads = T >> 2;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  const int4* s4 = reinterpret_cast<const int4*>(src);
-  int4* d4 = reinterpret_cast<int4*>(dst);
-  bool diff = false;
-  for (int64_t q = tid; q < quads; q += step) {
-    const int4 v = __ldg(s4 + q);
-    int4 w;
-    w.x = __ldg(src + clip(v.x, last));
-    w.y = __ldg(src + clip(v.y, last));
-    w.z = __ldg(src + clip(v.z, last));
-    w.w = __ldg(src + clip(v.w, last));
-    d4[q] = w;
-    diff |= (w.x != v.x) | (w.y != v.y) | (w.z != v.z) | (w.w != v.w);
-  }
-  const int64_t p = (quads << 2) + tid;
-  if (p < T) {
-    const int32_t v = src[p];
-    const int32_t w = __ldg(src + clip(v, last));
-    dst[p] = w;
-    diff |= w != v;
-  }
-  vote_rows(diff, j, ctl);
 }
 
 // lo, hi and out_lo, out_hi may be the same slots (in place): no
@@ -450,75 +377,18 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
   }
 }
 
-Wave wave_old, wave_climb, wave_jumps;
+Wave wave_lift, wave_climb, wave_jumps;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-using Ladder = void (*)(const int32_t*, int32_t*, int64_t, int64_t, int,
-                        int32_t*, const int64_t*, int32_t*);
-
-struct Variant {
-  Ladder kernel;
-  int block;
-  int quads;
-  Wave wave;
-};
-
-#define SHEEP_LADDER(q, skip, hint, block) \
-  { lift_ladder<q, skip, hint, block>, block, q, Wave() }
-#define SHEEP_LADDERS(block)                                             \
-  SHEEP_LADDER(1, false, false, block), SHEEP_LADDER(2, false, false, block), \
-      SHEEP_LADDER(4, false, false, block),                              \
-      SHEEP_LADDER(1, true, false, block),                               \
-      SHEEP_LADDER(2, true, false, block),                               \
-      SHEEP_LADDER(4, true, false, block),                               \
-      SHEEP_LADDER(1, false, true, block),                               \
-      SHEEP_LADDER(2, false, true, block),                               \
-      SHEEP_LADDER(4, false, true, block),                               \
-      SHEEP_LADDER(1, true, true, block),                                \
-      SHEEP_LADDER(2, true, true, block), SHEEP_LADDER(4, true, true, block)
-
-// variant v: quads 1, 2, 4 (v % 3), skip (v / 3 % 2), hints (v / 6 % 2),
-// blocks of 256 (v < 12) or 1024 threads
-Variant variants[] = {SHEEP_LADDERS(256), SHEEP_LADDERS(1024)};
-constexpr int kVariants = sizeof(variants) / sizeof(variants[0]);
-int ladder_variant = 0;
-
-cudaError_t ladder_grid(Variant& v, long long T, int levels,
-                        unsigned* blocks) {
+cudaError_t ladder_grid(long long T, int levels, unsigned* blocks) {
   if (levels < 2) {  // nothing but ctl to zero
     *blocks = 1;
     return cudaSuccess;
   }
-  return wave_blocks(v.wave, v.kernel, (T / 4 + v.quads - 1) / v.quads,
-                     blocks, v.block);
-}
-
-int launch_ladder(Variant& v, const void* P, long long T, void* stack,
-                  long long stride, int levels, void* ctl, const void* ex,
-                  void* bar, cudaStream_t s) {
-  unsigned blocks = 0;
-  cudaError_t err = ladder_grid(v, T, levels, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  const int32_t* p = (const int32_t*)P;
-  int32_t* st = (int32_t*)stack;
-  int64_t stride64 = stride, T64 = T;
-  int lv = levels;
-  int32_t* c = (int32_t*)ctl;
-  const int64_t* e = (const int64_t*)ex;
-  int32_t* b = (int32_t*)bar;
-  void* args[] = {&p, &st, &stride64, &T64, &lv, &c, &e, &b};
-  return (int)cudaLaunchCooperativeKernel((const void*)v.kernel, dim3(blocks),
-                                          dim3(v.block), args, 0, s);
-}
-
-int check_ladder(const void* P, long long T, const void* stack,
-                 long long stride, int levels) {
-  if (T <= 0 || T > 0x7FFFFFFFLL || levels < 1 || levels > 32)
-    return (int)cudaErrorInvalidValue;
-  if (stride < T || stride % 4 || !aligned16(P) || !aligned16(stack))
-    return (int)cudaErrorMisalignedAddress;
-  return 0;
+  return wave_blocks(wave_lift, lift_ladder,
+                     (T / 4 + kLadderQuads - 1) / kLadderQuads, blocks,
+                     kLadderBlock);
 }
 
 }  // namespace
@@ -526,85 +396,55 @@ int check_ladder(const void* P, long long T, const void* stack,
 // The ladder of one round in one cooperative launch: ctl zeroed, then
 // levels t_1 .. t_{levels-1} into the stack, row k-1 (at stack +
 // (k-1)*stride) holding t_k, up to the first all-n level. ex: the
-// execution's state or null; bar: the barrier's int32[64] scratch, zero
-// when allocated, used by one ladder at a time.
+// execution's state or null; bar: the barrier's int32[kBarWords] scratch,
+// zero when allocated, used by one ladder at a time. A launch the card
+// refuses (the wave not co-resident) returns its error.
 extern "C" int sheep_lift_stack(const void* P, long long T, void* stack,
                                 long long stride, int levels, void* ctl,
                                 const void* ex, void* bar, void* stream) {
-  const int rc = check_ladder(P, T, stack, stride, levels);
-  if (rc) return rc;
-  return launch_ladder(variants[ladder_variant], P, T, stack, stride, levels,
-                       ctl, ex, bar, (cudaStream_t)stream);
+  if (T <= 0 || T > 0x7FFFFFFFLL || levels < 1 || levels > 32)
+    return (int)cudaErrorInvalidValue;
+  if (stride < T || stride % 4 || !aligned16(P) || !aligned16(stack))
+    return (int)cudaErrorMisalignedAddress;
+  unsigned blocks = 0;
+  cudaError_t err = ladder_grid(T, levels, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const int32_t* p = (const int32_t*)P;
+  int32_t* st = (int32_t*)stack;
+  int64_t stride64 = stride, T64 = T;
+  int32_t* c = (int32_t*)ctl;
+  const int64_t* e = (const int64_t*)ex;
+  int32_t* b = (int32_t*)bar;
+  void* args[] = {&p, &st, &stride64, &T64, &levels, &c, &e, &b};
+  return (int)cudaLaunchCooperativeKernel((const void*)lift_ladder,
+                                          dim3(blocks), dim3(kLadderBlock),
+                                          args, 0, (cudaStream_t)stream);
 }
 
 extern "C" int sheep_lift_bar_words() { return kBarWords; }
 
-// The variant of the level that sheep_lift_stack launches (0 ..
-// sheep_lift_variants() - 1), while the variants are compared.
-extern "C" int sheep_lift_variants() { return kVariants; }
-
-extern "C" int sheep_lift_set_variant(int v) {
-  if (v < 0 || v >= kVariants) return (int)cudaErrorInvalidValue;
-  ladder_variant = v;
-  return 0;
+// The ladder's grid for T entries: blocks (one wave) and threads a block.
+extern "C" int sheep_lift_grid(long long T, int* blocks, int* threads) {
+  unsigned b = 0;
+  const cudaError_t err = ladder_grid(T, 2, &b);
+  *blocks = (int)b;
+  *threads = kLadderBlock;
+  return (int)err;
 }
 
-// PR 4's ladder, kept while the two are compared: a memset of ctl and
-// levels - 1 launches of lift_level.
-extern "C" int sheep_lift_stack_levels(const void* P, long long T,
-                                       void* stack, long long stride,
-                                       int levels, void* ctl, const void* ex,
-                                       void* stream) {
-  const int rc = check_ladder(P, T, stack, stride, levels);
-  if (rc) return rc;
-  cudaStream_t s = (cudaStream_t)stream;
-  int32_t* c = (int32_t*)ctl;
-  cudaError_t err =
-      cudaMemsetAsync(c, 0, sheep::kCtlWords * sizeof(int32_t), s);
-  if (err != cudaSuccess) return (int)err;
-  unsigned blocks = 0;
-  err = wave_blocks(wave_old, lift_level, (T + 3) / 4, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  const int32_t* p = (const int32_t*)P;
-  int32_t* st = (int32_t*)stack;
-  for (int j = 0; j + 1 < levels; ++j) {
-    const int32_t* src = j == 0 ? p : st + (long long)(j - 1) * stride;
-    lift_level<<<blocks, kThreads, 0, s>>>(
-        src, st + (long long)j * stride, T, j, c, (const int64_t*)ex);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-// One row of T entries copied on the grid of the ladder that
-// sheep_lift_stack launches: the stream floor of a level.
+// One row of T entries copied on the ladder's grid: the stream floor of a
+// level.
 extern "C" int sheep_lift_copy_row(const void* src, void* dst, long long T,
                                    void* stream) {
   if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   if (!aligned16(src) || !aligned16(dst))
     return (int)cudaErrorMisalignedAddress;
-  Variant& v = variants[ladder_variant];
   unsigned blocks = 0;
-  cudaError_t err = ladder_grid(v, T, 2, &blocks);
+  const cudaError_t err = ladder_grid(T, 2, &blocks);
   if (err != cudaSuccess) return (int)err;
-  if (v.block == 256)
-    copy_row<256><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)src, (int32_t*)dst, T);
-  else
-    copy_row<1024><<<blocks, 1024, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)src, (int32_t*)dst, T);
+  copy_row<<<blocks, kLadderBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)src, (int32_t*)dst, T);
   return (int)cudaGetLastError();
-}
-
-// The ladder's grid for T entries: blocks (one wave) and threads a block.
-extern "C" int sheep_lift_grid(long long T, int* blocks, int* threads) {
-  Variant& v = variants[ladder_variant];
-  unsigned b = 0;
-  const cudaError_t err = ladder_grid(v, T, 2, &b);
-  *blocks = (int)b;
-  *threads = v.block;
-  return (int)err;
 }
 
 // One pass over m slots: out_lo/out_hi, and this pass's changed flag,

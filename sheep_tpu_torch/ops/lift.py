@@ -43,7 +43,7 @@ read: it is n by this contract.
 The stack is allocated once per fixpoint call (:func:`new_stack`): level
 k >= 1 is row k - 1 of an int32 [L-1, stride] tensor, stride the table
 length rounded up to a multiple of 32 (16-byte aligned rows). Rows at
-or above d - 1 are left as they were. The control word ``ctl`` is int32
+or above d - 1 are not read. The control word ``ctl`` is int32
 [ROWS, CHANGED, RETIRED, LIVE, TICKETS] (:func:`new_ctl`), ROWS = d - 1
 so that zeroing the word starts a round; TICKETS counts the blocks of
 the CUDA ``climb_tail`` that have finished the round.
@@ -242,10 +242,6 @@ def _lib():
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sheep_lift_stack.argtypes = [p, ll, p, ll, i, p, p, p, p]
         lib.sheep_lift_stack.restype = ctypes.c_int
-        lib.sheep_lift_stack_levels.argtypes = [p, ll, p, ll, i, p, p, p]
-        lib.sheep_lift_stack_levels.restype = ctypes.c_int
-        lib.sheep_lift_set_variant.argtypes = [i]
-        lib.sheep_lift_set_variant.restype = ctypes.c_int
         lib.sheep_lift_copy_row.argtypes = [p, p, ll, p]
         lib.sheep_lift_copy_row.restype = ctypes.c_int
         lib.sheep_lift_grid.argtypes = [ll, ctypes.POINTER(i),
@@ -257,6 +253,9 @@ def _lib():
         lib.sheep_climb_jumps.argtypes = [p, p, p, ll, p, ll, i, p, p, p, p,
                                           ll, ll, ll, p]
         lib.sheep_climb_jumps.restype = ctypes.c_int
+        if lib.sheep_lift_bar_words() != BAR_WORDS:
+            raise RuntimeError("csrc/lift.cu and ops/lift.py disagree on "
+                               "the ladder's barrier scratch")
         lib.sheep_lift_error_string.argtypes = [ctypes.c_int]
         lib.sheep_lift_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -270,9 +269,6 @@ def _raise_if(rc: int, fn: str) -> None:
 
 
 _BARS: dict = {}
-# while the ladders are compared: None, the one-launch ladder's variant
-# set by set_variant; "levels", PR 4's ladder of a launch a level
-LADDER = None
 
 
 def _bar(device, stream: int) -> torch.Tensor:
@@ -284,12 +280,6 @@ def _bar(device, stream: int) -> torch.Tensor:
         bar = torch.zeros(BAR_WORDS, dtype=torch.int32, device=device)
         _BARS[key] = bar
     return bar
-
-
-def set_variant(v: int) -> None:
-    """The variant of the level the ladder launches, while they are
-    compared (``csrc/lift.cu``)."""
-    _raise_if(_lib().sheep_lift_set_variant(v), "lift_stack")
 
 
 def ladder_grid(T: int):
@@ -334,15 +324,9 @@ def lift_stack(P: torch.Tensor, stack: torch.Tensor,
     ex = None if state is None else state.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        if LADDER == "levels":
-            rc = lib.sheep_lift_stack_levels(
-                P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1], L,
-                ctl.data_ptr(), ex, stream)
-        else:
-            rc = lib.sheep_lift_stack(
-                P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1], L,
-                ctl.data_ptr(), ex, _bar(P.device, stream).data_ptr(),
-                stream)
+        rc = lib.sheep_lift_stack(
+            P.data_ptr(), len(P), stack.data_ptr(), stack.shape[1], L,
+            ctl.data_ptr(), ex, _bar(P.device, stream).data_ptr(), stream)
     _raise_if(rc, "lift_stack")
     LAUNCHES["lift_stack"] += 1
 
