@@ -70,6 +70,8 @@ line is printed:
      parts, both parities; each timed beside its plain version, a library
      yardstick (``torch.bincount``, ``torch.max`` + ``gather``,
      ``torch.sort``) and its bytes bound, the planner's sort also alone;
+     the weighted planner (plain PyTorch, no kernel) timed on the card
+     with its bytes bound, equal to its run on the CPU;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -429,7 +431,9 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
                "retired": int(ret)}
         stack = lift.new_stack(T, L, dev)
         ctl = lift.new_ctl(dev)
-        if not records and dev.type == "cuda":
+        if not records and not fused and dev.type == "cuda":
+            # once, in phase 3c: a later profiler session in the same
+            # process has come back empty on the card
             rec["ladder_kernels"] = one_launch_ladder(P, stack, ctl)
         lift.lift_stack(P, stack, ctl)
         out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl)
@@ -1560,6 +1564,25 @@ def refine_kernels(card):
                "card": card}
         print("plan_moves " + json.dumps(rec), flush=True)
         records["plan_moves"].append(rec)
+    # the weighted planner, plain PyTorch on the card (no kernel of its
+    # own): integer weights 1-3, whose float32 sums stay exact below 2^24,
+    # against the same function on the CPU; bound: best, gain, assign and
+    # w read, the assignment written, 20 B a row
+    w = torch.randint(1, 4, (n + 1,), device=dev, generator=g).float()
+    wcap = float(1.10 * float(w[:n].sum()) / k)
+    got = refine.plan_moves_weighted(best, gain, assign, w, wcap, 0, n, k)
+    want = refine.plan_moves_weighted(best.cpu(), gain.cpu(), assign.cpu(),
+                                      w.cpu(), wcap, 0, n, k)
+    err = int((got.cpu().long() - want.long()).abs().max())
+    check(err == 0, "plan_moves_weighted on the card differs from the CPU")
+    rec = {"case": f"n{n}-k{k}-weighted", "n": n, "k": k, "cap": wcap,
+           "moved": int((got != assign).sum()), "max_abs_err": err,
+           "ms": gs.time_ms(lambda: refine.plan_moves_weighted(
+               best, gain, assign, w, wcap, 0, n, k), iters=5),
+           "bound_ms": gs.bound_ms(20 * (n + 1)), "bound_by": "bytes",
+           "card": card}
+    print("plan_moves_weighted " + json.dumps(rec), flush=True)
+    records["plan_moves_weighted"] = [rec]
     return records
 
 
@@ -2466,8 +2489,8 @@ def main() -> int:
         "live_share_median": share_med,
         "depth_mean": d["depth_sum"] / rounds, "depth_max": d["depth_max"],
         "depth_median": depth_med,
-        # levels a ladder computes, max(d - 1, 1); a launch a level of
-        # PR 4's ladder computed min(d, L - 1)
+        # levels a ladder computes, max(d - 1, 1); the per-level ladder
+        # it replaced computed min(d, L - 1)
         "ladder_levels_mean": statistics.mean(
             max(r[0] - 1, 1) for r in round_log),
         "ladder_levels_per_level_launch_mean": statistics.mean(
@@ -2654,7 +2677,7 @@ def main() -> int:
     # time in it at the phase 3g cases
     final = hier["calls"][-1]
     refine_head = {
-        name: recs[0] if name == "plan_moves" else
+        name: recs[0] if name.startswith("plan_moves") else
         next(r for r in recs if r["case"] in ("sbm-k64",
                                               f"rows{n22 + 1}-k64"))
         for name, recs in refine_cases.items()}
