@@ -30,7 +30,9 @@ line is printed:
      the positions) with live-slot shares of 100%, 10% and 1%, each timed
      beside its plain version, ``torch.take(t, t)`` for one squaring
      level, and its bytes bound; a ladder is one kernel launch and no
-     memset (``torch.profiler``);
+     memset (``torch.profiler``), and over a stack filled with -1 it
+     writes the levels up to the first all-n one, max(d - 1, 1) rows,
+     and no more;
   3d. the batched execution's kernels (``ops/fixpoint.py``) against their
      plain versions on the card, exactly: ``scatter_min`` at T = 2^22+1, C =
      2^23 with 100% and 1% of the slots live, also against the library pair
@@ -134,6 +136,7 @@ line is printed:
      execution, in place, its live slots and state restored between
      calls); then ``lift_stack`` on the table of phase 5's own forest
      (P[pos[v]] = pos[parent[v]]), exactly against its plain version,
+     with the rows it wrote counted and its launch profiled as in 3c,
      timed beside the stream floor (one row copied on the ladder's grid),
      with each level's entries below n and the distinct 32-byte sectors
      that a warp's gathers reach;
@@ -434,8 +437,10 @@ def lifts(card, cases, n: int = 1 << 22, C: int = 1 << 23,
         if not records and not fused and dev.type == "cuda":
             # once, in phase 3c: a later profiler session in the same
             # process has come back empty on the card
-            rec["ladder_kernels"] = one_launch_ladder(P, stack, ctl)
+            rec["ladder_profile"] = one_launch_ladder(P, stack, ctl)
+        stack.fill_(-1)  # no entry of a level: rows_written counts them
         lift.lift_stack(P, stack, ctl)
+        rec["levels_computed"] = rows_written(stack, T, d, name)
         out_lo, out_hi = lift.climb_tail(lo, hi, old, P, stack, ctl)
         torch.cuda.synchronize()
         errs = [int((stack[:d - 1, :T].long() - st[:d - 1].long())
@@ -473,9 +478,35 @@ def ladder_bytes(T: int, d: int) -> int:
     return 4 * T * d
 
 
-def one_launch_ladder(P, stack, ctl) -> list:
-    """The device operations of one ``lift_stack`` call, by
-    ``torch.profiler``: checked to be one kernel and no memset."""
+def rows_written(stack, T: int, d: int, what: str) -> int:
+    """The stack rows that a ladder wrote over a stack filled with -1
+    (no entry of a level is negative): each row written in full or not at
+    all, the written ones first, none past T; checked to be the levels up
+    to the first all-n one of a position-space table, max(d - 1, 1), so
+    that t_d, which equals t_{d-1}, was never computed."""
+    rows = len(stack)
+    touched = stack[:, :T] != -1
+    full = touched.all(1)
+    count = int(full.sum())
+    check(bool((full == touched.any(1)).all()) and bool(full[:count].all())
+          and bool((stack[:, T:] == -1).all()),
+          f"{what}: the ladder wrote part of a row, or past a gap")
+    want = min(max(d - 1, 1), rows)
+    check(count == want, f"{what}: the ladder computed {count} levels, not "
+          f"max(d - 1, 1) = {want} (d = {d})")
+    return count
+
+
+def one_launch_ladder(P, stack, ctl) -> dict:
+    """The device work of one ``lift_stack`` call, by ``torch.profiler``:
+    the CUDA runtime's launch, memset and copy calls (``api``), checked
+    to be one ``cudaLaunchCooperativeKernel`` and nothing else, and the
+    device's records (``kernels``), checked to hold no kernel or memset
+    but ``lift_ladder``. The runtime calls are the witness: on an H100,
+    once phase 4d has run, a session keeps the runtime call and the
+    records of ordinary kernels but drops the cooperative kernel's own
+    record for the rest of the process (PERF.md, section 7), so
+    ``kernels`` may then be empty."""
     import torch
 
     from sheep_tpu_torch.ops import lift
@@ -486,11 +517,17 @@ def one_launch_ladder(P, stack, ctl) -> list:
     with torch.profiler.profile(activities=[cuda]) as prof:
         lift.lift_stack(P, stack, ctl)
         torch.cuda.synchronize()
-    ops = [e.name for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(ops) == 1 and "lift_ladder" in ops[0],
-          f"lift_stack is not one kernel launch a ladder: {ops}")
-    return ops
+    events = prof.events()
+    api = [e.name for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU and
+           re.match(r"cuda(Launch|Memset|Memcpy)", e.name)]
+    kernels = [e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(api == ["cudaLaunchCooperativeKernel"] and len(kernels) <= 1 and
+          all("lift_ladder" in k for k in kernels),
+          f"lift_stack is not one kernel launch a ladder: runtime calls "
+          f"{api}, device records {kernels}")
+    return {"api": api, "kernels": kernels}
 
 
 def forest_table(res, n: int, dev: str = "cuda"):
@@ -533,7 +570,9 @@ def level_sectors(P, d: int, n: int) -> list:
 def forest_ladder(card, res, n: int = 1 << 22) -> dict:
     """Phase 5b's s22-forest case: ``lift_stack`` on the table of the
     full-size build's own forest (T = 2^22 + 1), exactly against its plain
-    version (stack rows 0 .. rows-1 and all five ctl words); its time, the
+    version (stack rows 0 .. rows-1 and all five ctl words), the rows it
+    wrote counted (:func:`rows_written`) and its launch profiled
+    (:func:`one_launch_ladder`); its time, the
     plain version's, ``torch.take(t, t)`` for one level, the stream floor
     (one row copied on the ladder's grid, ``lift.copy_row``), the bytes
     bound, and each level's entries below n and warp sectors."""
@@ -548,17 +587,20 @@ def forest_ladder(card, res, n: int = 1 << 22) -> dict:
     stack = lift.new_stack(T, L, P.device)
     ctl = lift.new_ctl(P.device)
     ctl.fill_(7)  # the ladder zeroes every word
+    stack.fill_(-1)
     lift.lift_stack(P, stack, ctl)
-    torch.cuda.synchronize()
+    levels = rows_written(stack, T, d, "s22 forest")
     err = int((stack[:d - 1, :T].long() - st[:d - 1].long()).abs().max()) \
         if d > 1 else 0
     check(err == 0 and ctl.tolist() == [d - 1, 0, 0, 0, 0],
           f"s22 forest: lift_stack disagrees with its plain version (error "
           f"{err}, ctl {ctl.tolist()}, depth {d})")
+    profile = one_launch_ladder(P, stack, ctl)
     blocks, threads = lift.ladder_grid(T)
     P64 = P.long()
     rec = {"case": "s22-forest", "T": T, "L": L, "depth": d,
-           "levels_computed": max(d - 1, 1), "max_abs_err": err,
+           "levels_computed": levels, "ladder_profile": profile,
+           "max_abs_err": err,
            "lift_ms": gs.time_ms(lambda: lift.lift_stack(P, stack, ctl)),
            "lift_plain_ms": gs.time_ms(lambda: lift.lift_stack_plain(P, L),
                                        iters=3),
@@ -2229,7 +2271,7 @@ def lift_entries(head, cases, launches, forest) -> list:
                       for r in cases}})
     ladder = out[0]
     ladder["max_abs_err"] = max(ladder["max_abs_err"], forest["max_abs_err"])
-    ladder["launches_a_ladder"] = len(cases[0]["ladder_kernels"])
+    ladder["launches_a_ladder"] = len(forest["ladder_profile"]["api"])
     ladder["bound_scope"] = "P read once, t_1 .. t_{d-1} written: 4 T d bytes"
     ladder["cases"]["s22-forest"] = {
         k: forest[k] for k in ("lift_ms", "lift_plain_ms", "lift_bound_ms",
@@ -2489,8 +2531,10 @@ def main() -> int:
         "live_share_median": share_med,
         "depth_mean": d["depth_sum"] / rounds, "depth_max": d["depth_max"],
         "depth_median": depth_med,
-        # levels a ladder computes, max(d - 1, 1); the per-level ladder
-        # it replaced computed min(d, L - 1)
+        # levels a ladder computes, derived from each round's depth by
+        # the rule that rows_written holds the kernel to in phases 3c and
+        # 5b, max(d - 1, 1); the per-level ladder it replaced computed
+        # min(d, L - 1)
         "ladder_levels_mean": statistics.mean(
             max(r[0] - 1, 1) for r in round_log),
         "ladder_levels_per_level_launch_mean": statistics.mean(

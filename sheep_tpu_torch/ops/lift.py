@@ -83,7 +83,6 @@ LAUNCHES = {"lift_stack": 0, "climb_tail": 0, "climb_jumps": 0}
 
 ROWS, CHANGED, RETIRED, LIVE, TICKETS = range(5)
 CTL_WORDS = 5
-BAR_WORDS = 64  # the ladder's grid-barrier scratch (csrc/lift.cu kBarWords)
 ROW_ALIGN = 32  # int32: rows start on 128-byte boundaries
 
 
@@ -253,9 +252,6 @@ def _lib():
         lib.sheep_climb_jumps.argtypes = [p, p, p, ll, p, ll, i, p, p, p, p,
                                           ll, ll, ll, p]
         lib.sheep_climb_jumps.restype = ctypes.c_int
-        if lib.sheep_lift_bar_words() != BAR_WORDS:
-            raise RuntimeError("csrc/lift.cu and ops/lift.py disagree on "
-                               "the ladder's barrier scratch")
         lib.sheep_lift_error_string.argtypes = [ctypes.c_int]
         lib.sheep_lift_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -277,7 +273,8 @@ def _bar(device, stream: int) -> torch.Tensor:
     key = (device.index, stream)
     bar = _BARS.get(key)
     if bar is None:
-        bar = torch.zeros(BAR_WORDS, dtype=torch.int32, device=device)
+        bar = torch.zeros(_lib().sheep_lift_bar_words(), dtype=torch.int32,
+                          device=device)
         _BARS[key] = bar
     return bar
 
@@ -294,6 +291,10 @@ def copy_row(src: torch.Tensor, dst: torch.Tensor) -> None:
     """``dst[:T] = src`` on the ladder's grid, T = len(src): the stream
     floor of one level (a yardstick; no kernel of the path)."""
     _check_vec("copy_row: src", src)
+    _check_vec("copy_row: dst", dst)
+    if len(dst) < len(src) or dst.device != src.device:
+        raise ValueError("copy_row: dst must hold len(src) entries on "
+                         "src's device")
     if src.device.type == "cpu":
         dst[:len(src)].copy_(src)
         return

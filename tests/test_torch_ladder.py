@@ -107,3 +107,21 @@ def test_one_level_ladder_computes_nothing(monkeypatch):
     P = torch.full((n + 1,), n, dtype=torch.int32)
     stack, d, computed = _counted_ladder(monkeypatch, P, 1)
     assert stack.shape[0] == 0 and d == 1 and computed == 0
+
+
+def test_copy_row_copies_a_row():
+    src = torch.arange(37, dtype=torch.int32)
+    dst = torch.full((64,), -1, dtype=torch.int32)
+    lift.copy_row(src, dst)
+    assert torch.equal(dst[:37], src) and bool((dst[37:] == -1).all())
+
+
+@pytest.mark.parametrize("dst", ["short", "int64", "2-D"])
+def test_copy_row_refuses_a_bad_dst(dst):
+    src = torch.arange(37, dtype=torch.int32)
+    bad = {"short": torch.zeros(36, dtype=torch.int32),
+           "int64": torch.zeros(64, dtype=torch.int64),
+           "2-D": torch.zeros((2, 64), dtype=torch.int32)}[dst]
+    with pytest.raises((TypeError, ValueError)):
+        lift.copy_row(src, bad)
+    assert not bad.any()
