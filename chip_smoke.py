@@ -178,6 +178,19 @@ line is printed:
      score stage nothing), without it, and under a 128 MiB budget (spill
      and reload); each against the JAX package's cut, total and comm
      volume;
+  5i. phase 5's build traced (``sheep_tpu_torch.obs``): in this process,
+     untraced, traced, traced, untraced (a heartbeat every 0.25 s), each
+     with phase 5's cut, comm volume, device rounds and host reads, their
+     build and wall seconds; the port's CLI in a fresh process with
+     ``--trace``, ``--heartbeat-secs 0.25`` and ``--metrics-out`` at phase
+     5's settings: phase 5's result, ``tools/trace_report.py --check``
+     passing, the span tree run > partition > {degrees, sort, build >
+     dispatch x (host reads + 1), split, score} with the dispatch spans'
+     rounds summing to the device rounds, a final heartbeat whose memory
+     high-water is at most the run's peak, the manifest's device name and
+     power limit nvidia-smi's; then with ``--profile-dir``: the Chrome
+     trace names the ladder's, K1's, ``scatter_min``'s and
+     ``climb_tail``'s kernels, with their summed device ms;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
@@ -194,6 +207,7 @@ Without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1726,7 +1740,6 @@ def hier_s22(card, counters):
     refinement is recorded (rows, k, seconds, passes, rounds, cuts), with
     each kernel's launches, the phase seconds and the peak device
     memory."""
-    import contextlib
     import io
 
     import torch
@@ -1822,8 +1835,6 @@ RESIDENCY_KEYS = ("spill_evictions", "spill_reloads", "spill_reload_bytes",
 def _armed(env: dict):
     """A context that sets ``env`` (with the retry's backoff at 0) for
     one run, re-arms the fault injection and restores both after."""
-    import contextlib
-
     from sheep_tpu_torch.utils import fault
 
     @contextlib.contextmanager
@@ -2236,6 +2247,206 @@ def s22_faults(card):
               "s22 .bin32 at 128 MiB: no spill and reload")
         out["cache_runs"] = runs
     print("s22-faults " + json.dumps(out), flush=True)
+    return out
+
+
+# phase 5's build through the CLI (5i)
+S22_CLI = ["--input", S22_SPEC, "--k", str(S22_K), "--chunk-edges",
+           str(1 << 23), "--dispatch-batch", "8", "--inflight", "2",
+           "--json"]
+# the round's kernels as the profiler names them (5i)
+ROUND_KERNELS = {"lift_stack": "lift_ladder", "gather_clip":
+                 "gather_clip_kernel", "scatter_min": "scatter_min_kernel",
+                 "climb_tail": "climb_tail_kernel"}
+
+
+def _cli(args, timeout: int = 600) -> dict:
+    """The port's CLI in a fresh process from the repo's root; its last
+    stdout line, the JSON result."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-m", "sheep_tpu_torch.cli", *args],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=timeout)
+    check(r.returncode == 0, f"cli {' '.join(args)}: exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _span_tree(recs) -> dict:
+    """The trace's spans by id, each with its children's ids."""
+    spans = {}
+    for r in recs:
+        if r["event"] == "span_start":
+            spans[r["id"]] = {"name": r["span"], "parent": r["parent"],
+                              "end": None, "kids": []}
+        elif r["event"] == "span_end":
+            spans[r["id"]]["end"] = r
+    for i, s in spans.items():
+        if s["parent"] is not None:
+            spans[s["parent"]]["kids"].append(i)
+    return spans
+
+
+def traced_s22(card, res, wall: float, peak: int) -> dict:
+    """Phase 5i: phase 5's build traced. (a) In this process, at phase 5's
+    settings, untraced, traced (``obs.tracing`` with a 0.25 s heartbeat),
+    traced, untraced: build and wall seconds, each result phase 5's. (b)
+    The port's CLI in a fresh process with --trace, --heartbeat-secs 0.25
+    and --metrics-out: cut, comm volume, device rounds and host reads
+    equal phase 5's (``res``); ``tools/trace_report.py --check`` passes;
+    the span tree is run > partition > {degrees, sort, build > dispatch
+    x (host reads + 1), split, score}, the dispatch spans' rounds sum to
+    the device rounds; the last heartbeat is final, and its memory
+    high-water at most the run's peak (--metrics-out's device_memory); the
+    manifest's device and power limit are nvidia-smi's. (c) The CLI again
+    with --profile-dir: the Chrome trace names the round's four kernels
+    (the ladder, K1, scatter_min, climb_tail), their device ms summed."""
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch import obs
+
+    d5 = res.diagnostics
+    same = ("edge_cut", "comm_volume")
+    out = {"untraced_wall_s": wall, "untraced_build_s":
+           res.phase_times["build"], "untraced_peak_bytes": peak}
+    # (a) in turns, in this process
+    turns = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, traced in enumerate((False, True, True, False)):
+            path = os.path.join(tmp, f"t{i}.jsonl")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (obs.tracing(path, heartbeat_secs=0.25,
+                              device=torch.device("cuda")) if traced
+                  else contextlib.nullcontext()):
+                r = sheep_tpu_torch.partition(
+                    S22_SPEC, S22_K, device="cuda", chunk_edges=1 << 23,
+                    dispatch_batch=8)
+            turn_wall = time.perf_counter() - t0
+            for key in same:
+                check(getattr(r, key) == getattr(res, key),
+                      f"5i turn {i}: {key} differs from phase 5")
+            for key in ("device_rounds", "host_syncs"):
+                check(r.diagnostics[key] == d5[key],
+                      f"5i turn {i}: {key} differs from phase 5")
+            turns.append({"traced": traced, "wall_s": turn_wall,
+                          "build_s": r.phase_times["build"]})
+    out["turns"] = turns
+    # (b) the CLI, traced, in a fresh process
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "t.jsonl")
+        mpath = os.path.join(tmp, "m.jsonl")
+        t0 = time.perf_counter()
+        line = _cli(S22_CLI + ["--trace", trace, "--heartbeat-secs", "0.25",
+                               "--metrics-out", mpath])
+        out["cli_process_s"] = time.perf_counter() - t0
+        dg = line["diagnostics"]
+        for key in same:
+            check(line[key] == getattr(res, key),
+                  f"5i cli: {key} {line[key]} != phase 5's")
+        for key in ("device_rounds", "host_syncs"):
+            check(dg[key] == d5[key],
+                  f"5i cli: {key} {dg[key]} != phase 5's {d5[key]}")
+        root = os.path.dirname(os.path.abspath(__file__))
+        rep = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "trace_report.py"),
+             "--check", trace], cwd=root, capture_output=True, text=True,
+            timeout=300)
+        check(rep.returncode == 0, f"5i: trace_report --check exit "
+                                   f"{rep.returncode}: {rep.stderr[-2000:]}")
+        with open(trace) as f:
+            recs = [json.loads(x) for x in f]
+        with open(mpath) as f:
+            mrecs = [json.loads(x) for x in f]
+    spans = _span_tree(recs)
+    check(all(s["end"] is not None for s in spans.values()),
+          "5i: a span was left open")
+    names = lambda ids: [spans[i]["name"] for i in ids]  # noqa: E731
+    roots = [i for i, s in spans.items() if s["parent"] is None]
+    check(names(roots) == ["run"], f"5i: roots {names(roots)}")
+    kids = spans[roots[0]]["kids"]
+    check(names(kids) == ["partition"], f"5i: under run {names(kids)}")
+    part = spans[kids[0]]["kids"]
+    check(names(part) == ["degrees", "sort", "build", "split", "score"],
+          f"5i: under partition {names(part)}")
+    build = spans[part[2]]
+    dispatch = [spans[i]["end"] for i in build["kids"]]
+    check(dispatch and set(names(build["kids"])) == {"dispatch"},
+          f"5i: under build {set(names(build['kids']))}")
+    check(len(dispatch) == dg["host_syncs"] + 1,
+          f"5i: {len(dispatch)} dispatch spans for {dg['host_syncs']} reads")
+    rounds = sum(e.get("rounds", 0) for e in dispatch)
+    check(rounds == dg["device_rounds"],
+          f"5i: dispatch spans' rounds {rounds} != {dg['device_rounds']}")
+    check(build["end"]["fixpoint_rounds"] == dg["device_rounds"],
+          "5i: the build span's fixpoint_rounds")
+    beats = [r for r in recs if r["event"] == "heartbeat"]
+    check(beats and beats[-1].get("final") is True,
+          "5i: no final heartbeat")
+    mem = [b["memory"]["peak_bytes_in_use"] for b in beats if "memory" in b]
+    run_peak = [r for r in mrecs if r["event"] == "device_memory"]
+    check(mem and run_peak, "5i: no device memory in the heartbeats or the "
+                            "metrics")
+    run_peak = run_peak[0]["peak_bytes_in_use"]
+    check(max(mem) <= run_peak, f"5i: heartbeat peak {max(mem)} over the "
+                                f"run's {run_peak}")
+    manifest = recs[0]
+    check(manifest["event"] == "manifest", "5i: no manifest first")
+    smi_name, smi_power = (x.strip() for x in card.rsplit(",", 1))
+    dev = manifest["devices"][manifest.get("device_index", 0)]
+    check(dev["name"] == smi_name and manifest["power_limit"] == smi_power,
+          f"5i: manifest {dev['name']!r}, {manifest['power_limit']!r} "
+          f"against nvidia-smi {card!r}")
+    events = [r for r in recs if r["event"] not in
+              ("span_start", "span_end", "heartbeat")]
+    out.update({
+        "cli_wall_s": line["wall_seconds"],
+        "cli_build_s": line["phase_times"]["build"],
+        "edge_cut": line["edge_cut"], "comm_volume": line["comm_volume"],
+        "device_rounds": dg["device_rounds"], "host_syncs": dg["host_syncs"],
+        "trace_report_check": rep.returncode, "spans": len(spans),
+        "dispatch_spans": len(dispatch), "heartbeats": len(beats),
+        "heartbeat_peak_bytes": max(mem), "run_peak_bytes": run_peak,
+        "events": len(events),
+        "event_names": sorted({r["event"] for r in events}),
+        "manifest_device": dev["name"], "manifest_capability":
+            dev["capability"], "manifest_power_limit":
+            manifest["power_limit"]})
+    # (c) the CLI under torch.profiler, in a fresh process: the cooperative
+    # ladder's records survive there (PERF.md, section 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        pdir = os.path.join(tmp, "prof")
+        t0 = time.perf_counter()
+        pline = _cli(S22_CLI + ["--profile-dir", pdir])
+        out["profiled_process_s"] = time.perf_counter() - t0
+        for key in same:
+            check(pline[key] == getattr(res, key),
+                  f"5i profiled: {key} differs from phase 5")
+        traces = os.listdir(pdir)
+        check(len(traces) == 1, f"5i profiled: {traces} in the directory")
+        with open(os.path.join(pdir, traces[0])) as f:
+            prof = json.load(f)["traceEvents"]
+    kernel_us = {name: 0.0 for name in ROUND_KERNELS}
+    kernel_n = {name: 0 for name in ROUND_KERNELS}
+    for e in prof:
+        if e.get("cat") != "kernel":
+            continue
+        for name, sym in ROUND_KERNELS.items():
+            if sym in e.get("name", ""):
+                kernel_us[name] += float(e.get("dur", 0.0))
+                kernel_n[name] += 1
+    for name in ROUND_KERNELS:
+        check(kernel_n[name] > 0, f"5i profiled: no {ROUND_KERNELS[name]} "
+                                  f"in the Chrome trace")
+    out.update({"profiled_wall_s": pline["wall_seconds"],
+                "profiled_build_s": pline["phase_times"]["build"],
+                "profiled_kernel_ms": {k: v / 1e3
+                                       for k, v in kernel_us.items()},
+                "profiled_kernel_launches": kernel_n,
+                "profiled_round_kernels_ms": sum(kernel_us.values()) / 1e3,
+                "profile_events": len(prof), "card": card})
+    print("s22-traced " + json.dumps(out), flush=True)
     return out
 
 
@@ -2737,6 +2948,9 @@ def main() -> int:
     # 5h. faults at full size: kill and resume, a real out-of-memory error,
     # the cache on a file
     s22_faults(card)
+    # 5i. phase 5's build traced, in turns with untraced builds, through
+    # the CLI with its trace, heartbeat and metrics, and profiled
+    traced_s22(card, res, wall, peak)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b) and climb_level's the stream

@@ -52,6 +52,7 @@ from contextlib import closing, nullcontext
 import numpy as np
 import torch
 
+from sheep_tpu_torch import obs
 from sheep_tpu_torch.core import pure
 from sheep_tpu_torch.device import resolve_device
 from sheep_tpu_torch.io.devicestream import (is_device_stream,
@@ -337,7 +338,8 @@ class TorchBackend:
                 torch.stack(group), pos, n), real)
 
     def _build_per_segment(self, P, chunks, cs: int, n: int, pos, pos_host,
-                           stats, carry=None, chunk_done=None):
+                           stats, carry=None, chunk_done=None, start=0,
+                           stats_acc=obs.NULL_STATS):
         """The build at N == 1 == D, as the reference's: each chunk through
         the adaptive driver, its tail finished on the host, carried into
         the next chunk (``carry_tail``, the first from ``carry``) or
@@ -345,7 +347,10 @@ class TorchBackend:
         (``tail_overlap``); a carried tail left at the end is folded last.
         ``chunk_done(P, carry, flush)`` runs after each chunk and returns
         P; ``flush(P)``, given under ``tail_overlap``, folds every tail in
-        flight into P and returns it. Returns ``(P, total_rounds)``."""
+        flight into P and returns it. Each chunk's fold is a ``segment``
+        span (``i``: its index in the stream, from ``start``), which
+        ``stats_acc`` feeds ``stats`` into. Returns
+        ``(P, total_rounds)``."""
         dev = self.device
         tail_at = self.host_tail_threshold
         if tail_at < 0:
@@ -371,27 +376,36 @@ class TorchBackend:
                     total += rounds
                 return P
 
-            for padded in chunks:
-                if overlap:
-                    # resolved tails, without waiting, join this fold
-                    ov.drain(False)
-                    carry = ov.take_inject()
-                step = elim_ops.build_chunk_step_adaptive_pos(
-                    P, padded, pos, pos_host, n, carry=carry,
-                    carry_out=self.carry_tail or overlap,
-                    warm_schedule=self.warm_schedule, **fold_kw)
-                if self.carry_tail:
-                    P, rounds, carry = step
-                elif overlap:
-                    P, rounds, tail = step
-                    carry = None
-                    if len(tail[0]):
-                        stats["overlap_tails"] = \
-                            stats.get("overlap_tails", 0) + 1
-                        ov.submit(P, tail[0], tail[1])
-                else:
-                    P, rounds = step
-                total += rounds
+            for i, padded in enumerate(chunks, start):
+                seg_sp = obs.begin("segment", i=i)
+                try:
+                    if overlap:
+                        # resolved tails, without waiting, join this fold
+                        ov.drain(False)
+                        carry = ov.take_inject()
+                    step = elim_ops.build_chunk_step_adaptive_pos(
+                        P, padded, pos, pos_host, n, carry=carry,
+                        carry_out=self.carry_tail or overlap,
+                        warm_schedule=self.warm_schedule, **fold_kw)
+                    if self.carry_tail:
+                        P, rounds, carry = step
+                    elif overlap:
+                        P, rounds, tail = step
+                        carry = None
+                        if len(tail[0]):
+                            stats["overlap_tails"] = \
+                                stats.get("overlap_tails", 0) + 1
+                            ov.submit(P, tail[0], tail[1])
+                    else:
+                        P, rounds = step
+                    total += rounds
+                    stats_acc.absorb(stats)
+                    seg_sp.end(rounds=rounds)
+                except BaseException as exc:
+                    # a fault that unwinds the fold closes its span, so a
+                    # recovered run still renders a whole tree
+                    seg_sp.end(error=type(exc).__name__)
+                    raise
                 if chunk_done is not None:
                     P = chunk_done(P, carry, flush if overlap else None)
             if overlap:
@@ -429,6 +443,14 @@ class TorchBackend:
         t0 = time.perf_counter()
         n = stream.num_vertices
         check_vertex_range(n)
+        # the trace's spans and events, as the reference's; each value
+        # passed to them is a host number already
+        root_sp = obs.begin("partition", backend=self.name, k=int(k),
+                            n=int(n), chunk_edges=int(cs))
+        stats_acc = obs.stats_accumulator()
+        m_cheap = stream.num_edges_cheap
+        obs.progress(backend=self.name, k=int(k), edges_total=m_cheap,
+                     chunks_total=-(-m_cheap // cs) if m_cheap else None)
         carry_mode = self.carry_tail
         meta = ckpt.stream_meta(stream, k, cs, weights=weights,
                                 alpha=self.alpha, comm_volume=comm_volume,
@@ -469,6 +491,8 @@ class TorchBackend:
             if cache is not None:
                 cache.boundary(confirmed)
 
+        sp = obs.begin("degrees")
+        obs.progress(phase="degrees", chunks_done=0, edges_done=0)
         deg = degrees_ops.init_degrees(n, dev)
         deg_saved = state.arrays["deg"] if state else None
         if from_phase == 0:
@@ -479,6 +503,7 @@ class TorchBackend:
                     degrees_ops.degree_chunk(deg, chunk, n)
                     idx += 1
                     maybe_fail("degrees", idx - start)
+                    obs.chunk_progress(idx, cs, m_cheap)
                     if checkpointer is not None and \
                             checkpointer.due(idx - start):
                         # the device keeps int64 totals: the saved ones
@@ -492,14 +517,18 @@ class TorchBackend:
             deg[:n] += torch.from_numpy(deg_saved).to(dev)
         deg_host = deg[:n].cpu().numpy()
         t["degrees"] = time.perf_counter() - t0
+        sp.end()
 
         t0 = time.perf_counter()
-        pos, order = order_ops.elimination_order(deg, n)
-        del deg
-        _sync(dev)
-        t["sort"] = time.perf_counter() - t0
+        with obs.span("sort"):
+            pos, order = order_ops.elimination_order(deg, n)
+            del deg
+            _sync(dev)
+            t["sort"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        sp = obs.begin("build")
+        obs.progress(phase="build", chunks_done=0, edges_done=0)
         counters = (gather_ops.LAUNCHES, lift_ops.LAUNCHES,
                     fixpoint_ops.LAUNCHES, compact_ops.LAUNCHES)
         launches0 = {k: v for c in counters for k, v in c.items()}
@@ -553,6 +582,7 @@ class TorchBackend:
                     def chunk_done(P, carry, flush):
                         nonlocal idx
                         idx += 1
+                        obs.chunk_progress(idx, cs, m_cheap)
                         maybe_fail("build", idx - start,
                                    kinds=("kill", "oom", "device"))
                         if checkpointer is not None and \
@@ -570,25 +600,35 @@ class TorchBackend:
                     with chunks(start, cfg["ring"]) as it:
                         P, rounds = self._build_per_segment(
                             P, it, cs, n, pos, pos_host, stats, carry,
-                            chunk_done)
+                            chunk_done, start, stats_acc)
                     total_rounds += rounds
                     return P
+
+                # rolling dispatch spans tile the build confirm to
+                # confirm: issue and confirm interleave across groups, so
+                # spans a group would not nest
+                dsp = obs.begin("dispatch", i=idx)
 
                 def confirmed(real, rounds, tipP):
                     # asks for a flush barrier when a checkpoint is due:
                     # mid-pipeline the tip table can miss a confirmed
                     # group's leftovers still queued, so the save waits
                     # for flushed(), after the driver drains them
-                    nonlocal idx
-                    if real is None:
-                        return False
-                    prev = idx
-                    idx += real
-                    for i in range(prev + 1, idx + 1):
-                        maybe_fail("build", i - start,
-                                   kinds=("kill", "oom", "device"))
-                    return checkpointer is not None and \
-                        checkpointer.due_span(prev - start, idx - start)
+                    nonlocal idx, dsp
+                    stats_acc.absorb(stats)
+                    dsp.end(rounds=rounds)
+                    due = False
+                    if real is not None:
+                        prev = idx
+                        idx += real
+                        obs.chunk_progress(idx, cs, m_cheap)
+                        for i in range(prev + 1, idx + 1):
+                            maybe_fail("build", i - start,
+                                       kinds=("kill", "oom", "device"))
+                        due = checkpointer is not None and \
+                            checkpointer.due_span(prev - start, idx - start)
+                    dsp = obs.begin("dispatch", i=idx)
+                    return due
 
                 def flushed(tipP):
                     # drained: idx, advanced through every group confirmed
@@ -596,17 +636,25 @@ class TorchBackend:
                     save(idx, {"deg": deg_host,
                                "minp": tipP[pos_l].cpu().numpy()})
 
-                with chunks(start, cfg["ring"]) as groups, \
-                        closing(self._staged_groups(groups, cs, n, pos,
-                                                    N)) as staged:
-                    # a fold that stops early leaves both generators open:
-                    # closing them stops the prefetch worker and the ring
-                    P, rounds = elim_ops.fold_segments_pipelined(
-                        P, staged, n, inflight=D,
-                        lift_levels=self.lift_levels,
-                        segment_rounds=self.segment_rounds, stats=stats,
-                        on_confirm=confirmed, on_flush=flushed,
-                        round_log=round_log)
+                try:
+                    with chunks(start, cfg["ring"]) as groups, \
+                            closing(self._staged_groups(groups, cs, n, pos,
+                                                        N)) as staged:
+                        # a fold that stops early leaves both generators
+                        # open: closing them stops the prefetch worker and
+                        # the ring
+                        P, rounds = elim_ops.fold_segments_pipelined(
+                            P, staged, n, inflight=D,
+                            lift_levels=self.lift_levels,
+                            segment_rounds=self.segment_rounds, stats=stats,
+                            on_confirm=confirmed, on_flush=flushed,
+                            round_log=round_log)
+                except BaseException as exc:
+                    dsp.end(error=type(exc).__name__)
+                    raise
+                # the span the last confirm opened covers the drain's end
+                dsp.end()
+                stats_acc.absorb(stats)
                 total_rounds += rounds
                 return P
 
@@ -644,6 +692,7 @@ class TorchBackend:
                         on_resource=on_resource,
                         on_device_loss=lambda: retry_mod.recover_device_loss(
                             stats, snap["idx"], save_snapshot, device=dev))
+                    stats_acc.absorb(stats)
                 # the failed attempt's tensors die with the frames its
                 # exception held: collect them before the next allocates
                 gc.collect()
@@ -657,15 +706,21 @@ class TorchBackend:
         for key, name in LAUNCH_KEYS.items():
             stats[key] = launches[name] - launches0[name]
         t["build"] = time.perf_counter() - t0
+        # the launches ride the build span's counters on the card
+        stats_acc.absorb(stats)
+        sp.end(fixpoint_rounds=int(total_rounds))
 
         t0 = time.perf_counter()
-        parent = elim_ops.minp_to_parent(minp, order, n)
-        w = deg_host.astype(np.float64) if weights == "degree" else None
-        assign_host = split_ops.tree_split_host(parent, pos_host, k,
-                                                weights=w, alpha=self.alpha)
-        t["split"] = time.perf_counter() - t0
+        with obs.span("split"):
+            parent = elim_ops.minp_to_parent(minp, order, n)
+            w = deg_host.astype(np.float64) if weights == "degree" else None
+            assign_host = split_ops.tree_split_host(
+                parent, pos_host, k, weights=w, alpha=self.alpha)
+            t["split"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        sp = obs.begin("score")
+        obs.progress(phase="score", chunks_done=0, edges_done=0)
         parts = {k: torch.from_numpy(np.concatenate(
             [assign_host.astype(np.int32), np.zeros(1, np.int32)])).to(dev)}
         cut = {k: torch.zeros((), dtype=torch.int64, device=dev)}
@@ -686,6 +741,7 @@ class TorchBackend:
             nonlocal idx, minp_host
             idx += 1
             maybe_fail("score", idx - start)
+            obs.chunk_progress(idx, cs, m_cheap)
             if checkpointer is not None and checkpointer.due(idx - start):
                 if minp_host is None:
                     minp_host = minp.cpu().numpy()
@@ -700,8 +756,12 @@ class TorchBackend:
             _score_chunks(it, parts, n, comm_volume, cut, total, cv_keys,
                           score_done)
         cv = score_ops.comm_volume(cv_keys[k]) if comm_volume else None
+        # the score pass re-streams: its counters reach the final totals
+        stats_acc.absorb(stats)
         balance = pure.part_balance(assign_host, k, w)
         t["score"] = time.perf_counter() - t0
+        sp.end()
+        root_sp.end()
         if checkpointer is not None:
             checkpointer.clear()
         if ckpt.degraded_events() > ckpt_degraded0:

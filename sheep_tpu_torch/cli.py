@@ -9,9 +9,14 @@
         --auto-recipe
     python -m sheep_tpu_torch.cli --input rmat-hash:22 --k 64 \
         --checkpoint-dir ck --resume
+    python -m sheep_tpu_torch.cli --input rmat-hash:22 --k 64 \
+        --trace t.jsonl --heartbeat-secs 1 --metrics-out m.jsonl
 
 prints the phase times and scores, then one JSON result line per k (the
-same fields as the reference's) last.
+same fields as the reference's) last. ``--trace`` appends the run's
+manifest, span tree, heartbeats and scores as JSONL (render it with
+``tools/trace_report.py``); ``--profile-dir`` writes a ``torch.profiler``
+Chrome trace of the partition.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ import json
 import os
 import sys
 import time
+from contextlib import contextmanager
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sheep-torch",
                                 description="SHEEP graph partitioning on "
                                             "PyTorch/CUDA")
@@ -145,7 +151,63 @@ def main(argv=None) -> int:
                    help="write the partition map (.parts text or .pbin)")
     p.add_argument("--json", action="store_true",
                    help="print only the JSON result line")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="record the partition under torch.profiler (CPU "
+                        "and CUDA activities; CPU only with --device cpu) "
+                        "and write its Chrome trace into DIR")
+    p.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="append structured JSONL metrics (phases, scores, "
+                        "part loads, device memory) to FILE")
+    p.add_argument("--trace", default=None, metavar="FILE",
+                   help="append a structured trace (JSONL: run manifest, "
+                        "span tree with counter deltas, heartbeats, "
+                        "scores) to FILE; render with "
+                        "tools/trace_report.py")
+    p.add_argument("--heartbeat-secs", type=float, default=None,
+                   metavar="S",
+                   help="with --trace: a progress heartbeat record (phase, "
+                        "chunks done, edges/s, ETA, counters, device "
+                        "memory) every S seconds, and a final one")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
+    if args.heartbeat_secs is not None:
+        if args.trace is None:
+            p.error("--heartbeat-secs requires --trace (heartbeats are "
+                    "trace records)")
+        if args.heartbeat_secs <= 0:
+            p.error("--heartbeat-secs must be > 0")
+    if args.trace is None:
+        return _run(p, args)
+
+    from sheep_tpu_torch import obs
+    from sheep_tpu_torch.device import resolve_device
+
+    # a CUDA run without a card raises here, before the trace starts
+    device = resolve_device(args.device)
+    tracer = obs.install(obs.Tracer(args.trace))
+    root = None
+    try:
+        obs.emit_manifest(tracer, config=vars(args), backend="torch",
+                          device=device)
+        if args.heartbeat_secs:
+            tracer.heartbeat = obs.Heartbeat(
+                tracer, args.heartbeat_secs, device=device).start()
+        root = obs.begin("run")
+        return _run(p, args)
+    finally:
+        if tracer.heartbeat is not None:
+            tracer.heartbeat.stop()
+        if root is not None:
+            root.end()
+        obs.uninstall()
+        tracer.close()
+
+
+def _run(p, args) -> int:
     if args.input is None or (args.k is None and not args.score_only
                               and not args.k_levels):
         p.error("--input and --k are required")
@@ -208,9 +270,9 @@ def main(argv=None) -> int:
         if applied is not None:
             return applied
 
-    import sheep_tpu_torch
+    from sheep_tpu_torch import obs
+    from sheep_tpu_torch.device import resolve_device
     from sheep_tpu_torch.io import formats
-    from sheep_tpu_torch.io.edgestream import open_input
     from sheep_tpu_torch.types import UnsupportedGraphError
 
     if args.balance is not None:
@@ -227,28 +289,16 @@ def main(argv=None) -> int:
                   f"{args.refine_alpha} to the contract bound",
                   file=sys.stderr)
             args.refine_alpha = args.balance
-    run = dict(device=args.device, chunk_edges=args.chunk_edges,
+    device = resolve_device(args.device)
+    run = dict(device=device, chunk_edges=args.chunk_edges,
                weights=args.weights, alpha=args.alpha,
                comm_volume=not args.no_comm_volume, **opts)
+    # the manifest records the backend asked for; this event what runs
+    obs.event("backend_resolved", backend="torch", auto=False)
     t0 = time.perf_counter()
     try:
-        if len(ks) > 1:
-            results = sheep_tpu_torch.partition_multi(
-                args.input, ks, n_vertices=args.num_vertices, **run)
-        else:
-            res = sheep_tpu_torch.partition(
-                args.input, ks[0], n_vertices=args.num_vertices,
-                **_checkpoint_options(args), **run)
-            if args.refine:
-                # the partition knows n: the stream need not count it again
-                with open_input(args.input,
-                                n_vertices=len(res.assignment)) as es:
-                    res = sheep_tpu_torch.refine_result(
-                        res, es, rounds=args.refine,
-                        alpha=args.refine_alpha, weights=args.weights,
-                        budget_bytes=int(args.refine_budget_gb * (1 << 30)),
-                        device=args.device)
-            results = [res]
+        with _profiled(args.profile_dir, device):
+            results = _flat(args, ks, run)
     except UnsupportedGraphError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
@@ -266,6 +316,22 @@ def main(argv=None) -> int:
             formats.write_partition(out_path(r.k), r.assignment)
     m = res.total_edges
     n = len(res.assignment)
+    if args.metrics_out:
+        from sheep_tpu_torch.utils.metrics import (MetricsWriter,
+                                                   emit_run_metrics)
+
+        with MetricsWriter(args.metrics_out) as mw:
+            for r in results:
+                emit_run_metrics(mw, r, n, wall, graph=args.input,
+                                 device=device)
+    tracer = obs.get_tracer()
+    if tracer is not None:
+        # the trace is self-contained: the same record set rides in it
+        from sheep_tpu_torch.utils.metrics import emit_run_metrics
+
+        for r in results:
+            emit_run_metrics(tracer, r, n, wall, graph=args.input,
+                             device=device)
     if not args.json:
         print(f"graph: {args.input}  V={n:,}  E={m:,}")
         print(f"backend: {res.backend}  k={','.join(str(k) for k in ks)}")
@@ -294,8 +360,62 @@ def main(argv=None) -> int:
     return 0
 
 
-# the build's flags, which a --k-levels run refuses rather than ignores
-_BUILD_FLAGS = (("--segment-rounds", "segment_rounds"),
+def _flat(args, ks: list, run: dict) -> list:
+    """The flat run's results: ``partition_multi`` over a k list, else one
+    partition (from --checkpoint-dir, refined with --refine)."""
+    import sheep_tpu_torch
+    from sheep_tpu_torch.io.edgestream import open_input
+
+    if len(ks) > 1:
+        return sheep_tpu_torch.partition_multi(
+            args.input, ks, n_vertices=args.num_vertices, **run)
+    res = sheep_tpu_torch.partition(
+        args.input, ks[0], n_vertices=args.num_vertices,
+        **_checkpoint_options(args), **run)
+    if args.refine:
+        # the partition knows n: the stream need not count it again
+        with open_input(args.input, n_vertices=len(res.assignment)) as es:
+            res = sheep_tpu_torch.refine_result(
+                res, es, rounds=args.refine, alpha=args.refine_alpha,
+                weights=args.weights,
+                budget_bytes=int(args.refine_budget_gb * (1 << 30)),
+                device=run["device"])
+    return [res]
+
+
+@contextmanager
+def _profiled(profile_dir, device):
+    """--profile-dir: the block under ``torch.profiler`` (CPU and CUDA
+    activities, CPU alone on a CPU device), its Chrome trace written into
+    ``profile_dir`` as ``sheep_torch.<pid>.pt.trace.json`` when the block
+    returns. A CUDA run whose profile holds no device record raises: the
+    profiler could not trace the card, and the run does not pass for a
+    profiled one."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    if device.type == "cuda" and not any(
+            e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events()):
+        raise RuntimeError("--profile-dir: torch.profiler recorded no CUDA "
+                           "activity; the card could not be traced")
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"sheep_torch.{os.getpid()}.pt.trace.json"))
+
+
+# the flags a --k-levels run refuses rather than ignores: the metrics and
+# the profile of a flat run, and the build's
+_BUILD_FLAGS = (("--metrics-out", "metrics_out"),
+                ("--profile-dir", "profile_dir"),
+                ("--segment-rounds", "segment_rounds"),
                 ("--warm-schedule", "warm_schedule"),
                 ("--host-tail-threshold", "host_tail_threshold"),
                 ("--no-cache-chunks", "no_cache_chunks"),
@@ -364,6 +484,9 @@ def _k_levels(parser, args) -> int:
     summary = res.summary()
     summary["wall_seconds"] = round(wall, 4)
     summary["n_vertices"] = int(len(res.assignment))
+    from sheep_tpu_torch import obs
+
+    obs.event("scores", **summary)
     if not args.json:
         print(f"graph: {args.input}  k-levels: {levels}")
         print(f"k={res.k}: edge cut {res.edge_cut:,} "
@@ -372,8 +495,7 @@ def _k_levels(parser, args) -> int:
                  if res.comm_volume is not None else ""))
         if args.output:
             print(f"partition map written to {args.output}")
-        print(f"wall: {wall:.2f}s  "
-              f"({m / wall if wall > 0 else 0:,.0f} edges/s)")
+        print(f"wall: {wall:.2f}s")
     print(json.dumps(summary))
     return 0
 
@@ -483,6 +605,9 @@ def _score_only(args, h2d_ring: int) -> int:
             "cut_ratio": cut / max(total, 1), "balance": balance,
             "comm_volume": cv, "backend": "score-only",
             "wall_seconds": round(wall, 4), "n_vertices": n}
+    from sheep_tpu_torch import obs
+
+    obs.event("scores", **line)
     if not args.json:
         print(f"score-only: {args.score_only} vs {args.input}")
         print(f"k={k}: edge cut {cut:,} ({100 * cut / max(total, 1):.2f}%)  "

@@ -43,6 +43,8 @@ from contextlib import nullcontext
 
 import numpy as np
 
+from sheep_tpu_torch import obs
+
 _SPILL_MAX_FDS = 64
 
 
@@ -219,7 +221,8 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
         t0 = time.perf_counter()
         # inner levels' comm volume is not needed: the final score counts
         # it
-        with fault.scope("level0") if depth == 0 else nullcontext():
+        with fault.scope("level0") if depth == 0 else nullcontext(), \
+                obs.span("hier_partition", level=depth, k=k1):
             res = _partition_stream(stream, k1, refine=refine,
                                     refine_alpha=refine_alpha,
                                     chunk_edges=chunk_edges,
@@ -244,8 +247,12 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
         else:
             os.makedirs(level_dir, exist_ok=True)
         t0 = time.perf_counter()
-        paths = _spill_intra(stream, assign, k1, chunk_edges, level_dir,
-                             local_id)
+        sp = obs.begin("hier_spill", level=depth, parts=k1)
+        try:
+            paths = _spill_intra(stream, assign, k1, chunk_edges, level_dir,
+                                 local_id)
+        finally:
+            sp.end()
         t_add(f"level{depth}_spill", time.perf_counter() - t0)
         if spill_bytes is not None:
             key = f"level{depth}_spill_bytes"
@@ -466,13 +473,26 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
                 acct["parts_at_capacity"]
             res.diagnostics["ledger_frozen_load_fraction"] = \
                 acct["frozen_load_fraction"]
+            repaired = None
             if final_refine:
                 before = res.diagnostics.get("refine_cut_before")
                 after = res.diagnostics.get("refine_cut_after")
                 if before is not None and after is not None:
-                    res.diagnostics["final_refine_repaired"] = \
-                        int(before - after)
+                    repaired = int(before - after)
+                    res.diagnostics["final_refine_repaired"] = repaired
             timings["ledger"] = round(time.perf_counter() - t0, 3)
+            obs.event(
+                "quality_ledger", k=k_total,
+                k_levels=[int(x) for x in k_levels],
+                edge_cut=int(res.edge_cut),
+                total_edges=int(res.total_edges),
+                cut_ratio=round(float(res.cut_ratio), 6),
+                balance=round(float(res.balance), 4),
+                levels=[{kk: int(v) if kk != "cut_ratio" else v
+                         for kk, v in row.items()} for row in ledger],
+                final_refine_repaired=repaired,
+                parts_at_capacity=acct["parts_at_capacity"],
+                frozen_load_fraction=acct["frozen_load_fraction"])
             if checkpointer is not None:
                 # success: the boundary state, the level-0 domain and the
                 # spill root go

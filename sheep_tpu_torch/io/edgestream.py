@@ -30,6 +30,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from sheep_tpu_torch import obs
 from sheep_tpu_torch.io import formats
 
 IO_POLICY_ENV = "SHEEP_IO_POLICY"
@@ -47,9 +48,10 @@ def _io_policy() -> str:
     return v
 
 
-def _quarantine_or_raise(msg: str) -> None:
+def _quarantine_or_raise(msg: str, **fields) -> None:
     """Apply the IO policy to a detected corruption: raise (strict), or
-    warn and let the caller go on (quarantine)."""
+    warn, write the ``chunk_quarantined`` event with ``fields`` and let
+    the caller go on (quarantine)."""
     if _io_policy() == "strict":
         raise CorruptStreamError(
             msg + " (set SHEEP_IO_POLICY=quarantine to drop the "
@@ -57,6 +59,7 @@ def _quarantine_or_raise(msg: str) -> None:
     import sys
 
     print(f"edgestream quarantine: {msg}", file=sys.stderr)
+    obs.event("chunk_quarantined", message=msg, **fields)
 
 
 def _read_retry_policy():
@@ -221,7 +224,7 @@ class EdgeStream:
             _quarantine_or_raise(
                 f"{self.path}: {size} bytes is not a multiple of the "
                 f"{pair}-byte edge record ({size % pair} torn trailing "
-                f"bytes)")
+                f"bytes)", path=self.path, torn_bytes=size % pair)
         total = size // pair
         with _retrying(policy, lambda: open(self.path, "rb"),
                        f"open {self.path}") as f:
@@ -242,7 +245,9 @@ class EdgeStream:
                         f"{self.path}: short read at chunk {off // cs} "
                         f"(wanted {count} edges at offset {off * pair}, "
                         f"got {len(flat) // 2} intact pairs) — stream "
-                        f"truncated mid-pass")
+                        f"truncated mid-pass", path=self.path,
+                        chunk=off // cs, expected=int(count),
+                        got=int(len(flat) // 2))
                     flat = flat[: 2 * (len(flat) // 2)]
                     if len(flat):
                         yield flat.reshape(-1, 2).astype(np.int64)

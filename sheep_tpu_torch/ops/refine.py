@@ -38,6 +38,8 @@ import tempfile
 import numpy as np
 import torch
 
+from sheep_tpu_torch import obs
+
 LAUNCHES = {"neighbor_hist": 0, "hist_stats": 0, "plan_moves": 0}
 
 
@@ -579,42 +581,58 @@ def _refine_impl(assign, stream, n, k, rounds, alpha, chunk_edges,
     best = a_try = a_dev
     best_cut = None
     pending = None  # move accounting of the round awaiting its score
-    for it in range(rounds + 1):
-        if vb:
-            b = g = None
-            cut_now = score(a_try)
-        else:
-            b, g, cut_now = gains(a_try)
-        if best_cut is None:
-            best_cut = cut_now
-            stats["refine_cut_before"] = cut_now
-        else:
-            accepted = cut_now < best_cut
-            if pending is not None:
-                # only an accepted round's moves are in the result
-                if accepted:
-                    for key in ("wanted", "applied", "capacity_blocked"):
-                        stats[f"refine_moves_{key}"] += pending[key]
-                pending = None
-            if accepted:
-                best_cut, best = cut_now, a_try
-                stats["refine_rounds_run"] += 1
+    sp = obs.begin("refine", k=k, rounds_cap=rounds)
+    try:
+        for it in range(rounds + 1):
+            if vb:
+                b = g = None
+                cut_now = score(a_try)
             else:
-                break  # roll back: the refined cut never regresses
-        if it == rounds:
-            break
-        if vb:
+                b, g, cut_now = gains(a_try)
+            if best_cut is None:
+                best_cut = cut_now
+                stats["refine_cut_before"] = cut_now
+                sp.annotate(cut_before=cut_now)
+            else:
+                accepted = cut_now < best_cut
+                if pending is not None:
+                    # the round's ledger row, a rejected round's too; only
+                    # an accepted round's moves are in the result
+                    obs.event("refine_round", cut=cut_now,
+                              gain=best_cut - cut_now, accepted=accepted,
+                              **pending)
+                    if accepted:
+                        for key in ("wanted", "applied",
+                                    "capacity_blocked"):
+                            stats[f"refine_moves_{key}"] += \
+                                pending[f"moves_{key}"]
+                            obs.inc(f"refine_moves_{key}",
+                                    pending[f"moves_{key}"])
+                    pending = None
+                if accepted:
+                    best_cut, best = cut_now, a_try
+                    stats["refine_rounds_run"] += 1
+                else:
+                    break  # roll back: the refined cut never regresses
+            if it == rounds:
+                break
+            if vb:
+                b, g, _ = gains(a_try)
+            prev = a_try
+            a_try = plan(b, g, a_try, 0)
+            w0, m0 = _move_accounting(g, prev, a_try, 0, n)
             b, g, _ = gains(a_try)
-        prev = a_try
-        a_try = plan(b, g, a_try, 0)
-        w0, m0 = _move_accounting(g, prev, a_try, 0, n)
-        b, g, _ = gains(a_try)
-        prev = a_try
-        a_try = plan(b, g, a_try, 1)
-        w1, m1 = _move_accounting(g, prev, a_try, 1, n)
-        wanted, applied = w0 + w1, m0 + m1
-        pending = {"wanted": wanted, "applied": applied,
-                   "capacity_blocked": max(0, wanted - applied)}
+            prev = a_try
+            a_try = plan(b, g, a_try, 1)
+            w1, m1 = _move_accounting(g, prev, a_try, 1, n)
+            wanted, applied = w0 + w1, m0 + m1
+            pending = {"round": it, "moves_wanted": wanted,
+                       "moves_applied": applied,
+                       "moves_capacity_blocked": max(0, wanted - applied)}
+    finally:
+        sp.end(rounds_run=stats["refine_rounds_run"], cut_after=best_cut,
+               moves_capacity_blocked=stats[
+                   "refine_moves_capacity_blocked"])
     del hist, scratch
     stats["refine_cut_after"] = best_cut
     return best[:n].cpu().numpy(), stats

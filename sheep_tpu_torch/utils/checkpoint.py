@@ -34,6 +34,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from sheep_tpu_torch import obs
+
 FORMAT_VERSION = 3
 
 # the pipeline's phases and the hierarchy's level-boundary phase; a run
@@ -54,6 +56,7 @@ def _warn(msg: str) -> None:
     global _DEGRADED_EVENTS
     _DEGRADED_EVENTS += 1
     print(f"checkpoint warning: {msg}", file=sys.stderr)
+    obs.event("checkpoint_degraded", message=msg)
 
 
 def phase_index(phase: str) -> int:
@@ -326,4 +329,8 @@ def resume_state(checkpointer: Optional[Checkpointer], meta: Dict,
             "upgrading sheep_tpu can change automatic chunk sizing "
             "(part of the fingerprint), in which case restart fresh — "
             "checkpoints are not portable across versions")
+    # where a killed run restarted: the seam trace_report shows beside the
+    # killed attempt's unclosed spans
+    obs.event("resume", phase=state.phase, chunk_idx=int(state.chunk_idx),
+              process=checkpointer.process)
     return state

@@ -54,6 +54,8 @@ import time
 from contextlib import contextmanager
 from typing import Dict, List, Tuple
 
+from sheep_tpu_torch import obs
+
 ENV_VAR = "SHEEP_FAULT_INJECT"
 
 # enclosing execution scopes (e.g. "level0" while the hierarchy's level-0
@@ -191,6 +193,8 @@ def _maybe_chaos(spec: str, phase: str, kinds: Tuple[str, ...]) -> None:
         return
     kind = kinds[pick]
     st["injected"] += 1
+    obs.event("chaos_inject", kind=kind, phase=phase, point=st["points"],
+              injected=st["injected"], budget=st["budget"])
     _raise_kind(kind, f"chaos point {st['points']} in phase {phase!r}")
 
 
@@ -226,4 +230,6 @@ def maybe_fail(phase: str, chunks_done: int,
     if _CONSUMED.get(spec, 0) >= shots:
         return
     _CONSUMED[spec] = _CONSUMED.get(spec, 0) + 1
+    obs.event("fault_inject", kind=kind, phase=phase,
+              chunks_done=int(chunks_done))
     _raise_kind(kind, where)

@@ -39,6 +39,8 @@ import sys
 import time
 from typing import Optional
 
+from sheep_tpu_torch import obs
+
 TRANSIENT = "transient"
 RESOURCE = "resource"
 DEVICE_LOSS = "device_loss"
@@ -135,11 +137,16 @@ class RetryPolicy:
 
     def record(self, fault_class: str, exc: BaseException,
                where: str = "") -> float:
-        """Count one admitted fault, note it on stderr and return the
-        backoff to sleep. Call only after :meth:`admit` said yes."""
+        """Count one admitted fault, write the ``retry`` event, note it on
+        stderr and return the backoff to sleep. Call only after
+        :meth:`admit` said yes."""
         attempt = self.attempts[fault_class]
         self.attempts[fault_class] = attempt + 1
         d = self.delay_s(attempt)
+        obs.event("retry", fault_class=fault_class, where=where,
+                  attempt=attempt + 1, max_retries=self.max_retries,
+                  delay_s=round(d, 3),
+                  error=f"{type(exc).__name__}: {str(exc)[:200]}")
         print(f"sheep retry: {fault_class} fault in {where or 'run'} "
               f"(attempt {attempt + 1}/{self.max_retries}, "
               f"backoff {d:.2f}s): {type(exc).__name__}: "
@@ -178,9 +185,10 @@ def degrade_dispatch(n: int, chunk_edges: int, batch: int, inflight: int,
     ResidencyManager`), spill them and halve the residency budget, the
     dispatch knobs unchanged (``spill_degrades``); else the halving of
     (dispatch_batch, inflight[, h2d_ring]) that the memory model says frees
-    the most (``degraded_*`` counters). Returns the new pair or triple, or
-    None when every knob is 1. ``resume_chunk`` is where the retry
-    restarts (the JAX package's trace event carries it)."""
+    the most (``degraded_*`` counters); the ``dispatch_spilled`` or
+    ``dispatch_degraded`` event records the rung. Returns the new pair or
+    triple, or None when every knob is 1. ``resume_chunk`` is where the
+    retry restarts."""
     from sheep_tpu_torch.utils import membudget
 
     spillable = residency.spillable_bytes() if residency is not None \
@@ -189,14 +197,21 @@ def degrade_dispatch(n: int, chunk_edges: int, batch: int, inflight: int,
                                       donate, h2d_ring=h2d_ring,
                                       spillable_bytes=spillable)
     if nxt is not None and nxt[0] == "spill":
-        residency.pressure_spill()
+        freed = residency.pressure_spill()
         stats["spill_degrades"] = stats.get("spill_degrades", 0) + 1
+        obs.event("dispatch_spilled", resume_chunk=int(resume_chunk),
+                  freed_bytes=int(freed),
+                  residency_budget=int(residency.budget))
         return nxt[1:]
     if nxt is not None:
         stats["degraded_dispatch_batch"] = nxt[0]
         stats["degraded_inflight"] = nxt[1]
+        event = {"dispatch_batch": nxt[0], "inflight": nxt[1]}
         if len(nxt) > 2:
             stats["degraded_h2d_ring"] = nxt[2]
+            event["h2d_ring"] = nxt[2]
+        obs.event("dispatch_degraded", resume_chunk=int(resume_chunk),
+                  **event)
     return nxt
 
 
@@ -205,12 +220,15 @@ def recover_device_loss(stats: dict, resume_chunk: int,
     """The device-loss rung: save the build's snapshot first (the
     kill-and-resume contract holds from here even if the device stays
     dead), then :func:`reinit_devices`, counted in
-    ``device_loss_recoveries``. Returns whether the device answered."""
+    ``device_loss_recoveries`` and written as the ``device_reinit`` event.
+    Returns whether the device answered."""
     if save_snapshot is not None:
         save_snapshot()
     alive = reinit_devices(device)
     stats["device_loss_recoveries"] = \
         stats.get("device_loss_recoveries", 0) + 1
+    obs.event("device_reinit", alive=bool(alive),
+              resume_chunk=int(resume_chunk))
     return alive
 
 

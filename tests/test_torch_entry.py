@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import sheep_tpu
 import sheep_tpu_torch
@@ -27,6 +28,19 @@ SPECS = ["sbm-hash:12:16:0.05:8:7", "nearclique-hash:12:6:0.02:8:7",
          "plsbm-hash:12:16:0.05:8:7", "bipartite-hash:12:8:0.02:8:7",
          "rmat:12:8:7"]
 SCORES = ("edge_cut", "total_edges", "comm_volume", "balance")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These CPU runs issue many small ops; beside the other workers of a
+    parallel test run, torch's intra-op threads cost more than they save
+    (a case of ~7 s alone took ~110 s beside five other workers on eight
+    cores), so the module runs on one thread and restores the count
+    after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _same(res, ref, rounds=True):

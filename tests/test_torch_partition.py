@@ -31,6 +31,19 @@ from sheep_tpu_torch.ops import elim
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These CPU runs issue many small ops; beside the other workers of a
+    parallel test run, torch's intra-op threads cost more than they save
+    (a case of ~7 s alone took ~110 s beside five other workers on eight
+    cores), so the module runs on one thread and restores the count
+    after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax(spec, k, cs, batch):
     be = TpuBackend(chunk_edges=cs, dispatch_batch=batch, inflight=1)
     with jes.open_input(spec) as s:
