@@ -191,6 +191,19 @@ line is printed:
      power limit nvidia-smi's; then with ``--profile-dir``: the Chrome
      trace names the ladder's, K1's, ``scatter_min``'s and
      ``climb_tail``'s kernels, with their summed device ms;
+  5j. incremental epochs at full size (``s22-incremental``): 5h (c)'s
+     .bin32 of rmat-hash:22:16:42 as the base of a delta log written by the
+     port's ``DeltaLogWriter`` (epochs 1-4 add 2^20 edges each of
+     rmat-hash:22:1:7, epoch 5 tombstones 2^18 base edges, epoch 6 adds
+     2^16 of rmat-hash:22:1:8), k = 64, the backend's defaults: (a) epochs
+     1-4 folded unscored (seconds, rounds, host reads and the path kernels'
+     launches a fold), then a refresh with the comm volume, whose first full
+     pass seeds the score cache (the survivor index's seconds and bytes):
+     table, assignment, cut, total and comm volume equal to the one-shot
+     ``partition("delta:LOG@4")`` (timed); (b) epoch 5 and a full
+     compaction, equal to a clean build of the survivors; (c) epochs 5 and
+     6 scored under ``SHEEP_SCORE_AUDIT=1``; (d) the same replay at
+     rmat-hash:16:16:42 on CUDA and on the CPU, equal at every stage;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
@@ -199,7 +212,8 @@ line is printed:
      from 5d (``lift_stack``'s from 5 with 5d's beside), ``climb_jumps``'s
      from the
      jump-mode fold of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
-     mode from 5f, and the refinement's kernels from 5g;
+     mode from 5f, and the refinement's kernels from 5g; the delta fold's
+     launches (5j) beside the main path's;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -2014,7 +2028,7 @@ def fault_parity(card):
     print("faults16 " + json.dumps(out), flush=True)
 
 
-def _spec_bin32(spec: str, path: str, cs: int) -> int:
+def _spec_bin32(spec: str, path: str, cs: int, dev: str = "cuda") -> int:
     """An rmat-hash spec as a .bin32 file (512 MiB at s22): its chunks of
     ``cs`` edges synthesized on the card by ``hash_chunk`` and written in
     order. Returns the number of chunks and of vertices (the file's
@@ -2025,7 +2039,7 @@ def _spec_bin32(spec: str, path: str, cs: int) -> int:
     with open(path, "wb") as f:
         for i in range(s.num_chunks(cs)):
             rows = min(cs, s.num_edges - i * cs)
-            f.write(s.device_chunk(i, cs, s.num_vertices, "cuda")[:rows]
+            f.write(s.device_chunk(i, cs, s.num_vertices, dev)[:rows]
                     .cpu().numpy().astype("<u4").tobytes())
     return s.num_chunks(cs), s.num_vertices
 
@@ -2448,6 +2462,295 @@ def traced_s22(card, res, wall: float, peak: int) -> dict:
                 "profile_events": len(prof), "card": card})
     print("s22-traced " + json.dumps(out), flush=True)
     return out
+
+
+# 5j: the log's adds (epochs 1-4, a quarter of the spec's edges each) and
+# epoch 6's, each an rmat-hash spec at the base's scale with one edge a
+# vertex; epoch 5 tombstones n/16 base edges picked with DELTA_SEED
+DELTA_ADDS, DELTA_MORE, DELTA_SEED = "rmat-hash:{}:1:7", "rmat-hash:{}:1:8", 13
+# the kernels of the delta fold (the batched fixpoint's exact descent)
+DELTA_KERNELS = ("gather_clip", "scatter_min", "lift_stack", "climb_tail",
+                 "exec_finish")
+
+
+def _spec_edges(spec: str, count: int, dev: str):
+    """The first ``count`` edges of an rmat-hash spec as int64 host rows,
+    made by ``hash_chunk`` on ``dev``."""
+    from sheep_tpu_torch.io.edgestream import open_input
+
+    s = open_input(spec)
+    return s.device_chunk(0, count, s.num_vertices, dev)[:count].cpu() \
+        .numpy().astype("int64")
+
+
+def delta_log(base_path: str, log: str, scale: int, dev: str) -> dict:
+    """Phase 5j's log over a .bin32 base, by the port's ``DeltaLogWriter``:
+    epochs 1-4 add a quarter each of ``DELTA_ADDS`` at ``scale`` (2^scale
+    edges), epoch 5 tombstones n/16 base edges picked with ``DELTA_SEED``,
+    epoch 6 adds n/64 edges of ``DELTA_MORE``. Returns the arrays."""
+    import numpy as np
+
+    from sheep_tpu_torch.io.deltalog import DeltaLogWriter
+
+    n = 1 << scale
+    adds = _spec_edges(DELTA_ADDS.format(scale), n, dev)
+    more = _spec_edges(DELTA_MORE.format(scale), n >> 6, dev)
+    base = np.fromfile(base_path, "<u4").reshape(-1, 2).astype(np.int64)
+    pick = np.random.default_rng(DELTA_SEED).choice(len(base), n >> 4,
+                                                    replace=False)
+    with DeltaLogWriter(log, base_spec=base_path) as w:
+        for part in np.split(adds, 4):
+            w.append(part)
+        w.append_epoch(dels=base[pick])
+        w.append(more)
+    return {"base": base, "adds": adds, "pick": pick, "more": more}
+
+
+def delta_replay(be, base_path: str, log: str, n: int, k: int,
+                 counters=()) -> dict:
+    """The log through the incremental path on ``be``'s device: the base
+    build, epochs 1-4 unscored (each fold timed, its launches of
+    ``counters`` and host reads counted), a refresh with the comm volume
+    (the first full pass seeds the score cache: the survivor index's
+    seconds and bytes), epoch 5 (the tombstones) scored under
+    ``SHEEP_SCORE_AUDIT=1``, a full compaction and a refresh with the comm
+    volume, epoch 6 scored under the audit. Returns each stage's result and
+    table, and the timings."""
+    import torch
+
+    from sheep_tpu_torch import incremental as inc
+    from sheep_tpu_torch.io.deltalog import DeltaLogReader
+    from sheep_tpu_torch.io.edgestream import open_input
+
+    cuda = be.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    seeded = {}
+
+    class TimedIndex(inc._SurvivorIndex):
+        def __init__(self, state):
+            t0 = time.perf_counter()
+            super().__init__(state)
+            seeded["seconds"] = time.perf_counter() - t0
+            seeded["bytes"] = os.path.getsize(self.path)
+
+    out = {"stages": {}, "minp": {}}
+    epochs = {ep: (a, d) for ep, a, d in DeltaLogReader(log).epochs()}
+    t0 = time.perf_counter()
+    state, base_res = inc.begin_incremental(open_input(base_path,
+                                                       n_vertices=n), k,
+                                            backend=be)
+    out["begin_s"] = time.perf_counter() - t0
+    out["begin_phase_s"] = base_res.phase_times
+    for counter in counters:
+        counter.reset_launches()
+    folds = []
+    for ep in (1, 2, 3, 4):
+        syncs0 = state.stats.get("host_syncs", 0)
+        rounds0 = state.stats.get("update_rounds", 0)
+        sync()
+        t0 = time.perf_counter()
+        be.partition_update(state, adds=epochs[ep][0],
+                            deletes=epochs[ep][1], epoch=ep, score=False)
+        sync()
+        folds.append({"epoch": ep, "edges": len(epochs[ep][0]),
+                      "seconds": time.perf_counter() - t0,
+                      "update_rounds": state.stats["update_rounds"] - rounds0,
+                      # one stats read an execution, and the table's pull
+                      "host_reads": state.stats["host_syncs"] - syncs0 + 1})
+    out["folds"] = folds
+    out["launches"] = {key: v for c in counters
+                       for key, v in c.LAUNCHES.items()}
+    index_cls, inc._SurvivorIndex = inc._SurvivorIndex, TimedIndex
+    try:
+        t0 = time.perf_counter()
+        out["stages"]["epoch4"] = inc.refresh(be, state, comm_volume=True)
+        out["refresh_s"] = time.perf_counter() - t0
+    finally:
+        inc._SurvivorIndex = index_cls
+    out["index"] = dict(seeded)
+    out["minp"]["epoch4"] = state.minp.copy()
+    with _armed({"SHEEP_SCORE_AUDIT": "1"}):
+        t0 = time.perf_counter()
+        out["stages"]["epoch5"] = be.partition_update(
+            state, adds=epochs[5][0], deletes=epochs[5][1], epoch=5,
+            compact="never")
+        out["epoch5_scored_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(inc.compact_state(be, state, mode="full") == "full",
+          "5j: compaction did not run full")
+    out["compact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["stages"]["compacted"] = inc.refresh(be, state, comm_volume=True)
+    out["compacted_refresh_s"] = time.perf_counter() - t0
+    out["minp"]["compacted"] = state.minp.copy()
+    with _armed({"SHEEP_SCORE_AUDIT": "1"}):
+        rounds0 = state.stats["update_rounds"]
+        t0 = time.perf_counter()
+        out["stages"]["epoch6"] = be.partition_update(
+            state, adds=epochs[6][0], epoch=6)
+        out["epoch6_scored_s"] = time.perf_counter() - t0
+        out["epoch6_rounds"] = state.stats["update_rounds"] - rounds0
+    out["minp"]["epoch6"] = state.minp.copy()
+    out["state"] = state
+    return out
+
+
+def _stage_line(res) -> dict:
+    return {"edge_cut": res.edge_cut, "total_edges": res.total_edges,
+            "comm_volume": res.comm_volume, "balance": res.balance}
+
+
+def _tree_minp(res, n: int):
+    import numpy as np
+
+    from sheep_tpu_torch import incremental as inc
+
+    return inc._minp_from_parent(res.tree["parent"],
+                                 np.asarray(res.tree["pos"], "int64"), n)
+
+
+def _same_stage(a, b, what: str) -> None:
+    import numpy as np
+
+    check(np.array_equal(a.assignment, b.assignment),
+          f"{what}: assignments differ")
+    for key in ("edge_cut", "total_edges", "comm_volume", "balance"):
+        check(getattr(a, key) == getattr(b, key),
+              f"{what}: {key} {getattr(a, key)} != {getattr(b, key)}")
+
+
+def incremental_s22(card, counters, scale: int = 22,
+                    dev: str = "cuda") -> dict:
+    """Phase 5j (``s22-incremental``): incremental epochs on phase 5h(c)'s
+    .bin32 of rmat-hash:22:16:42 at k = 64 (``delta_log``,
+    ``delta_replay``): (a) epochs 1-4 and a refresh bit-identical to the
+    one-shot ``partition("delta:LOG@4")`` (table, assignment, cut, total,
+    comm volume); (b) epoch 5's tombstones and a full compaction equal to a
+    clean build of the survivors; (c) epochs 5 and 6 scored under the
+    audit; (d) at s16, the same replay on CUDA and on the CPU equal at
+    every stage (:func:`incremental_s16`). ``scale`` and ``dev`` rehearse
+    the phase on the CPU at a small scale (no launch is counted there)."""
+    import numpy as np
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.backends.torch_backend import TorchBackend
+
+    n, spec = 1 << scale, f"rmat-hash:{scale}:16:42"
+    out = {"spec": spec, "k": S22_K, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        base_path = os.path.join(tmp, f"rmat{scale}.bin32")
+        t0 = time.perf_counter()
+        _spec_bin32(spec, base_path, 1 << 22, dev)
+        log = os.path.join(tmp, "g.dlog")
+        arrays = delta_log(base_path, log, scale, dev)
+        out["inputs_s"] = time.perf_counter() - t0
+        out["log_bytes"] = os.path.getsize(log)
+        rep = delta_replay(TorchBackend(device=dev), base_path, log, n,
+                           S22_K, counters)
+        # (a) against the one-shot build of the log at epoch 4
+        t0 = time.perf_counter()
+        one = sheep_tpu_torch.partition(f"delta:{log}@4", S22_K,
+                                        n_vertices=n, keep_tree=True,
+                                        device=dev)
+        one_s = time.perf_counter() - t0
+        check(np.array_equal(rep["minp"]["epoch4"], _tree_minp(one, n)),
+              "5j (a): the folded table differs from the one-shot build's")
+        _same_stage(rep["stages"]["epoch4"], one, "5j (a) epoch 4")
+        for name in DELTA_KERNELS:
+            check(rep["launches"][name] > 0,
+                  f"5j: no {name} launch on the delta path")
+        # (b) against a clean build of the survivors: the base less the
+        # tombstoned rows, and the adds
+        keep = np.ones(len(arrays["base"]), bool)
+        keep[arrays["pick"]] = False
+        surv_path = os.path.join(tmp, "survivors.bin32")
+        np.concatenate([arrays["base"][keep], arrays["adds"]]).astype(
+            "<u4").tofile(surv_path)
+        del keep
+        t0 = time.perf_counter()
+        clean = sheep_tpu_torch.partition(surv_path, S22_K, n_vertices=n,
+                                          keep_tree=True, device=dev)
+        clean_s = time.perf_counter() - t0
+        os.remove(surv_path)
+        check(np.array_equal(rep["minp"]["compacted"], _tree_minp(clean, n)),
+              "5j (b): the compacted table differs from the clean build's")
+        _same_stage(rep["stages"]["compacted"], clean, "5j (b) compacted")
+        check(rep["stages"]["epoch5"].total_edges == clean.total_edges,
+              "5j (c): epoch 5's stale score counts another multiset")
+        state = rep.pop("state")
+        out.update({
+            "n_vertices": n, "base_edges": len(arrays["base"]),
+            "epoch_adds": len(arrays["adds"]) // 4,
+            "epoch5_tombstones": len(arrays["pick"]),
+            "epoch6_adds": len(arrays["more"]),
+            "begin_s": rep["begin_s"], "begin_phase_s": rep["begin_phase_s"],
+            "folds": rep["folds"],
+            "delta_launches": {name: rep["launches"][name]
+                               for name in DELTA_KERNELS},
+            "oneshot_s": one_s, "oneshot_phase_s": one.phase_times,
+            "oneshot_device_rounds": one.diagnostics["device_rounds"],
+            "refresh_s": rep["refresh_s"],
+            "refresh_phase_s": rep["stages"]["epoch4"].phase_times,
+            "index_seed_s": rep["index"].get("seconds"),
+            "index_bytes": rep["index"].get("bytes"),
+            "epoch5_scored_s": rep["epoch5_scored_s"],
+            "compact_s": rep["compact_s"],
+            "compacted_refresh_s": rep["compacted_refresh_s"],
+            "clean_build_s": clean_s,
+            "epoch6_scored_s": rep["epoch6_scored_s"],
+            "epoch6_rounds": rep["epoch6_rounds"],
+            "stages": {key: _stage_line(r)
+                       for key, r in rep["stages"].items()},
+            "score_full": state.stats.get("score_full"),
+            "score_incremental": state.stats.get("score_incremental"),
+            "update_rounds": state.stats["update_rounds"]})
+        del state, rep, arrays, one, clean
+    out["s16"] = incremental_s16(devs=(dev, "cpu"))
+    print("s22-incremental " + json.dumps(out), flush=True)
+    return out
+
+
+def incremental_s16(scale: int = 16, devs=("cuda", "cpu")) -> dict:
+    """Phase 5j (d): the replay of ``delta_replay`` at rmat-hash:16:16:42,
+    k = 64, chunk 2^17, on CUDA and on the CPU: every stage's table,
+    assignment and scores equal, and the folds' rounds and host reads."""
+    import numpy as np
+
+    from sheep_tpu_torch.backends.torch_backend import TorchBackend
+
+    n, spec = 1 << scale, f"rmat-hash:{scale}:16:42"
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        base_path = os.path.join(tmp, f"rmat{scale}.bin32")
+        _spec_bin32(spec, base_path, 1 << 17, devs[0])
+        log = os.path.join(tmp, "g.dlog")
+        delta_log(base_path, log, scale, devs[0])
+        for dev in devs:
+            t0 = time.perf_counter()
+            runs.append(delta_replay(TorchBackend(device=dev,
+                                                  chunk_edges=1 << 17),
+                                     base_path, log, n, S22_K))
+            runs[-1]["wall_s"] = time.perf_counter() - t0
+    a, b = runs
+    for key in a["minp"]:
+        check(np.array_equal(a["minp"][key], b["minp"][key]),
+              f"5j (d): the tables at {key} differ, CUDA against the CPU")
+    for key in a["stages"]:
+        _same_stage(a["stages"][key], b["stages"][key], f"5j (d) {key}")
+    sa, sb = a["state"].stats, b["state"].stats
+    for key in ("update_rounds", "host_syncs", "device_rounds",
+                "score_full", "score_incremental"):
+        check(sa.get(key) == sb.get(key),
+              f"5j (d): {key} {sa.get(key)} != {sb.get(key)}")
+    return {"spec": spec, "k": S22_K, "chunk_edges": 1 << 17,
+            "wall_s": dict(zip(devs, (r["wall_s"] for r in runs))),
+            "update_rounds": sa["update_rounds"],
+            "host_syncs": sa["host_syncs"],
+            "stages": {key: _stage_line(r) for key, r in a["stages"].items()}}
 
 
 def lift_entries(head, cases, launches, forest) -> list:
@@ -2951,6 +3254,10 @@ def main() -> int:
     # 5i. phase 5's build traced, in turns with untraced builds, through
     # the CLI with its trace, heartbeat and metrics, and profiled
     traced_s22(card, res, wall, peak)
+    # 5j. incremental epochs at full size: the fold against the one-shot
+    # delta: build, compaction against a clean build, audited scoring,
+    # and CUDA against the CPU at s16
+    incr = incremental_s22(card, counters)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b) and climb_level's the stream
@@ -3102,6 +3409,10 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms")}
                 for r in recs},
             cases_max_abs_err=max(r["max_abs_err"] for r in recs)))
+    # the delta fold's launches (5j, epochs 1-4) beside the main path's
+    for k in kernels:
+        if k["name"] in DELTA_KERNELS:
+            k["delta_path_launches"] = incr["delta_launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

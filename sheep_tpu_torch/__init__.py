@@ -5,9 +5,28 @@ nothing of the JAX package and keeps its own copies of the host code it
 needs; its module names mirror the JAX package's. Entry points run on CUDA
 unless the caller passes ``device="cpu"``; without a GPU, ``device=None``
 raises.
+
+Incremental repartitioning (``sheep_tpu_torch/incremental.py``):
+:func:`begin_incremental` builds a resident partition,
+:func:`apply_update` folds a delta epoch into it, :func:`refresh` scores
+it, :func:`compact_state` compacts its tombstones, :func:`save_state` and
+:func:`load_state` snapshot it.
 """
 
 __version__ = "0.1.0"
+
+_INCREMENTAL = ("begin_incremental", "apply_update", "refresh",
+                "compact_state", "save_state", "load_state")
+
+
+def __getattr__(name):
+    # the incremental entry points, imported on first use as the others
+    if name in _INCREMENTAL:
+        from sheep_tpu_torch import incremental
+
+        return getattr(incremental, name)
+    raise AttributeError(f"module 'sheep_tpu_torch' has no attribute "
+                         f"{name!r}")
 
 
 def partition_hierarchical(path, k_levels, **kw):

@@ -40,6 +40,13 @@ fault, saving the snapshot and checking the device after a device loss
 (``utils/retry.py``). The injection points of ``utils/fault.py`` are the
 reference's: ``degrees``, ``build`` and ``score`` a chunk, ``dispatch`` an
 execution issued.
+
+A ``delta:`` stream (``io/deltalog.py``, ``order_anchor``) takes the
+anchored order: its degrees pass reads the base segment alone, past the
+chunk cache. ``partition_update`` folds a resident partition's delta
+epochs (``sheep_tpu_torch/incremental.py``) through :meth:`_fold_delta`:
+the delta's chunks, in groups of the dispatch batch, through the batched
+fixpoint at depth 1 into the converged table.
 """
 
 from __future__ import annotations
@@ -258,6 +265,8 @@ def _score_chunks(chunks, parts: dict, n: int, comm_volume: bool, cut: dict,
 class TorchBackend:
     name = "torch"
     supports_checkpoint = True
+    # partition_update folds delta epochs into a resident partition
+    supports_incremental = True
 
     def __init__(self, chunk_edges: int = 1 << 22, dispatch_batch: int = 0,
                  alpha: float = 1.0, device=None, inflight: int = 0,
@@ -316,6 +325,54 @@ class TorchBackend:
 
     def _tail_strategy(self) -> bool:
         return self.carry_tail or self.tail_overlap
+
+    def partition_update(self, state, adds=None, deletes=None, **opts):
+        """Apply one delta epoch to a resident
+        :class:`~sheep_tpu_torch.incremental.PartitionState` (from
+        :func:`~sheep_tpu_torch.incremental.begin_incremental`):
+        :func:`~sheep_tpu_torch.incremental.apply_update` with ``opts``
+        (``epoch``, ``score``, ``compact``, ``comm_volume``)."""
+        from sheep_tpu_torch import incremental
+
+        return incremental.apply_update(self, state, adds=adds,
+                                        deletes=deletes, **opts)
+
+    def _fold_delta(self, state, edges) -> None:
+        """Fold a host batch of edges into ``state.minp``, the converged
+        table, under the state's anchored order: the batch padded into
+        power-of-two chunks (at least 2^10 edges, so the shapes stay few),
+        staged in groups of the dispatch batch, each group oriented and
+        folded by the batched fixpoint at depth 1 (one stats read an
+        execution). The table goes up once and comes back once. Rounds add
+        up in ``state.stats["update_rounds"]``, the driver's counters in
+        ``state.stats``."""
+        n = state.n
+        e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        if not len(e):
+            return
+        dev = self.device
+        cs = elim_ops.pow2_at_least(min(len(e), self.chunk_edges),
+                                    floor=1 << 10)
+        batch = 1 if self.dispatch_batch == 0 and self._tail_strategy() \
+            else resolve_dispatch_batch(self.dispatch_batch, n, cs, dev)
+        sentinel = np.asarray([n], np.int64)
+        pos = torch.from_numpy(np.concatenate(
+            [state.pos, sentinel]).astype(np.int32)).to(dev)
+        P = torch.from_numpy(np.ascontiguousarray(
+            state.minp[np.concatenate([state.order, sentinel])])).to(dev)
+        stats = state.stats
+        for g0 in range(0, len(e), batch * cs):
+            group = np.stack([pad_chunk(e[off: off + cs], cs, n) for off
+                              in range(g0, min(len(e), g0 + batch * cs),
+                                       cs)])
+            loB, hiB = elim_ops.orient_chunks_batch_pos(
+                torch.from_numpy(group).to(dev), pos, n)
+            P, rounds = elim_ops.fold_segments_batch(
+                P, loB, hiB, n, segment_rounds=self.segment_rounds,
+                stats=stats)
+            stats["update_rounds"] = stats.get("update_rounds", 0) + rounds
+        # the update's product: the one read of the table
+        state.minp = P[pos.long()].cpu().numpy()
 
     def _staged_groups(self, chunks, cs: int, n: int, pos: torch.Tensor,
                        N: int):
@@ -495,10 +552,16 @@ class TorchBackend:
         obs.progress(phase="degrees", chunks_done=0, edges_done=0)
         deg = degrees_ops.init_degrees(n, dev)
         deg_saved = state.arrays["deg"] if state else None
+        # a delta: stream's order comes from its base segment's degrees
+        # (into the whole vertex space), read past the cache: the cache
+        # holds the surviving multiset the build and the score read
+        anchored = bool(getattr(stream, "order_anchor", False))
         if from_phase == 0:
             start = state.chunk_idx if state else 0
             idx = start
-            with chunks(start, ring) as it:
+            with (closing(_device_chunks(stream.anchor_stream(), cs, n, dev,
+                                         None, start, ring, stats))
+                  if anchored else chunks(start, ring)) as it:
                 for chunk in it:
                     degrees_ops.degree_chunk(deg, chunk, n)
                     idx += 1

@@ -11,6 +11,7 @@
         --checkpoint-dir ck --resume
     python -m sheep_tpu_torch.cli --input rmat-hash:22 --k 64 \
         --trace t.jsonl --heartbeat-secs 1 --metrics-out m.jsonl
+    python -m sheep_tpu_torch.cli --input base.bin64 --k 8 --deltas g.dlog
 
 prints the phase times and scores, then one JSON result line per k (the
 same fields as the reference's) last. ``--trace`` appends the run's
@@ -38,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "a synthetic spec: rmat-hash:SCALE[:EF[:SEED]], "
                         "rmat:SCALE[:EF[:SEED]], sbm-hash/plsbm-hash/"
                         "bipartite-hash:SCALE:BLOCKS:POUT[:EF[:SEED]], "
-                        "nearclique-hash:SCALE:CLIQUE_BITS:POUT[:EF[:SEED]]")
+                        "nearclique-hash:SCALE:CLIQUE_BITS:POUT[:EF[:SEED]], "
+                        "delta:LOG[@EPOCH]")
     p.add_argument("--k", help="number of parts; a comma list (e.g. "
                                "--k 8,64,256) splits one elimination-tree "
                                "build for every k, one result line each")
@@ -77,6 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(at most 1) and clamps --refine-alpha to BETA; "
                         "with --k-levels, BETA**(1/levels) a level; BETA > "
                         "1, excludes --alpha")
+    p.add_argument("--deltas", default=None, metavar="LOG",
+                   help="incremental replay: build --input, then fold the "
+                        "delta log's epochs (add and tombstone batches) "
+                        "into the converged table, each in O(delta); the "
+                        "same partition as a one-shot build of the delta: "
+                        "input at the last epoch. Single k, flat run")
     p.add_argument("--score-only", default=None, metavar="PARTS",
                    help="skip partitioning: score this partition map "
                         "(.parts/.pbin) against --input on the device; --k "
@@ -229,6 +237,9 @@ def _run(p, args) -> int:
         p.error("--auto-recipe has no effect with --score-only (nothing is "
                 "partitioned)")
     if args.score_only:
+        if args.deltas:
+            p.error("--deltas does not combine with --score-only (score the "
+                    "delta: input spec instead)")
         if args.balance is not None:
             p.error("--balance has no effect with --score-only (the split "
                     "already happened)")
@@ -254,6 +265,19 @@ def _run(p, args) -> int:
     if len(ks) > 1 and (args.checkpoint_dir or args.refine):
         p.error("--k lists do not combine with --checkpoint-dir or "
                 "--refine; run those single-k")
+    if args.deltas:
+        # the replay is flat, single-k and single-process
+        bad = [f for f, v in (("--k lists", len(ks) > 1 or None),
+                              ("--refine", args.refine),
+                              ("--auto-recipe", args.auto_recipe or None),
+                              ("--checkpoint-dir", args.checkpoint_dir),
+                              ("--resume", args.resume or None)) if v]
+        if bad:
+            p.error(f"{', '.join(bad)} not supported with --deltas (the "
+                    f"incremental replay is flat, single-k, "
+                    f"single-process)")
+        if not os.path.exists(args.deltas):
+            p.error(f"--deltas {args.deltas!r} does not exist")
     if args.auto_recipe and len(ks) > 1:
         p.error("--auto-recipe takes a single --k (the recipe is per "
                 "target k)")
@@ -361,11 +385,14 @@ def _run(p, args) -> int:
 
 
 def _flat(args, ks: list, run: dict) -> list:
-    """The flat run's results: ``partition_multi`` over a k list, else one
-    partition (from --checkpoint-dir, refined with --refine)."""
+    """The flat run's results: the --deltas replay, ``partition_multi``
+    over a k list, else one partition (from --checkpoint-dir, refined with
+    --refine)."""
     import sheep_tpu_torch
     from sheep_tpu_torch.io.edgestream import open_input
 
+    if args.deltas:
+        return [_replay(args, ks[0], run)]
     if len(ks) > 1:
         return sheep_tpu_torch.partition_multi(
             args.input, ks, n_vertices=args.num_vertices, **run)
@@ -381,6 +408,35 @@ def _flat(args, ks: list, run: dict) -> list:
                 budget_bytes=int(args.refine_budget_gb * (1 << 30)),
                 device=run["device"])
     return [res]
+
+
+def _replay(args, k: int, run: dict):
+    """--deltas LOG: the base build, each logged epoch past the base's
+    folded in unscored, then one refresh (with the comm volume unless
+    --no-comm-volume), as the reference's replay."""
+    from sheep_tpu_torch import incremental
+    from sheep_tpu_torch.backends.torch_backend import TorchBackend
+    from sheep_tpu_torch.io.deltalog import DeltaLogReader
+    from sheep_tpu_torch.io.edgestream import open_input
+
+    opts = dict(run)
+    weights, comm_volume = opts.pop("weights"), opts.pop("comm_volume")
+    be = TorchBackend(**opts)
+    with open_input(args.input, n_vertices=args.num_vertices) as es:
+        state, _ = incremental.begin_incremental(
+            es, k, backend=be, weights=weights, comm_volume=False)
+        applied = 0
+        for ep, adds, dels in DeltaLogReader(args.deltas).epochs(
+                start_epoch=state.epoch):
+            be.partition_update(state, adds=adds, deletes=dels, epoch=ep,
+                                score=False)
+            applied += 1
+        res = incremental.refresh(be, state, comm_volume=comm_volume)
+    if not args.json:
+        print(f"deltas: applied {applied} epoch(s) from {args.deltas} -> "
+              f"epoch {state.epoch} (stale deletes {state.stale_deletes}, "
+              f"compactions {state.compactions})")
+    return res
 
 
 @contextmanager
@@ -424,7 +480,7 @@ _BUILD_FLAGS = (("--metrics-out", "metrics_out"),
                 ("--stale-reuse", "stale_reuse"),
                 ("--dispatch-batch", "dispatch_batch"),
                 ("--inflight", "inflight"), ("--h2d-ring", "h2d_ring"),
-                ("--lift-levels", "lift_levels"))
+                ("--lift-levels", "lift_levels"), ("--deltas", "deltas"))
 
 
 def _build_flags(args) -> list:

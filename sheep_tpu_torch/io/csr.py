@@ -1,5 +1,5 @@
-"""Reader of the JAX package's memory-mapped CSR files (counterpart of
-``CsrHeader``, ``read_header`` and ``CsrGraph`` in ``sheep_tpu/io/csr.py``).
+"""Memory-mapped CSR graph files (the port's copy of ``sheep_tpu/io/csr.py``:
+the same bytes, so either package reads and writes the other's).
 
 Layout (little-endian, a 32-byte header)::
 
@@ -13,12 +13,20 @@ Layout (little-endian, a 32-byte header)::
 
 Vertex ``u`` owns edge ids ``[indptr[u], indptr[u+1])``; ``indices`` holds
 their destinations. Edge ids address the stream, so a chunk of edges
-``[start, end)`` is one ``searchsorted`` on the mapped ``indptr`` away.
+``[start, end)`` is one ``searchsorted`` on the mapped ``indptr`` away, and
+the arcs leaving a vertex set are one gather (:meth:`CsrGraph.arcs_from`,
+what the incremental scorer reads). Duplicates and self-loops are kept;
+edges regroup under their source, in input order within a vertex.
+
+    python -m sheep_tpu_torch.io.csr INPUT OUTPUT.csr [NUM_VERTICES]
 """
 
 from __future__ import annotations
 
+import os
 import struct
+import sys
+from typing import Optional
 
 import numpy as np
 
@@ -85,6 +93,35 @@ class CsrGraph:
     def n_edges(self) -> int:
         return self.header.n_edges
 
+    @property
+    def indptr(self) -> np.ndarray:
+        return self._indptr
+
+    def neighbors(self, u: int) -> np.ndarray:
+        return np.asarray(
+            self._indices[self._indptr[u]:self._indptr[u + 1]],
+            dtype=np.int64)
+
+    def arcs_from(self, vertices: np.ndarray) -> tuple:
+        """Every arc leaving ``vertices`` as ``(src, dst)`` int64 arrays,
+        one fancy-index over the mapped ``indices``."""
+        vs = np.asarray(vertices, dtype=np.int64).reshape(-1)
+        z = np.zeros(0, dtype=np.int64)
+        if not len(vs):
+            return z, z
+        starts = np.asarray(self._indptr[vs], dtype=np.int64)
+        counts = np.asarray(self._indptr[vs + 1], dtype=np.int64) - starts
+        total = int(counts.sum())
+        if total == 0:
+            return z, z
+        src = np.repeat(vs, counts)
+        # each vertex's start broadcast along its run of arcs
+        cum = np.zeros(len(vs), dtype=np.int64)
+        np.cumsum(counts[:-1], out=cum[1:])
+        eid = (np.arange(total, dtype=np.int64)
+               - np.repeat(cum, counts) + np.repeat(starts, counts))
+        return src, np.asarray(self._indices[eid], dtype=np.int64)
+
     def edge_slice(self, start: int, end: int) -> np.ndarray:
         """Edges with ids in ``[start, end)`` as an (end-start, 2) int64
         array: O(log V) to find the vertex span, then O(output)."""
@@ -109,3 +146,79 @@ class CsrGraph:
     def close(self) -> None:
         # the maps are released when nothing refers to them
         self._indptr = self._indices = None
+
+
+def write_csr(path: str, stream, n_vertices: Optional[int] = None,
+              chunk_edges: int = 1 << 22) -> CsrHeader:
+    """Write any edge stream as a ``.csr`` file in two passes (out-degrees,
+    then each chunk's destinations scattered into their sources' slots
+    through a write cursor a vertex), with O(V) host memory. The file lands
+    in ``path + '.tmp'`` and is renamed over ``path`` when whole."""
+    n = stream.num_vertices if n_vertices is None else n_vertices
+    deg = np.zeros(n, dtype=np.int64)
+    e_total = 0
+    for chunk in stream.chunks(chunk_edges):
+        if len(chunk) == 0:
+            continue
+        if int(chunk.min()) < 0 or int(chunk.max()) >= n:
+            raise ValueError(f"edge endpoint out of range [0, {n})")
+        deg += np.bincount(np.asarray(chunk[:, 0], dtype=np.int64),
+                           minlength=n)
+        e_total += len(chunk)
+    wide = n > np.iinfo(np.int32).max
+    header = CsrHeader(n, e_total, wide)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_HEADER.pack(MAGIC, VERSION, FLAG_WIDE if wide else 0, n,
+                             e_total))
+        indptr.astype("<i8", copy=False).tofile(f)
+        f.truncate(header.indices_offset
+                   + e_total * header.indices_dtype.itemsize)
+    cursor = indptr[:-1].copy()
+    if e_total:
+        mm = np.memmap(tmp, dtype=header.indices_dtype, mode="r+",
+                       offset=header.indices_offset, shape=(e_total,))
+        for chunk in stream.chunks(chunk_edges):
+            if len(chunk) == 0:
+                continue
+            u = np.asarray(chunk[:, 0], dtype=np.int64)
+            v = np.asarray(chunk[:, 1], dtype=np.int64)
+            order = np.argsort(u, kind="stable")
+            us = u[order]
+            # each edge's rank in its vertex's run of this chunk
+            boundary = np.empty(len(us), dtype=bool)
+            boundary[0] = True
+            np.not_equal(us[1:], us[:-1], out=boundary[1:])
+            group_start = np.maximum.accumulate(
+                np.where(boundary, np.arange(len(us)), 0))
+            mm[cursor[us] + np.arange(len(us)) - group_start] = v[order]
+            cursor[us[boundary]] += np.diff(
+                np.append(np.flatnonzero(boundary), len(us)))
+        mm.flush()
+        del mm
+    if not np.array_equal(cursor, indptr[1:]):
+        raise RuntimeError("CSR conversion: stream changed between passes")
+    os.replace(tmp, path)
+    return header
+
+
+def main(argv=None) -> int:
+    """Convert any input (a file or a synthetic spec) to CSR."""
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) not in (2, 3):
+        print("usage: python -m sheep_tpu_torch.io.csr INPUT OUTPUT.csr "
+              "[NUM_VERTICES]", file=sys.stderr)
+        return 2
+    from sheep_tpu_torch.io.edgestream import open_input
+
+    n = int(argv[2]) if len(argv) == 3 else None
+    h = write_csr(argv[1], open_input(argv[0], n_vertices=n))
+    print(f"wrote {argv[1]}: {h.n_vertices} vertices, {h.n_edges} edges, "
+          f"{'int64' if h.wide else 'int32'} indices")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

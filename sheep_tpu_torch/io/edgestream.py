@@ -356,18 +356,23 @@ def open_input(spec, n_vertices: Optional[int] = None):
     - ``sbm-hash:SCALE:BLOCKS:POUT[:EF[:SEED]]``, ``plsbm-hash:...``,
       ``bipartite-hash:...`` and ``nearclique-hash:SCALE:CLIQUE_BITS:POUT
       [:EF[:SEED]]``: the planted family (SCALE 1..31);
+    - ``delta:LOG[@EPOCH]``: a mutating graph, the surviving multiset of
+      a base input and an append-log of epoch-stamped add and tombstone
+      records (``io/deltalog.py``), up to EPOCH when given; its builds
+      take the anchored elimination order (the base segment's degrees);
     - anything else: a graph file path (text, gzip text, ``.bin32``,
       ``.bin64``, ``.csr``).
 
-    ``delta:`` inputs are not ported and raise. A given ``n_vertices``
-    must not contradict a synthetic spec's 2**SCALE."""
+    A given ``n_vertices`` must not contradict a synthetic spec's
+    2**SCALE."""
     from sheep_tpu_torch.io import generators
 
     spec = os.fspath(spec)
     kind, _, rest = spec.partition(":")
     if kind == "delta" and rest:
-        raise ValueError(f"{spec!r}: delta-log inputs are not ported yet "
-                         f"(ROADMAP Queue 1 item 6)")
+        from sheep_tpu_torch.io.deltalog import open_delta
+
+        return open_delta(rest, n_vertices=n_vertices)
     if kind in _PLANTED and rest:
         argname, clsname = _PLANTED[kind]
         shape = f"{kind}:SCALE:{argname}:POUT[:EF[:SEED]]"

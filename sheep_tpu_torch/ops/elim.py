@@ -448,6 +448,22 @@ def fold_segments_pipelined(P: torch.Tensor, staged, n: int,
     return P, total
 
 
+def fold_segments_batch(P: torch.Tensor, loB: torch.Tensor,
+                        hiB: torch.Tensor, n: int, lift_levels: int = 0,
+                        segment_rounds: int = 2, descent: str = "auto",
+                        batch_rounds: int = 0, max_rounds: int = 1 << 20,
+                        stats=None):
+    """Fold one staged [N, C] block to its fixpoint, synchronously: the
+    reference's ``fold_segments_batch``, which is
+    :func:`fold_segments_pipelined` at depth 1 over the one block (one
+    stats read an execution). ``P`` and the block are updated in place.
+    Returns ``(P, total_rounds)``."""
+    return fold_segments_pipelined(
+        P, iter([(loB, hiB)]), n, inflight=1, lift_levels=lift_levels,
+        segment_rounds=segment_rounds, descent=descent,
+        batch_rounds=batch_rounds, max_rounds=max_rounds, stats=stats)
+
+
 
 # -- the adaptive per-segment driver ----------------------------------------
 #

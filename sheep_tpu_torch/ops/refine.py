@@ -405,6 +405,28 @@ def _move_accounting(gain, before, after, parity: int, n: int):
     return wanted, applied
 
 
+def move_rescore_host(src, dst, prev, new, in_changed) -> int:
+    """Exact edge-cut change of a batch of part moves from the moved
+    vertices' arcs alone (the incremental scorer's move accounting):
+    ``(src, dst)`` are the surviving arcs leaving the changed set (masked
+    here by ``in_changed[src]``), ``prev``/``new`` the assignments before
+    and after, ``in_changed`` a bool[V] of the vertices whose label moved.
+    An edge with both ends changed comes as two arcs whose even sum is
+    halved; self-loop arcs add 0 on both sides."""
+    s = np.asarray(src)
+    d = np.asarray(dst)
+    if not len(s):
+        return 0
+    keep = in_changed[s]
+    s, d = s[keep], d[keep]
+    diff = ((new[s] != new[d]).astype(np.int64)
+            - (prev[s] != prev[d]).astype(np.int64))
+    both = in_changed[d]
+    twice = int(diff[both].sum())
+    assert twice % 2 == 0  # symmetric arcs: the both-changed sum is even
+    return int(diff[~both].sum()) + twice // 2
+
+
 # -- the refinement --------------------------------------------------------
 
 def spool_stream(stream, n: int, chunk_edges: int = 1 << 22,

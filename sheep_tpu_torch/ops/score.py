@@ -99,3 +99,20 @@ def part_loads_accounting(assign, k: int, weights=None,
         out["frozen_load_fraction"] = round(
             float(loads[at_cap].sum() / total) if total else 0.0, 6)
     return out
+
+
+def edge_effect_host(edges, assignments: dict, n: int) -> tuple:
+    """``(valid count, {k: cut count})`` of a delta batch under existing
+    assignments, on the host, with :func:`score_chunk`'s validity mask
+    (endpoints in [0, n), no self-loop): the O(delta) accounting that keeps
+    an incrementally maintained (cut, total) equal to a full scoring
+    pass."""
+    import numpy as np
+
+    e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    u, v = e[:, 0], e[:, 1]
+    valid = (u >= 0) & (u < n) & (v >= 0) & (v < n) & (u != v)
+    uc, vc = u[valid], v[valid]
+    cuts = {k: int(np.count_nonzero(a[uc] != a[vc]))
+            for k, a in assignments.items()}
+    return int(np.count_nonzero(valid)), cuts

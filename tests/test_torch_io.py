@@ -97,7 +97,7 @@ def test_write_edges_round_trip(tmp_path):
 
 def test_open_input_rejects_other_specs():
     # sbm-hash and rmat specs are read since the planted family and the
-    # replay stream were ported; delta logs are still refused
+    # replay stream were ported; a delta: spec needs an existing log
     for spec in ("sbm-hash:10:4", "rmat:10:1:2:3", "rmat-hash:x",
                  "rmat-hash:10:1:2:3", "delta:/nonexistent"):
         with pytest.raises(ValueError):
