@@ -446,6 +446,55 @@ def test_rebase_and_exports(tmp_path):
         sheep_tpu_torch.no_such_entry
 
 
+def _spans_and_events(path):
+    """(span name, attributes) in start order, and (event, fields) of the
+    incremental path's events, from a trace; timing keys and the backend's
+    name dropped."""
+    spans, events = [], []
+    for line in open(path):
+        r = json.loads(line)
+        if r["event"] == "span_start":
+            spans.append((r["span"], {k: v for k, v in r.items() if k not in (
+                "event", "ts", "span", "id", "parent", "backend")}))
+        elif r["event"] in ("delta_epoch_applied", "compacted"):
+            events.append({k: v for k, v in r.items() if k != "ts"})
+    return spans, events
+
+
+def test_spans_and_events_match_jax(tmp_path):
+    """The incremental path traced on both packages: the same
+    ``partition_update`` and ``compact`` spans with their fields, nested
+    builds and folds, and the same ``delta_epoch_applied`` and
+    ``compacted`` events."""
+    from sheep_tpu import obs as jobs
+
+    from sheep_tpu_torch import obs
+
+    e = _graph()
+    base = _base_file(tmp_path, e[:2000])
+    be, jbe = _pair()
+    traces = []
+    for b, mod, ob in ((be, inc, obs), (jbe, jinc, jobs)):
+        path = str(tmp_path / f"{b.name}.jsonl")
+        with ob.tracing(path):
+            st, _ = mod.begin_incremental(
+                (edgestream if mod is inc else jes).open_input(
+                    base, n_vertices=N), 8, backend=b)
+            b.partition_update(st, adds=e[2000:3000], score=False)
+            b.partition_update(st, deletes=e[:20], compact="force")
+            b.partition_update(st, deletes=e[20:25], score=False,
+                               compact="never")
+            mod.compact_state(b, st, mode="subtree")
+        traces.append(_spans_and_events(path))
+    assert traces[0] == traces[1]
+    names = [name for name, _ in traces[0][0]]
+    assert names.count("partition_update") == 3
+    assert names.count("compact") == 2
+    assert [ev["event"] for ev in traces[0][1]] == [
+        "delta_epoch_applied", "compacted", "delta_epoch_applied",
+        "delta_epoch_applied", "compacted"]
+
+
 # -- the CLI -------------------------------------------------------------------------
 
 def _json_lines(out):
