@@ -344,7 +344,7 @@ class TorchBackend:
         staged in groups of the dispatch batch, each group oriented and
         folded by the batched fixpoint at depth 1 (one stats read an
         execution). The table goes up once and comes back once. Rounds add
-        up in ``state.stats["update_rounds"]``, the driver's counters in
+        up in ``state.stats["update_rounds"]``, the fixpoint's counters in
         ``state.stats``."""
         n = state.n
         e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
