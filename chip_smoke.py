@@ -66,14 +66,22 @@ line is printed:
      plain versions on the card, exactly, at s22 shapes: ``neighbor_hist``
      on a 2^22-edge chunk of sbm-hash:22:64:0.05:16:42 and of
      rmat-hash:22:16:42 at k = 8 and 64 (full, with the fused cut and
-     total) and at k = 256 blocked (vb = 2^22, base 0 and 2^22);
-     ``hist_stats`` on (2^22+1, 64) and (2^22, 256) histograms with planted
-     ties; ``plan_moves`` at n = 2^22, k = 64 with the cap filling some
-     parts, both parities; each timed beside its plain version, a library
-     yardstick (``torch.bincount``, ``torch.max`` + ``gather``,
-     ``torch.sort``) and its bytes bound, the planner's sort also alone;
-     the weighted planner (plain PyTorch, no kernel) timed on the card
-     with its bytes bound, equal to its run on the CPU;
+     total) and at k = 256 blocked (vb = 2^22, base 0 and 2^22), and the
+     SBM chunk under its planted partition at k = 64 and 8;
+     ``hist_stats`` on (2^22+1, 64), (2^22, 256), (2^22, 7) and (2^22+1,
+     7) histograms with planted ties; ``plan_moves`` at n = 2^22, k = 64
+     with the cap filling some parts, both parities; each timed beside its
+     plain version, a library yardstick (``torch.bincount``, ``torch.max``
+     + ``gather``, ``torch.sort``) and its bytes bound, the planner's sort
+     also alone, the device kernels a call (``torch.profiler``); with
+     ``SHEEP_REFINE_BASELINE=path/to/refine.cu`` (another revision's, the
+     parent's for a comparison) its histogram and statistics kernels
+     checked too and timed in turns with the port's (``old_ms``); the
+     weighted planner (plain PyTorch, no kernel) timed on the card with
+     its bytes bound, equal to its run on the CPU; then both kernels at
+     small sizes where their designs branch (k = 1, 3, 7, 64, 257 and
+     40,000, blocked off a bucket start, ragged and misaligned stats
+     tiles, a chunk of invalid edges, a hub vertex);
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -1462,6 +1470,201 @@ def planted_parity(card, counters):
           f"(edge_cut {ref.edge_cut})", flush=True)
 
 
+class ParentRefine:
+    """The neighbour histogram and row statistics of another revision of
+    ``csrc/refine.cu`` (the parent's, to time the kernels against it in
+    turns), built with nvcc from the file that ``SHEEP_REFINE_BASELINE``
+    names into a temporary directory, the port's ``csrc`` on the include
+    path, and bound with ctypes by that revision's C signatures:
+    ``sheep_refine_hist(edges, m, assign, n, k, blocked, base, vb, hist,
+    counts, stream)`` and ``sheep_refine_stats`` as the port's."""
+
+    def __init__(self, src: str):
+        import ctypes
+
+        from sheep_tpu_torch.ops import _build
+
+        self._dir = tempfile.TemporaryDirectory(prefix="sheep_parent_")
+        out = os.path.join(self._dir.name, "librefine_parent.so")
+        run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                              _build.CSRC, "-o", out, src],
+                             capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"the baseline refine.cu did not build: "
+                                   f"{run.stderr[-2000:]}")
+        lib = ctypes.CDLL(out)
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.sheep_refine_hist.argtypes = [p, ll, p, i, i, i, ll, ll, p, p, p]
+        lib.sheep_refine_hist.restype = i
+        lib.sheep_refine_stats.argtypes = [p, ll, i, p, p, p, p, p, p]
+        lib.sheep_refine_stats.restype = i
+        self.lib = lib
+
+    def neighbor_hist(self, hist, chunk, assign, n, k, base=0, vb=None,
+                      counts=None):
+        import torch
+
+        rc = self.lib.sheep_refine_hist(
+            chunk.data_ptr(), len(chunk), assign.data_ptr(), n, k,
+            int(vb is not None), base, vb or 0, hist.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the baseline neighbor_hist failed ({rc})")
+
+    def hist_stats(self, hist, cur_part):
+        import torch
+
+        rows, k = hist.shape
+        out = [torch.empty(rows, dtype=torch.int32, device=hist.device)
+               for _ in range(4)]
+        rc = self.lib.sheep_refine_stats(
+            hist.data_ptr(), rows, k, cur_part.data_ptr(),
+            *(t.data_ptr() for t in out),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the baseline hist_stats failed ({rc})")
+        return tuple(out)
+
+
+def device_launches(fn) -> dict:
+    """The device work of one call of ``fn`` (after a warm-up call), by
+    ``torch.profiler``: the CUDA runtime's launch, memset and copy calls
+    (``api``), the witness, and the device's kernel records (``kernels``),
+    which a process that has profiled before may have lost (PERF.md,
+    section 7)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"api": [e.name for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU and
+                    re.match(r"cuda(Launch|Memset|Memcpy)", e.name)],
+            "kernels": [e.name for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA]}
+
+
+def in_turns(new, old) -> dict:
+    """``new`` timed alone, or against ``old`` in turns (old, new, new,
+    old) when there is one: ms and old_ms the means of each one's turns."""
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    if old is None:
+        return {"ms": gs.time_ms(new), "old_ms": None}
+    turns = [gs.time_ms(f) for f in (old, new, new, old)]
+    return {"ms": (turns[1] + turns[2]) / 2, "old_ms": (turns[0] + turns[3])
+            / 2, "turns_ms": {"new": turns[1:3], "old": [turns[0],
+                                                          turns[3]]}}
+
+
+def refine_edge_cases(dev) -> int:
+    """``neighbor_hist`` (full and blocked) and ``hist_stats`` against
+    their plain versions where their designs branch: k = 1, 3, 7, 64, 257;
+    k = 40,000, a row past the apply's tile and the stats' ring; blocked
+    at a base that does not start a bucket; row counts that leave a
+    ragged last stats tile; a chunk of invalid edges only; a hub vertex
+    that takes most updates. Returns the cases checked."""
+    import numpy as np
+    import torch
+
+    from sheep_tpu_torch.ops import refine
+
+    rng = np.random.default_rng(5)
+    scratch = refine.HistScratch(1 << 12, dev)
+
+    def chunk_of(n, C, hub=False, invalid=False):
+        e = rng.integers(0, n, (C, 2)).astype(np.int32)
+        if hub:  # vertex 3 at one end of nine edges in ten
+            e[rng.random(C) < 0.9, 0] = 3
+        loops = rng.random(C) < 0.05
+        e[loops, 1] = e[loops, 0]
+        e[rng.random(C) < 0.02, 0] = n + 3
+        e[rng.random(C) < 0.02, 1] = -1
+        e[-C // 8:] = n
+        if invalid:
+            e[:, 1] = e[:, 0]
+        return torch.from_numpy(e)
+
+    cases = 0
+    for n, k, C, base, vb, hub, invalid in (
+            (3001, 1, 1 << 14, 0, None, False, False),
+            (3001, 3, 1 << 14, 0, None, False, False),
+            (3001, 7, 1 << 14, 0, None, False, False),
+            (3001, 64, 1 << 14, 0, None, False, False),
+            (3001, 257, 1 << 14, 0, None, False, False),
+            (200, 40000, 1 << 12, 0, None, False, False),
+            (20001, 64, 1 << 15, 777, 9000, False, False),
+            (20001, 7, 1 << 15, 19999, 5, False, False),
+            (3001, 8, 1 << 14, 0, None, True, False),
+            (3001, 64, 1 << 14, 0, None, False, True)):
+        assign = torch.from_numpy(rng.integers(0, k, n + 1).astype(np.int32))
+        chunk = chunk_of(n, C, hub, invalid)
+        rows = n + 1 if vb is None else vb
+        want = torch.zeros((rows, k), dtype=torch.int32)
+        got = torch.zeros((rows, k), dtype=torch.int32, device=dev)
+        if vb is None:
+            wc = torch.zeros(2, dtype=torch.int64)
+            gc = torch.zeros(2, dtype=torch.int64, device=dev)
+            for _ in range(2):
+                refine.neighbor_hist_plain(want, chunk, assign, n, k,
+                                           counts=wc)
+                refine.neighbor_hist_chunk(got, chunk.to(dev),
+                                           assign.to(dev), n, k, gc, scratch)
+            check(torch.equal(gc.cpu(), wc), f"neighbor_hist counts at n={n} "
+                                             f"k={k}")
+        else:
+            for _ in range(2):
+                refine.neighbor_hist_plain(want, chunk, assign, n, k, base,
+                                           vb)
+                refine.neighbor_hist_block(got, chunk.to(dev),
+                                           assign.to(dev), base, n, k, vb,
+                                           scratch)
+        check(torch.equal(got.cpu(), want),
+              f"neighbor_hist at n={n} k={k} base={base} vb={vb} hub={hub} "
+              f"invalid={invalid} disagrees with its plain version")
+        cases += 1
+        cur = assign[base:base + rows] if vb is not None else assign
+        cur = torch.cat([cur, torch.zeros(rows - len(cur), dtype=torch.int32)])
+        # ties planted across 32-wide strides and at the row's ends
+        hist = got.clone()
+        hist[1::7, k - 1] = 9
+        hist[1::7, (k - 1) // 2] = 9
+        hist[2::9, 0] = 8
+        hist[2::9, k - 1] = 8
+        for r in (rows, rows - 1, rows - 2, rows - 3):
+            a = refine.hist_stats(hist[:r], cur[:r].to(dev))
+            b = refine.hist_stats_plain(hist[:r].cpu(), cur[:r])
+            check(all(torch.equal(x.cpu(), y) for x, y in zip(a, b)),
+                  f"hist_stats at rows={r} k={k} disagrees with its plain "
+                  f"version")
+            cases += 1
+    # histograms that start off a 16-byte boundary: the dense apply's
+    # scalar sweep, the stats' plain copies
+    n, k = 3001, 8
+    assign = torch.from_numpy(rng.integers(0, k, n + 1).astype(np.int32))
+    chunk = chunk_of(n, 1 << 14)
+    want = torch.zeros((n + 1, k), dtype=torch.int32)
+    refine.neighbor_hist_plain(want, chunk, assign, n, k)
+    got = torch.zeros((n + 1) * k + 1, dtype=torch.int32,
+                      device=dev)[1:].view(n + 1, k)
+    refine.neighbor_hist_chunk(got, chunk.to(dev), assign.to(dev), n, k,
+                               scratch=scratch)
+    check(torch.equal(got.cpu(), want), "neighbor_hist off a 16-byte "
+                                        "boundary disagrees with its plain "
+                                        "version")
+    hist = torch.randint(0, 5, (4001 * 7 + 1,), device=dev,
+                         dtype=torch.int32)[1:].view(4001, 7)
+    cur = torch.randint(0, 7, (4001,), device=dev, dtype=torch.int32)
+    a = refine.hist_stats(hist, cur)
+    b = refine.hist_stats_plain(hist.cpu(), cur.cpu())
+    check(all(torch.equal(x.cpu(), y) for x, y in zip(a, b)),
+          "hist_stats off a 16-byte boundary disagrees with its plain "
+          "version")
+    return cases + 2
+
+
 def refine_kernels(card):
     """Phase 3g: B11's kernels (``csrc/refine.cu``) against their plain
     versions on the card, exactly, at the s22 shapes. ``neighbor_hist`` on
@@ -1469,18 +1672,28 @@ def refine_kernels(card):
     rmat-hash:22:16:42 (its last 4096 rows sentinel padding), a random
     assignment, at k = 8 and 64 (full, (2^22+1) rows, with the fused cut
     and total) and at k = 256 blocked with vb = 2^22 at base 0 and 2^22;
-    ``hist_stats`` on (2^22+1, 64) and (2^22, 256) histograms of small
-    counts, with rows of zeros and ties planted across 32-wide strides;
-    ``plan_moves`` at n = 2^22, k = 64, loads skewed so that the cap fills
-    some parts and leaves others open, at both parities. Each timed beside
-    its plain version and a library yardstick (timed only):
+    then the SBM chunk under its planted partition at k = 64 and 8
+    (``ground_truth(k)`` and the sentinel slot), a partition correlated
+    with the graph as the refine passes of 5g meet it; ``hist_stats`` on
+    (2^22+1, 64), (2^22, 256), (2^22, 7) and (2^22+1, 7) histograms of
+    small counts (the last with a ragged final tile), with rows of zeros
+    and ties planted across 32-wide strides; ``plan_moves`` at n = 2^22,
+    k = 64, loads skewed so that the cap fills some parts and leaves
+    others open, at both parities; then ``refine_edge_cases``. Each timed
+    beside its plain version and a library yardstick (timed only):
     ``torch.bincount`` of the precomputed row * k + part keys,
     ``torch.max(dim=1)`` with ``torch.gather``, and ``torch.sort(stable)``
     of the planner's keys; the planner's sort (cub) is also timed alone.
-    Bounds by bytes: ``neighbor_hist`` 8 B an edge, one 32 B sector read
-    and written back for each distinct histogram sector the edges touch,
-    and the assignment once; ``hist_stats`` the histogram and the current
-    parts read, four int32 outputs written; ``plan_moves`` 16 B a row."""
+    With ``SHEEP_REFINE_BASELINE`` naming another revision's
+    ``refine.cu``, its ``neighbor_hist`` and ``hist_stats`` are checked
+    the same way and timed in turns with the port's (``old_ms``); the
+    port's kernel launches a call are ``torch.profiler``'s runtime
+    calls. Bounds by
+    bytes: ``neighbor_hist`` 8 B an edge, one 32 B sector read and written
+    back for each distinct histogram sector the edges touch, and the
+    assignment once; ``hist_stats`` the histogram and the current parts
+    read, four int32 outputs written; ``plan_moves`` 16 B a row."""
+    import numpy as np
     import torch
 
     from sheep_tpu_torch.io.generators import RmatHashStream, SbmHashStream
@@ -1490,14 +1703,26 @@ def refine_kernels(card):
     dev = torch.device("cuda")
     n = C = 1 << 22
     g = torch.Generator(device=dev).manual_seed(17)
+    baseline = os.environ.get("SHEEP_REFINE_BASELINE")
+    parent = ParentRefine(baseline) if baseline else None
     records = {"neighbor_hist": [], "hist_stats": [], "plan_moves": []}
-    for src, stream in (("sbm", SbmHashStream(22, 64, 0.05, 16, 42)),
+    sbm = SbmHashStream(22, 64, 0.05, 16, 42)
+    scratch = refine.HistScratch(C, dev)
+    for src, stream in (("sbm", sbm),
                         ("rmat", RmatHashStream(22, 16, seed=42))):
         chunk = stream.device_chunk(0, C, n, dev).clone()
         chunk[-4096:] = n
-        for k, base in ((8, None), (64, None), (256, 0), (256, 1 << 22)):
-            assign = torch.randint(0, k, (n + 1,), device=dev, generator=g,
-                                   dtype=torch.int32)
+        cases = [(8, None, ""), (64, None, ""), (256, 0, ""),
+                 (256, 1 << 22, "")]
+        if src == "sbm":
+            cases += [(64, None, "-planted"), (8, None, "-planted")]
+        for k, base, kind in cases:
+            if kind:
+                assign = torch.from_numpy(np.concatenate(
+                    [sbm.ground_truth(k), np.zeros(1, np.int32)])).to(dev)
+            else:
+                assign = torch.randint(0, k, (n + 1,), device=dev,
+                                       generator=g, dtype=torch.int32)
             vb = None if base is None else 1 << 22
             rows = n + 1 if vb is None else vb
             hist = torch.zeros((rows, k), dtype=torch.int32, device=dev)
@@ -1509,11 +1734,19 @@ def refine_kernels(card):
 
                 def kernel():
                     refine.neighbor_hist_chunk(hist, chunk, assign, n, k,
-                                               counts)
+                                               counts, scratch)
+
+                def old():
+                    parent.neighbor_hist(hist, chunk, assign, n, k,
+                                         counts=counts)
             else:
                 def kernel():
                     refine.neighbor_hist_block(hist, chunk, assign, base, n,
-                                               k, vb)
+                                               k, vb, scratch)
+
+                def old():
+                    parent.neighbor_hist(hist, chunk, assign, n, k, base,
+                                         vb)
             kernel()
             refine.neighbor_hist_plain(want, chunk, assign, n, k, base or 0,
                                        vb, want_counts)
@@ -1521,9 +1754,23 @@ def refine_kernels(card):
             err = int((hist - want).abs().max())
             if counts is not None:
                 err = max(err, int((counts - want_counts).abs().max()))
-            name = f"{src}-k{k}" + ("" if vb is None else f"-base{base}")
+            name = f"{src}-k{k}" + ("" if vb is None else f"-base{base}") \
+                + kind
             check(err == 0, f"neighbor_hist {name} disagrees with its plain "
                             f"version")
+            old_err = None
+            if parent is not None:
+                hist.zero_()
+                if counts is not None:
+                    counts.zero_()
+                old()
+                torch.cuda.synchronize()
+                old_err = int((hist - want).abs().max())
+                if counts is not None:
+                    old_err = max(old_err, int((counts - want_counts)
+                                               .abs().max()))
+                check(old_err == 0, f"the baseline neighbor_hist {name} "
+                                    f"disagrees with the plain version")
             del want
             # the cells the valid edges touch, as row * k + part keys
             u, v = chunk[:, 0].long(), chunk[:, 1].long()
@@ -1541,7 +1788,9 @@ def refine_kernels(card):
             rec = {"case": name, "C": C, "k": k, "rows": rows,
                    "valid": int(want_counts[1]) if vb is None else None,
                    "cells_added": int(keys.numel()), "sectors": sectors,
-                   "max_abs_err": err, "ms": gs.time_ms(kernel),
+                   "max_abs_err": err, "old_max_abs_err": old_err,
+                   **in_turns(kernel, old if parent else None),
+                   "device": device_launches(kernel),
                    "plain_ms": gs.time_ms(
                        lambda: refine.neighbor_hist_plain(
                            plain_hist, chunk, assign, n, k, base or 0, vb),
@@ -1552,17 +1801,19 @@ def refine_kernels(card):
                    "bound_ms": gs.bound_ms(8 * C + 64 * sectors
                                            + 4 * (n + 1)),
                    "bound_by": "bytes", "card": card}
+            rec["device_launches"] = len(rec["device"]["api"])
             del plain_hist, hist, keys
             torch.cuda.empty_cache()
             print("neighbor_hist " + json.dumps(rec), flush=True)
             records["neighbor_hist"].append(rec)
-    for rows, k in ((n + 1, 64), (n, 256)):
+    del scratch
+    for rows, k in ((n + 1, 64), (n, 256), (n, 7), (n + 1, 7)):
         hist = torch.randint(0, 3, (rows, k), device=dev, generator=g,
                              dtype=torch.int32)
         hist[::7] = 0
         # a tie across two 32-wide strides (the first wins), and one at
         # the row's last column
-        hist[1::11, 31] = 9
+        hist[1::11, min(31, k - 1)] = 9
         hist[1::11, k - 1] = 9
         hist[2::13, k - 1] = 8
         cur = torch.randint(0, k, (rows,), device=dev, generator=g,
@@ -1575,18 +1826,31 @@ def refine_kernels(card):
         name = f"rows{rows}-k{k}"
         check(err == 0, f"hist_stats {name} disagrees with its plain "
                         f"version")
+        old_err = None
+        if parent is not None:
+            old_err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip(parent.hist_stats(hist, cur),
+                                          want))
+            check(old_err == 0, f"the baseline hist_stats {name} disagrees "
+                                f"with the plain version")
 
         def library():
             mx = torch.max(hist, dim=1)
             return mx, hist.gather(1, cur.long()[:, None])
 
         rec = {"case": name, "rows": rows, "k": k, "max_abs_err": err,
-               "ms": gs.time_ms(lambda: refine.hist_stats(hist, cur)),
+               "old_max_abs_err": old_err,
+               **in_turns(lambda: refine.hist_stats(hist, cur),
+                          (lambda: parent.hist_stats(hist, cur))
+                          if parent else None),
+               "device": device_launches(
+                   lambda: refine.hist_stats(hist, cur)),
                "plain_ms": gs.time_ms(
                    lambda: refine.hist_stats_plain(hist, cur), iters=5),
                "library_ms": gs.time_ms(library, iters=5),
                "bound_ms": gs.bound_ms(4 * rows * k + 4 * rows + 16 * rows),
                "bound_by": "bytes", "card": card}
+        rec["device_launches"] = len(rec["device"]["api"])
         del hist, got, want
         torch.cuda.empty_cache()
         print("hist_stats " + json.dumps(rec), flush=True)
@@ -1653,6 +1917,9 @@ def refine_kernels(card):
            "card": card}
     print("plan_moves_weighted " + json.dumps(rec), flush=True)
     records["plan_moves_weighted"] = [rec]
+    edges = refine_edge_cases(dev)
+    print(f"refine-edges {edges} cases equal to the plain versions",
+          flush=True)
     return records
 
 
@@ -3399,15 +3666,17 @@ def main() -> int:
             ("plan_moves", "sheep_tpu/ops/refine.py:100", [],
              "torch.sort(stable=True) of the planner's keys")):
         recs = refine_cases[name]
-        extra = {"sort_ms": refine_head[name]["sort_ms"]} \
-            if name == "plan_moves" else {}
+        head = refine_head[name]
+        extra = {"sort_ms": head["sort_ms"]} if name == "plan_moves" else {
+            "old_ms": head["old_ms"],
+            "device_launches_a_call": head["device_launches"]}
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
+            () if name == "plan_moves" else ("old_ms", "device_launches"))
         kernels.append(entry(
-            name, refine_src, replaces, refine_head[name],
-            hier["launches"][name], also_replaces=also,
-            replaces_kind="XLA program", library_scope=scope, **extra,
-            cases={r["case"]: {k: r[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms")}
-                for r in recs},
+            name, refine_src, replaces, head, hier["launches"][name],
+            also_replaces=also, replaces_kind="XLA program",
+            library_scope=scope, **extra,
+            cases={r["case"]: {k: r[k] for k in keys} for r in recs},
             cases_max_abs_err=max(r["max_abs_err"] for r in recs)))
     # the delta fold's launches (5j, epochs 1-4) beside the main path's
     for k in kernels:

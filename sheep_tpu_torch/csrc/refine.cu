@@ -7,25 +7,83 @@
 //
 // neighbor_hist: for each valid edge (u, v) of a (C, 2) int32 chunk (both
 // ends in [0, n), u != v), hist[u, assign[v]] += 1 and hist[v, assign[u]]
-// += 1 by int32 atomics, and the chunk's (cut, total) under the same mask,
-// summed in the block and added once a block to two 64-bit counters.
-// Blocked mode (a template argument) keeps only the rows [base, base + vb)
-// of a (vb, k) buffer. The reference sends every invalid edge (padding,
-// self-loops) to the sentinel row n (vb in blocked mode, or the row of
-// vertex n when it lies in the block); on the card that many atomics on one
-// address serialize, and the row is never read (the planner and the move
-// accounting skip vid == n, the cut comes from the counters). So the kernel
-// drops invalid edges and leaves that row as it found it. Bound by bytes:
-// 8 B an edge read, the 32 B sector of each histogram cell an edge touches
-// read and written back, and the assignment table (16 MiB at s22, in L2).
-// Integer atomics in any order give the same counts.
+// += 1, and the chunk's (cut, total) under the same mask. Blocked mode
+// keeps only the rows [base, base + vb) of a (vb, k) buffer. The reference
+// sends every invalid edge (padding, self-loops) to the sentinel row n (vb
+// in blocked mode, or the row of vertex n when it lies in the block); that
+// row is never read (the planner and the move accounting skip vid == n, the
+// cut comes from the counters), so the kernels drop invalid edges and
+// leave that row as they found it.
+//   What bounds it: the histogram is (n + 1) k int32, 1 GiB at s22 and
+// k = 64, far past the 50 MB L2, and a chunk's updates land on random rows:
+// one update at a time, each is a random read-modify-write of a DRAM
+// sector. So the updates are binned by row range first and applied a range
+// at a time, four launches on the caller's stream:
+//   hist_count    edges read as int2, the invalid ones dropped; each
+//                 update counted in its bucket by shared-memory atomics,
+//                 the block's counts added to the bucket totals. Dense
+//                 calls (an update for every eight cells or more) bin by
+//                 tiles: the largest power-of-two number of rows whose k
+//                 cells fit kTileCells int32 (128 KB), when that makes at
+//                 most kMaxBuckets buckets; the others by kMaxBuckets
+//                 power-of-two row ranges.
+//   hist_scan     one block: the totals to bucket starts, cursors and
+//                 work items (a bucket in items of at most kItemUpdates
+//                 or kHashItem updates), the totals back to zero and the
+//                 apply's work counter to zero (the metadata is zeroed
+//                 once, when it is allocated).
+//   hist_scatter  the edges again, with assign[u] and assign[v] (16 MiB at
+//                 s22, in L2; only where an update or the counts need
+//                 them) and the fused (cut, total); a batch of 4096 edges
+//                 is ordered by bucket in shared memory (ranks by
+//                 shared-memory atomics, a block scan of the batch's
+//                 counts, one global reservation a bucket it touches) and
+//                 written as a run a bucket. Each update is one uint32
+//                 word: its row within the bucket above col_bits bits of
+//                 its column.
+//   hist_apply_*  persistent blocks take work items from the counter. Tiled
+//                 (dense): the item's updates are added into a zeroed tile
+//                 by shared-memory atomics, then the touched cells into the
+//                 histogram: by int4 load-add-store in address order where
+//                 the tile is swept and the block owns the rows, otherwise
+//                 by red (a global add that returns nothing). Hashed
+//                 (sparse): a shared-memory hash table keyed by the words
+//                 counts the item's updates, and each distinct cell is
+//                 added by red.
+// Each distinct cell is added once a work item, and a tile's or a bucket's
+// cells together, not an update at a time at random; the price is 16 B of
+// scratch traffic an edge (two 4 B words written and read once) and a
+// second read of the edges. Measured on an H100 (PERF.md): a sparse
+// call's red of its distinct cells (k = 64: ~8 M cells a 2^22-edge chunk,
+// each in its own 32 B sector) is what bounds it; the scatter's gathers and
+// short runs of words come next. Scratch: a word for each of 2C updates
+// (32 MiB at C = 2^22) and the buckets' metadata. Any k: a word must stay
+// below 2^31 (bucket rows times the column's bits), which any histogram
+// that fits the card meets. Integer adds in any order give the same
+// counts. Bound by bytes: 8 B an edge read, the 32 B sector of each
+// histogram cell an edge touches read and written back, and the assignment
+// table once.
 //
-// hist_stats: one warp a row, the row's k columns read in 32-wide strides
-// (any k >= 1): best = the FIRST argmax (a lane keeps its first maximum,
-// the warp's shuffle reduction prefers the smaller column on a tie, as
-// jnp.argmax), bestv its value, cur = hist[r, cur_part[r]], and gain =
-// bestv - cur, which the caller computes next anyway. Bound by bytes: the
-// histogram read once.
+// hist_stats: best = the FIRST argmax of each row (a lane keeps its first
+// maximum, a tie goes to the smaller column, as jnp.argmax), bestv its
+// value, cur = hist[r, cur_part[r]] and gain = bestv - cur, which the
+// caller computes next anyway. Bound by bytes: the histogram read once.
+// A row of k = 64 is two loads a lane of a warp: a warp a row keeps too
+// few bytes in flight to keep the memory busy, so whole-row tiles stream
+// through a ring of
+// kStatsStages shared-memory stages: a producer warp copies each tile
+// (tile_rows x k int32, tile_rows a multiple of 4, so every tile starts
+// 16 B aligned) with a 1-D TMA bulk copy (cp.async.bulk, completed on an
+// mbarrier by its byte count) under an L2 evict-first policy, the
+// histogram being read once; a last tile whose bytes are not a multiple
+// of 16 (or a histogram not 16 B aligned) is copied with plain loads.
+// Consumer warps reduce each staged row with a group of lanes (the power
+// of two at or above k, or k / 4 where k is a multiple of 4 and a lane
+// reads int4s, at most 32) and shuffles, read cur from the staged row (the
+// tile's current parts loaded while it arrives), and store the tile's four
+// outputs coalesced; their results alternate between two buffers, so one
+// barrier a tile keeps the consumers together. A row wider than a quarter
+// stage (k > 2048) goes to hist_stats_wide: a block a row, plain loads.
 //
 // plan_moves: one parity half-round of capacity-capped moves. Loads: a
 // bincount of assign[:n] over k in shared memory (global atomics when k
@@ -45,6 +103,7 @@
 // caller passes device pointers, the scratch it allocated and its CUDA
 // stream, and gets back the first CUDA error of the launches (0 if none).
 
+#include <cub/block/block_scan.cuh>
 #include <cub/device/device_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,37 +118,201 @@ constexpr unsigned kFull = 0xffffffffu;
 // loads in shared memory up to this many parts (48 KB of int32)
 constexpr int kSharedParts = 12288;
 
-template <bool kBlocked>
+// -- neighbor_hist ----------------------------------------------------------
+
+constexpr int kTileCells = 32768;     // the apply's tile: 128 KB of int32
+constexpr int kMaxBuckets = 2048;     // buckets of a call
+constexpr int kList = 4096;           // touched cells a tile walks by list
+constexpr int kSweep = 4;             // int4 cells a thread a sweep step
+constexpr int kBigThreads = 1024;     // scan, scatter and apply blocks
+constexpr int kBatchEdges = 4 * kBigThreads;  // a scatter batch
+constexpr int kEdgesPerThread = kBatchEdges / kBigThreads;
+constexpr int kBatchUpdates = 2 * kBatchEdges;
+constexpr int kBucketsPerThread = kMaxBuckets / kBigThreads;
+constexpr int kItemUpdates = 16384;   // updates of a tiled work item
+constexpr int kWordsPerThread = kItemUpdates / kBigThreads;
+constexpr int kHashBits = 14;         // the hashed apply's table
+constexpr int kHashSlots = 1 << kHashBits;
+constexpr int kHashItem = kHashSlots / 2;  // updates of a hashed item
+constexpr int kHashPerThread = kHashItem / kBigThreads;
+constexpr uint32_t kEmpty = 0xffffffffu;  // no word: they stay below 2^31
+// metadata words: totals, starts (+1), cursors, item starts (+1), the
+// apply's work counter
+constexpr int kMetaWords = 4 * kMaxBuckets + 3;
+
+using BigScan = cub::BlockScan<int32_t, kBigThreads>;
+
+__device__ __forceinline__ bool valid_edge(int32_t u, int32_t v, int32_t n) {
+  return (uint32_t)u < (uint32_t)n && (uint32_t)v < (uint32_t)n && u != v;
+}
+
+// sum over a block of kBigThreads into thread 0's return value
+__device__ __forceinline__ int big_block_sum(int x, int* smem) {
+  x = __reduce_add_sync(kFull, x);
+  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = x;
+  __syncthreads();
+  int s = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kBigThreads / 32; ++w) s += smem[w];
+  __syncthreads();
+  return s;
+}
+
 __global__ void __launch_bounds__(kThreads)
-neighbor_hist_kernel(const int2* __restrict__ edges, int64_t m,
-                     const int32_t* __restrict__ assign, int32_t n,
-                     int32_t k, int64_t base, int64_t vb,
-                     int32_t* __restrict__ hist,
-                     unsigned long long* __restrict__ counts) {
-  __shared__ int smem[kWarps];
-  int cut = 0, total = 0;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+hist_count(const int2* __restrict__ edges, int64_t m, int32_t n,
+           int64_t base, int64_t rows, int shift_b, int buckets,
+           int32_t* __restrict__ total) {
+  extern __shared__ int32_t count[];
+  for (int b = threadIdx.x; b < buckets; b += kThreads) count[b] = 0;
+  __syncthreads();
+  const int64_t step = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < m;
        i += step) {
     const int2 e = edges[i];
-    const int32_t u = e.x, v = e.y;
-    if (u < 0 || u >= n || v < 0 || v >= n || u == v) continue;
-    const int32_t pu = __ldg(assign + u), pv = __ldg(assign + v);
-    cut += pu != pv;
-    total += 1;
-    if (kBlocked) {
-      const int64_t lu = (int64_t)u - base, lv = (int64_t)v - base;
-      if (lu >= 0 && lu < vb) atomicAdd(hist + lu * k + pv, 1);
-      if (lv >= 0 && lv < vb) atomicAdd(hist + lv * k + pu, 1);
-    } else {
-      atomicAdd(hist + (int64_t)u * k + pv, 1);
-      atomicAdd(hist + (int64_t)v * k + pu, 1);
-    }
+    if (!valid_edge(e.x, e.y, n)) continue;
+    const int64_t lu = (int64_t)e.x - base, lv = (int64_t)e.y - base;
+    if ((uint64_t)lu < (uint64_t)rows) atomicAdd(count + (lu >> shift_b), 1);
+    if ((uint64_t)lv < (uint64_t)rows) atomicAdd(count + (lv >> shift_b), 1);
   }
-  if (counts != nullptr) {
-    const int c = block_sum(cut, smem);
-    __syncthreads();  // thread 0 has read smem before it is reused
-    const int t = block_sum(total, smem);
+  __syncthreads();
+  for (int b = threadIdx.x; b < buckets; b += kThreads)
+    if (count[b]) atomicAdd(total + b, count[b]);
+}
+
+__global__ void __launch_bounds__(kBigThreads)
+hist_scan(int32_t* __restrict__ total, int buckets, int item_size,
+          int32_t* __restrict__ start, int32_t* __restrict__ cursor,
+          int32_t* __restrict__ items, int32_t* __restrict__ work) {
+  __shared__ typename BigScan::TempStorage tmp;
+  int32_t c[kBucketsPerThread];
+  int32_t sum = 0, slices = 0;
+#pragma unroll
+  for (int p = 0; p < kBucketsPerThread; ++p) {
+    const int b = threadIdx.x * kBucketsPerThread + p;
+    c[p] = b < buckets ? total[b] : 0;
+    if (b < buckets) total[b] = 0;
+    sum += c[p];
+    slices += (c[p] + item_size - 1) / item_size;
+  }
+  int32_t at, all, item_at, item_all;
+  BigScan(tmp).ExclusiveSum(sum, at, all);
+  __syncthreads();
+  BigScan(tmp).ExclusiveSum(slices, item_at, item_all);
+#pragma unroll
+  for (int p = 0; p < kBucketsPerThread; ++p) {
+    const int b = threadIdx.x * kBucketsPerThread + p;
+    if (b < buckets) {
+      start[b] = at;
+      cursor[b] = at;
+      items[b] = item_at;
+    }
+    at += c[p];
+    item_at += (c[p] + item_size - 1) / item_size;
+  }
+  if (threadIdx.x == 0) {
+    start[buckets] = all;
+    items[buckets] = item_all;
+    *work = 0;
+  }
+}
+
+// shared memory of hist_scatter: the batch's counts (then offsets), its
+// reserved slots, and its words and their destinations in bucket order
+constexpr size_t kScatterSmem =
+    (size_t)(2 * kMaxBuckets + 2 * kBatchUpdates) * 4;
+
+__global__ void __launch_bounds__(kBigThreads)
+hist_scatter(const int2* __restrict__ edges, int64_t m,
+             const int32_t* __restrict__ assign, int32_t n, int64_t base,
+             int64_t rows, int shift_b, int col_bits,
+             int32_t* __restrict__ cursor, uint32_t* __restrict__ words,
+             unsigned long long* __restrict__ counts) {
+  extern __shared__ int32_t smem[];
+  int32_t* offset = smem;                     // [kMaxBuckets]
+  int32_t* slot = offset + kMaxBuckets;       // [kMaxBuckets]
+  uint32_t* staged = (uint32_t*)(slot + kMaxBuckets);  // [kBatchUpdates]
+  int32_t* dest = (int32_t*)(staged + kBatchUpdates);  // [kBatchUpdates]
+  __shared__ typename BigScan::TempStorage tmp;
+  __shared__ int sums[kBigThreads / 32];
+  for (int b = threadIdx.x; b < kMaxBuckets; b += kBigThreads) offset[b] = 0;
+  __syncthreads();
+  const uint64_t row_mask = (1ull << shift_b) - 1;
+  const bool fused = counts != nullptr;
+  int cut = 0, total = 0;
+  for (int64_t b0 = (int64_t)blockIdx.x * kBatchEdges; b0 < m;
+       b0 += (int64_t)gridDim.x * kBatchEdges) {
+    int32_t bucket[2 * kEdgesPerThread], rank[2 * kEdgesPerThread];
+    uint32_t word[2 * kEdgesPerThread];
+    int2 e[kEdgesPerThread];
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      const int64_t i = b0 + j * kBigThreads + threadIdx.x;
+      e[j] = i < m ? __ldcs(edges + i) : make_int2(-1, -1);
+    }
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      bucket[2 * j] = bucket[2 * j + 1] = -1;
+      if (!valid_edge(e[j].x, e[j].y, n)) continue;
+      const int64_t lu = (int64_t)e[j].x - base, lv = (int64_t)e[j].y - base;
+      const bool in_u = (uint64_t)lu < (uint64_t)rows,
+                 in_v = (uint64_t)lv < (uint64_t)rows;
+      // the parts only where an update or the counts need them
+      const int32_t pv = in_u || fused ? __ldg(assign + e[j].y) : 0;
+      const int32_t pu = in_v || fused ? __ldg(assign + e[j].x) : 0;
+      cut += pu != pv;
+      total += 1;
+      if (in_u) {
+        bucket[2 * j] = (int32_t)(lu >> shift_b);
+        word[2 * j] = ((uint32_t)(lu & row_mask) << col_bits) | (uint32_t)pv;
+      }
+      if (in_v) {
+        bucket[2 * j + 1] = (int32_t)(lv >> shift_b);
+        word[2 * j + 1] =
+            ((uint32_t)(lv & row_mask) << col_bits) | (uint32_t)pu;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 2 * kEdgesPerThread; ++q)
+      if (bucket[q] >= 0) rank[q] = atomicAdd(offset + bucket[q], 1);
+    __syncthreads();
+    // the batch's counts to offsets, and a run reserved in each bucket
+    // that has any: the runs of concurrent batches lie together, so a
+    // bucket's words are written in few open lines at a time
+    int32_t c[kBucketsPerThread];
+    int32_t sum = 0;
+#pragma unroll
+    for (int p = 0; p < kBucketsPerThread; ++p) {
+      c[p] = offset[threadIdx.x * kBucketsPerThread + p];
+      sum += c[p];
+    }
+    int32_t at, staged_count;
+    BigScan(tmp).ExclusiveSum(sum, at, staged_count);
+#pragma unroll
+    for (int p = 0; p < kBucketsPerThread; ++p) {
+      const int b = threadIdx.x * kBucketsPerThread + p;
+      if (c[p] > 0) slot[b] = atomicAdd(cursor + b, c[p]);
+      offset[b] = at;
+      at += c[p];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 2 * kEdgesPerThread; ++q)
+      if (bucket[q] >= 0) {
+        const int s = offset[bucket[q]] + rank[q];
+        staged[s] = word[q];
+        dest[s] = slot[bucket[q]] + rank[q];
+      }
+    __syncthreads();
+    for (int s = threadIdx.x; s < staged_count; s += kBigThreads)
+      words[dest[s]] = staged[s];
+#pragma unroll
+    for (int p = 0; p < kBucketsPerThread; ++p)
+      offset[threadIdx.x * kBucketsPerThread + p] = 0;
+    __syncthreads();
+  }
+  if (fused) {
+    const int c = big_block_sum(cut, sums);
+    const int t = big_block_sum(total, sums);
     if (threadIdx.x == 0) {
       atomicAdd(counts, (unsigned long long)c);
       atomicAdd(counts + 1, (unsigned long long)t);
@@ -97,47 +320,452 @@ neighbor_hist_kernel(const int2* __restrict__ edges, int64_t m,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_stats_kernel(const int32_t* __restrict__ hist, int64_t rows, int32_t k,
-                  const int32_t* __restrict__ cur_part,
-                  int32_t* __restrict__ best, int32_t* __restrict__ bestv,
-                  int32_t* __restrict__ cur, int32_t* __restrict__ gain) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * kWarps;
-  for (int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       r < rows; r += warps) {
-    const int32_t* row = hist + r * k;
-    // a lane without a column holds the index k, which loses every tie
-    int32_t bv = INT32_MIN, bi = k;
-    if (lane < k) {
-      bv = row[lane];
-      bi = lane;
+// The apply's blocks take work items from the counter: an item is up to
+// item_size updates of one bucket. Returns the item's bucket, or -1 when
+// none is left; lo and count are its updates in words, shared whether its
+// bucket has other items (whose blocks add to the same rows). item_at:
+// the item starts in shared memory.
+__device__ __forceinline__ int next_item(int32_t* work,
+                                         const int32_t* item_at,
+                                         int buckets,
+                                         const int32_t* __restrict__ start,
+                                         int item_size, int* s_item,
+                                         int32_t* lo, int32_t* count,
+                                         bool* shared) {
+  __syncthreads();  // the last item's s_item and words read by all
+  if (threadIdx.x == 0) *s_item = atomicAdd(work, 1);
+  __syncthreads();
+  const int item = *s_item;
+  if (item >= item_at[buckets]) return -1;
+  // the bucket: the last with item_at[b] <= item
+  int b = 0;
+  for (int span = buckets; span > 1;) {
+    const int half = span >> 1;
+    if (item_at[b + half] <= item) b += half;
+    span -= half;
+  }
+  *shared = item_at[b + 1] - item_at[b] > 1;
+  *lo = start[b] + (item - item_at[b]) * item_size;
+  *count = min(start[b + 1] - *lo, item_size);
+  return b;
+}
+
+// Dense calls, a bucket one tile (2^shift_r rows of k cells): the item's
+// words staged, its updates added into the tile by shared-memory atomics,
+// then the touched cells into the histogram. Where at most kList distinct
+// cells are touched (their first touches listed as they land), by red (a
+// global add that returns nothing) down the list; otherwise a sweep of the
+// tile in address order, by int4 load-add-store when the bucket is one item
+// (its rows the block's alone in the launch; vec: the histogram 16 B
+// aligned), else by red. Dynamic shared memory: the item starts (buckets +
+// 1), the words, the tile and the list.
+__global__ void __launch_bounds__(kBigThreads)
+hist_apply_tile(const uint32_t* __restrict__ words,
+                const int32_t* __restrict__ start,
+                const int32_t* __restrict__ items, int buckets,
+                int32_t* __restrict__ work, int64_t rows, int32_t k,
+                int shift_r, int col_bits, int vec,
+                int32_t* __restrict__ hist) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* item_at = smem;
+  uint32_t* word = (uint32_t*)(item_at + ((buckets + 4) & ~3));
+  int32_t* tile = (int32_t*)(word + kItemUpdates);
+  int32_t* list = tile + ((int64_t)k << shift_r);
+  __shared__ int s_item, s_listed;
+  const uint32_t col_mask = (1u << col_bits) - 1;
+  const int tile_rows = 1 << shift_r;
+  for (int b = threadIdx.x; b <= buckets; b += kBigThreads)
+    item_at[b] = items[b];
+  for (int c = threadIdx.x; c < (tile_rows * k); c += kBigThreads)
+    tile[c] = 0;
+  if (threadIdx.x == 0) s_listed = 0;
+  int32_t lo, count;
+  bool shared;
+  for (int b; (b = next_item(work, item_at, buckets, start, kItemUpdates,
+                             &s_item, &lo, &count, &shared)) >= 0;) {
+#pragma unroll
+    for (int q = 0; q < kWordsPerThread; ++q) {
+      const int i = q * kBigThreads + threadIdx.x;
+      if (i < count) word[i] = words[lo + i];
     }
-    for (int32_t j = lane + 32; j < k; j += 32) {
-      const int32_t x = row[j];
+    __syncthreads();
+    for (int i0 = 0; i0 < count; i0 += kBigThreads) {
+      const int i = i0 + threadIdx.x;
+      bool first = false;
+      int32_t cell = 0;
+      if (i < count) {
+        const uint32_t w = word[i];
+        cell = (int32_t)(w >> col_bits) * k + (int32_t)(w & col_mask);
+        first = atomicAdd(tile + cell, 1) == 0;
+      }
+      const unsigned firsts = __ballot_sync(kFull, first);
+      if (firsts) {
+        const int lane = threadIdx.x & 31;
+        int at = 0;
+        if (lane == __ffs(firsts) - 1)
+          at = atomicAdd(&s_listed, __popc(firsts));
+        at = __shfl_sync(kFull, at, __ffs(firsts) - 1);
+        if (first) {
+          const int idx = at + __popc(firsts & ((1u << lane) - 1));
+          if (idx < kList) list[idx] = cell;
+        }
+      }
+    }
+    __syncthreads();
+    const int64_t row0 = (int64_t)b << shift_r;
+    const int64_t left = rows - row0;
+    const int cells = (int)(left < tile_rows ? left : tile_rows) * k;
+    int32_t* g = hist + row0 * k;
+    const int listed = s_listed;
+    if (listed <= kList) {
+      for (int j = threadIdx.x; j < listed; j += kBigThreads) {
+        const int32_t c = list[j];
+        atomicAdd(g + c, tile[c]);
+        tile[c] = 0;
+      }
+    } else if (vec && !shared) {
+      const int cells4 = cells >> 2;
+      int4* tile4 = (int4*)tile;
+      int4* g4 = (int4*)g;
+      for (int c0 = 0; c0 < cells4; c0 += kSweep * kBigThreads) {
+        int4 add[kSweep], old[kSweep];
+        bool any[kSweep];
+#pragma unroll
+        for (int q = 0; q < kSweep; ++q) {
+          const int c = c0 + q * kBigThreads + threadIdx.x;
+          add[q] = c < cells4 ? tile4[c] : make_int4(0, 0, 0, 0);
+          any[q] = (add[q].x | add[q].y | add[q].z | add[q].w) != 0;
+        }
+#pragma unroll
+        for (int q = 0; q < kSweep; ++q)
+          if (any[q]) old[q] = g4[c0 + q * kBigThreads + threadIdx.x];
+#pragma unroll
+        for (int q = 0; q < kSweep; ++q)
+          if (any[q]) {
+            const int c = c0 + q * kBigThreads + threadIdx.x;
+            g4[c] = make_int4(old[q].x + add[q].x, old[q].y + add[q].y,
+                              old[q].z + add[q].z, old[q].w + add[q].w);
+            tile4[c] = make_int4(0, 0, 0, 0);
+          }
+      }
+      // the last cells (fewer than four) of the histogram's last tile
+      const int c = 4 * cells4 + threadIdx.x;
+      if (c < cells && tile[c]) {
+        g[c] += tile[c];
+        tile[c] = 0;
+      }
+    } else {
+      for (int c = threadIdx.x; c < cells; c += kBigThreads)
+        if (tile[c]) {
+          atomicAdd(g + c, tile[c]);
+          tile[c] = 0;
+        }
+    }
+    __syncthreads();  // s_listed read by all, the tile clear
+    if (threadIdx.x == 0) s_listed = 0;
+  }
+}
+
+// Sparse calls: the item's updates are counted in a shared-memory hash
+// table keyed by their words (a word names its cell within the bucket),
+// kHashSlots slots for at most kHashItem updates, then each distinct cell
+// is added into the histogram by red, and its slot emptied. Dynamic shared
+// memory: the item starts, the keys and the counts.
+__global__ void __launch_bounds__(kBigThreads)
+hist_apply_hash(const uint32_t* __restrict__ words,
+                const int32_t* __restrict__ start,
+                const int32_t* __restrict__ items, int buckets,
+                int32_t* __restrict__ work, int32_t k, int shift_b,
+                int col_bits, int32_t* __restrict__ hist) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* item_at = smem;
+  uint32_t* key = (uint32_t*)(item_at + ((buckets + 4) & ~3));
+  int32_t* hits = (int32_t*)(key + kHashSlots);
+  __shared__ int s_item;
+  const uint32_t col_mask = (1u << col_bits) - 1;
+  for (int b = threadIdx.x; b <= buckets; b += kBigThreads)
+    item_at[b] = items[b];
+  for (int j = threadIdx.x; j < kHashSlots; j += kBigThreads) {
+    key[j] = kEmpty;
+    hits[j] = 0;
+  }
+  int32_t lo, count;
+  bool shared;
+  for (int b; (b = next_item(work, item_at, buckets, start, kHashItem,
+                             &s_item, &lo, &count, &shared)) >= 0;) {
+    uint32_t w[kHashPerThread];
+#pragma unroll
+    for (int q = 0; q < kHashPerThread; ++q) {
+      const int i = q * kBigThreads + threadIdx.x;
+      w[q] = i < count ? words[lo + i] : kEmpty;
+    }
+#pragma unroll
+    for (int q = 0; q < kHashPerThread; ++q) {
+      if (w[q] == kEmpty) continue;
+      uint32_t h = (w[q] * 0x9e3779b1u) >> (32 - kHashBits);
+      for (;;) {
+        const uint32_t was = atomicCAS(key + h, kEmpty, w[q]);
+        if (was == kEmpty || was == w[q]) break;
+        h = (h + 1) & (kHashSlots - 1);
+      }
+      atomicAdd(hits + h, 1);
+    }
+    __syncthreads();
+    const int64_t row_b = (int64_t)b << shift_b;
+    for (int j = threadIdx.x; j < kHashSlots; j += kBigThreads) {
+      const uint32_t c = key[j];
+      if (c == kEmpty) continue;
+      atomicAdd(hist + (row_b + (c >> col_bits)) * k + (c & col_mask),
+                hits[j]);
+      key[j] = kEmpty;
+      hits[j] = 0;
+    }
+  }
+}
+
+// -- hist_stats -------------------------------------------------------------
+
+constexpr int kStatsStages = 4;
+constexpr int kStageBytes = 32768;
+constexpr int kStatsMaxTileRows = 1024;
+constexpr int kStatsConsumerWarps = 16;
+constexpr int kStatsConsumers = 32 * kStatsConsumerWarps;
+constexpr int kStatsThreads = kStatsConsumers + 32;  // warp 0 produces
+constexpr int kStatsRowsPerThread = kStatsMaxTileRows / kStatsConsumers;
+// the stages, two tiles' (best, bestv) and the full and empty barriers
+constexpr size_t kStatsSmem = (size_t)kStatsStages * kStageBytes +
+                              4 * kStatsMaxTileRows * 4 +
+                              2 * kStatsStages * 8;
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   shared_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// a 1-D TMA bulk copy global -> shared, completed on bar by its bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kStatsConsumers) : "memory");
+}
+
+// the first maximum of two (value, column) candidates, as jnp.argmax
+__device__ __forceinline__ void keep_first_max(int32_t& bv, int32_t& bi,
+                                               int32_t ov, int32_t oi) {
+  if (ov > bv || (ov == bv && oi < bi)) {
+    bv = ov;
+    bi = oi;
+  }
+}
+
+// kVec 4 (k a multiple of 4): a lane reads four columns at a time
+template <int kVec>
+__global__ void __launch_bounds__(kStatsThreads, 1)
+hist_stats_ring(const int32_t* __restrict__ hist, int64_t rows, int32_t k,
+                int tile_rows, int lanes, int bulk,
+                const int32_t* __restrict__ cur_part,
+                int32_t* __restrict__ best, int32_t* __restrict__ bestv,
+                int32_t* __restrict__ cur, int32_t* __restrict__ gain) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  int32_t* res = (int32_t*)(ring + (size_t)kStatsStages * kStageBytes);
+  uint64_t* full = (uint64_t*)(res + 4 * kStatsMaxTileRows);
+  uint64_t* empty = full + kStatsStages;
+  const int64_t tiles = (rows + tile_rows - 1) / tile_rows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStatsStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kStatsConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    const uint64_t policy = evict_first_policy();
+    int i = 0;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+      const int s = i % kStatsStages;
+      if (i >= kStatsStages)
+        mbar_wait(empty + s, ((i / kStatsStages) & 1) ^ 1);
+      const int64_t r0 = t * tile_rows;
+      const int nr = (int)(rows - r0 < tile_rows ? rows - r0 : tile_rows);
+      const int32_t* src = hist + r0 * k;
+      int32_t* dst = (int32_t*)(ring + (size_t)s * kStageBytes);
+      const uint32_t bytes = (uint32_t)nr * (uint32_t)k * 4u;
+      if (bulk && bytes % 16 == 0) {
+        if (lane == 0) {
+          mbar_expect(full + s, bytes);
+          bulk_load(dst, src, bytes, full + s, policy);
+        }
+      } else {
+        for (int j = lane; j < nr * k; j += 32) dst[j] = src[j];
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+  const int ct = threadIdx.x - 32;
+  const int groups = kStatsConsumers / lanes;
+  const int group = ct / lanes, gl = ct % lanes;
+  int i = 0;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+    const int s = i % kStatsStages;
+    const int64_t r0 = t * tile_rows;
+    const int nr = (int)(rows - r0 < tile_rows ? rows - r0 : tile_rows);
+    // the tile's current parts, in flight while its rows arrive
+    int32_t part[kStatsRowsPerThread];
+#pragma unroll
+    for (int q = 0; q < kStatsRowsPerThread; ++q) {
+      const int j = ct + q * kStatsConsumers;
+      part[q] = j < nr ? cur_part[r0 + j] : 0;
+    }
+    int32_t* res_best = res + (i & 1) * 2 * kStatsMaxTileRows;
+    int32_t* res_val = res_best + kStatsMaxTileRows;
+    mbar_wait(full + s, (i / kStatsStages) & 1);
+    const int32_t* st = (const int32_t*)(ring + (size_t)s * kStageBytes);
+    // every lane of a warp runs the same steps: the shuffles take them all
+    for (int j0 = 0; j0 < nr; j0 += groups) {
+      const int j = j0 + group;
+      // a lane without a column holds the index k, which loses every tie
+      int32_t bv = INT32_MIN, bi = k;
+      if (j < nr) {
+        const int32_t* row = st + j * k;
+        if (kVec == 4) {
+          for (int32_t c = 4 * gl; c < k; c += 4 * lanes) {
+            const int4 x = *(const int4*)(row + c);
+            if (x.x > bv) { bv = x.x; bi = c; }
+            if (x.y > bv) { bv = x.y; bi = c + 1; }
+            if (x.z > bv) { bv = x.z; bi = c + 2; }
+            if (x.w > bv) { bv = x.w; bi = c + 3; }
+          }
+        } else {
+          for (int32_t c = gl; c < k; c += lanes) {
+            const int32_t x = row[c];
+            if (x > bv) {
+              bv = x;
+              bi = c;
+            }
+          }
+        }
+      }
+      for (int d = lanes >> 1; d >= 1; d >>= 1)
+        keep_first_max(bv, bi, __shfl_xor_sync(kFull, bv, d),
+                       __shfl_xor_sync(kFull, bi, d));
+      if (j < nr && gl == 0) {
+        res_best[j] = bi;
+        res_val[j] = bv;
+      }
+    }
+    // the tile's results are in; the other buffer is the next tile's, so
+    // one barrier a tile keeps them apart
+    consumers_sync();
+#pragma unroll
+    for (int q = 0; q < kStatsRowsPerThread; ++q) {
+      const int j = ct + q * kStatsConsumers;
+      if (j >= nr) break;
+      const int64_t r = r0 + j;
+      const int32_t v = res_val[j];
+      const int32_t c = st[j * k + clip(part[q], k - 1)];
+      best[r] = res_best[j];
+      bestv[r] = v;
+      cur[r] = c;
+      gain[r] = v - c;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+}
+
+// k > 2048: a block a row
+__global__ void __launch_bounds__(kThreads)
+hist_stats_wide(const int32_t* __restrict__ hist, int64_t rows, int32_t k,
+                const int32_t* __restrict__ cur_part,
+                int32_t* __restrict__ best, int32_t* __restrict__ bestv,
+                int32_t* __restrict__ cur, int32_t* __restrict__ gain) {
+  __shared__ int32_t sv[kWarps], si[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int32_t* row = hist + r * k;
+    int32_t bv = INT32_MIN, bi = k;
+    for (int32_t c = threadIdx.x; c < k; c += kThreads) {
+      const int32_t x = row[c];
       if (x > bv) {
         bv = x;
-        bi = j;
+        bi = c;
       }
     }
 #pragma unroll
-    for (int d = 16; d >= 1; d >>= 1) {
-      const int32_t ov = __shfl_xor_sync(kFull, bv, d);
-      const int32_t oi = __shfl_xor_sync(kFull, bi, d);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
+    for (int d = 16; d >= 1; d >>= 1)
+      keep_first_max(bv, bi, __shfl_xor_sync(kFull, bv, d),
+                     __shfl_xor_sync(kFull, bi, d));
     if (lane == 0) {
+      sv[warp] = bv;
+      si[warp] = bi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kWarps; ++w) keep_first_max(bv, bi, sv[w], si[w]);
       const int32_t c = row[clip(cur_part[r], k - 1)];
       best[r] = bi;
       bestv[r] = bv;
       cur[r] = c;
       gain[r] = bv - c;
     }
+    __syncthreads();
   }
 }
+
+// -- plan_moves -------------------------------------------------------------
 
 template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
@@ -221,38 +849,126 @@ int bit_length(long long x) {
   return b;
 }
 
-Wave hist_full_wave, hist_block_wave, stats_wave, loads_shared_wave,
-    loads_global_wave, keys_wave, starts_wave, accept_wave;
+Wave count_wave, stats_wide_wave, loads_shared_wave, loads_global_wave,
+    keys_wave, starts_wave, accept_wave;
+
+// the card's SMs and the blocks of `threads` with `smem` bytes of dynamic
+// shared memory one SM holds, with the opt-in to that much shared memory
+template <typename Kernel>
+cudaError_t resident(Kernel kernel, int threads, size_t smem,
+                     long long* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  *blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+// How a call bins its updates (see the top of the file): into tiles when
+// its updates are dense (at least one for eight cells) and a tile of rows
+// fits in shared memory with at most kMaxBuckets of them, else into
+// kMaxBuckets ranges for the hashed apply; a word must stay below 2^31.
+struct Binning {
+  bool tiled;
+  int shift_b, col_bits, buckets;
+};
+
+cudaError_t binning(long long rows, int k, long long m, Binning* b) {
+  b->shift_b = 0;
+  if (k <= kTileCells)
+    while ((2LL << b->shift_b) * k <= kTileCells) ++b->shift_b;
+  b->tiled = k <= kTileCells &&
+             ((rows - 1) >> b->shift_b) + 1 <= kMaxBuckets &&
+             16 * m >= rows * k;
+  if (!b->tiled) b->shift_b = 0;
+  while (((rows - 1) >> b->shift_b) + 1 > kMaxBuckets) ++b->shift_b;
+  b->buckets = (int)(((rows - 1) >> b->shift_b) + 1);
+  b->col_bits = bit_length(k - 1);
+  return b->shift_b + b->col_bits <= 31 ? cudaSuccess
+                                         : cudaErrorInvalidValue;
+}
 
 }  // namespace
 
+// int32 words of neighbor_hist's metadata scratch, zeroed once when it is
+// allocated: every call leaves it ready for the next.
+extern "C" int sheep_refine_hist_meta_words() { return kMetaWords; }
+
 // hist [rows, k] += the chunk's edges [m, 2] (rows = n + 1, or vb in
 // blocked mode with rows [base, base + vb) kept); counts [2] (uint64, may
-// be null) += (cut, total) of the chunk.
+// be null) += (cut, total) of the chunk. Scratch: words, uint32 [>= 2m];
+// meta, int32 [sheep_refine_hist_meta_words()], zeroed before first use.
 extern "C" int sheep_refine_hist(const void* edges, long long m,
                                  const void* assign, int n, int k,
                                  int blocked, long long base, long long vb,
-                                 void* hist, void* counts, void* stream) {
-  if (m < 0 || n < 0 || k < 1 || (blocked && vb < 1))
+                                 void* hist, void* counts, void* words,
+                                 long long words_cap, void* meta,
+                                 void* stream) {
+  if (m < 0 || m >= (1LL << 30) || n < 0 || k < 1 || (blocked && vb < 1) ||
+      words_cap < 2 * m)
     return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
+  const long long rows = blocked ? vb : n;
+  if (m == 0 || rows == 0) return 0;
+  Binning bin;
+  cudaError_t err = binning(rows, k, m, &bin);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
+  int32_t* total = (int32_t*)meta;
+  int32_t* start = total + kMaxBuckets;
+  int32_t* cursor = start + kMaxBuckets + 1;
+  int32_t* items = cursor + kMaxBuckets;
+  int32_t* work = items + kMaxBuckets + 1;
+  const long long at = blocked ? base : 0;
   unsigned blocks = 0;
-  cudaError_t err;
-  if (blocked) {
-    err = wave_blocks(hist_block_wave, neighbor_hist_kernel<true>, m,
-                      &blocks);
+  err = wave_blocks(count_wave, hist_count, m, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  hist_count<<<blocks, kThreads, (size_t)bin.buckets * 4, s>>>(
+      (const int2*)edges, m, n, at, rows, bin.shift_b, bin.buckets, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  hist_scan<<<1, kBigThreads, 0, s>>>(
+      total, bin.buckets, bin.tiled ? kItemUpdates : kHashItem, start,
+      cursor, items, work);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  long long cap = 0;
+  err = resident(hist_scatter, kBigThreads, kScatterSmem, &cap);
+  if (err != cudaSuccess) return (int)err;
+  const long long batches = (m + kBatchEdges - 1) / kBatchEdges;
+  hist_scatter<<<(unsigned)(batches < cap ? batches : cap), kBigThreads,
+                 kScatterSmem, s>>>(
+      (const int2*)edges, m, (const int32_t*)assign, n, at, rows,
+      bin.shift_b, bin.col_bits, cursor, (uint32_t*)words,
+      (unsigned long long*)counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t item_smem = (size_t)((bin.buckets + 4) & ~3) * 4;
+  if (bin.tiled) {
+    const size_t smem = item_smem + (size_t)kItemUpdates * 4 +
+                        (((size_t)k << bin.shift_b) + kList) * 4;
+    const int vec = (uintptr_t)hist % 16 == 0 &&
+                    ((long long)k << bin.shift_b) % 4 == 0;
+    err = resident(hist_apply_tile, kBigThreads, smem, &cap);
     if (err != cudaSuccess) return (int)err;
-    neighbor_hist_kernel<true><<<blocks, kThreads, 0, s>>>(
-        (const int2*)edges, m, (const int32_t*)assign, n, k, base, vb,
-        (int32_t*)hist, (unsigned long long*)counts);
+    hist_apply_tile<<<(unsigned)cap, kBigThreads, smem, s>>>(
+        (const uint32_t*)words, start, items, bin.buckets, work, rows, k,
+        bin.shift_b, bin.col_bits, vec, (int32_t*)hist);
   } else {
-    err = wave_blocks(hist_full_wave, neighbor_hist_kernel<false>, m,
-                      &blocks);
+    const size_t smem = item_smem + (size_t)kHashSlots * 8;
+    err = resident(hist_apply_hash, kBigThreads, smem, &cap);
     if (err != cudaSuccess) return (int)err;
-    neighbor_hist_kernel<false><<<blocks, kThreads, 0, s>>>(
-        (const int2*)edges, m, (const int32_t*)assign, n, k, 0, 0,
-        (int32_t*)hist, (unsigned long long*)counts);
+    hist_apply_hash<<<(unsigned)cap, kBigThreads, smem, s>>>(
+        (const uint32_t*)words, start, items, bin.buckets, work, k,
+        bin.shift_b, bin.col_bits, (int32_t*)hist);
   }
   return (int)cudaGetLastError();
 }
@@ -265,13 +981,45 @@ extern "C" int sheep_refine_stats(const void* hist, long long rows, int k,
                                   void* stream) {
   if (rows < 0 || k < 1) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  unsigned blocks = 0;
-  cudaError_t err = wave_blocks(stats_wave, hist_stats_kernel, rows * 32,
-                                &blocks);
-  if (err != cudaSuccess) return (int)err;
-  hist_stats_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)hist, rows, k, (const int32_t*)cur_part,
-      (int32_t*)best, (int32_t*)bestv, (int32_t*)cur, (int32_t*)gain);
+  cudaStream_t s = (cudaStream_t)stream;
+  int tile_rows = kStageBytes / 4 / k;
+  if (tile_rows > kStatsMaxTileRows) tile_rows = kStatsMaxTileRows;
+  tile_rows &= ~3;
+  cudaError_t err;
+  if (tile_rows < 4) {
+    unsigned blocks = 0;
+    err = wave_blocks(stats_wide_wave, hist_stats_wide, rows * kThreads,
+                      &blocks);
+    if (err != cudaSuccess) return (int)err;
+    hist_stats_wide<<<blocks, kThreads, 0, s>>>(
+        (const int32_t*)hist, rows, k, (const int32_t*)cur_part,
+        (int32_t*)best, (int32_t*)bestv, (int32_t*)cur, (int32_t*)gain);
+    return (int)cudaGetLastError();
+  }
+  const bool vec = k % 4 == 0;
+  const int width = vec ? k / 4 : k;
+  int lanes = 1;
+  while (lanes < width && lanes < 32) lanes <<= 1;
+  const int bulk = (uintptr_t)hist % 16 == 0;
+  const long long tiles = (rows + tile_rows - 1) / tile_rows;
+  long long cap = 0;
+  if (vec) {
+    err = resident(hist_stats_ring<4>, kStatsThreads, kStatsSmem, &cap);
+    if (err != cudaSuccess) return (int)err;
+    hist_stats_ring<4><<<(unsigned)(tiles < cap ? tiles : cap),
+                         kStatsThreads, kStatsSmem, s>>>(
+        (const int32_t*)hist, rows, k, tile_rows, lanes, bulk,
+        (const int32_t*)cur_part, (int32_t*)best, (int32_t*)bestv,
+        (int32_t*)cur, (int32_t*)gain);
+  } else {
+    err = resident(hist_stats_ring<1>, kStatsThreads, kStatsSmem, &cap);
+    if (err != cudaSuccess) return (int)err;
+    hist_stats_ring<1><<<(unsigned)(tiles < cap ? tiles : cap),
+                         kStatsThreads, kStatsSmem, s>>>(
+        (const int32_t*)hist, rows, k, tile_rows, lanes, bulk,
+        (const int32_t*)cur_part, (int32_t*)best, (int32_t*)bestv,
+        (int32_t*)cur, (int32_t*)gain);
+  }
   return (int)cudaGetLastError();
 }
 

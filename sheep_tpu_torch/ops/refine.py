@@ -12,7 +12,8 @@ than the input.
 
 The three device programs are the kernels of ``csrc/refine.cu`` on CUDA
 tensors and their plain PyTorch versions (``*_plain``) on CPU tensors;
-anything else raises. ``LAUNCHES`` counts the kernels' launches.
+anything else raises. ``LAUNCHES`` counts the wrappers' calls that launch
+them (``neighbor_hist`` is four launches a call, ``hist_stats`` one).
 
 The histogram kernel drops invalid edges (an end outside [0, n), or a
 self-loop) where the reference adds them to the sentinel row n (the row of
@@ -59,8 +60,11 @@ def _lib():
         lib = _build.load("refine")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         ull = ctypes.c_ulonglong
-        lib.sheep_refine_hist.argtypes = [p, ll, p, i, i, i, ll, ll, p, p, p]
+        lib.sheep_refine_hist.argtypes = [p, ll, p, i, i, i, ll, ll, p, p, p,
+                                          ll, p, p]
         lib.sheep_refine_hist.restype = i
+        lib.sheep_refine_hist_meta_words.argtypes = []
+        lib.sheep_refine_hist_meta_words.restype = i
         lib.sheep_refine_stats.argtypes = [p, ll, i, p, p, p, p, p, p]
         lib.sheep_refine_stats.restype = i
         lib.sheep_refine_plan_rows.argtypes = [ll]
@@ -147,20 +151,22 @@ def neighbor_hist_plain(hist, chunk, assign, n: int, k: int, base: int = 0,
     return hist
 
 
-def neighbor_hist_chunk(hist, chunk, assign, n: int, k: int, counts=None):
+def neighbor_hist_chunk(hist, chunk, assign, n: int, k: int, counts=None,
+                        scratch=None):
     """Add one padded (C, 2) int32 chunk into the (n+1, k) int32 histogram
     ``hist`` in place: hist[u, assign[v]] and hist[v, assign[u]] for each
     valid edge; ``counts`` (int64[2]), when given, gains the chunk's (cut,
-    total) under the same mask. Returns ``hist``."""
+    total) under the same mask. On CUDA the call's scratch comes from
+    ``scratch`` (a :class:`HistScratch`) when given. Returns ``hist``."""
     dev = _check_hist(hist, n + 1, k, chunk, assign, n, counts)
     if dev.type == "cpu":
         return neighbor_hist_plain(hist, chunk, assign, n, k, counts=counts)
-    _hist(hist, chunk, assign, n, k, 0, 0, counts)
+    _hist(hist, chunk, assign, n, k, 0, 0, counts, scratch)
     return hist
 
 
 def neighbor_hist_block(hist, chunk, assign, base: int, n: int, k: int,
-                        vb: int):
+                        vb: int, scratch=None):
     """Blocked variant: only the rows [base, base+vb) of the histogram,
     into the (vb, k) int32 ``hist`` in place. Returns ``hist``."""
     if vb < 1 or base < 0:
@@ -168,21 +174,51 @@ def neighbor_hist_block(hist, chunk, assign, base: int, n: int, k: int,
     dev = _check_hist(hist, vb, k, chunk, assign, n, None)
     if dev.type == "cpu":
         return neighbor_hist_plain(hist, chunk, assign, n, k, base, vb)
-    _hist(hist, chunk, assign, n, k, base, vb, None)
+    _hist(hist, chunk, assign, n, k, base, vb, None, scratch)
     return hist
 
 
-def _hist(hist, chunk, assign, n, k, base, vb, counts) -> None:
+def _hist(hist, chunk, assign, n, k, base, vb, counts, scratch) -> None:
     lib = _lib()
     dev = hist.device
+    if scratch is None:
+        scratch = HistScratch(len(chunk), dev)
+    elif scratch.meta.device != dev:
+        raise ValueError("neighbor_hist: the scratch is on another device")
+    words = scratch.words_for(len(chunk))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.sheep_refine_hist(
+        rc = lib.sheep_refine_hist(
             chunk.data_ptr(), len(chunk), assign.data_ptr(), n, k,
             int(vb > 0), base, vb, hist.data_ptr(),
-            None if counts is None else counts.data_ptr(), stream),
-            "neighbor_hist launch")
+            None if counts is None else counts.data_ptr(), words.data_ptr(),
+            len(words), scratch.meta.data_ptr(), stream)
+        if rc != 0:
+            scratch.meta.zero_()  # a failed call may leave totals behind
+        _check(lib, rc, "neighbor_hist launch")
     LAUNCHES["neighbor_hist"] += 1
+
+
+class HistScratch:
+    """The scratch of :func:`neighbor_hist_chunk` and
+    :func:`neighbor_hist_block` on CUDA: a uint32 word (held as int32) for
+    each of the chunk's two updates an edge, binned by row range, and the
+    buckets' metadata (totals, starts, cursors, work items), zeroed here
+    once: every call leaves it ready for the next. The words grow to the
+    largest chunk seen. Calls that share one must be in stream order."""
+
+    def __init__(self, chunk_edges: int, dev):
+        lib = _lib()
+        self.words = torch.empty(max(1, 2 * chunk_edges), dtype=torch.int32,
+                                 device=dev)
+        self.meta = torch.zeros(lib.sheep_refine_hist_meta_words(),
+                                dtype=torch.int32, device=dev)
+
+    def words_for(self, chunk_edges: int) -> torch.Tensor:
+        if len(self.words) < 2 * chunk_edges:
+            self.words = torch.empty(2 * chunk_edges, dtype=torch.int32,
+                                     device=self.words.device)
+        return self.words
 
 
 # -- row statistics --------------------------------------------------------
@@ -541,6 +577,7 @@ def _refine_impl(assign, stream, n, k, rounds, alpha, chunk_edges,
         return device_chunks(stream, cs, n, dev, ring)
 
     hist = torch.zeros((vb or n + 1, k), dtype=torch.int32, device=dev)
+    hist_scratch = HistScratch(cs, dev) if dev.type == "cuda" else None
 
     def score(a_try):
         """The exact edge cut of ``a_try`` in one pass (blocked mode)."""
@@ -556,7 +593,7 @@ def _refine_impl(assign, stream, n, k, rounds, alpha, chunk_edges,
             hist.zero_()
             counts = torch.zeros(2, dtype=torch.int64, device=dev)
             for c in chunks():
-                neighbor_hist_chunk(hist, c, a_try, n, k, counts)
+                neighbor_hist_chunk(hist, c, a_try, n, k, counts, hist_scratch)
             b, _, _, g = hist_stats(hist, a_try)
             return b, g, int(counts[0])
         best = torch.zeros(n + 1, dtype=torch.int32, device=dev)
@@ -564,7 +601,8 @@ def _refine_impl(assign, stream, n, k, rounds, alpha, chunk_edges,
         for base in range(0, n + 1, vb):
             hist.zero_()
             for c in chunks():
-                neighbor_hist_block(hist, c, a_try, base, n, k, vb)
+                neighbor_hist_block(hist, c, a_try, base, n, k, vb,
+                                    hist_scratch)
             span = min(vb, n + 1 - base)
             b, _, _, g = hist_stats(hist[:span], a_try[base:base + span])
             best[base:base + span] = b
@@ -655,6 +693,6 @@ def _refine_impl(assign, stream, n, k, rounds, alpha, chunk_edges,
         sp.end(rounds_run=stats["refine_rounds_run"], cut_after=best_cut,
                moves_capacity_blocked=stats[
                    "refine_moves_capacity_blocked"])
-    del hist, scratch
+    del hist, scratch, hist_scratch
     stats["refine_cut_after"] = best_cut
     return best[:n].cpu().numpy(), stats

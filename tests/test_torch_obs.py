@@ -67,6 +67,20 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def no_reference_flight_recorder():
+    """The reference's process-wide flight recorder (its served scheduler
+    installs one) adds ``flight_dump`` events to the reference's traces on
+    an injected fault. A test file run earlier in the same worker can leave
+    one installed; the port's recorder is a no-op until the served engine
+    is ported. So each test here runs with none installed, and any that was
+    is put back after."""
+    was = jobs.uninstall_flight()
+    yield
+    if was is not None:
+        jobs.install_flight(was)
+
+
 def _records(buf):
     return [json.loads(line) for line in buf.getvalue().splitlines()]
 
