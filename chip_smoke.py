@@ -73,12 +73,11 @@ line is printed:
      with the cap filling some parts, both parities; each timed beside its
      plain version, a library yardstick (``torch.bincount``, ``torch.max``
      + ``gather``, ``torch.sort``) and its bytes bound, the planner's sort
-     also alone, the device kernels a call (``torch.profiler``); with
-     ``SHEEP_REFINE_BASELINE=path/to/refine.cu`` (another revision's, the
-     parent's for a comparison) its histogram and statistics kernels
-     checked too and timed in turns with the port's (``old_ms``); the
-     weighted planner (plain PyTorch, no kernel) timed on the card with
-     its bytes bound, equal to its run on the CPU; then both kernels at
+     also alone, the device kernels a call (``torch.profiler``'s runtime
+     launches, which must be four for ``neighbor_hist`` and one for
+     ``hist_stats``); the weighted planner (plain PyTorch, no kernel)
+     timed on the card with its bytes bound, equal to its run on the CPU;
+     then both kernels at
      small sizes where their designs branch (k = 1, 3, 7, 64, 257 and
      40,000, blocked off a bucket start, ragged and misaligned stats
      tiles, a chunk of invalid edges, a hub vertex);
@@ -1470,66 +1469,12 @@ def planted_parity(card, counters):
           f"(edge_cut {ref.edge_cut})", flush=True)
 
 
-class ParentRefine:
-    """The neighbour histogram and row statistics of another revision of
-    ``csrc/refine.cu`` (the parent's, to time the kernels against it in
-    turns), built with nvcc from the file that ``SHEEP_REFINE_BASELINE``
-    names into a temporary directory, the port's ``csrc`` on the include
-    path, and bound with ctypes by that revision's C signatures:
-    ``sheep_refine_hist(edges, m, assign, n, k, blocked, base, vb, hist,
-    counts, stream)`` and ``sheep_refine_stats`` as the port's."""
-
-    def __init__(self, src: str):
-        import ctypes
-
-        from sheep_tpu_torch.ops import _build
-
-        self._dir = tempfile.TemporaryDirectory(prefix="sheep_parent_")
-        out = os.path.join(self._dir.name, "librefine_parent.so")
-        run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                              _build.CSRC, "-o", out, src],
-                             capture_output=True, text=True, timeout=600)
-        check(run.returncode == 0, f"the baseline refine.cu did not build: "
-                                   f"{run.stderr[-2000:]}")
-        lib = ctypes.CDLL(out)
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sheep_refine_hist.argtypes = [p, ll, p, i, i, i, ll, ll, p, p, p]
-        lib.sheep_refine_hist.restype = i
-        lib.sheep_refine_stats.argtypes = [p, ll, i, p, p, p, p, p, p]
-        lib.sheep_refine_stats.restype = i
-        self.lib = lib
-
-    def neighbor_hist(self, hist, chunk, assign, n, k, base=0, vb=None,
-                      counts=None):
-        import torch
-
-        rc = self.lib.sheep_refine_hist(
-            chunk.data_ptr(), len(chunk), assign.data_ptr(), n, k,
-            int(vb is not None), base, vb or 0, hist.data_ptr(),
-            None if counts is None else counts.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"the baseline neighbor_hist failed ({rc})")
-
-    def hist_stats(self, hist, cur_part):
-        import torch
-
-        rows, k = hist.shape
-        out = [torch.empty(rows, dtype=torch.int32, device=hist.device)
-               for _ in range(4)]
-        rc = self.lib.sheep_refine_stats(
-            hist.data_ptr(), rows, k, cur_part.data_ptr(),
-            *(t.data_ptr() for t in out),
-            torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"the baseline hist_stats failed ({rc})")
-        return tuple(out)
-
-
-def device_launches(fn) -> dict:
+def device_launches(fn, what: str, want: int) -> dict:
     """The device work of one call of ``fn`` (after a warm-up call), by
     ``torch.profiler``: the CUDA runtime's launch, memset and copy calls
-    (``api``), the witness, and the device's kernel records (``kernels``),
-    which a process that has profiled before may have lost (PERF.md,
-    section 7)."""
+    (``api``), the witness, which must be ``want`` kernel launches and
+    nothing else, and the device's kernel records (``kernels``), which a
+    process that has profiled before may have lost (PERF.md, section 7)."""
     import torch
 
     fn()
@@ -1539,24 +1484,15 @@ def device_launches(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     events = prof.events()
-    return {"api": [e.name for e in events
-                    if e.device_type == torch.autograd.DeviceType.CPU and
-                    re.match(r"cuda(Launch|Memset|Memcpy)", e.name)],
-            "kernels": [e.name for e in events
-                        if e.device_type == torch.autograd.DeviceType.CUDA]}
-
-
-def in_turns(new, old) -> dict:
-    """``new`` timed alone, or against ``old`` in turns (old, new, new,
-    old) when there is one: ms and old_ms the means of each one's turns."""
-    from sheep_tpu_torch.tools import gather_smoke as gs
-
-    if old is None:
-        return {"ms": gs.time_ms(new), "old_ms": None}
-    turns = [gs.time_ms(f) for f in (old, new, new, old)]
-    return {"ms": (turns[1] + turns[2]) / 2, "old_ms": (turns[0] + turns[3])
-            / 2, "turns_ms": {"new": turns[1:3], "old": [turns[0],
-                                                          turns[3]]}}
+    rec = {"api": [e.name for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU and
+                   re.match(r"cuda(Launch|Memset|Memcpy)", e.name)],
+           "kernels": [e.name for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA]}
+    check(rec["api"] == ["cudaLaunchKernel"] * want,
+          f"{what}: a call made the runtime calls {rec['api']}, not "
+          f"{want} kernel launches")
+    return rec
 
 
 def refine_edge_cases(dev) -> int:
@@ -1565,7 +1501,9 @@ def refine_edge_cases(dev) -> int:
     k = 40,000, a row past the apply's tile and the stats' ring; blocked
     at a base that does not start a bucket; row counts that leave a
     ragged last stats tile; a chunk of invalid edges only; a hub vertex
-    that takes most updates. Returns the cases checked."""
+    that takes most updates; a histogram that starts off a 16-byte
+    boundary. ``tests/test_torch_refine.py`` runs the same cases on a card.
+    Returns the cases checked."""
     import numpy as np
     import torch
 
@@ -1614,6 +1552,9 @@ def refine_edge_cases(dev) -> int:
                                            assign.to(dev), n, k, gc, scratch)
             check(torch.equal(gc.cpu(), wc), f"neighbor_hist counts at n={n} "
                                              f"k={k}")
+            check(not invalid or (int(want.sum()) == 0
+                                  and wc.tolist() == [0, 0]),
+                  "neighbor_hist: a chunk of invalid edges added cells")
         else:
             for _ in range(2):
                 refine.neighbor_hist_plain(want, chunk, assign, n, k, base,
@@ -1684,11 +1625,9 @@ def refine_kernels(card):
     ``torch.bincount`` of the precomputed row * k + part keys,
     ``torch.max(dim=1)`` with ``torch.gather``, and ``torch.sort(stable)``
     of the planner's keys; the planner's sort (cub) is also timed alone.
-    With ``SHEEP_REFINE_BASELINE`` naming another revision's
-    ``refine.cu``, its ``neighbor_hist`` and ``hist_stats`` are checked
-    the same way and timed in turns with the port's (``old_ms``); the
-    port's kernel launches a call are ``torch.profiler``'s runtime
-    calls. Bounds by
+    The kernel launches a call are ``torch.profiler``'s runtime calls,
+    four for ``neighbor_hist`` (count, scan, scatter, apply) and one for
+    ``hist_stats``; the run fails on any other count. Bounds by
     bytes: ``neighbor_hist`` 8 B an edge, one 32 B sector read and written
     back for each distinct histogram sector the edges touch, and the
     assignment once; ``hist_stats`` the histogram and the current parts
@@ -1703,8 +1642,6 @@ def refine_kernels(card):
     dev = torch.device("cuda")
     n = C = 1 << 22
     g = torch.Generator(device=dev).manual_seed(17)
-    baseline = os.environ.get("SHEEP_REFINE_BASELINE")
-    parent = ParentRefine(baseline) if baseline else None
     records = {"neighbor_hist": [], "hist_stats": [], "plan_moves": []}
     sbm = SbmHashStream(22, 64, 0.05, 16, 42)
     scratch = refine.HistScratch(C, dev)
@@ -1735,18 +1672,10 @@ def refine_kernels(card):
                 def kernel():
                     refine.neighbor_hist_chunk(hist, chunk, assign, n, k,
                                                counts, scratch)
-
-                def old():
-                    parent.neighbor_hist(hist, chunk, assign, n, k,
-                                         counts=counts)
             else:
                 def kernel():
                     refine.neighbor_hist_block(hist, chunk, assign, base, n,
                                                k, vb, scratch)
-
-                def old():
-                    parent.neighbor_hist(hist, chunk, assign, n, k, base,
-                                         vb)
             kernel()
             refine.neighbor_hist_plain(want, chunk, assign, n, k, base or 0,
                                        vb, want_counts)
@@ -1758,19 +1687,6 @@ def refine_kernels(card):
                 + kind
             check(err == 0, f"neighbor_hist {name} disagrees with its plain "
                             f"version")
-            old_err = None
-            if parent is not None:
-                hist.zero_()
-                if counts is not None:
-                    counts.zero_()
-                old()
-                torch.cuda.synchronize()
-                old_err = int((hist - want).abs().max())
-                if counts is not None:
-                    old_err = max(old_err, int((counts - want_counts)
-                                               .abs().max()))
-                check(old_err == 0, f"the baseline neighbor_hist {name} "
-                                    f"disagrees with the plain version")
             del want
             # the cells the valid edges touch, as row * k + part keys
             u, v = chunk[:, 0].long(), chunk[:, 1].long()
@@ -1788,9 +1704,9 @@ def refine_kernels(card):
             rec = {"case": name, "C": C, "k": k, "rows": rows,
                    "valid": int(want_counts[1]) if vb is None else None,
                    "cells_added": int(keys.numel()), "sectors": sectors,
-                   "max_abs_err": err, "old_max_abs_err": old_err,
-                   **in_turns(kernel, old if parent else None),
-                   "device": device_launches(kernel),
+                   "max_abs_err": err, "ms": gs.time_ms(kernel),
+                   "device": device_launches(kernel,
+                                             f"neighbor_hist {name}", 4),
                    "plain_ms": gs.time_ms(
                        lambda: refine.neighbor_hist_plain(
                            plain_hist, chunk, assign, n, k, base or 0, vb),
@@ -1826,25 +1742,16 @@ def refine_kernels(card):
         name = f"rows{rows}-k{k}"
         check(err == 0, f"hist_stats {name} disagrees with its plain "
                         f"version")
-        old_err = None
-        if parent is not None:
-            old_err = max(int((a.long() - b.long()).abs().max())
-                          for a, b in zip(parent.hist_stats(hist, cur),
-                                          want))
-            check(old_err == 0, f"the baseline hist_stats {name} disagrees "
-                                f"with the plain version")
 
         def library():
             mx = torch.max(hist, dim=1)
             return mx, hist.gather(1, cur.long()[:, None])
 
         rec = {"case": name, "rows": rows, "k": k, "max_abs_err": err,
-               "old_max_abs_err": old_err,
-               **in_turns(lambda: refine.hist_stats(hist, cur),
-                          (lambda: parent.hist_stats(hist, cur))
-                          if parent else None),
+               "ms": gs.time_ms(lambda: refine.hist_stats(hist, cur)),
                "device": device_launches(
-                   lambda: refine.hist_stats(hist, cur)),
+                   lambda: refine.hist_stats(hist, cur), f"hist_stats {name}",
+                   1),
                "plain_ms": gs.time_ms(
                    lambda: refine.hist_stats_plain(hist, cur), iters=5),
                "library_ms": gs.time_ms(library, iters=5),
@@ -3655,7 +3562,9 @@ def main() -> int:
                 for r in mode_cases},
             cases_max_abs_err=max(r["max_abs_err"] for r in mode_cases)))
     # the refinement's kernels: launches on the hierarchy at full size (5g),
-    # each at the phase 3g case of its final refine (k = 64)
+    # each at the phase 3g case of its final refine (k = 64); the
+    # histogram's and the statistics' counts are wrapper calls, each of
+    # which launches device_launches_a_call kernels (phase 3g's witness)
     refine_src = "sheep_tpu_torch/csrc/refine.cu"
     for name, replaces, also, scope in (
             ("neighbor_hist", "sheep_tpu/ops/refine.py:42",
@@ -3667,13 +3576,15 @@ def main() -> int:
              "torch.sort(stable=True) of the planner's keys")):
         recs = refine_cases[name]
         head = refine_head[name]
+        calls = hier["launches"][name]
         extra = {"sort_ms": head["sort_ms"]} if name == "plan_moves" else {
-            "old_ms": head["old_ms"],
-            "device_launches_a_call": head["device_launches"]}
+            "calls": calls,
+            "device_launches_a_call": head["device_launches"],
+            "device_launches": calls * head["device_launches"]}
         keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
-            () if name == "plan_moves" else ("old_ms", "device_launches"))
+            () if name == "plan_moves" else ("device_launches",))
         kernels.append(entry(
-            name, refine_src, replaces, head, hier["launches"][name],
+            name, refine_src, replaces, head, calls,
             also_replaces=also, replaces_kind="XLA program",
             library_scope=scope, **extra,
             cases={r["case"]: {k: r[k] for k in keys} for r in recs},

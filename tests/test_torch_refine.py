@@ -371,74 +371,17 @@ def _card():
 @pytest.mark.cuda
 def test_refine_kernels_match_plain_on_card():
     """The kernels against their plain versions where their designs
-    branch: k = 1, 3, 7, 64, 257 (lanes a row); k = 40,000, a row past the
-    apply's shared-memory tile and the stats' ring; blocked mode at a base
-    that does not start a bucket; row counts that are not a multiple of
-    the stats' tile rows (a ragged last tile); a chunk of invalid edges
-    only; a hub vertex that takes most updates; a histogram that starts
-    off a 16-byte boundary."""
+    branch, the case table that phase 3g of ``chip_smoke.py`` also runs
+    (``refine_edge_cases``): k = 1, 3, 7, 64, 257 (lanes a row); k =
+    40,000, a row past the apply's shared-memory tile and the stats' ring;
+    blocked mode at a base that does not start a bucket; row counts that
+    are not a multiple of the stats' tile rows (a ragged last tile); a
+    chunk of invalid edges only; a hub vertex that takes most updates; a
+    histogram that starts off a 16-byte boundary. Then the planner."""
     dev = _card()
-    rng = np.random.default_rng(3)
-    scratch = refine.HistScratch(1 << 12, dev)
-    for n, k, C, base, vb, kind in (
-            (3000, 1, 1 << 14, 0, None, ""), (3000, 3, 1 << 14, 0, None, ""),
-            (3000, 7, 1 << 14, 0, None, ""), (3000, 64, 1 << 14, 0, None, ""),
-            (3000, 257, 1 << 14, 0, None, ""),
-            (200, 40000, 1 << 12, 0, None, ""),
-            (20001, 64, 1 << 15, 777, 9000, ""),
-            (20001, 7, 1 << 15, 19999, 5, ""),
-            (3000, 8, 1 << 14, 0, None, "hub"),
-            (3000, 64, 1 << 14, 0, None, "invalid")):
-        assign = _t(rng.integers(0, k, n + 1).astype(np.int32))
-        e = _chunk(rng, n, C)
-        if kind == "hub":  # vertex 3 at one end of nine edges in ten
-            e[:-C // 8][rng.random(C - C // 8) < 0.9, 0] = 3
-        if kind == "invalid":
-            e[:, 1] = e[:, 0]
-        chunk = _t(e)
-        rows = n + 1 if vb is None else vb
-        want = torch.zeros((rows, k), dtype=torch.int32)
-        got = torch.zeros((rows, k), dtype=torch.int32, device=dev)
-        wc = torch.zeros(2, dtype=torch.int64)
-        gc = torch.zeros(2, dtype=torch.int64, device=dev)
-        for _ in range(2):
-            if vb is None:
-                refine.neighbor_hist_plain(want, chunk, assign, n, k,
-                                           counts=wc)
-                refine.neighbor_hist_chunk(got, chunk.to(dev),
-                                           assign.to(dev), n, k, gc, scratch)
-            else:
-                refine.neighbor_hist_plain(want, chunk, assign, n, k, base,
-                                           vb)
-                refine.neighbor_hist_block(got, chunk.to(dev),
-                                           assign.to(dev), base, n, k, vb,
-                                           scratch)
-        assert torch.equal(got.cpu(), want) and torch.equal(gc.cpu(), wc)
-        if kind == "invalid":
-            assert int(want.sum()) == 0 and wc.tolist() == [0, 0]
-        cur = torch.cat([assign[base:base + rows],
-                         torch.zeros(rows, dtype=torch.int32)])[:rows]
-        want[1::7, k - 1] = got[1::7, k - 1] = 9
-        want[1::7, (k - 1) // 2] = got[1::7, (k - 1) // 2] = 9
-        for r in (rows, rows - 1, rows - 2, rows - 3):
-            stats = refine.hist_stats(got[:r], cur[:r].to(dev))
-            for a, b in zip(stats, refine.hist_stats_plain(want[:r],
-                                                           cur[:r])):
-                assert torch.equal(a.cpu(), b)
-    # a histogram that starts off a 16-byte boundary
-    n, k = 3000, 8
-    assign = _t(rng.integers(0, k, n + 1).astype(np.int32))
-    chunk = _t(_chunk(rng, n, 1 << 14))
-    want = torch.zeros((n + 1, k), dtype=torch.int32)
-    refine.neighbor_hist_plain(want, chunk, assign, n, k)
-    got = torch.zeros((n + 1) * k + 1, dtype=torch.int32,
-                      device=dev)[1:].view(n + 1, k)
-    refine.neighbor_hist_chunk(got, chunk.to(dev), assign.to(dev), n, k,
-                               scratch=scratch)
-    assert torch.equal(got.cpu(), want)
-    for a, b in zip(refine.hist_stats(got, assign.to(dev)),
-                    refine.hist_stats_plain(want, assign)):
-        assert torch.equal(a.cpu(), b)
+    import chip_smoke
+
+    assert chip_smoke.refine_edge_cases(dev) > 0
     for k in (7, 64, 257):
         nn, a0, best, gain, cap = _plan_inputs(k, k)
         for parity in (0, 1):
