@@ -49,12 +49,12 @@ line is printed:
      control word equal;
   3e. the per-segment driver's kernels against their plain versions on
      the card, exactly: ``compact_live`` at C = 2^22 pairs with 50%, 10%
-     and 1% live (with duplicates) into the driver's ``size``, its
-     keys-only sort also against ``torch.sort``; timed whole, its sort
-     and its compaction alone, beside ``torch.sort`` of 64-bit keys, the
-     plain version, ``torch.unique`` of the packed keys with a masked
-     select, and its bytes bound; ``climb_jumps`` (``climb_tail``'s jump
-     mode, 16 steps) at C' = 2^14 on a chain forest;
+     and 1% live (with duplicates) into the driver's ``size``, and on the
+     case table ``kernel_cases.compact_cases``; one cooperative launch a
+     call (``torch.profiler``'s runtime calls); timed beside the plain
+     version, ``torch.unique`` of the packed keys with a masked select,
+     and its bytes bound; ``climb_jumps`` (``climb_tail``'s jump mode, 16
+     steps) at C' = 2^14 on a chain forest;
   3f. the chunk synthesis ``hash_chunk`` (``csrc/synth.cu``, B12) against
      its plain version on the card, exactly: R-MAT at scale 22 (2^23 rows)
      at counter 0, across the 2^32 carry and with a ragged count; SBM at
@@ -70,17 +70,18 @@ line is printed:
      SBM chunk under its planted partition at k = 64 and 8;
      ``hist_stats`` on (2^22+1, 64), (2^22, 256), (2^22, 7) and (2^22+1,
      7) histograms with planted ties; ``plan_moves`` at n = 2^22, k = 64
-     with the cap filling some parts, both parities; each timed beside its
-     plain version, a library yardstick (``torch.bincount``, ``torch.max``
-     + ``gather``, ``torch.sort``) and its bytes bound, the planner's sort
-     also alone, the device kernels a call (``torch.profiler``'s runtime
-     launches, which must be four for ``neighbor_hist`` and one for
-     ``hist_stats``); the weighted planner (plain PyTorch, no kernel)
+     with the cap filling some parts and on ``hist_stats`` of the planted
+     k = 64 histogram, both parities; each timed beside its plain
+     version, a library yardstick (``torch.bincount``, ``torch.max`` +
+     ``gather``, ``torch.sort``) and its bytes bound, the device kernels a
+     call (``torch.profiler``'s runtime launches, which must be four for
+     ``neighbor_hist``, one for ``hist_stats`` and one cooperative launch
+     for ``plan_moves``); the weighted planner (plain PyTorch, no kernel)
      timed on the card with its bytes bound, equal to its run on the CPU;
-     then both kernels at
-     small sizes where their designs branch (k = 1, 3, 7, 64, 257 and
-     40,000, blocked off a bucket start, ragged and misaligned stats
-     tiles, a chunk of invalid edges, a hub vertex);
+     then the three kernels at small sizes where their designs branch (k
+     = 1, 3, 7, 64, 257 and 40,000, blocked off a bucket start, ragged
+     and misaligned stats tiles, a chunk of invalid edges, a hub vertex;
+     the planner's case table ``kernel_cases.plan_cases``);
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -1007,19 +1008,20 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
     exactly, at the adaptive driver's widest buffer (C = 2^22 pairs, T =
     2^22+1 positions), each share of live pairs with about ``dup`` of them
     copies of others, and ``size`` the driver's rule, pow2_at_least(2 live,
-    2^14), the kernel's sort also against ``torch.sort`` of its keys.
-    Timed: the whole call, the compaction alone on the sorted keys, the
-    kernel's sort alone and ``torch.sort`` of the 64-bit keys (the sort it
-    replaced), the plain version, and ``torch.unique`` of the packed keys
-    with a masked select of the live ones as a yardstick (it and the
-    plain version read their sizes back to the host, so they are timed
-    without the spin prefill); the bound: the pairs read (8 B each) and
-    the output written (8 B a slot)."""
+    2^14); then on the case table ``kernel_cases.compact_cases``. Its
+    launches a call are ``torch.profiler``'s runtime calls, which must be
+    one cooperative kernel launch and nothing else. Timed: the whole
+    call, the plain version, and ``torch.unique`` of the packed keys with
+    a masked select of the live ones as a yardstick (it and the plain
+    version read their sizes back to the host, so they are timed without
+    the spin prefill); the bound: the pairs read (8 B each) and the output
+    written (8 B a slot)."""
     import torch
 
     from sheep_tpu_torch.ops import compact
     from sheep_tpu_torch.ops.elim import pow2_at_least
     from sheep_tpu_torch.tools import gather_smoke as gs
+    from sheep_tpu_torch.tools import kernel_cases
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(31)
@@ -1046,33 +1048,37 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
         check(err == 0, f"compact_live at live share {share:g} disagrees "
                         f"with its plain version")
         packed = (lo.long() << 32) | hi.long()
-        key = compact.sort_keys(lo, hi, n)
-        bits = compact.key_bits(n)
-        check(torch.equal(key, torch.sort((lo.long() << bits) |
-                                          hi.long()).values),
-              f"compact_live's sort at live share {share:g} disagrees "
-              f"with torch.sort")
 
         def library():
             u = torch.unique(packed)
             return u[(u >> 32) != n]
 
+        def kernel():
+            return compact.compact_live(lo, hi, n, size)
+
         rec = {"case": f"live{share:g}", "C": C, "T": n + 1, "live": live,
                "distinct": int(library().numel()), "size": size,
-               "max_abs_err": err,
-               "ms": gs.time_ms(lambda: compact.compact_live(lo, hi, n,
-                                                             size)),
-               "kernel_ms": gs.time_ms(
-                   lambda: compact.compact_sorted(key, n, size)),
-               "sort_ms": gs.time_ms(lambda: compact.sort_keys(lo, hi, n)),
-               "torch_sort_ms": gs.time_ms(lambda: torch.sort(packed)),
+               "max_abs_err": err, "ms": gs.time_ms(kernel),
+               "device": device_launches(kernel, f"compact_live {share:g}",
+                                         [COOPERATIVE]),
                "plain_ms": gs.time_ms(
                    lambda: compact.compact_live_plain(lo, hi, n, size),
                    iters=5, prefill=False),
                "library_ms": gs.time_ms(library, iters=5, prefill=False),
-               "bound_ms": gs.bound_ms(8 * C + 8 * size), "card": card}
+               "bound_ms": gs.bound_ms(8 * C + 8 * size), "bound_by": "bytes",
+               "card": card}
+        rec["device_launches"] = len(rec["device"]["api"])
         print("compact_live " + json.dumps(rec), flush=True)
         records.append(rec)
+    del lo, hi, packed, got, want
+    for name, c in kernel_cases.compact_cases():
+        lo, hi = torch.from_numpy(c["lo"]), torch.from_numpy(c["hi"])
+        want = compact.compact_live_plain(lo, hi, c["n"], c["size"])
+        got = compact.compact_live(lo.to(dev), hi.to(dev), c["n"], c["size"])
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"compact_live case {name} disagrees with its plain version")
+    print(f"compact-edges {len(kernel_cases.compact_cases())} cases equal to "
+          f"the plain version", flush=True)
     return records
 
 
@@ -1469,12 +1475,17 @@ def planted_parity(card, counters):
           f"(edge_cut {ref.edge_cut})", flush=True)
 
 
-def device_launches(fn, what: str, want: int) -> dict:
+# the runtime's call for a kernel whose blocks meet at grid barriers
+COOPERATIVE = "cudaLaunchCooperativeKernel"
+
+
+def device_launches(fn, what: str, want) -> dict:
     """The device work of one call of ``fn`` (after a warm-up call), by
     ``torch.profiler``: the CUDA runtime's launch, memset and copy calls
-    (``api``), the witness, which must be ``want`` kernel launches and
-    nothing else, and the device's kernel records (``kernels``), which a
-    process that has profiled before may have lost (PERF.md, section 7)."""
+    (``api``), the witness, which must be ``want`` kernel launches (or the
+    list of runtime calls ``want``) and nothing else, and the device's
+    kernel records (``kernels``), which a process that has profiled before
+    may have lost (PERF.md, section 7)."""
     import torch
 
     fn()
@@ -1489,9 +1500,11 @@ def device_launches(fn, what: str, want: int) -> dict:
                    re.match(r"cuda(Launch|Memset|Memcpy)", e.name)],
            "kernels": [e.name for e in events
                        if e.device_type == torch.autograd.DeviceType.CUDA]}
-    check(rec["api"] == ["cudaLaunchKernel"] * want,
+    if isinstance(want, int):
+        want = ["cudaLaunchKernel"] * want
+    check(rec["api"] == list(want),
           f"{what}: a call made the runtime calls {rec['api']}, not "
-          f"{want} kernel launches")
+          f"{want}")
     return rec
 
 
@@ -1502,12 +1515,15 @@ def refine_edge_cases(dev) -> int:
     at a base that does not start a bucket; row counts that leave a
     ragged last stats tile; a chunk of invalid edges only; a hub vertex
     that takes most updates; a histogram that starts off a 16-byte
-    boundary. ``tests/test_torch_refine.py`` runs the same cases on a card.
-    Returns the cases checked."""
+    boundary. Then ``plan_moves`` on its case table
+    (``kernel_cases.plan_cases``), with one scratch a shape, reused as
+    the refinement reuses it. ``tests/test_torch_refine.py`` runs the same
+    cases on a card. Returns the cases checked."""
     import numpy as np
     import torch
 
     from sheep_tpu_torch.ops import refine
+    from sheep_tpu_torch.tools import kernel_cases
 
     rng = np.random.default_rng(5)
     scratch = refine.HistScratch(1 << 12, dev)
@@ -1603,7 +1619,20 @@ def refine_edge_cases(dev) -> int:
     check(all(torch.equal(x.cpu(), y) for x, y in zip(a, b)),
           "hist_stats off a 16-byte boundary disagrees with its plain "
           "version")
-    return cases + 2
+    plans = kernel_cases.plan_cases()
+    scratches = {}
+    for name, c in plans:
+        args = [torch.from_numpy(c[x]) for x in ("best", "gain", "assign")]
+        shape = (c["n"], c["k"])
+        if shape not in scratches:
+            scratches[shape] = refine.PlanScratch(*shape, dev)
+        want = refine.plan_moves_plain(*args, c["cap"], c["parity"], *shape)
+        for _ in range(2):
+            got = refine.plan_moves(*(t.to(dev) for t in args), c["cap"],
+                                    c["parity"], *shape, scratches[shape])
+            check(torch.equal(got.cpu(), want),
+                  f"plan_moves case {name} disagrees with its plain version")
+    return cases + 2 + len(plans)
 
 
 def refine_kernels(card):
@@ -1619,15 +1648,18 @@ def refine_kernels(card):
     (2^22+1, 64), (2^22, 256), (2^22, 7) and (2^22+1, 7) histograms of
     small counts (the last with a ragged final tile), with rows of zeros
     and ties planted across 32-wide strides; ``plan_moves`` at n = 2^22,
-    k = 64, loads skewed so that the cap fills some parts and leaves
-    others open, at both parities; then ``refine_edge_cases``. Each timed
-    beside its plain version and a library yardstick (timed only):
-    ``torch.bincount`` of the precomputed row * k + part keys,
-    ``torch.max(dim=1)`` with ``torch.gather``, and ``torch.sort(stable)``
-    of the planner's keys; the planner's sort (cub) is also timed alone.
-    The kernel launches a call are ``torch.profiler``'s runtime calls,
-    four for ``neighbor_hist`` (count, scan, scatter, apply) and one for
-    ``hist_stats``; the run fails on any other count. Bounds by
+    k = 64, at both parities, on uniform gains in [-2, 40) with loads
+    skewed so that the cap fills some parts and leaves others open, and on
+    the best parts and gains of ``hist_stats`` over the planted k = 64
+    histogram under its partition (as 5g's refine passes meet them); then
+    ``refine_edge_cases``. Each timed beside its plain version and a
+    library yardstick (timed only): ``torch.bincount`` of the precomputed
+    row * k + part keys, ``torch.max(dim=1)`` with ``torch.gather``, and
+    ``torch.sort(stable)`` of the planner's 64-bit keys. The kernel
+    launches a call are ``torch.profiler``'s runtime calls, four for
+    ``neighbor_hist`` (count, scan, scatter, apply), one for
+    ``hist_stats`` and one cooperative launch for ``plan_moves``; the run
+    fails on any other count. Bounds by
     bytes: ``neighbor_hist`` 8 B an edge, one 32 B sector read and written
     back for each distinct histogram sector the edges touch, and the
     assignment once; ``hist_stats`` the histogram and the current parts
@@ -1718,6 +1750,11 @@ def refine_kernels(card):
                                            + 4 * (n + 1)),
                    "bound_by": "bytes", "card": card}
             rec["device_launches"] = len(rec["device"]["api"])
+            if name == "sbm-k64-planted":
+                # the planner's inputs as 5g's refine passes meet them
+                stats = refine.hist_stats(hist, assign)
+                planted = (stats[0], stats[3], assign)
+                del stats
             del plain_hist, hist, keys
             torch.cuda.empty_cache()
             print("neighbor_hist " + json.dumps(rec), flush=True)
@@ -1777,34 +1814,55 @@ def refine_kernels(card):
     check(0 < full_parts < k, f"plan_moves: {full_parts} of {k} parts at "
                               f"the cap")
     scratch = refine.PlanScratch(n, k, dev)
-    for parity in (0, 1):
-        got = refine.plan_moves(best, gain, assign, cap, parity, n, k,
-                                scratch)
-        want = refine.plan_moves_plain(best, gain, assign, cap, parity, n, k)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        check(err == 0, f"plan_moves parity {parity} disagrees with its "
-                        f"plain version")
-        moved = int((got != assign).sum())
-        new_loads = torch.bincount(got[:n].long(), minlength=k)
-        check(moved > 0 and bool(((new_loads <= cap) |
-                                  (new_loads <= loads)).all()),
-              f"plan_moves parity {parity}: no move, or a part grew past "
-              f"the cap")
-        rec = {"case": f"n{n}-k{k}-parity{parity}", "n": n, "k": k,
-               "cap": cap, "parts_at_cap": full_parts, "moved": moved,
-               "max_abs_err": err,
-               "ms": gs.time_ms(lambda: refine.plan_moves(
-                   best, gain, assign, cap, parity, n, k, scratch)),
-               "sort_ms": gs.time_ms(scratch.sort),
-               "plain_ms": gs.time_ms(lambda: refine.plan_moves_plain(
-                   best, gain, assign, cap, parity, n, k), iters=5),
-               "library_ms": gs.time_ms(lambda: torch.sort(
-                   scratch.keys_in, stable=True), iters=5),
-               "bound_ms": gs.bound_ms(16 * (n + 1)), "bound_by": "bytes",
-               "card": card}
-        print("plan_moves " + json.dumps(rec), flush=True)
-        records["plan_moves"].append(rec)
+    vid = torch.arange(n + 1, device=dev)
+    for kind, (b_, g_, a_) in (("", (best, gain, assign)),
+                               ("-planted", planted)):
+        a_loads = torch.bincount(a_[:n].long(), minlength=k)
+        for parity in (0, 1):
+            def kernel():
+                return refine.plan_moves(b_, g_, a_, cap, parity, n, k,
+                                         scratch)
+
+            got = kernel()
+            want = refine.plan_moves_plain(b_, g_, a_, cap, parity, n, k)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            name = f"n{n}-k{k}-parity{parity}{kind}"
+            check(err == 0, f"plan_moves {name} disagrees with its plain "
+                            f"version")
+            moved = int((got != a_).sum())
+            new_loads = torch.bincount(got[:n].long(), minlength=k)
+            check((moved > 0 or kind) and bool(((new_loads <= cap) |
+                                               (new_loads <= a_loads)).all()),
+                  f"plan_moves {name}: no move, or a part grew past the cap")
+            # the movers of each part against its head: the parts whose
+            # movers the kernel had to select from
+            mover = (g_ > 0) & (vid < n) & (vid % 2 == parity)
+            movers = torch.bincount(b_[mover].long(), minlength=k)
+            head = (cap - a_loads).clamp(min=0)
+            # the library yardstick: the reference's lexsort as one stable
+            # sort of 64-bit keys (part, then descending gain)
+            keys = torch.where(mover, (b_.long() << 32)
+                               | (2**31 - 1 - g_.long()), k << 32)[parity::2]
+            rec = {"case": name, "n": n, "k": k, "cap": cap,
+                   "parts_at_cap": int((a_loads >= cap).sum()),
+                   "parts_selected": int(((movers > head) &
+                                          (head > 0)).sum()),
+                   "movers": int(mover.sum()), "moved": moved,
+                   "max_abs_err": err, "ms": gs.time_ms(kernel),
+                   "device": device_launches(kernel, f"plan_moves {name}",
+                                             [COOPERATIVE]),
+                   "plain_ms": gs.time_ms(lambda: refine.plan_moves_plain(
+                       b_, g_, a_, cap, parity, n, k), iters=5),
+                   "library_ms": gs.time_ms(
+                       lambda: torch.sort(keys, stable=True), iters=5),
+                   "bound_ms": gs.bound_ms(16 * (n + 1)),
+                   "bound_by": "bytes", "card": card}
+            rec["device_launches"] = len(rec["device"]["api"])
+            del keys
+            print("plan_moves " + json.dumps(rec), flush=True)
+            records["plan_moves"].append(rec)
+    del planted
     # the weighted planner, plain PyTorch on the card (no kernel of its
     # own): integer weights 1-3, whose float32 sums stay exact below 2^24,
     # against the same function on the CPU; bound: best, gain, assign and
@@ -3531,13 +3589,11 @@ def main() -> int:
               seg_launches["compact_live"],
               library_scope="torch.unique of the packed keys + a masked "
                             "select of the live ones",
-              kernel_ms=compact_cases[1]["kernel_ms"],
-              sort_ms=compact_cases[1]["sort_ms"],
-              torch_sort_ms=compact_cases[1]["torch_sort_ms"],
+              device_launches_a_call=compact_cases[1]["device_launches"],
               cases={r["case"]: {k: r[k] for k in (
-                  "ms", "kernel_ms", "sort_ms", "torch_sort_ms",
-                  "plain_ms", "library_ms",
-                  "bound_ms", "live", "size")} for r in compact_cases},
+                  "ms", "plain_ms", "library_ms", "bound_ms",
+                  "device_launches", "live", "size")}
+                  for r in compact_cases},
               cases_max_abs_err=max(r["max_abs_err"]
                                     for r in compact_cases))]
     # the chunk synthesis, one entry a mode: R-MAT on the main path (5),
@@ -3573,16 +3629,15 @@ def main() -> int:
             ("hist_stats", "sheep_tpu/ops/refine.py:83", [],
              "torch.max(dim=1) + torch.gather"),
             ("plan_moves", "sheep_tpu/ops/refine.py:100", [],
-             "torch.sort(stable=True) of the planner's keys")):
+             "torch.sort(stable=True) of the planner's 64-bit keys")):
         recs = refine_cases[name]
         head = refine_head[name]
         calls = hier["launches"][name]
-        extra = {"sort_ms": head["sort_ms"]} if name == "plan_moves" else {
-            "calls": calls,
-            "device_launches_a_call": head["device_launches"],
-            "device_launches": calls * head["device_launches"]}
-        keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
-            () if name == "plan_moves" else ("device_launches",))
+        extra = {"calls": calls,
+                 "device_launches_a_call": head["device_launches"],
+                 "device_launches": calls * head["device_launches"]}
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms",
+                "device_launches")
         kernels.append(entry(
             name, refine_src, replaces, head, calls,
             also_replaces=also, replaces_kind="XLA program",

@@ -85,26 +85,45 @@
 // barrier a tile keeps the consumers together. A row wider than a quarter
 // stage (k > 2048) goes to hist_stats_wide: a block a row, plain loads.
 //
-// plan_moves: one parity half-round of capacity-capped moves. Loads: a
-// bincount of assign[:n] over k in shared memory (global atomics when k
-// does not fit). Keys: the i-th row of the parity is vid = 2 i + parity;
-// a mover (gain > 0, vid < n) gets the 64-bit key best << 32 |
-// (INT32_MAX - gain), every other row the key k << 32 | 0xFFFFFFFF, which
-// sorts last. cub's stable radix SortPairs orders the keys with the vids
-// as values: part ascending, gain descending, vid ascending, the order of
-// the reference's stable lexsort((-gain, part_key)) restricted to the
-// parity's rows, and only movers have ranks, so the accepted set is the
-// same. Starts: the first sorted index of each part. Accept: rank = index
-// - start, accepted while rank < max(cap - load, 0), written over a copy
-// of the assignment. Bound by bytes: 16 B a row (best, gain and the
-// assignment read, the new assignment written); the sort comes on top.
-//
+// plan_moves: one parity half-round of capacity-capped moves. Each part p
+// accepts the first head_p = max(cap - load_p, 0) of the parity's movers
+// to it (gain > 0, vid < n), in gain-descending then vid-ascending order,
+// the order of the reference's stable lexsort((-gain, part_key)). Only
+// an over-subscribed part (movers above its head) needs an order, and
+// only at one key: its head-th mover's. So each such part finds that
+// key, a threshold (G, V), by a radix selection, and a mover is accepted
+// iff gain > G, or gain == G and vid <= V: no sort, no rank of any other
+// row, no host read. One cooperative launch on the caller's stream, its
+// phases apart by grid barriers:
+//   count    one pass over the rows: the loads from assign[:n], and for
+//            each mover its target's movers and a bin of min(gain, bins0
+//            - 1) (shared counters where k parts of bins0 <= 256 bins fit
+//            kPlanSmem, else global atomics).
+//   walk     a warp a part, over its bins from the top: the threshold, or
+//            the bin that holds it (a gain, or the overflow bin of larger
+//            gains) and the movers still to take there.
+//   digits   while a part is open, at most kGainPasses + ceil(vid bits /
+//            8) steps of one 8-bit digit each: the overflow bin's gain
+//            digits from the top, then the vids at the threshold gain
+//            from the bottom, binned by global atomics (a warp's equal
+//            bins added once) and walked a warp a part. The first step
+//            reads the parity's rows and keeps the open parts' movers in
+//            their threshold bin as (vid, part, gain) candidates; the
+//            others read only those.
+//   write    out[v] = best[v] if v is accepted, else assign[v].
+// Bound by bytes: 16 B a row (best, gain and the assignment read, the new
+// assignment written). The count reads the assignment and best/gain's
+// sectors, the first digit step best/gain again (32 MB at s22, mostly in
+// L2), the write all three: about 9 B a row on top, where the sort it
+// replaced moved 12 B a row five times. The scratch stays zero between
+// calls (a walk zeroes the bins it reads), so no memset either.
+
 // Bound to PyTorch through plain C functions (loaded with ctypes): the
 // caller passes device pointers, the scratch it allocated and its CUDA
 // stream, and gets back the first CUDA error of the launches (0 if none).
 
+#include <cooperative_groups.h>
 #include <cub/block/block_scan.cuh>
-#include <cub/device/device_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,11 +131,10 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace sheep;
 
 constexpr unsigned kFull = 0xffffffffu;
-// loads in shared memory up to this many parts (48 KB of int32)
-constexpr int kSharedParts = 12288;
 
 // -- neighbor_hist ----------------------------------------------------------
 
@@ -767,76 +785,387 @@ hist_stats_wide(const int32_t* __restrict__ hist, int64_t rows, int32_t k,
 
 // -- plan_moves -------------------------------------------------------------
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-plan_loads(const int32_t* __restrict__ assign, int64_t n, int32_t k,
-           int32_t* __restrict__ loads) {
-  extern __shared__ int32_t part_count[];
-  if (kShared) {
-    for (int32_t j = threadIdx.x; j < k; j += blockDim.x) part_count[j] = 0;
-    __syncthreads();
-  }
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const int32_t p = assign[i];
-    if (p < 0 || p >= k) continue;  // the reference's mode="drop"
-    atomicAdd(kShared ? part_count + p : loads + p, 1);
-  }
-  if (kShared) {
-    __syncthreads();
-    for (int32_t j = threadIdx.x; j < k; j += blockDim.x)
-      if (part_count[j]) atomicAdd(loads + j, part_count[j]);
-  }
-}
+constexpr int kPlanThreads = 1024;    // the plan's blocks
+constexpr int kPlanWarps = kPlanThreads / 32;
+constexpr int kDigitBits = 8;         // a refinement digit
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kGainPasses = 4;        // 31 bits of gain, a digit a pass
+constexpr int kPlanSmem = 112 * 1024;  // the count's shared counters
+constexpr int kMaxBinsPerLane = kDigits / 32;
+constexpr int kUnroll = 4;  // rows a thread loads before it uses them
+// the per-part words of the scratch, each an int32[k] row
+enum : int {
+  kLoads = 0,   // assign[:n] in part p (zero between calls)
+  kMovers = 1,  // the parity's movers to p (zero between calls)
+  kState = 2,   // the digit step p is at, -1 once its threshold is known
+  kPrefix = 3,  // the digits found so far (gain steps, then vid steps)
+  kNeed = 4,    // movers still to accept among those matching the prefix
+  kGain = 5,    // threshold gain G
+  kVid = 6,     // threshold vid V: accepted iff gain > G or (== G, vid <= V)
+  kBin0 = 7,    // the count's bin that holds the threshold
+  kPartWords = 8,
+};
+// control words: open parts, candidates kept
+enum : int { kActive = 0, kCands = 1, kPlanCtl = 2 };
 
-__global__ void __launch_bounds__(kThreads)
-plan_keys(const int32_t* __restrict__ best, const int32_t* __restrict__ gain,
-          int64_t n, int32_t k, int parity, int64_t half,
-          uint64_t* __restrict__ keys, int32_t* __restrict__ vids) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < half;
-       i += step) {
-    const int64_t vid = 2 * i + parity;
-    uint64_t key = ((uint64_t)(uint32_t)k << 32) | 0xffffffffull;
-    if (vid < n) {
-      const int32_t g = gain[vid];
-      if (g > 0)
-        key = ((uint64_t)(uint32_t)best[vid] << 32) |
-              (uint32_t)(INT32_MAX - g);
+// The walk of one part's bins by a warp: bins [0, nbins) of row (nbins a
+// power of two, at most kDigits), read from L2 and zeroed; `need` (>= 1,
+// at most the row's total) selects the bin d where the count walked
+// before it, from the top (descending) or the bottom, is below need and
+// reaches it with d's count. Every lane returns d, the count before d
+// and d's count; with need 0 the bins are only zeroed.
+struct Step {
+  int d, before, count;
+};
+
+__device__ Step warp_walk(int32_t* row, int nbins, int need, bool desc) {
+  const int lane = threadIdx.x & 31;
+  const int per = nbins >= 32 ? nbins / 32 : 1;
+  int c[kMaxBinsPerLane];
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxBinsPerLane; ++i) {
+    const int b = lane * per + i;
+    c[i] = i < per && b < nbins ? __ldcg(row + b) : 0;
+    sum += c[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxBinsPerLane; ++i) {
+    const int b = lane * per + i;
+    if (i < per && b < nbins && c[i]) row[b] = 0;
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int total = __shfl_sync(kFull, incl, 31);
+  int before = desc ? total - incl : incl - sum;
+  const bool mine = need > 0 && before < need && need <= before + sum;
+  Step st{0, 0, 0};
+  if (mine) {
+    for (int j = 0; j < per; ++j) {
+      const int i = desc ? per - 1 - j : j;
+      if (before + c[i] >= need) {
+        st = Step{lane * per + i, before, c[i]};
+        break;
+      }
+      before += c[i];
     }
-    keys[i] = key;
-    vids[i] = (int32_t)vid;
+  }
+  const unsigned who = __ballot_sync(kFull, mine);
+  if (who) {
+    const int src = __ffs(who) - 1;
+    st.d = __shfl_sync(kFull, st.d, src);
+    st.before = __shfl_sync(kFull, st.before, src);
+    st.count = __shfl_sync(kFull, st.count, src);
+  }
+  return st;
+}
+
+// The count: every row below n adds its part to the loads; a mover of the
+// parity (gain > 0, best in [0, k)) adds one to its target's movers and
+// to the target's bin min(gain, bins0 - 1). Shared counters when they
+// fit (kShared), added to the scratch's at the end. kUnroll pairs of rows
+// a thread are loaded before any is counted, to keep loads in flight.
+template <bool kShared>
+__device__ void plan_count(const int32_t* __restrict__ best,
+                           const int32_t* __restrict__ gain,
+                           const int32_t* __restrict__ assign, int64_t n,
+                           int32_t k, int parity, int bins0, int32_t* hist,
+                           int32_t* part, int32_t* sm) {
+  int32_t* loads = kShared ? sm + (int64_t)k * bins0 : part + kLoads * k;
+  int32_t* movers = kShared ? loads + k : part + kMovers * k;
+  if (kShared) {
+    for (int64_t j = threadIdx.x; j < (int64_t)k * (bins0 + 2);
+         j += blockDim.x)
+      sm[j] = 0;
+    __syncthreads();
+  }
+  const int64_t pairs = (n + 1) / 2;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       j0 < pairs; j0 += kUnroll * step) {
+    int32_t a0[kUnroll], a1[kUnroll], g[kUnroll], p[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v0 = 2 * (j0 + u * step), v = v0 + parity;
+      const bool in = j0 + u * step < pairs;
+      a0[u] = in ? assign[v0] : -1;
+      a1[u] = in && v0 + 1 < n ? assign[v0 + 1] : -1;
+      g[u] = in && v < n ? gain[v] : 0;
+      p[u] = g[u] > 0 ? best[v] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if ((uint32_t)a0[u] < (uint32_t)k) atomicAdd(loads + a0[u], 1);
+      if ((uint32_t)a1[u] < (uint32_t)k) atomicAdd(loads + a1[u], 1);
+      if (g[u] > 0 && (uint32_t)p[u] < (uint32_t)k) {
+        atomicAdd(movers + p[u], 1);
+        const int bin = g[u] < bins0 - 1 ? g[u] : bins0 - 1;
+        atomicAdd(kShared ? sm + (int64_t)p[u] * bins0 + bin
+                          : hist + (int64_t)p[u] * kDigits + bin, 1);
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int64_t j = threadIdx.x; j < (int64_t)k * bins0; j += blockDim.x)
+      if (sm[j]) atomicAdd(hist + (j / bins0) * kDigits + j % bins0, sm[j]);
+    for (int32_t q = threadIdx.x; q < k; q += blockDim.x) {
+      if (loads[q]) atomicAdd(part + kLoads * k + q, loads[q]);
+      if (movers[q]) atomicAdd(part + kMovers * k + q, movers[q]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-plan_starts(const uint64_t* __restrict__ keys, int64_t m, int32_t k,
-            int32_t* __restrict__ starts) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += step) {
-    const uint32_t p = (uint32_t)(keys[i] >> 32);
-    if (p >= (uint32_t)k) continue;
-    if (i == 0 || (uint32_t)(keys[i - 1] >> 32) != p)
-      starts[p] = (int32_t)i;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-plan_accept(const uint64_t* __restrict__ keys,
-            const int32_t* __restrict__ vids, int64_t m, int32_t k,
-            const int32_t* __restrict__ starts,
-            const int32_t* __restrict__ loads, int32_t cap,
-            int32_t* __restrict__ out) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += step) {
-    const uint32_t p = (uint32_t)(keys[i] >> 32);
-    if (p >= (uint32_t)k) continue;
-    const int32_t room = cap - loads[p];
+// The first walk, a warp a part: a part whose movers fit its head
+// max(cap - load, 0) takes them all, a part with no room none; any other
+// finds the bin of its head-th mover in (gain desc) order: if that bin's
+// movers all fit, the threshold is the bin's lowest gain, else the part
+// stays open at step 0 (gain digits: the bin is the overflow bin) or
+// kGainPasses (vid digits: the bin is one gain).
+__device__ void plan_walk0(int32_t k, int bins0, int32_t cap, int32_t* hist,
+                           int32_t* part, int32_t* ctl) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * kPlanWarps;
+  for (int64_t p = (int64_t)blockIdx.x * kPlanWarps + (threadIdx.x >> 5);
+       p < k; p += warps) {
+    int32_t* lp = part + kLoads * k + p;
+    int32_t* mp = part + kMovers * k + p;
+    const int64_t room = (int64_t)cap - __ldcg(lp);
     const int64_t head = room > 0 ? room : 0;
-    if (i - starts[p] < head) out[vids[i]] = (int32_t)p;
+    const int32_t mov = __ldcg(mp);
+    const bool split = mov > head && head > 0;
+    const int need = split ? (int)head : 0;
+    const Step st = warp_walk(hist + p * kDigits, bins0, need, true);
+    if (lane == 0) {
+      *lp = 0;
+      *mp = 0;
+      int32_t state = -1, g = 0;
+      if (mov > head && head == 0) {
+        g = INT32_MAX;  // no room: none accepted
+      } else if (split) {
+        const int rest = need - st.before;
+        if (st.count == rest) {
+          g = st.d - 1;  // the whole bin fits: gain >= d
+        } else {
+          state = st.d < bins0 - 1 ? kGainPasses : 0;
+          g = st.d;
+          part[kPrefix * k + p] = 0;
+          part[kNeed * k + p] = rest;
+          part[kBin0 * k + p] = st.d;
+          atomicAdd(ctl + kActive, 1);
+        }
+      }  // else every mover fits: gain > 0
+      part[kState * k + p] = state;
+      part[kGain * k + p] = g;
+      part[kVid * k + p] = -1;
+    }
+  }
+}
+
+// One digit step's binning. Pass 0 reads the parity's rows and keeps the
+// movers in the bin that holds their open part's threshold as candidates
+// (vid, part, gain), in any order; later passes read the candidates. A
+// candidate of a part at a gain step s (digit kGainPasses - 1 - s of the
+// gain, from the top) whose gain matches the prefix, or at a vid step
+// whose gain is the threshold's and whose vid matches the prefix, adds
+// one to its part's bin of that digit (a warp's equal bins added once).
+__device__ void plan_bin(const int32_t* __restrict__ best,
+                         const int32_t* __restrict__ gain, int64_t n,
+                         int32_t k, int parity, int bins0, int pass,
+                         int vid_passes, int32_t* hist, const int32_t* part,
+                         int32_t* ctl, int4* cand) {
+  const int lane = threadIdx.x & 31;
+  const int32_t* state = part + kState * k;
+  const int32_t* prefix = part + kPrefix * k;
+  const int32_t* thr = part + kGain * k;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  const int64_t items = pass == 0 ? (n + 1) / 2 : __ldcg(ctl + kCands);
+  for (int64_t i0 = first; i0 < items; i0 += kUnroll * step) {
+    // every lane's rows first, kUnroll of them, so their loads overlap
+    int32_t v[kUnroll], p[kUnroll], g[kUnroll], s[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = i0 + u * step + lane;
+      v[u] = -1;
+      p[u] = -1;
+      g[u] = 0;
+      if (i < items) {
+        if (pass == 0) {
+          const int64_t vv = 2 * i + parity;
+          v[u] = (int32_t)vv;
+          g[u] = vv < n ? gain[vv] : 0;
+        } else {
+          const int4 c = cand[i];
+          v[u] = c.x;
+          p[u] = c.y;
+          g[u] = c.z;
+        }
+      }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (g[u] > 0) p[u] = best[v[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      s[u] = -1;
+      if (g[u] > 0 && (uint32_t)p[u] < (uint32_t)k) {
+        const int32_t sp = state[p[u]];
+        const int bin = g[u] < bins0 - 1 ? g[u] : bins0 - 1;
+        if (sp >= 0 && (pass > 0 || bin == part[kBin0 * k + p[u]]))
+          s[u] = sp;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (pass == 0) {  // keep the candidates
+        const unsigned keep = __ballot_sync(kFull, s[u] >= 0);
+        if (keep) {
+          const int leader = __ffs(keep) - 1;
+          int base = 0;
+          if (lane == leader) base = atomicAdd(ctl + kCands, __popc(keep));
+          base = __shfl_sync(kFull, base, leader);
+          if (s[u] >= 0)
+            cand[base + __popc(keep & ((1u << lane) - 1u))] =
+                make_int4(v[u], p[u], g[u], 0);
+        }
+      }
+      int digit = -1;
+      if (s[u] >= 0) {
+        if (s[u] < kGainPasses) {
+          const int sh = kDigitBits * (kGainPasses - 1 - s[u]);
+          if (((int64_t)g[u] >> (sh + kDigitBits)) == prefix[p[u]])
+            digit = (g[u] >> sh) & (kDigits - 1);
+        } else {
+          const int sh = kDigitBits * (vid_passes - 1 - (s[u] - kGainPasses));
+          if (g[u] == thr[p[u]] &&
+              ((int64_t)v[u] >> (sh + kDigitBits)) == prefix[p[u]])
+            digit = (v[u] >> sh) & (kDigits - 1);
+        }
+      }
+      const uint64_t key =
+          digit >= 0 ? ((uint64_t)(uint32_t)p[u] << kDigitBits) | digit
+                     : ~0ull;
+      const unsigned peers = __match_any_sync(kFull, key);
+      if (digit >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(hist + (int64_t)p[u] * kDigits + digit, __popc(peers));
+    }
+  }
+}
+
+// One digit step's walk, a warp an open part: the part's bins (gain
+// digits from the top, vid digits from the bottom) move it to its next
+// step, or close it where the digit's movers all fit or the last digit
+// is found.
+__device__ void plan_walk(int32_t k, int vid_passes, int32_t* hist,
+                          int32_t* part, int32_t* ctl) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * kPlanWarps;
+  for (int64_t p = (int64_t)blockIdx.x * kPlanWarps + (threadIdx.x >> 5);
+       p < k; p += warps) {
+    const int32_t s = part[kState * k + p];
+    if (s < 0) continue;
+    const int need = part[kNeed * k + p];
+    const int64_t pre = part[kPrefix * k + p];
+    const bool gain_step = s < kGainPasses;
+    const int sh =
+        kDigitBits * (gain_step ? kGainPasses - 1 - s
+                                : vid_passes - 1 - (s - kGainPasses));
+    const Step st = warp_walk(hist + p * kDigits, kDigits, need, gain_step);
+    if (lane == 0) {
+      const int64_t next = (pre << kDigitBits) | st.d;
+      const int rest = need - st.before;
+      int32_t ns = s + 1;
+      if (gain_step) {
+        if (st.count == rest) {  // the digit's movers all fit
+          part[kGain * k + p] = (int32_t)((next << sh) - 1);
+          part[kVid * k + p] = -1;
+          ns = -1;
+        } else if (sh == 0) {  // the gain is known: on to the vids
+          part[kGain * k + p] = (int32_t)next;
+          part[kPrefix * k + p] = 0;
+        } else {
+          part[kPrefix * k + p] = (int32_t)next;
+        }
+      } else if (st.count == rest || sh == 0) {
+        part[kVid * k + p] = (int32_t)(((next + 1) << sh) - 1);
+        ns = -1;
+      } else {
+        part[kPrefix * k + p] = (int32_t)next;
+      }
+      if (ns >= 0) {
+        part[kNeed * k + p] = rest;
+      } else {
+        atomicSub(ctl + kActive, 1);
+      }
+      part[kState * k + p] = ns;
+    }
+  }
+}
+
+// The whole plan, one cooperative launch: the count, the first walk,
+// then digit steps (binning, walk) while a part is open, then out[v] =
+// best[v] for the accepted movers of the parity, else assign[v], for
+// every row v <= n. Grid barriers between the phases; every block reads
+// the open parts' count after the same barrier, so all leave together.
+template <bool kShared>
+__global__ void __launch_bounds__(kPlanThreads)
+plan_moves_kernel(const int32_t* __restrict__ best,
+                  const int32_t* __restrict__ gain,
+                  const int32_t* __restrict__ assign, int64_t n, int32_t k,
+                  int parity, int bins0, int32_t cap, int vid_passes,
+                  int32_t* __restrict__ hist, int32_t* __restrict__ part,
+                  int32_t* __restrict__ ctl, int4* __restrict__ cand,
+                  int32_t* __restrict__ out) {
+  extern __shared__ int32_t sm[];
+  cg::grid_group grid = cg::this_grid();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ctl[kActive] = 0;
+    ctl[kCands] = 0;
+  }
+  plan_count<kShared>(best, gain, assign, n, k, parity, bins0, hist, part,
+                      sm);
+  grid.sync();
+  plan_walk0(k, bins0, cap, hist, part, ctl);
+  grid.sync();
+  for (int pass = 0; pass < kGainPasses + vid_passes; ++pass) {
+    if (__ldcg(ctl + kActive) == 0) break;
+    plan_bin(best, gain, n, k, parity, bins0, pass, vid_passes, hist, part,
+             ctl, cand);
+    grid.sync();
+    plan_walk(k, vid_passes, hist, part, ctl);
+    grid.sync();
+  }
+  const int32_t* thr = part + kGain * k;
+  const int32_t* last = part + kVid * k;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v0 <= n;
+       v0 += kUnroll * step) {
+    int32_t r[kUnroll], g[kUnroll], p[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + u * step;
+      r[u] = v <= n ? assign[v] : 0;
+      g[u] = v < n && (v & 1) == parity ? gain[v] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      p[u] = g[u] > 0 ? best[v0 + u * step] : -1;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + u * step;
+      if (g[u] > 0 && (uint32_t)p[u] < (uint32_t)k) {
+        const int32_t t = thr[p[u]];
+        if (g[u] > t || (g[u] == t && v <= last[p[u]])) r[u] = p[u];
+      }
+      if (v <= n) out[v] = r[u];
+    }
   }
 }
 
@@ -849,8 +1178,7 @@ int bit_length(long long x) {
   return b;
 }
 
-Wave count_wave, stats_wide_wave, loads_shared_wave, loads_global_wave,
-    keys_wave, starts_wave, accept_wave;
+Wave count_wave, stats_wide_wave;
 
 // the card's SMs and the blocks of `threads` with `smem` bytes of dynamic
 // shared memory one SM holds, with the opt-in to that much shared memory
@@ -1023,105 +1351,70 @@ extern "C" int sheep_refine_stats(const void* hist, long long rows, int k,
   return (int)cudaGetLastError();
 }
 
-// The rows of a parity half-round, ceil(n / 2) rounded for either parity.
+// The count's bins a part, a power of two: shared counters (bins, loads
+// and movers of every part) when kPlanSmem holds them with at least 16
+// bins, else kDigits bins counted by global atomics.
+static int plan_bins(int k, bool* shared) {
+  for (int b = kDigits; b >= 16; b >>= 1)
+    if (4LL * k * (b + 2) <= kPlanSmem) {
+      *shared = true;
+      return b;
+    }
+  *shared = false;
+  return kDigits;
+}
+
+// the vid digits of n rows: enough for n - 1, the largest mover's vid
+static int vid_passes(long long n) {
+  return (bit_length(n > 2 ? n - 1 : 1) + kDigitBits - 1) / kDigitBits;
+}
+
+// The rows of a parity half-round, ceil(n / 2) rounded for either parity:
+// the most candidates a call keeps.
 extern "C" long long sheep_refine_plan_rows(long long n) {
   return (n + 1) / 2;
 }
 
-// The bytes of cub's temporary storage for plan_moves at n rows, k parts.
-extern "C" int sheep_refine_plan_bytes(long long n, int k,
-                                       unsigned long long* bytes) {
-  if (n < 0 || n > 0x7FFFFFFFLL || k < 1) return (int)cudaErrorInvalidValue;
-  size_t t = 0;
-  cudaError_t err = cub::DeviceRadixSort::SortPairs(
-      nullptr, t, (const uint64_t*)nullptr, (uint64_t*)nullptr,
-      (const int32_t*)nullptr, (int32_t*)nullptr,
-      (int)sheep_refine_plan_rows(n), 0, 32 + bit_length(k));
-  *bytes = t;
-  return (int)err;
-}
+// Scratch words: hist int32 [k * digits], part int32 [part_words * k],
+// ctl int32 [ctl_words], all zero before the first call (every call
+// leaves the bins, loads and movers zero); cand int4
+// [sheep_refine_plan_rows(n)].
+extern "C" int sheep_refine_plan_digits() { return kDigits; }
+extern "C" int sheep_refine_plan_part_words() { return kPartWords; }
+extern "C" int sheep_refine_plan_ctl_words() { return kPlanCtl; }
 
 // out [n + 1] <- assign [n + 1] with the accepted movers of the parity
-// moved to their best part. Scratch: loads int32 [k], starts int32 [k],
-// keys_in/keys_out uint64 [rows], vids_in/vids_out int32 [rows] (rows =
-// sheep_refine_plan_rows(n)), temp of sheep_refine_plan_bytes bytes.
+// moved to their best part: one cooperative launch of the blocks the card
+// holds at once.
 extern "C" int sheep_refine_plan(const void* best, const void* gain,
                                  const void* assign, int n, int k, int cap,
-                                 int parity, void* loads, void* starts,
-                                 void* keys_in, void* keys_out,
-                                 void* vids_in, void* vids_out, void* temp,
-                                 unsigned long long temp_bytes, void* out,
+                                 int parity, void* hist, void* part,
+                                 void* ctl, void* cand, void* out,
                                  void* stream) {
   if (n < 0 || k < 1 || (parity != 0 && parity != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  bool shared = false;
+  int bins0 = plan_bins(k, &shared);
+  const size_t smem = shared ? (size_t)4 * k * (bins0 + 2) : 0;
+  const void* kernel = shared ? (const void*)plan_moves_kernel<true>
+                              : (const void*)plan_moves_kernel<false>;
+  long long blocks = 0;
+  cudaError_t err = shared ? resident(plan_moves_kernel<true>, kPlanThreads,
+                                      smem, &blocks)
+                           : resident(plan_moves_kernel<false>, kPlanThreads,
+                                      0, &blocks);
+  if (err != cudaSuccess) return (int)err;
   const long long rows = sheep_refine_plan_rows(n);
-  cudaError_t err = cudaMemcpyAsync(out, assign, (size_t)(n + 1) * 4,
-                                    cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return (int)err;
-  if (rows == 0) return 0;
-  err = cudaMemsetAsync(loads, 0, (size_t)k * 4, s);
-  if (err != cudaSuccess) return (int)err;
-  unsigned blocks = 0;
-  if (n > 0) {
-    if (k <= kSharedParts) {
-      err = wave_blocks(loads_shared_wave, plan_loads<true>, n, &blocks);
-      if (err != cudaSuccess) return (int)err;
-      plan_loads<true><<<blocks, kThreads, (size_t)k * 4, s>>>(
-          (const int32_t*)assign, n, k, (int32_t*)loads);
-    } else {
-      err = wave_blocks(loads_global_wave, plan_loads<false>, n, &blocks);
-      if (err != cudaSuccess) return (int)err;
-      plan_loads<false><<<blocks, kThreads, 0, s>>>(
-          (const int32_t*)assign, n, k, (int32_t*)loads);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = wave_blocks(keys_wave, plan_keys, rows, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  plan_keys<<<blocks, kThreads, 0, s>>>(
-      (const int32_t*)best, (const int32_t*)gain, n, k, parity, rows,
-      (uint64_t*)keys_in, (int32_t*)vids_in);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  size_t t = temp_bytes;
-  err = cub::DeviceRadixSort::SortPairs(
-      temp, t, (const uint64_t*)keys_in, (uint64_t*)keys_out,
-      (const int32_t*)vids_in, (int32_t*)vids_out, (int)rows, 0,
-      32 + bit_length(k), s);
-  if (err != cudaSuccess) return (int)err;
-  err = wave_blocks(starts_wave, plan_starts, rows, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  plan_starts<<<blocks, kThreads, 0, s>>>((const uint64_t*)keys_out, rows, k,
-                                          (int32_t*)starts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = wave_blocks(accept_wave, plan_accept, rows, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  plan_accept<<<blocks, kThreads, 0, s>>>(
-      (const uint64_t*)keys_out, (const int32_t*)vids_out, rows, k,
-      (const int32_t*)starts, (const int32_t*)loads, cap, (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
-// The sort alone, as sheep_refine_plan runs it, for timing it apart: the
-// keys and vids in keys_in/vids_in sorted into keys_out/vids_out.
-extern "C" int sheep_refine_plan_sort(long long n, int k, void* keys_in,
-                                      void* keys_out, void* vids_in,
-                                      void* vids_out, void* temp,
-                                      unsigned long long temp_bytes,
-                                      void* stream) {
-  if (n < 0 || k < 1) return (int)cudaErrorInvalidValue;
-  const long long rows = sheep_refine_plan_rows(n);
-  if (rows == 0) return 0;
-  size_t t = temp_bytes;
-  cudaError_t err = cub::DeviceRadixSort::SortPairs(
-      temp, t, (const uint64_t*)keys_in, (uint64_t*)keys_out,
-      (const int32_t*)vids_in, (int32_t*)vids_out, (int)rows, 0,
-      32 + bit_length(k), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const long long want = (rows + kPlanThreads - 1) / kPlanThreads;
+  if (want < blocks) blocks = want > 0 ? want : 1;
+  int64_t n64 = n;
+  int vp = vid_passes(n);
+  void* args[] = {(void*)&best, (void*)&gain, (void*)&assign, &n64, &k,
+                  &parity, &bins0, &cap, &vp, &hist, &part, &ctl, &cand,
+                  &out};
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks),
+                                          dim3(kPlanThreads), args, smem,
+                                          (cudaStream_t)stream);
 }
 
 extern "C" const char* sheep_refine_error_string(int code) {

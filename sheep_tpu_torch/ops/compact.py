@@ -7,13 +7,13 @@ a round's slots into ``size`` slots: duplicate pairs are dropped, the
 rest come in ascending (lo, hi) order, and the slots after them hold the
 inert (n, n). The fixpoint depends only on the set of live constraints,
 so a compacted buffer folds to the same forest. On CUDA tensors it runs
-the kernels of ``csrc/compact.cu``: :func:`sort_keys` packs each pair
-into one key ``lo << b | hi`` (b the bits of n) and sorts the keys alone
-over their 2b bits (cub's radix sort, where the JAX package's
-``lax.sort`` orders two keys), then :func:`compact_sorted` keeps the
-live first pair of each run. On CPU tensors it runs
+the kernels of ``csrc/compact.cu``: the live pairs packed as keys ``lo <<
+b | hi`` (b the bits of n, where the JAX package's ``lax.sort`` orders
+two keys), a stable radix sort of those keys alone, and the first pair
+of each run, all in one cooperative kernel launch, with the live count
+kept on the card. On CPU tensors it runs
 :func:`compact_live_plain`; anything else raises. ``LAUNCHES`` counts
-the launches of the whole compaction (one a call).
+the wrapper's calls that launch the kernels (one a compaction).
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ def count_live_distinct(lo: torch.Tensor, hi: torch.Tensor, n: int):
 
 
 _LIB = None
+_CTL = {}
 
 
 def _lib():
@@ -65,15 +66,14 @@ def _lib():
 
         lib = _build.load("compact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        ull = ctypes.c_ulonglong
-        lib.sheep_compact_sort_bytes.argtypes = [ll, i,
-                                                 ctypes.POINTER(ull)]
-        lib.sheep_compact_sort_bytes.restype = i
-        lib.sheep_compact_sort.argtypes = [p, p, ll, i, p, p, p, ull, p]
-        lib.sheep_compact_sort.restype = i
-        lib.sheep_compact_live.argtypes = [p, ll, i, i, p, p, p, ll, p]
+        lib.sheep_compact_live.argtypes = [p, p, ll, i, i, p, p, p, p, p, ll,
+                                           p]
         lib.sheep_compact_live.restype = i
-        lib.sheep_compact_tile.restype = ll
+        lib.sheep_compact_passes.argtypes = [i]
+        lib.sheep_compact_passes.restype = i
+        lib.sheep_compact_ctl_words.restype = i
+        lib.sheep_compact_look_stride.argtypes = [ll]
+        lib.sheep_compact_look_stride.restype = ll
         lib.sheep_compact_error_string.argtypes = [i]
         lib.sheep_compact_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -90,6 +90,16 @@ def key_bits(n: int) -> int:
     """b, the bits of a half of the packed key ``lo << b | hi``: enough
     for n, the largest value a half holds."""
     return max(1, int(n).bit_length())
+
+
+def _ctl(dev: torch.device, stream: int) -> torch.Tensor:
+    """The control words of the calls on one stream: zero when made, and
+    every call leaves them zero (calls on one stream run in turn)."""
+    key = (dev.index, stream)
+    if key not in _CTL:
+        _CTL[key] = torch.zeros(_lib().sheep_compact_ctl_words(),
+                                dtype=torch.int32, device=dev)
+    return _CTL[key]
 
 
 def compact_live(lo: torch.Tensor, hi: torch.Tensor, n: int, size: int):
@@ -109,60 +119,20 @@ def compact_live(lo: torch.Tensor, hi: torch.Tensor, n: int, size: int):
         return compact_live_plain(lo, hi, n, size)
     if lo.device.type != "cuda":
         raise ValueError(f"compact_live: unsupported device {lo.device}")
-    out = _compact_sorted(sort_keys(lo, hi, n), n, size)
-    LAUNCHES["compact_live"] += 1
-    return out
-
-
-def sort_keys(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
-    """The sort of :func:`compact_live` on CUDA: the pairs packed as
-    ``lo << b | hi`` (b = :func:`key_bits`), ascending, int64 (the keys
-    are below 2^62, so signed and unsigned order agree)."""
     lib = _lib()
-    m, b = len(lo), key_bits(n)
-    dev = lo.device
-    temp_bytes = ctypes.c_ulonglong(0)
-    _check(lib, lib.sheep_compact_sort_bytes(m, 2 * b,
-                                             ctypes.byref(temp_bytes)),
-           "compact_live's sort sizing")
-    temp = torch.empty(max(1, temp_bytes.value), dtype=torch.uint8,
-                       device=dev)
-    packed = torch.empty(m, dtype=torch.int64, device=dev)
-    key = torch.empty(m, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, lib.sheep_compact_sort(
-            lo.data_ptr(), hi.data_ptr(), m, b, packed.data_ptr(),
-            key.data_ptr(), temp.data_ptr(), temp_bytes.value, stream),
-            "compact_live's sort")
-    return key
-
-
-def compact_sorted(key: torch.Tensor, n: int, size: int):
-    """The compaction of :func:`compact_live` on CUDA after its sort:
-    ``key`` the ascending packed keys of :func:`sort_keys` (int64,
-    contiguous). Counted in ``LAUNCHES`` as one compaction."""
-    out = _compact_sorted(key, n, size)
-    LAUNCHES["compact_live"] += 1
-    return out
-
-
-def _compact_sorted(key: torch.Tensor, n: int, size: int):
-    if key.dtype != torch.int64 or key.dim() != 1 or \
-            not key.is_contiguous() or key.device.type != "cuda":
-        raise ValueError("compact_sorted: key must be a contiguous int64 "
-                         "CUDA vector")
-    lib = _lib()
-    tile = lib.sheep_compact_tile()
-    dev = key.device
-    scratch = torch.empty(-(-len(key) // tile) + 1, dtype=torch.int32,
-                          device=dev)
+    m, b, dev = len(lo), key_bits(n), lo.device
+    passes = lib.sheep_compact_passes(b)
+    stride = lib.sheep_compact_look_stride(m)
+    keys = torch.empty(2 * max(m, 1), dtype=torch.int64, device=dev)
+    look = torch.empty((passes + 1) * stride, dtype=torch.int64, device=dev)
     out_lo = torch.empty(size, dtype=torch.int32, device=dev)
     out_hi = torch.empty(size, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(lib, lib.sheep_compact_live(
-            key.data_ptr(), len(key), n, key_bits(n), scratch.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), m, n, b, keys.data_ptr(),
+            look.data_ptr(), _ctl(dev, stream).data_ptr(),
             out_lo.data_ptr(), out_hi.data_ptr(), size, stream),
             "compact_live launch")
+    LAUNCHES["compact_live"] += 1
     return out_lo, out_hi

@@ -59,7 +59,6 @@ def _lib():
 
         lib = _build.load("refine")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        ull = ctypes.c_ulonglong
         lib.sheep_refine_hist.argtypes = [p, ll, p, i, i, i, ll, ll, p, p, p,
                                           ll, p, p]
         lib.sheep_refine_hist.restype = i
@@ -69,13 +68,11 @@ def _lib():
         lib.sheep_refine_stats.restype = i
         lib.sheep_refine_plan_rows.argtypes = [ll]
         lib.sheep_refine_plan_rows.restype = ll
-        lib.sheep_refine_plan_bytes.argtypes = [ll, i, ctypes.POINTER(ull)]
-        lib.sheep_refine_plan_bytes.restype = i
+        for name in ("digits", "part_words", "ctl_words"):
+            getattr(lib, f"sheep_refine_plan_{name}").restype = i
         lib.sheep_refine_plan.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p,
-                                          p, p, ull, p, p]
+                                          p]
         lib.sheep_refine_plan.restype = i
-        lib.sheep_refine_plan_sort.argtypes = [ll, i, p, p, p, p, p, ull, p]
-        lib.sheep_refine_plan_sort.restype = i
         lib.sheep_refine_error_string.argtypes = [i]
         lib.sheep_refine_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -319,7 +316,7 @@ def plan_moves(best, gain, assign, cap: int, parity: int, n: int, k: int,
     lib = _lib()
     if scratch is None:
         scratch = PlanScratch(n, k, dev)
-    elif (scratch.n, scratch.k, scratch.loads.device) != (n, k, dev):
+    elif (scratch.n, scratch.k, scratch.hist.device) != (n, k, dev):
         raise ValueError("plan_moves: the scratch is for another n, k or "
                          "device")
     out = torch.empty(n + 1, dtype=torch.int32, device=dev)
@@ -327,51 +324,32 @@ def plan_moves(best, gain, assign, cap: int, parity: int, n: int, k: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(lib, lib.sheep_refine_plan(
             best.data_ptr(), gain.data_ptr(), assign.data_ptr(), n, k,
-            int(cap), parity, scratch.loads.data_ptr(),
-            scratch.starts.data_ptr(), scratch.keys_in.data_ptr(),
-            scratch.keys_out.data_ptr(), scratch.vids_in.data_ptr(),
-            scratch.vids_out.data_ptr(), scratch.temp.data_ptr(),
-            scratch.temp_bytes, out.data_ptr(), stream),
+            int(cap), parity, scratch.hist.data_ptr(),
+            scratch.part.data_ptr(), scratch.ctl.data_ptr(),
+            scratch.cand.data_ptr(), out.data_ptr(), stream),
             "plan_moves launch")
     LAUNCHES["plan_moves"] += 1
     return out
 
 
 class PlanScratch:
-    """The scratch of one :func:`plan_moves` call on CUDA: the loads and
-    part starts (int32[k]), the parity's keys (uint64 as int64) and vertex
-    ids before and after the sort, and cub's temporary storage."""
+    """The scratch of :func:`plan_moves` calls on CUDA at one n and k: the
+    parts' selection counters (int32, a bin row, the loads, movers and
+    threshold words of each part, and the control words), zero when made
+    and left zero by every call, and the candidates (int32[4] a row of the
+    parity)."""
 
     def __init__(self, n: int, k: int, dev):
         lib = _lib()
-        rows = lib.sheep_refine_plan_rows(n)
-        temp_bytes = ctypes.c_ulonglong(0)
-        _check(lib, lib.sheep_refine_plan_bytes(n, k,
-                                                ctypes.byref(temp_bytes)),
-               "plan_moves' sort sizing")
-        self.n, self.k, self.rows = n, k, rows
-        self.temp_bytes = temp_bytes.value
-        self.loads = torch.empty(k, dtype=torch.int32, device=dev)
-        self.starts = torch.empty(k, dtype=torch.int32, device=dev)
-        self.keys_in = torch.empty(rows, dtype=torch.int64, device=dev)
-        self.keys_out = torch.empty(rows, dtype=torch.int64, device=dev)
-        self.vids_in = torch.empty(rows, dtype=torch.int32, device=dev)
-        self.vids_out = torch.empty(rows, dtype=torch.int32, device=dev)
-        self.temp = torch.empty(max(1, self.temp_bytes), dtype=torch.uint8,
-                                device=dev)
-
-    def sort(self) -> None:
-        """cub's sort of :func:`plan_moves` alone, on the keys the last
-        plan with this scratch made (to time it apart)."""
-        lib = _lib()
-        dev = self.keys_in.device
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            _check(lib, lib.sheep_refine_plan_sort(
-                self.n, self.k, self.keys_in.data_ptr(), self.keys_out.data_ptr(),
-                self.vids_in.data_ptr(), self.vids_out.data_ptr(),
-                self.temp.data_ptr(), self.temp_bytes, stream),
-                "plan_moves' sort")
+        self.n, self.k = n, k
+        self.hist = torch.zeros(k * lib.sheep_refine_plan_digits(),
+                                dtype=torch.int32, device=dev)
+        self.part = torch.zeros(lib.sheep_refine_plan_part_words() * k,
+                                dtype=torch.int32, device=dev)
+        self.ctl = torch.zeros(lib.sheep_refine_plan_ctl_words(),
+                               dtype=torch.int32, device=dev)
+        self.cand = torch.empty(4 * max(1, lib.sheep_refine_plan_rows(n)),
+                                dtype=torch.int32, device=dev)
 
 
 def plan_moves_weighted(best, gain, assign, w, cap, parity: int, n: int,

@@ -34,6 +34,7 @@ from sheep_tpu_torch.backends import torch_backend
 from sheep_tpu_torch.backends.torch_backend import TorchBackend
 from sheep_tpu_torch.core import native
 from sheep_tpu_torch.ops import compact, elim, lift
+from sheep_tpu_torch.tools import kernel_cases
 from sheep_tpu_torch.utils import membudget
 
 COUNTERS = ("warm_segments", "full_segments", "small_segments",
@@ -71,18 +72,8 @@ def rmat13():
     return _graph(13, 8, 4)
 
 
-def _pairs(rng, C, n, share, dup):
-    """C position pairs lo < hi with ``share`` of them live, about ``dup``
-    of the live ones copies of others."""
-    lo = rng.integers(0, n - 1, C)
-    hi = lo + 1 + (rng.random(C) * (n - 1 - lo)).astype(np.int64)
-    copy = rng.random(C) < dup
-    src = rng.integers(0, C, C)
-    lo[copy], hi[copy] = lo[src[copy]], hi[src[copy]]
-    dead = rng.random(C) >= share
-    lo[dead] = n
-    hi[dead] = n
-    return lo.astype(np.int32), hi.astype(np.int32)
+_pairs = kernel_cases.compact_pairs
+COMPACT_CASES = dict(kernel_cases.compact_cases())
 
 
 @pytest.mark.parametrize("share", [1.0, 0.5, 0.1, 0.01, 0.0])
@@ -101,6 +92,23 @@ def test_compact_matches_jax(share, size):
                                                jnp.asarray(hi), n)
     assert compact.count_live_distinct(_t(lo), _t(hi), n) == \
         (int(live), int(distinct))
+
+
+# the reference's compact_actives takes no empty round, so the case of no
+# slot is held against the plain version only (on the card)
+@pytest.mark.parametrize("name", sorted(k for k, c in COMPACT_CASES.items()
+                                        if len(c["lo"])))
+def test_compact_cases_match_jax(name):
+    """The compaction's case table (``kernel_cases.compact_cases``): sort
+    keys of 2 x 19, 2 x 3 and 2 x 10 bits, every slot one live pair, n =
+    1, and slots not a multiple of the sort's tile with more distinct
+    pairs than ``size``."""
+    c = COMPACT_CASES[name]
+    want = jelim.compact_actives(jnp.asarray(c["lo"]), jnp.asarray(c["hi"]),
+                                 c["n"], c["size"], dedup=True)
+    got = compact.compact_live(_t(c["lo"]), _t(c["hi"]), c["n"], c["size"])
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
 def _sv(sv):
@@ -451,20 +459,13 @@ def _card():
 @pytest.mark.cuda
 def test_compact_live_matches_plain_on_card():
     dev = _card()
-    rng = np.random.default_rng(9)
-    # n sets the bits of each half of the kernel's packed sort key
-    for C, n, share, size in ((1 << 20, 1 << 18, 0.5, 1 << 20),
-                              (100_003, 1 << 18, 0.01, 4096),
-                              (5, 1 << 18, 0.9, 2), (0, 1 << 18, 0.0, 16),
-                              (3000, 7, 0.6, 64),
-                              (70_001, 1000, 0.4, 1 << 16)):
-        lo, hi = _pairs(rng, C, n, share, 0.3) if C else \
-            (np.zeros(0, np.int32), np.zeros(0, np.int32))
-        want = compact.compact_live_plain(_t(lo), _t(hi), n, size)
-        got = compact.compact_live(_t(lo).to(dev), _t(hi).to(dev), n, size)
+    for name, c in COMPACT_CASES.items():
+        lo, hi, n, size = _t(c["lo"]), _t(c["hi"]), c["n"], c["size"]
+        want = compact.compact_live_plain(lo, hi, n, size)
+        got = compact.compact_live(lo.to(dev), hi.to(dev), n, size)
         torch.cuda.synchronize()
         for a, b in zip(want, got):
-            assert torch.equal(b.cpu(), a)
+            assert torch.equal(b.cpu(), a), name
 
 
 @pytest.mark.cuda

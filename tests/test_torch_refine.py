@@ -28,6 +28,7 @@ from sheep_tpu.io import generators as jgen
 from sheep_tpu.ops import refine as jref
 from sheep_tpu_torch.io import edgestream
 from sheep_tpu_torch.ops import refine
+from sheep_tpu_torch.tools import kernel_cases
 
 
 def _t(a):
@@ -113,15 +114,8 @@ def test_hist_stats_matches_jax_with_ties(k):
     assert np.array_equal(gain.numpy(), want[1] - want[2])
 
 
-def _plan_inputs(k, seed, n=5000):
-    rng = np.random.default_rng(seed)
-    # skewed loads: the cap fills the low parts and leaves the high ones
-    assign = np.minimum(rng.integers(0, k, n + 1),
-                        rng.integers(0, k, n + 1)).astype(np.int32)
-    best = rng.integers(0, k, n + 1).astype(np.int32)
-    gain = rng.integers(-2, 6, n + 1).astype(np.int32)  # many ties
-    cap = int(1.10 * (-(-n // k)))
-    return n, assign, best, gain, cap
+_plan_inputs = kernel_cases.plan_inputs
+PLAN_EDGES = dict(kernel_cases.plan_edge_cases())
 
 
 @pytest.mark.parametrize("k", [7, 64, 257])
@@ -139,6 +133,24 @@ def test_plan_moves_matches_jax(k, parity):
     assert np.array_equal(host, want)
     assert np.array_equal(
         host, jref.plan_moves_host(best, gain, assign, cap, parity, n, k))
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_EDGES))
+def test_plan_moves_cases_match_jax(name):
+    """The planner's edge cases (``kernel_cases.plan_edge_cases``):
+    thresholds at gains of 300 and 70,000 (past the count's bins, every
+    gain digit), a part whose movers equal its head, a part with no room,
+    one gain tied across many blocks of rows, k = 1, odd and even n at
+    parity 1."""
+    c = PLAN_EDGES[name]
+    want = np.asarray(jref.plan_moves(
+        jnp.asarray(c["best"]), jnp.asarray(c["gain"]),
+        jnp.asarray(c["assign"]), jnp.int32(c["cap"]), c["parity"], c["n"],
+        c["k"]))
+    got = refine.plan_moves(_t(c["best"]), _t(c["gain"]), _t(c["assign"]),
+                            c["cap"], c["parity"], c["n"], c["k"]).numpy()
+    assert np.array_equal(got, want)
+    assert (got != c["assign"]).any()
 
 
 @pytest.mark.parametrize("k", [7, 64])
@@ -377,16 +389,16 @@ def test_refine_kernels_match_plain_on_card():
     blocked mode at a base that does not start a bucket; row counts that
     are not a multiple of the stats' tile rows (a ragged last tile); a
     chunk of invalid edges only; a hub vertex that takes most updates; a
-    histogram that starts off a 16-byte boundary. Then the planner."""
+    histogram that starts off a 16-byte boundary. Then the planner on its
+    case table (``kernel_cases.plan_cases``)."""
     dev = _card()
     import chip_smoke
 
     assert chip_smoke.refine_edge_cases(dev) > 0
-    for k in (7, 64, 257):
-        nn, a0, best, gain, cap = _plan_inputs(k, k)
-        for parity in (0, 1):
-            want_p = refine.plan_moves_plain(_t(best), _t(gain), _t(a0), cap,
-                                             parity, nn, k)
-            got_p = refine.plan_moves(_t(best).to(dev), _t(gain).to(dev),
-                                      _t(a0).to(dev), cap, parity, nn, k)
-            assert torch.equal(got_p.cpu(), want_p)
+    for name, c in kernel_cases.plan_cases():
+        args = [_t(c[x]) for x in ("best", "gain", "assign")]
+        want_p = refine.plan_moves_plain(*args, c["cap"], c["parity"],
+                                         c["n"], c["k"])
+        got_p = refine.plan_moves(*(a.to(dev) for a in args), c["cap"],
+                                  c["parity"], c["n"], c["k"])
+        assert torch.equal(got_p.cpu(), want_p), name
