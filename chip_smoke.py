@@ -1014,8 +1014,9 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
     call, the plain version, and ``torch.unique`` of the packed keys with
     a masked select of the live ones as a yardstick (it and the plain
     version read their sizes back to the host, so they are timed without
-    the spin prefill); the bound: the pairs read (8 B each) and the output
-    written (8 B a slot)."""
+    the spin prefill); the bound: lo read (4 B a slot), the 32 B sectors of
+    hi that hold a live slot, and the output written (8 B a slot of
+    ``size``)."""
     import torch
 
     from sheep_tpu_torch.ops import compact
@@ -1065,8 +1066,9 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
                    lambda: compact.compact_live_plain(lo, hi, n, size),
                    iters=5, prefill=False),
                "library_ms": gs.time_ms(library, iters=5, prefill=False),
-               "bound_ms": gs.bound_ms(8 * C + 8 * size), "bound_by": "bytes",
-               "card": card}
+               "bound_ms": gs.bound_ms(4 * C + 32 * sectors(
+                   torch.nonzero(lo != n).flatten()) + 8 * size),
+               "bound_by": "bytes", "card": card}
         rec["device_launches"] = len(rec["device"]["api"])
         print("compact_live " + json.dumps(rec), flush=True)
         records.append(rec)
@@ -1635,6 +1637,76 @@ def refine_edge_cases(dev) -> int:
     return cases + 2 + len(plans)
 
 
+PLAN_BINS = 256  # the planner's count bins a part at k = 64
+
+
+def plan_bytes(mover, n: int) -> int:
+    """The least bytes of one ``plan_moves`` call: gain and the assignment
+    read and the new assignment written (12 B a row), and the 32 B sectors
+    of best that hold a mover (``mover``: a bool a row)."""
+    import torch
+
+    return 12 * (n + 1) + 32 * sectors(torch.nonzero(mover).flatten())
+
+
+def rmat_hub_gains(scratch, n: int, k: int, g):
+    """Planner inputs with R-MAT hub gains: the k-part histogram of the
+    whole ``rmat-hash:22:16:42`` (16 chunks of 2^22 edges) under a random
+    assignment, every vertex moved to its best part with no cap (one
+    unconstrained step), and the histogram again: a hub whose one-edge
+    neighbours followed its old part now gains thousands. Returns (best,
+    gain, assignment) of ``hist_stats`` after that step."""
+    import torch
+
+    from sheep_tpu_torch.io.generators import RmatHashStream
+    from sheep_tpu_torch.ops import refine
+
+    dev = torch.device("cuda")
+    stream = RmatHashStream(22, 16, seed=42)
+    chunk_edges = 1 << 22
+    assign = torch.randint(0, k, (n + 1,), device=dev, generator=g,
+                           dtype=torch.int32)
+    hist = torch.zeros((n + 1, k), dtype=torch.int32, device=dev)
+    for step in (0, 1):
+        if step:
+            assign = stats[0].clone()
+            assign[n] = 0
+            hist.zero_()
+        for i in range(-(-stream.num_edges_upper_bound // chunk_edges)):
+            refine.neighbor_hist_chunk(
+                hist, stream.device_chunk(i, chunk_edges, n, dev), assign,
+                n, k, scratch=scratch)
+        stats = refine.hist_stats(hist, assign)
+    del hist
+    torch.cuda.empty_cache()
+    return stats[0], stats[3], assign
+
+
+def overflow_cap(best, gain, assign, parity: int, n: int, k: int,
+                 bins: int = PLAN_BINS):
+    """The cap at which the most parts are split for the parity's movers
+    (more movers than a head of at least one) with the head-th mover's
+    gain in the planner's overflow bin (bins - 1 and up), the first such
+    cap; and that number of parts ((None, 0) where no cap does)."""
+    import torch
+
+    vid = torch.arange(n + 1, device=best.device)
+    mover = (gain > 0) & (vid < n) & (vid % 2 == parity)
+    movers = torch.bincount(best[mover].long(), minlength=k)
+    big = torch.bincount(best[mover & (gain >= bins - 1)].long(),
+                         minlength=k)
+    loads = torch.bincount(assign[:n].long(), minlength=k)
+    top = torch.minimum(big, movers - 1)  # the heads split in overflow
+    first, last = loads + 1, loads + top
+    caps = first[top >= 1]
+    if not len(caps):
+        return None, 0
+    parts = ((first[None, :] <= caps[:, None])
+             & (caps[:, None] <= last[None, :])).sum(1)
+    i = int(parts.argmax())
+    return int(caps[i]), int(parts[i])
+
+
 def refine_kernels(card):
     """Phase 3g: B11's kernels (``csrc/refine.cu``) against their plain
     versions on the card, exactly, at the s22 shapes. ``neighbor_hist`` on
@@ -1649,10 +1721,12 @@ def refine_kernels(card):
     small counts (the last with a ragged final tile), with rows of zeros
     and ties planted across 32-wide strides; ``plan_moves`` at n = 2^22,
     k = 64, at both parities, on uniform gains in [-2, 40) with loads
-    skewed so that the cap fills some parts and leaves others open, and on
+    skewed so that the cap fills some parts and leaves others open, on
     the best parts and gains of ``hist_stats`` over the planted k = 64
-    histogram under its partition (as 5g's refine passes meet them); then
-    ``refine_edge_cases``. Each timed beside its plain version and a
+    histogram under its partition (as 5g's refine passes meet them), and
+    on R-MAT hub gains (``rmat_hub_gains``) at the cap that puts the most
+    parts' thresholds in the count's overflow bin (``overflow_cap``), so
+    that the gain digits are walked; then ``refine_edge_cases``. Each timed beside its plain version and a
     library yardstick (timed only): ``torch.bincount`` of the precomputed
     row * k + part keys, ``torch.max(dim=1)`` with ``torch.gather``, and
     ``torch.sort(stable)`` of the planner's 64-bit keys. The kernel
@@ -1663,7 +1737,9 @@ def refine_kernels(card):
     bytes: ``neighbor_hist`` 8 B an edge, one 32 B sector read and written
     back for each distinct histogram sector the edges touch, and the
     assignment once; ``hist_stats`` the histogram and the current parts
-    read, four int32 outputs written; ``plan_moves`` 16 B a row."""
+    read, four int32 outputs written; ``plan_moves`` gain and the
+    assignment read and the new one written, 12 B a row, and the sectors
+    of best that hold a mover (``plan_bytes``)."""
     import numpy as np
     import torch
 
@@ -1759,6 +1835,7 @@ def refine_kernels(card):
             torch.cuda.empty_cache()
             print("neighbor_hist " + json.dumps(rec), flush=True)
             records["neighbor_hist"].append(rec)
+    hubs = rmat_hub_gains(scratch, n, 64, g)
     del scratch
     for rows, k in ((n + 1, 64), (n, 256), (n, 7), (n + 1, 7)):
         hist = torch.randint(0, 3, (rows, k), device=dev, generator=g,
@@ -1815,16 +1892,24 @@ def refine_kernels(card):
                               f"the cap")
     scratch = refine.PlanScratch(n, k, dev)
     vid = torch.arange(n + 1, device=dev)
+    hub_caps = [overflow_cap(*hubs, parity, n, k) for parity in (0, 1)]
+    check(sum(parts for _, parts in hub_caps) > 0,
+          "plan_moves: no cap puts an R-MAT part's threshold in the count's "
+          "overflow bin")
     for kind, (b_, g_, a_) in (("", (best, gain, assign)),
-                               ("-planted", planted)):
+                               ("-planted", planted), ("-rmat-hubs", hubs)):
         a_loads = torch.bincount(a_[:n].long(), minlength=k)
         for parity in (0, 1):
+            c_ = cap
+            if kind == "-rmat-hubs":  # the other parity's, where none fits
+                c_ = hub_caps[parity][0] or hub_caps[1 - parity][0]
+
             def kernel():
-                return refine.plan_moves(b_, g_, a_, cap, parity, n, k,
+                return refine.plan_moves(b_, g_, a_, c_, parity, n, k,
                                          scratch)
 
             got = kernel()
-            want = refine.plan_moves_plain(b_, g_, a_, cap, parity, n, k)
+            want = refine.plan_moves_plain(b_, g_, a_, c_, parity, n, k)
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
             name = f"n{n}-k{k}-parity{parity}{kind}"
@@ -1832,37 +1917,44 @@ def refine_kernels(card):
                             f"version")
             moved = int((got != a_).sum())
             new_loads = torch.bincount(got[:n].long(), minlength=k)
-            check((moved > 0 or kind) and bool(((new_loads <= cap) |
+            check((moved > 0 or kind) and bool(((new_loads <= c_) |
                                                (new_loads <= a_loads)).all()),
                   f"plan_moves {name}: no move, or a part grew past the cap")
             # the movers of each part against its head: the parts whose
-            # movers the kernel had to select from
+            # movers the kernel had to select from, and those of them
+            # whose head-th mover's gain lies in the count's overflow bin
             mover = (g_ > 0) & (vid < n) & (vid % 2 == parity)
             movers = torch.bincount(b_[mover].long(), minlength=k)
-            head = (cap - a_loads).clamp(min=0)
+            big = torch.bincount(b_[mover & (g_ >= PLAN_BINS - 1)].long(),
+                                 minlength=k)
+            head = (c_ - a_loads).clamp(min=0)
+            split = (movers > head) & (head > 0)
             # the library yardstick: the reference's lexsort as one stable
             # sort of 64-bit keys (part, then descending gain)
             keys = torch.where(mover, (b_.long() << 32)
                                | (2**31 - 1 - g_.long()), k << 32)[parity::2]
-            rec = {"case": name, "n": n, "k": k, "cap": cap,
-                   "parts_at_cap": int((a_loads >= cap).sum()),
-                   "parts_selected": int(((movers > head) &
-                                          (head > 0)).sum()),
+            rec = {"case": name, "n": n, "k": k, "cap": c_,
+                   "parts_at_cap": int((a_loads >= c_).sum()),
+                   "parts_selected": int(split.sum()),
+                   "parts_overflow": int((split & (big >= head)).sum()),
                    "movers": int(mover.sum()), "moved": moved,
                    "max_abs_err": err, "ms": gs.time_ms(kernel),
                    "device": device_launches(kernel, f"plan_moves {name}",
                                              [COOPERATIVE]),
                    "plain_ms": gs.time_ms(lambda: refine.plan_moves_plain(
-                       b_, g_, a_, cap, parity, n, k), iters=5),
+                       b_, g_, a_, c_, parity, n, k), iters=5),
                    "library_ms": gs.time_ms(
                        lambda: torch.sort(keys, stable=True), iters=5),
-                   "bound_ms": gs.bound_ms(16 * (n + 1)),
+                   "bound_ms": gs.bound_ms(plan_bytes(mover, n)),
                    "bound_by": "bytes", "card": card}
             rec["device_launches"] = len(rec["device"]["api"])
             del keys
             print("plan_moves " + json.dumps(rec), flush=True)
             records["plan_moves"].append(rec)
-    del planted
+    check(sum(r["parts_overflow"] for r in records["plan_moves"]
+              if r["case"].endswith("-rmat-hubs")) > 0,
+          "plan_moves: no R-MAT part's threshold in the overflow bin")
+    del planted, hubs
     # the weighted planner, plain PyTorch on the card (no kernel of its
     # own): integer weights 1-3, whose float32 sums stay exact below 2^24,
     # against the same function on the CPU; bound: best, gain, assign and

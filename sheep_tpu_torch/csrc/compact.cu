@@ -37,8 +37,8 @@
 //   unique   the sorted keys' first-of-run ones (all are live) written at
 //            their rank below size, the ranks by the same look-back (a
 //            warp reads 32 tiles' words at once).
-// Bound by bytes: the pairs read (8 B a pair) and the outputs written (8 B
-// a slot of size). On top: the live keys written by the filter, read and
+// Bound by bytes: lo read (4 B a slot), the 32 B sectors of hi that hold a
+// live slot, and the outputs written (8 B a slot of size). On top: the live keys written by the filter, read and
 // written by each sort pass, read by the compaction (8 B each time; 2b =
 // 46 bits at n = 2^22, six passes), and (n, n) written once more where a
 // pair lands. At C <= 2^22 the keys (32 MB in two buffers at most) stay

@@ -111,8 +111,10 @@
 //            their threshold bin as (vid, part, gain) candidates; the
 //            others read only those.
 //   write    out[v] = best[v] if v is accepted, else assign[v].
-// Bound by bytes: 16 B a row (best, gain and the assignment read, the new
-// assignment written). The count reads the assignment and best/gain's
+// Bound by bytes: gain and the assignment read and the new assignment
+// written (12 B a row), and the 32 B sectors of best that hold a mover (4 B
+// a row more where movers are dense, little where they are few). The
+// count reads the assignment and best/gain's
 // sectors, the first digit step best/gain again (32 MB at s22, mostly in
 // L2), the write all three: about 9 B a row on top, where the sort it
 // replaced moved 12 B a row five times. The scratch stays zero between

@@ -43,14 +43,18 @@ def _plan(n, k, parity, cap, best, gain, assign) -> dict:
 
 
 def _at_gains(seed: int, n: int, k: int, parity: int, part: int,
-              values, cut: float) -> dict:
+              values, cut: float, movers: int = 0) -> dict:
     """Gains in [-2, 6) but ``part``'s movers, whose gains are drawn from
     ``values``; the cap leaves that part room for its movers above the
-    smallest value in ``values``[0] and ``cut`` of those at it."""
+    smallest value in ``values``[0] and ``cut`` of those at it. With
+    ``movers``, that many rows of the parity more move to ``part``."""
     rng = np.random.default_rng(seed)
     assign = rng.integers(0, k, n + 1)
     best = rng.integers(0, k, n + 1)
     gain = rng.integers(-2, 6, n + 1)
+    rows = np.arange(parity, n, 2)
+    extra = rng.choice(rows, min(movers, len(rows)), replace=False)
+    best[extra], gain[extra] = part, 1
     mine = _movers(best, gain, n, parity, part)
     gain[mine] = rng.choice(np.asarray(values), int(mine.sum()))
     at = int((gain[mine] == values[0]).sum())
@@ -83,6 +87,15 @@ def plan_edge_cases() -> list:
         2, 8001, 5, 1, 2, [70000, 70000, 70001, 69999, 70000 + 256,
                            70000 - 256, 70000 + 65536, 2**24 + 7,
                            2**31 - 1, 3], 0.35)))
+    # k = 1000: the count's bins shrunk to 16 a part so that k of them fit
+    # shared memory, the threshold at a gain of 20 in the overflow bin
+    cases.append(("k1000-small-bins", _at_gains(
+        6, 20001, 1000, 1, 7, [20, 20, 21, 19, 40, 2], 0.5, movers=300)))
+    # k = 4000: too many parts for shared counters, so the count's 256
+    # bins a part are added in global memory; the last part split at 300
+    cases.append(("k4000-global-bins", _at_gains(
+        7, 30001, 4000, 0, 3999, [300, 300, 301, 299, 5000, 2], 0.4,
+        movers=500)))
     # a part whose movers equal its head, the others capped
     rng = np.random.default_rng(3)
     n, k = 3001, 7

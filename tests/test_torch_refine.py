@@ -139,9 +139,10 @@ def test_plan_moves_matches_jax(k, parity):
 def test_plan_moves_cases_match_jax(name):
     """The planner's edge cases (``kernel_cases.plan_edge_cases``):
     thresholds at gains of 300 and 70,000 (past the count's bins, every
-    gain digit), a part whose movers equal its head, a part with no room,
-    one gain tied across many blocks of rows, k = 1, odd and even n at
-    parity 1."""
+    gain digit), k = 1000 (16 bins a part) and k = 4000 (the bins in
+    global memory), a part whose movers equal its head, a part with no
+    room, one gain tied across many blocks of rows, k = 1, odd and even n
+    at parity 1."""
     c = PLAN_EDGES[name]
     want = np.asarray(jref.plan_moves(
         jnp.asarray(c["best"]), jnp.asarray(c["gain"]),
@@ -373,6 +374,37 @@ def test_num_edges_cheap_of_files(tmp_path, fmt):
     assert (ts.num_edges_cheap is None) == (fmt in ("edges", "edges.gz"))
 
 
+def test_overflow_cap_splits_parts_in_the_overflow_bin():
+    """Phase 3g's R-MAT planner case picks its cap with
+    ``chip_smoke.overflow_cap``: at that cap, the parts it counts are
+    split with their head-th mover's gain at 255 or more, and the JAX
+    package's planner accepts exactly their heads."""
+    import chip_smoke
+
+    rng = np.random.default_rng(11)
+    n, k, parity = 4001, 5, 0
+    assign = rng.integers(0, k, n + 1).astype(np.int32)
+    # no row's best is its own part, so a mover to p ends in p if accepted
+    best = ((assign + rng.integers(1, k, n + 1)) % k).astype(np.int32)
+    gain = rng.choice([-1, 1, 2, 300, 400, 70000], n + 1).astype(np.int32)
+    cap, parts = chip_smoke.overflow_cap(_t(best), _t(gain), _t(assign),
+                                         parity, n, k)
+    assert parts > 0
+    want = np.asarray(jref.plan_moves(
+        jnp.asarray(best), jnp.asarray(gain), jnp.asarray(assign),
+        jnp.int32(cap), parity, n, k))
+    vid = np.arange(n + 1)
+    mover = (gain > 0) & (vid < n) & (vid % 2 == parity)
+    found = 0
+    for p in range(k):
+        head = cap - int((assign[:n] == p).sum())
+        mine = np.sort(gain[mover & (best == p)])[::-1]
+        if 0 < head < len(mine) and mine[head - 1] >= 255:
+            found += 1
+            assert int((want[mover & (best == p)] == p).sum()) == head
+    assert found == parts
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc: the refine kernels have "
@@ -390,15 +422,9 @@ def test_refine_kernels_match_plain_on_card():
     are not a multiple of the stats' tile rows (a ragged last tile); a
     chunk of invalid edges only; a hub vertex that takes most updates; a
     histogram that starts off a 16-byte boundary. Then the planner on its
-    case table (``kernel_cases.plan_cases``)."""
+    case table (``kernel_cases.plan_cases``), each case twice with one
+    scratch."""
     dev = _card()
     import chip_smoke
 
-    assert chip_smoke.refine_edge_cases(dev) > 0
-    for name, c in kernel_cases.plan_cases():
-        args = [_t(c[x]) for x in ("best", "gain", "assign")]
-        want_p = refine.plan_moves_plain(*args, c["cap"], c["parity"],
-                                         c["n"], c["k"])
-        got_p = refine.plan_moves(*(a.to(dev) for a in args), c["cap"],
-                                  c["parity"], c["n"], c["k"])
-        assert torch.equal(got_p.cpu(), want_p), name
+    assert chip_smoke.refine_edge_cases(dev) > len(kernel_cases.plan_cases())
