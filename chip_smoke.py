@@ -39,9 +39,15 @@ line is printed:
      it replaced (``torch.where`` for the dead-slot index and
      ``scatter_reduce_``), and on the rows of [3, C] blocks with C not a
      multiple of 4 (row starts off 16-byte boundaries); ``exec_finish`` on
-     [8, 2^23] blocks with all and half the rows converged; ``climb_level``
-     (the stream descent's level); each timed beside its plain version, with
-     its bytes bound; then the round's end, folded into ``climb_tail``'s
+     [8, 2^23] blocks with all and half the rows converged;
+     ``stream_descent`` (the stream descent's climb and squaring, one
+     cooperative launch a round, witnessed by ``torch.profiler``'s runtime
+     calls) at T = 2^22+1, C = 2^23 on a random forest and one with a
+     chain (``chain_for_depth(23)``), L = 23 and 8, 100%, 1% and a median
+     round's share (2^-20) of the slots live, and on a stopped execution
+     (nothing written); each timed beside its plain version (and
+     ``torch.take(t, t)`` a level), with its bytes bound; then the round's
+     end, folded into ``climb_tail``'s
      last block: whole executions over [3, 2^13] blocks, exact and stream
      descent, with budgets that run out mid-row and that leave no-op rounds,
      round by round against the CPU (``climb_rows``'s plain version and
@@ -53,8 +59,11 @@ line is printed:
      case table ``kernel_cases.compact_cases``; one cooperative launch a
      call (``torch.profiler``'s runtime calls); timed beside the plain
      version, ``torch.unique`` of the packed keys with a masked select,
-     and its bytes bound; ``climb_jumps`` (``climb_tail``'s jump mode, 16
-     steps) at C' = 2^14 on a chain forest;
+     and its bytes bound; ``climb_jumps`` (``climb_tail``'s jump mode, up
+     to 16 steps, ending at the first that does not move) at C' = 2^14 on
+     a chain forest, hi 1-48 and 1-3 above lo, with its bytes bound and
+     its chain bound: the launch floor (an empty kernel on its grid) and
+     the latency of a dependent load (a pointer chase), ``lift.chase``;
   3f. the chunk synthesis ``hash_chunk`` (``csrc/synth.cu``, B12) against
      its plain version on the card, exactly: R-MAT at scale 22 (2^23 rows)
      at counter 0, across the 2^32 carry and with a ragged count; SBM at
@@ -86,8 +95,9 @@ line is printed:
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
   4b. the same at depth 2 on both at rmat-hash:14:16:7, k=16, with the
-     table budget set to 0 so that the fixpoint takes its stream descent
-     (K1, ``climb_level`` and ``climb_tail``, no ``lift_stack``);
+     table budget set to 0 so that the fixpoint takes its stream descent:
+     K1, ``scatter_min``, ``stream_descent`` and ``climb_tail`` once a
+     round enqueued, no ``lift_stack``;
   4c. a .bin32 file through the staged H2D ring (``h2d_ring=2``), CUDA
      against the CPU, both at depth 2; the same edges as a text file
      (read by the native parser, its last line without a newline) give
@@ -147,7 +157,10 @@ line is printed:
      with the rows it wrote counted and its launch profiled as in 3c,
      timed beside the stream floor (one row copied on the ladder's grid),
      with each level's entries below n and the distinct 32-byte sectors
-     that a warp's gathers reach;
+     that a warp's gathers reach; and ``stream_descent`` on that table at
+     L = 23 and 8, at the median share and at 100%, as in 3d (every
+     ``stream_descent`` case also times one whole stream round on its
+     inputs);
   5c. the full-size build at depths 1 and 3: the same partition, one host
      read per execution;
   5d. the full-size build through the per-segment driver (dispatch batch
@@ -212,14 +225,23 @@ line is printed:
      compaction, equal to a clean build of the survivors; (c) epochs 5 and
      6 scored under ``SHEEP_SCORE_AUDIT=1``; (d) the same replay at
      rmat-hash:16:16:42 on CUDA and on the CPU, equal at every stage;
+  5k. R-MAT at scale 24, rmat-hash:24:16:42 (16,777,216 vertices,
+     268,435,456 edges), k = 64, at the entry point's defaults (chunks
+     made on the card): its lifting stack passes the table budget, so
+     every round takes the stream descent (no ``lift_stack`` launch, one
+     ``stream_descent`` launch a round enqueued); the JAX package's cut,
+     total and comm volume; its seconds, rounds, executions, host reads,
+     launches, peak memory and the depth of its forest's table; then
+     ``stream_descent`` on that forest's table at the build's shapes (L =
+     25, rows of 2^22 slots; the median share and 100%), as in 3d;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
      pass's less the plain pass's), ``lift_stack`` with the s22-forest
-     case beside it; ``climb_level``'s and ``compact_live``'s launches
-     from 5d (``lift_stack``'s from 5 with 5d's beside), ``climb_jumps``'s
-     from the
-     jump-mode fold of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
+     case beside it; ``stream_descent``'s and ``compact_live``'s launches
+     from 5d (``stream_descent``'s from 4b and 5k beside, ``lift_stack``'s
+     from 5 with 5d's beside), ``climb_jumps``'s from the jump-mode fold
+     of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
      mode from 5f, and the refinement's kernels from 5g; the delta fold's
      launches (5j) beside the main path's;
   7. the last line, {"ok": true, "device": {...}}.
@@ -246,6 +268,15 @@ S22_SPEC, S22_K = "rmat-hash:22:16:42", 64
 S22_EDGE_CUT = 62191637
 S22_TOTAL_EDGES = 67107073
 S22_COMM_VOLUME = 18440186
+# ... and for R-MAT at scale 24 (16,777,216 vertices, 268,435,456 edges),
+# whose lifting stack passes the table budget, so that the fixpoint takes
+# its stream descent, from its cpu backend:
+#   JAX_PLATFORMS=cpu python -c 'import sheep_tpu; print(sheep_tpu.partition(
+#       "rmat-hash:24:16:42", 64, backend="cpu").summary())'
+S24_SPEC = "rmat-hash:24:16:42"
+S24_EDGE_CUT = 248281185
+S24_TOTAL_EDGES = 268432685
+S24_COMM_VOLUME = 63283195
 # ... and for the planted partition at the same size (64 blocks), one
 # build split at three k, from its cpu backend:
 #   JAX_PLATFORMS=cpu python -c 'import sheep_tpu; [print(r.summary()) for
@@ -926,12 +957,10 @@ def fused_rounds(card, scale: int = 14, N: int = 3, C: int = 1 << 13,
 
 
 def exec_kernels(card, n: int = 1 << 22, N: int = 8, C: int = 1 << 23):
-    """Phase 3d, the execution's other kernels against their plain
-    versions, exactly, at the s22 shapes, each timed with its bound:
-    ``exec_finish`` on [N, C] blocks with all rows and with half the rows
-    converged;
-    ``climb_level`` (the stream descent's level) on a random table with
-    10% of the slots dead. Returns the records by kernel."""
+    """Phase 3d, the execution's other kernel against its plain version,
+    exactly, at the s22 shapes, timed with its bound: ``exec_finish`` on
+    [N, C] blocks with all rows and with half the rows converged. Returns
+    the records by kernel."""
     import torch
 
     from sheep_tpu_torch.ops import fixpoint
@@ -971,35 +1000,188 @@ def exec_kernels(card, n: int = 1 << 22, N: int = 8, C: int = 1 << 23):
                "library_ms": None, "card": card}
         cases.append(rec)
     out["exec_finish"] = dict(cases[0], cases=cases)
-
-    # climb_level on the s22 shapes
-    t = torch.randint(1, n + 1, (n + 1,), device=dev, generator=g,
-                      dtype=torch.int32)
-    t[n] = n
-    cur = torch.randint(0, n + 1, (C,), device=dev, generator=g,
-                        dtype=torch.int32)
-    hi = torch.randint(0, n + 1, (C,), device=dev, generator=g,
-                       dtype=torch.int32)
-    dead = torch.rand(C, device=dev, generator=g) < 0.1
-    cur[dead] = n
-    hi[dead] = n
-    res = torch.empty_like(cur)
-    fixpoint.climb_level(t, cur, hi, res)
-    ref = fixpoint.climb_level_plain(t, cur, hi)
-    torch.cuda.synchronize()
-    err = int((res.long() - ref.long()).abs().max())
-    check(err == 0, "climb_level disagrees with its plain version")
-    out["climb_level"] = {
-        "case": "random-live0.9", "max_abs_err": err,
-        "ms": gs.time_ms(lambda: fixpoint.climb_level(t, cur, hi, res)),
-        "plain_ms": gs.time_ms(
-            lambda: fixpoint.climb_level_plain(t, cur, hi), iters=5),
-        # cur and hi in, cur out, and the table sectors that cur reaches
-        "bound_ms": gs.bound_ms(12 * C + 32 * sectors(cur.long())),
-        "library_ms": None, "card": card}
     for name, rec in out.items():
         print(f"{name} " + json.dumps(rec), flush=True)
     return out
+
+
+def descent_bytes(P, lo, hi, L: int, n: int):
+    """The bytes one stream descent must move on these inputs, the levels
+    it squares and its gathers' sectors: lo read once (4 B a slot), hi
+    read and pre written at the live slots (8 B each); for each level
+    squared (up to the first all n, or equal to its source, or after
+    which no slot moves, where the kernel stops), t_j read and t_{j+1}
+    written (8 B an entry): the gathers of both the squaring and the
+    climb fall in t_j, read whole; for the last level climbed, unsquared,
+    32 B for each distinct sector of it that the gathers of the slots
+    still moving reach. Returns (bytes, levels squared, the distinct
+    32-byte sectors that a warp's gathers of the squared levels' entries
+    below n reach, as ``level_sectors`` counts them, in bytes: L2
+    traffic beside the bound, not in it)."""
+    import torch
+
+    T = len(P)
+    live = lo != n
+    cur, h = lo[live].long(), hi[live]
+    going = torch.ones_like(h, dtype=torch.bool)
+    nbytes = 4 * lo.numel() + 8 * cur.numel()
+    warp = torch.arange(T, device=P.device) >> 7
+    per_warp = (T >> 3) + 1
+    t, squared, gather = P, 0, 0
+    for j in range(L):
+        reach = 32 * sectors(cur[going])
+        cand = t[cur]
+        going &= cand < h
+        cur = torch.where(going, cand.long(), cur)
+        if j == L - 1:
+            nbytes += reach
+            break
+        key = warp * per_warp + (t.long() >> 3)
+        gather += 32 * torch.unique(key[t != n]).numel()
+        nbytes += 8 * T
+        t2 = t[t.long()]
+        squared += 1
+        if not bool((t2 != n).any()) or torch.equal(t2, t) or \
+                not bool(going.any()):
+            break
+        t = t2
+    return nbytes, squared, gather
+
+
+def stream_round(P0, lo, hi, L: int) -> dict:
+    """One whole stream round, ``_pos_round_body(n, L, "stream")`` on a
+    one-row execution (K1, ``scatter_min``, ``stream_descent``,
+    ``climb_tail``), from the table and slots given, restored before each
+    call: its device ms less the restore's, and its launches by kernel,
+    which must be one of each of those four."""
+    import torch
+
+    from sheep_tpu_torch.ops import elim, fixpoint, gather, lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    n = len(P0) - 1
+    body = elim._pos_round_body(n, L, "stream")
+    P, loB, hiB = P0.clone(), lo[None].clone(), hi[None].clone()
+    state0 = fixpoint.new_state(1, P.device)
+    state = state0.clone()
+
+    def restore():
+        P.copy_(P0)
+        loB[0].copy_(lo)
+        hiB[0].copy_(hi)
+        state.copy_(state0)
+
+    def one():
+        restore()
+        body(loB, hiB, P, state, 1)
+
+    def counts():
+        return {k: v for c in (gather, fixpoint, lift)
+                for k, v in c.LAUNCHES.items()}
+
+    one()
+    before = counts()
+    one()
+    launches = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+    check(launches == {"gather_clip": 1, "scatter_min": 1,
+                       "stream_descent": 1, "climb_tail": 1},
+          f"a stream round launched {launches}")
+    both = gs.time_ms(one, iters=20)
+    alone = gs.time_ms(restore, iters=20)
+    return {"round_ms": both - alone, "round_restore_ms": alone,
+            "round_launches": launches}
+
+
+def descents(card, cases, C: int = 1 << 23, seed: int = 41):
+    """``stream_descent`` against its plain version on the card, exactly
+    (``pre`` at the live slots, and ``ctl`` = [L - 1, 0, 0, 0, 0] over a
+    word filled with 7), at C slots (2^23, the s22 shapes, by default).
+    ``cases`` holds (name, table, L, live share): phase 3d's synthetic
+    forests (``synthetic_forest``, random and with a chain of
+    ``chain_for_depth``), and the tables of the s22 build's own forest
+    (5b) and of the s24 build's (5k, T = 2^24 + 1, L = 25, C = 2^22)
+    (``forest_table``). Each timed beside its plain version and
+    ``torch.take(t, t)`` (one squaring level, the library yardstick), with
+    its bytes bound (``descent_bytes``) and the whole stream round on the
+    same inputs (:func:`stream_round`); the first is one cooperative
+    launch (``device_launches``). Returns the records."""
+    import torch
+
+    from sheep_tpu_torch.ops import lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    records = []
+    for name, P, L, share in cases:
+        T = len(P)
+        n = T - 1
+        lo, hi = synthetic_slots(n, C, share, g)
+        want = lift.stream_descent_plain(P, lo, hi, L)
+        scratch = lift.new_descent(T, C, L, P.device)
+        ctl = lift.new_ctl(P.device).fill_(7)
+
+        def kernel():
+            return lift.stream_descent(P, lo, hi, L, scratch, ctl)
+
+        pre = kernel()
+        torch.cuda.synchronize()
+        live = lo != n
+        err = int((pre[live].long() - want[live].long()).abs().max()) \
+            if bool(live.any()) else 0
+        check(err == 0 and ctl.tolist() == [L - 1, 0, 0, 0, 0],
+              f"stream_descent {name}: disagrees with its plain version "
+              f"(error {err}, ctl {ctl.tolist()})")
+        nbytes, squared, gather = descent_bytes(P, lo, hi, L, n)
+        P64 = P.long()
+        rec = {"case": name, "T": T, "C": C, "L": L, "share": share,
+               "live": int(live.sum()), "levels_squared": squared,
+               "gather_bytes": gather,
+               "max_abs_err": err, "ms": gs.time_ms(kernel),
+               "plain_ms": gs.time_ms(
+                   lambda: lift.stream_descent_plain(P, lo, hi, L), iters=3),
+               "library_ms": gs.time_ms(lambda: torch.take(P, P64)),
+               "bound_ms": gs.bound_ms(nbytes), "bound_by": "bytes",
+               **stream_round(P, lo, hi, L), "card": card}
+        if not records:
+            rec["device"] = device_launches(kernel, f"stream_descent {name}",
+                                            [COOPERATIVE])
+        print("stream_descent " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def stopped_descent(card, n: int = 1 << 22, C: int = 1 << 23, L: int = 23):
+    """``stream_descent`` on a stopped execution: [1, C] blocks, a state
+    with STOP set; nothing written (``pre``, the rows, the mask and ``ctl``
+    keep their fill), and its time, the floor of a stopped round's
+    launch."""
+    import torch
+
+    from sheep_tpu_torch.ops import fixpoint, lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+    P = synthetic_forest(n, 0, g)
+    lo, hi = synthetic_slots(n, C, 1.0, g)
+    state = fixpoint.new_state(1, P.device)
+    state[fixpoint.STOP] = 1
+    scratch = lift.new_descent(n + 1, C, L, P.device)
+    ctl = lift.new_ctl(P.device)
+    for t in (*scratch, ctl):
+        t.fill_(7)
+
+    def kernel():
+        lift.stream_descent(P, lo[None], hi[None], L, scratch, ctl, state)
+
+    kernel()
+    torch.cuda.synchronize()
+    check(all(bool((t == 7).all()) for t in (*scratch, ctl)),
+          "stream_descent wrote on a stopped execution")
+    rec = {"case": "stopped", "T": n + 1, "C": C, "L": L,
+           "ms": gs.time_ms(kernel), "card": card}
+    print("stream_descent " + json.dumps(rec), flush=True)
+    return rec
 
 
 def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
@@ -1084,17 +1266,52 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
     return records
 
 
+def chain_floor(C: int = 1 << 14, T: int = (1 << 22) + 1,
+                steps: int = 4096):
+    """The yardsticks of ``climb_jumps``' chain on the card, by
+    ``lift.chase``: the launch floor (an empty kernel on ``climb_jumps``'
+    grid, C slots a thread each in blocks of 256) and the latency of one
+    dependent load (a chase of ``steps`` loads, one thread, over a random
+    cycle through T entries, warm in L2 after the warm-up call, less the
+    empty one-block kernel, over the steps)."""
+    import torch
+
+    from sheep_tpu_torch.ops import lift
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    g = torch.Generator(device="cuda").manual_seed(47)
+    order = torch.randperm(T, device="cuda", generator=g)
+    t = torch.empty(T, dtype=torch.int32, device="cuda")
+    t[order] = torch.roll(order, -1).int()
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    blocks = -(-C // 256)
+    floor = gs.time_ms(lambda: lift.chase(t, 0, 0, out, blocks))
+    empty = gs.time_ms(lambda: lift.chase(t, 0, 0, out))
+    chased = gs.time_ms(lambda: lift.chase(t, 0, steps, out), iters=10)
+    torch.cuda.synchronize()
+    at = int((order == 0).nonzero()[0, 0])
+    check(int(out[0]) == int(order[(at + steps) % T]),
+          "chase: the chain did not end where the cycle says")
+    return {"floor_ms": floor, "empty_one_block_ms": empty,
+            "chase_ms": chased, "chase_steps": steps,
+            "load_latency_ms": max(chased - empty, 0.0) / steps}
+
+
 def jump_climbs(card, n: int = 1 << 22, C: int = 1 << 14, jumps: int = 16,
                 chain: int = 4096):
     """Phase 3e: ``climb_jumps`` (``climb_tail``'s jump mode) against its
     plain version on the card, exactly (outputs and the control word), at
     the small buffer's width (C' = 2^14 slots, 90% live, T = 2^22+1) on a
-    chain forest (P[p] = p + 1, every ``chain``-th position a root), the
-    slots' hi 1-48 positions above lo, so that climbing slots take up to
-    ``jumps`` steps; after the round's scatter. Timed beside its plain
-    version, with its bound: lo in and two outputs back (12 B a slot), hi
-    at the live slots, old_at_lo at the retiring ones, and each distinct
-    sector of P that the steps read."""
+    chain forest (P[p] = p + 1, every ``chain``-th position a root), after
+    the round's scatter; the slots' hi 1-48 positions above lo, so that
+    climbing slots take up to ``jumps`` steps, and 1-3 above, so that most
+    chains end within two. Each timed beside its plain version, with its
+    bytes bound (lo in and two outputs back, 12 B a slot, hi at the live
+    slots, old_at_lo at the retiring ones, and each distinct sector of P
+    that the steps read) and its chain bound: the launch floor and the
+    longest chain's dependent loads (lo, P[lo], and each step loaded up to
+    the first that does not move) at the load latency (``chain_floor``).
+    Returns the records, the 1-48 case first."""
     import torch
 
     from sheep_tpu_torch.ops import fixpoint, lift
@@ -1105,50 +1322,66 @@ def jump_climbs(card, n: int = 1 << 22, C: int = 1 << 14, jumps: int = 16,
     p = torch.arange(n, device=dev)
     P0 = torch.where(p % chain == chain - 1, n, p + 1)
     P0 = torch.cat([P0, torch.tensor([n], device=dev)]).int()
-    lo = torch.randint(0, n - 64, (C,), device=dev, generator=g)
-    hi = lo + torch.randint(1, 49, (C,), device=dev, generator=g)
-    dead = torch.rand(C, device=dev, generator=g) >= 0.9
-    lo[dead] = n
-    hi[dead] = n
-    lo, hi = lo.int(), hi.int()
-    old = P0[lo.long()]
-    P = P0.clone()
-    fixpoint.scatter_min_plain(P, lo, hi)
-    want = lift.climb_tail_plain(lo, hi, old, P, None, 1, jumps=jumps)
-    ctl = lift.new_ctl(dev)
-    got = lift.climb_tail(lo, hi, old, P, None, ctl, jumps=jumps)
-    torch.cuda.synchronize()
-    err = max(int((got[0].long() - want[0].long()).abs().max()),
-              int((got[1].long() - want[1].long()).abs().max()))
-    want_ctl = [0, int(want[2]), int(want[3]), int(want[4]), 0]
-    check(err == 0 and ctl.tolist() == want_ctl,
-          f"climb_jumps disagrees with its plain version (error {err}, ctl "
-          f"{ctl.tolist()} != {want_ctl})")
-    # the P entries the round reads: P[lo] at the live slots, then each
-    # step of the climbing ones
-    live = lo != n
-    now = P[lo.long()]
-    climbing = live & (hi != now)
-    reads, cur = [lo[live]], lo[climbing]
-    h = hi[climbing]
-    for _ in range(jumps):
-        reads.append(cur)
-        cand = P[cur.long()]
-        cur = torch.where(cand < h, cand, cur)
-    retiring = int((live & ~climbing).sum())
-    rec = {"case": f"chain{chain}-jumps{jumps}", "C": C, "T": n + 1,
-           "live": int(live.sum()), "retiring": retiring,
-           "max_abs_err": err,
-           "ms": gs.time_ms(lambda: lift.climb_tail(lo, hi, old, P, None,
-                                                    ctl, jumps=jumps)),
-           "plain_ms": gs.time_ms(lambda: lift.climb_tail_plain(
-               lo, hi, old, P, None, 1, jumps=jumps), iters=5),
-           "bound_ms": gs.bound_ms(
-               12 * C + 4 * int(live.sum()) + 4 * retiring
-               + 32 * sectors(torch.cat(reads).long())),
-           "library_ms": None, "card": card}
-    print("climb_jumps " + json.dumps(rec), flush=True)
-    return rec
+    yard = chain_floor(C, n + 1)
+    records = []
+    for reach in (48, 3):
+        lo = torch.randint(0, n - 64, (C,), device=dev, generator=g)
+        hi = lo + torch.randint(1, reach + 1, (C,), device=dev, generator=g)
+        dead = torch.rand(C, device=dev, generator=g) >= 0.9
+        lo[dead] = n
+        hi[dead] = n
+        lo, hi = lo.int(), hi.int()
+        old = P0[lo.long()]
+        P = P0.clone()
+        fixpoint.scatter_min_plain(P, lo, hi)
+        want = lift.climb_tail_plain(lo, hi, old, P, None, 1, jumps=jumps)
+        ctl = lift.new_ctl(dev)
+        got = lift.climb_tail(lo, hi, old, P, None, ctl, jumps=jumps)
+        torch.cuda.synchronize()
+        err = max(int((got[0].long() - want[0].long()).abs().max()),
+                  int((got[1].long() - want[1].long()).abs().max()))
+        want_ctl = [0, int(want[2]), int(want[3]), int(want[4]), 0]
+        check(err == 0 and ctl.tolist() == want_ctl,
+              f"climb_jumps (hi up to {reach} above lo) disagrees with its "
+              f"plain version (error {err}, ctl {ctl.tolist()} != "
+              f"{want_ctl})")
+        # the P entries the round reads: P[lo] at the live slots, then
+        # each step of the climbing ones up to the first that does not
+        # move
+        live = lo != n
+        now = P[lo.long()]
+        climbing = live & (hi != now)
+        reads, cur = [lo[live]], lo[climbing]
+        h = hi[climbing]
+        going = torch.ones_like(cur, dtype=torch.bool)
+        loads = torch.zeros_like(cur)
+        for _ in range(jumps):
+            reads.append(cur[going])
+            loads += going.int()
+            cand = P[cur.long()]
+            going = going & (cand < h)
+            cur = torch.where(going, cand, cur)
+        retiring = int((live & ~climbing).sum())
+        chain_loads = 2 + (int(loads.max()) if loads.numel() else 0)
+        rec = {"case": f"chain{chain}-reach{reach}-jumps{jumps}", "C": C,
+               "T": n + 1, "live": int(live.sum()), "retiring": retiring,
+               "steps_loaded_mean": float(loads.float().mean())
+               if loads.numel() else 0.0,
+               "chain_loads": chain_loads, "max_abs_err": err,
+               "ms": gs.time_ms(lambda: lift.climb_tail(
+                   lo, hi, old, P, None, ctl, jumps=jumps)),
+               "plain_ms": gs.time_ms(lambda: lift.climb_tail_plain(
+                   lo, hi, old, P, None, 1, jumps=jumps), iters=5),
+               "bound_ms": gs.bound_ms(
+                   12 * C + 4 * int(live.sum()) + 4 * retiring
+                   + 32 * sectors(torch.cat(reads).long())),
+               "bound_by": "bytes",
+               "chain_bound_ms": yard["floor_ms"]
+               + chain_loads * yard["load_latency_ms"],
+               **yard, "library_ms": None, "card": card}
+        print("climb_jumps " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
 
 
 SEGMENT_COUNTERS = ("warm_segments", "full_segments", "small_segments",
@@ -1213,7 +1446,7 @@ def per_segment(card, counters):
         same_result(on_gpu, on_cpu, what)
         same_counts(on_gpu.diagnostics, on_cpu.diagnostics, what)
         dg = on_gpu.diagnostics
-        need = ["gather_clip", "scatter_min", "climb_tail", "climb_level",
+        need = ["gather_clip", "scatter_min", "climb_tail", "stream_descent",
                 "lift_stack"]
         need += ["climb_jumps"] if dg.get("small_segments") else []
         need += ["compact_live"] if dg.get("compactions") or \
@@ -1254,7 +1487,7 @@ def per_segment(card, counters):
         "n": n, "C": cs, "rounds": gr, **{k: gs_[k] for k in
                                           SEGMENT_COUNTERS if k in gs_},
         "launches": {k: gl[k] for k in ("climb_jumps", "compact_live",
-                                        "climb_level", "lift_stack",
+                                        "stream_descent", "lift_stack",
                                         "climb_tail")},
         "card": card}), flush=True)
     return gl
@@ -3118,6 +3351,84 @@ def lift_entries(head, cases, launches, forest) -> list:
     return out
 
 
+def s24_build(card, counters) -> dict:
+    """Phase 5k: ``partition("rmat-hash:24:16:42", 64)`` at the entry
+    point's defaults (chunks made on the card), whose lifting stack (25
+    levels of 2^24 + 1 entries, 1.68 GB) passes the table budget, so that
+    every round takes the stream descent: the JAX package's cut, total
+    and comm volume; no ``lift_stack`` launch and one ``stream_descent``
+    launch a round enqueued, K1, ``scatter_min`` and ``climb_tail`` too;
+    its seconds, rounds, executions, host reads, launches, peak memory,
+    the rounds' live share and the depth of the forest's table (the
+    plain ladder on ``forest_table``, as phase 5b); then ``stream_descent``
+    on that table at the build's own shapes (L = 25, rows of C = 2^22
+    slots, the median share and all live) exactly against its plain
+    version, and the stream round on the same inputs (:func:`descents`)."""
+    import statistics
+
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.ops import lift
+
+    n = 1 << 24
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset_launches()
+    round_log: list = []
+    t0 = time.perf_counter()
+    res = sheep_tpu_torch.partition(S24_SPEC, 64, device="cuda",
+                                    keep_tree=True, round_log=round_log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    check(len(res.assignment) == n and int(res.assignment.min()) >= 0 and
+          int(res.assignment.max()) < 64, "s24: bad parts")
+    got = (res.edge_cut, res.total_edges, res.comm_volume)
+    want = (S24_EDGE_CUT, S24_TOTAL_EDGES, S24_COMM_VOLUME)
+    check(got == want, f"s24: (cut, total, cv) {got} != JAX {want}")
+    d = res.diagnostics
+    enqueued = int(d["rounds_enqueued"])
+    check(launches["lift_stack"] == 0,
+          f"s24: {launches['lift_stack']} lift_stack launches (exact "
+          f"descent)")
+    for name in ("stream_descent", "gather_clip", "scatter_min",
+                 "climb_tail"):
+        check(launches[name] == enqueued,
+              f"s24: {name} {launches[name]} launches in {enqueued} rounds")
+    check(d["host_syncs"] == d["batch_execs"],
+          f"s24: {d['host_syncs']} host reads for {d['batch_execs']} "
+          f"executions")
+    rounds = int(d["device_rounds"])
+    check(len(round_log) == rounds, "s24: the device round log missed rounds")
+    slots = 1 << 22  # a round's row: one chunk
+    P24 = forest_table(res, n)
+    _, depth = lift.lift_stack_plain(P24, n.bit_length())
+    share_med = statistics.median_low(r[1] for r in round_log) / slots
+    rec = {"spec": S24_SPEC, "k": 64, "wall_s": wall,
+           "build_s": res.phase_times["build"], "phase_s": res.phase_times,
+           "edge_cut": res.edge_cut, "total_edges": res.total_edges,
+           "comm_volume": res.comm_volume,
+           "chunk_edges": 1 << 22, "dispatch_batch": d["dispatch_batch"],
+           "inflight": d["inflight_depth"],
+           "device_rounds": rounds, "rounds_enqueued": enqueued,
+           "batch_execs": d["batch_execs"], "host_syncs": d["host_syncs"],
+           "inflight_discards": d["inflight_discards"],
+           "host_blocked_ms": d["host_blocked_ms"],
+           "device_gap_ms": d["device_gap_ms"],
+           "launches": launches, "peak_mem_bytes": peak,
+           "live_share_median": share_med,
+           "live_share_mean": d["live_sum"] / (rounds * slots),
+           "depth_logged": d["depth_max"], "forest_depth": depth,
+           "card": card}
+    print("s24 " + json.dumps(rec), flush=True)
+    rec["descents"] = descents(card, [
+        (f"s24-forest-L25-live{share:.3g}", P24, n.bit_length(), share)
+        for share in (share_med, 1.0)], C=slots)
+    return rec
+
+
 def s22_check(res, what: str) -> None:
     """The full-size result: valid parts and the JAX package's cut, total
     and comm volume."""
@@ -3169,10 +3480,10 @@ def main() -> int:
 
     counters = (gather, lift, fixpoint, compact, synth, refine)
     # kernel -> its launches' diagnostics key, for the kernels of the
-    # batched driver's exact descent (not the stream descent's level, nor
-    # the per-segment driver's own kernels)
+    # batched driver's exact descent (not the stream descent, nor the
+    # per-segment driver's own kernels)
     path_keys = {name: key for key, name in LAUNCH_KEYS.items()
-                 if name not in ("climb_level", "climb_jumps",
+                 if name not in ("stream_descent", "climb_jumps",
                                  "compact_live")}
 
     t_all = time.perf_counter()
@@ -3206,10 +3517,18 @@ def main() -> int:
     scatter_cases = scatters(card, (1.0, 0.01))
     rows_err = scatter_rows()
     exec_cases = exec_kernels(card)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    descent_cases = descents(card, [
+        (f"{kind}-L{L}-live{share:.3g}", synthetic_forest(n22, path, g), L,
+         share)
+        for kind, path in (("random", 0),
+                           ("chain", chain_for_depth(23, n22)))
+        for L in (23, 8) for share in (1.0, 0.01, 2.0 ** -20)])
+    descent_stopped = stopped_descent(card)
     fused_compared = fused_rounds(card)
     # 3e. the per-segment driver's kernels against their plain versions
     compact_cases = compactions(card)
-    jumps_case = jump_climbs(card)
+    jumps_cases = jump_climbs(card)
     # 3f. the chunk synthesis against its plain version
     synth_cases = hash_chunks(card)
     # 3g. the refinement's kernels against their plain versions
@@ -3237,9 +3556,9 @@ def main() -> int:
           f"{on_gpu.edge_cut}, device_rounds "
           f"{on_gpu.diagnostics['device_rounds']:.0f}; wall cuda "
           f"{t_gpu:.2f}s, cpu both {t_cpu:.2f}s)", flush=True)
-    # 4b. the stream descent (climb_level a level, K1 for the squaring),
-    # which the table budget keeps for larger graphs, forced by a budget
-    # of 0
+    # 4b. the stream descent (K1, scatter_min, stream_descent and
+    # climb_tail a round), which the table budget keeps for larger
+    # graphs, forced by a budget of 0
     spec14 = "rmat-hash:14:16:7"
     opts = dict(chunk_edges=1 << 15, dispatch_batch=3, keep_tree=True,
                 inflight=2)
@@ -3251,15 +3570,22 @@ def main() -> int:
         elim.EXACT_TABLE_BYTES = budget
     same_result(on_gpu, on_cpu, f"{spec14} (stream descent)")
     dg = on_gpu.diagnostics
-    check(dg["gather_launches"] > 0 and dg["climb_level_launches"] > 0 and
-          dg["climb_launches"] > 0 and dg["lift_launches"] == 0,
-          "the stream descent's CUDA run did not go through K1, "
-          "climb_level and climb_tail alone")
-    stream_launches = dg["climb_level_launches"]
+    stream_rounds = dg["rounds_enqueued"]
+    # one cooperative launch of the descent a stream round (each call one
+    # cudaLaunchCooperativeKernel: phase 3d's witness), K1 once a round
+    check(stream_rounds > 0 and dg["lift_launches"] == 0 and
+          dg["stream_descent_launches"] == stream_rounds and
+          dg["gather_launches"] == stream_rounds and
+          dg["scatter_launches"] == stream_rounds and
+          dg["climb_launches"] == stream_rounds,
+          f"the stream descent's CUDA run is not K1, scatter_min, "
+          f"stream_descent and climb_tail once a round: "
+          f"{ {k: dg[k] for k in LAUNCH_KEYS} } in {stream_rounds} rounds")
+    stream_launches = dg["stream_descent_launches"]
     print(f"parity {spec14} k=16, stream descent: cuda == cpu (edge_cut "
           f"{on_gpu.edge_cut}, device_rounds {dg['device_rounds']:.0f}, "
-          f"K1 launches {dg['gather_launches']:.0f}, climb_level "
-          f"{stream_launches:.0f})", flush=True)
+          f"rounds enqueued {stream_rounds:.0f}, stream_descent and K1 "
+          f"launches {stream_launches:.0f} each)", flush=True)
     # 4c. a file through the staged H2D ring: CUDA equals the CPU; the
     # same edges as text (the native parser; no newline after the last
     # line) give the same partition
@@ -3387,8 +3713,14 @@ def main() -> int:
                               share_med)], fused=True)[0]
     main_scatter = scatters(card, (share_med,))[0]
     k1_case = k1_main(card, share_med)
-    # ... and the ladder on the table of this build's own forest
+    # ... and the ladder and the stream descent on the table of this
+    # build's own forest
     forest_case = forest_ladder(card, res)
+    P22 = forest_table(res, n22)
+    forest_descents = descents(card, [
+        (f"s22-forest-L{L}-live{share:.3g}", P22, L, share)
+        for L in (23, 8) for share in (share_med, 1.0)])
+    del P22
 
     # 5c. s22 at depths 1 and 3: the same partition
     for depth in (1, 3):
@@ -3434,8 +3766,8 @@ def main() -> int:
     check(sd["host_syncs"] == segments,
           f"s22 per segment: {sd['host_syncs']} host reads for {segments} "
           f"segments")
-    for name in ("gather_clip", "scatter_min", "climb_tail", "climb_level",
-                 "lift_stack", "compact_live"):
+    for name in ("gather_clip", "scatter_min", "climb_tail",
+                 "stream_descent", "lift_stack", "compact_live"):
         check(seg_launches[name] > 0,
               f"s22 per segment: no {name} launch")
     auto_batch = torch_backend.resolve_dispatch_batch(
@@ -3582,10 +3914,14 @@ def main() -> int:
     # delta: build, compaction against a clean build, audited scoring,
     # and CUDA against the CPU at s16
     incr = incremental_s22(card, counters)
+    # 5k. R-MAT at scale 24 at the defaults: the batched build on the
+    # stream descent
+    s24 = s24_build(card, counters)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
-    # and K3's the probe tool's (phase 3b) and climb_level's the stream
-    # descent's (phase 4b), their only paths
+    # and K3's the probe tool's (phase 3b), stream_descent's the
+    # per-segment build's warm segments (5d) with the stream descent's
+    # batched builds (4b, 5k) beside them
     def entry(name, source, replaces, rec, launches, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -3601,6 +3937,7 @@ def main() -> int:
 
     square = cases["square"]
     fix_src = "sheep_tpu_torch/csrc/fixpoint.cu"
+    all_descents = descent_cases + forest_descents + s24["descents"]
     kernels = [
         # at the main path's case (the read before the scatter); the
         # climb and squaring shapes it ran before the lifting kernels
@@ -3662,18 +3999,42 @@ def main() -> int:
               cases={r["case"]: {k: r[k] for k in (
                   "ms", "plain_ms", "bound_ms")}
                   for r in exec_cases["exec_finish"]["cases"]}),
-        # on the per-segment build's warm segments (5d); the forced
-        # stream descent's (4b) beside them
-        entry("climb_level", fix_src, "sheep_tpu/ops/elim.py:170",
-              exec_cases["climb_level"], seg_launches["climb_level"],
-              stream_descent_launches=stream_launches),
+        # at the s22 forest's table at the main path's median share, L =
+        # 23; launches on the per-segment build's warm segments (5d), the
+        # forced stream descent's (4b) and the s24 build's (5k) beside
+        # them; every phase 3d and 5b case beside it, and the stopped one
+        entry("stream_descent", "sheep_tpu_torch/csrc/lift.cu",
+              "sheep_tpu/ops/elim.py:166", forest_descents[0],
+              seg_launches["stream_descent"],
+              also_replaces=["sheep_tpu/ops/pallas_gather.py:70 (B1 in the "
+                             "stream descent's climb and squaring)"],
+              library_scope="torch.take(t, t), one squaring level",
+              forced_stream_launches=stream_launches,
+              s24_launches=s24["launches"]["stream_descent"],
+              stopped_ms=descent_stopped["ms"],
+              cases={r["case"]: {k: r[k] for k in (
+                  "ms", "plain_ms", "library_ms", "bound_ms", "live",
+                  "levels_squared", "round_ms")}
+                  for r in all_descents},
+              cases_max_abs_err=max(r["max_abs_err"] for r in
+                                    all_descents)),
         # on the jump-mode fold of phase 4d (the s22 per-segment build
-        # finishes its tails on the host before any small segment)
+        # finishes its tails on the host before any small segment); the
+        # chain bound (launch floor + the longest chain's loads at the
+        # load latency) beside the bytes bound
         entry("climb_jumps", "sheep_tpu_torch/csrc/lift.cu",
-              "sheep_tpu/ops/elim.py:359", jumps_case,
+              "sheep_tpu/ops/elim.py:359", jumps_cases[0],
               jump_launches["climb_jumps"],
               s22_launches=seg_launches["climb_jumps"],
-              mode_of="climb_tail"),
+              mode_of="climb_tail",
+              **{k: jumps_cases[0][k] for k in (
+                  "chain_bound_ms", "chain_loads", "floor_ms",
+                  "load_latency_ms")},
+              cases={r["case"]: {k: r[k] for k in (
+                  "ms", "plain_ms", "bound_ms", "chain_bound_ms",
+                  "chain_loads", "steps_loaded_mean")}
+                  for r in jumps_cases},
+              cases_max_abs_err=max(r["max_abs_err"] for r in jumps_cases)),
         # on the per-segment build (5d), at a 10% live share; the other
         # shares beside it
         entry("compact_live", "sheep_tpu_torch/csrc/compact.cu",

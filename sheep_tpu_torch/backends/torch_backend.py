@@ -82,8 +82,8 @@ from sheep_tpu_torch.utils.residency import ResidencyManager
 LAUNCH_KEYS = {"gather_launches": "gather_clip",
                "scatter_launches": "scatter_min",
                "lift_launches": "lift_stack",
+               "stream_descent_launches": "stream_descent",
                "climb_launches": "climb_tail",
-               "climb_level_launches": "climb_level",
                "exec_finish_launches": "exec_finish",
                "climb_jumps_launches": "climb_jumps",
                "compact_launches": "compact_live"}

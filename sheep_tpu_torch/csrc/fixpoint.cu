@@ -6,9 +6,7 @@
 //   exec_finish   the end of batch_segment_fixpoint (:486-488): the rows
 //                 that converged stored all-sentinel, the live slots
 //                 counted, and sv = (segments_done, rounds, live, retired)
-//                 packed;
-//   climb_level   one level of the stream descent's climb, cur <- t[cur]
-//                 where that lands below hi (:170-174).
+//                 packed.
 //
 // The rest of the loop body of batch_segment_fixpoint (:467-484) and its
 // cond (:463), which count the round, move to the next row and stop the
@@ -44,9 +42,7 @@
 // a median round's share, so it went.
 //
 // exec_finish streams the blocks once (each row below the final one
-// written back as sentinel, the others read); climb_level reads cur and hi
-// and writes cur, 12 B a slot, plus the table sectors that the live slots
-// reach. Both bound by bytes.
+// written back as sentinel, the others read), bound by bytes.
 //
 // Bound to PyTorch through plain C functions (loaded with ctypes): the
 // caller passes device pointers and its CUDA stream and gets back the
@@ -160,25 +156,7 @@ exec_finish_kernel(int32_t* loB, int32_t* hiB, int64_t total, int64_t C,
   }
 }
 
-// cur_in and cur_out may be the same slots (in place)
-__global__ void __launch_bounds__(kThreads)
-climb_level_kernel(const int32_t* __restrict__ t, int32_t last,
-                   const int32_t* cur_in, int64_t in_stride,
-                   const int32_t* __restrict__ hi, int64_t hi_stride,
-                   int32_t* cur_out, int64_t m, const int64_t* ex) {
-  if (stopped(ex)) return;
-  cur_in += row_offset(ex, in_stride);
-  hi += row_offset(ex, hi_stride);
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += step) {
-    const int32_t c = cur_in[i];
-    const int32_t cand = __ldg(t + clip(c, last));
-    cur_out[i] = cand < hi[i] ? cand : c;
-  }
-}
-
-Wave wave_scatter, wave_finish, wave_level;
+Wave wave_scatter, wave_finish;
 
 }  // namespace
 
@@ -220,26 +198,6 @@ extern "C" int sheep_exec_finish(void* loB, void* hiB, long long N,
   exec_finish_kernel<<<blocks, kThreads, 0, s>>>(
       (int32_t*)loB, (int32_t*)hiB, N * C, C, (int32_t)n,
       (const int64_t*)ex, (int32_t*)sv);
-  return (int)cudaGetLastError();
-}
-
-// cur_out[i] = t[clip(cur_in[i])] if that is below hi[i], else cur_in[i],
-// over m slots; the strides pick the execution's row of an [N, C] block
-// (0 for a 1-D input).
-extern "C" int sheep_climb_level(const void* t, long long T,
-                                 const void* cur_in, long long in_stride,
-                                 const void* hi, long long hi_stride,
-                                 void* cur_out, long long m, const void* ex,
-                                 void* stream) {
-  if (T <= 0 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  if (m <= 0) return 0;
-  unsigned blocks = 0;
-  cudaError_t err = wave_blocks(wave_level, climb_level_kernel, m, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  climb_level_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)t, (int32_t)(T - 1), (const int32_t*)cur_in,
-      (int64_t)in_stride, (const int32_t*)hi, (int64_t)hi_stride,
-      (int32_t*)cur_out, m, (const int64_t*)ex);
   return (int)cudaGetLastError();
 }
 

@@ -1,26 +1,31 @@
-// The exact-descent fixpoint round's lifting work as two kernels:
+// The fixpoint round's lifting work:
 //
-//   lift_stack   the lifting stack t_{j+1} = t_j[t_j] (t_0 = P): the
-//                whole ladder in one persistent launch, its levels apart
-//                by grid-wide barriers, stopping at the first all-n level;
-//   climb_tail   one fused pass per round over the slots: the binary-
-//                lifting climb, retire, displace, the round's `changed`
-//                flag and its retired and live counts;
-//   climb_jumps  the same pass with the jump-mode climb: `jumps` single
-//                parent steps over the current table in place of the
-//                stack.
+//   lift_stack      the lifting stack t_{j+1} = t_j[t_j] (t_0 = P): the
+//                   whole ladder in one persistent launch, its levels
+//                   apart by grid-wide barriers, stopping at the first
+//                   all-n level;
+//   stream_descent  the stream descent's climb and squaring, level by
+//                   level in the same kind of launch, on two rows in
+//                   place of the stack;
+//   climb_tail      one fused pass per round over the slots: the binary-
+//                   lifting climb, retire, displace, the round's `changed`
+//                   flag and its retired and live counts;
+//   climb_jumps     the same pass with the jump-mode climb: up to `jumps`
+//                   single parent steps over the current table in place
+//                   of the stack.
 //
 // They are the counterparts of _pos_round_body after its scatter-min
-// (sheep_tpu/ops/elim.py:158-192), of build_lift_tables (:295), of the
-// stale round _pos_round_body_stale after its scatter (:222; climb_tail
-// over a stack built once a segment, its level 0 the current table), and
-// of the jump-mode round _pos_small_round_body after its scatter (:359).
+// (sheep_tpu/ops/elim.py:158-192; its stream branch, :166-171, is
+// stream_descent), of build_lift_tables (:295), of the stale round
+// _pos_round_body_stale after its scatter (:222; climb_tail over a stack
+// built once a segment, its level 0 the current table), and of the
+// jump-mode round _pos_small_round_body after its scatter (:359).
 //
 // Control word ctl (int32[5]): [0] rows, the number of stack rows that
 // hold distinct levels (the depth d less one); [1] changed; [2] retired;
 // [3] live; [4] the blocks of climb_tail that have finished. lift_stack
-// zeroes all five and writes [0]; climb_tail reads [0] and adds to
-// [1..4].
+// zeroes all five and writes [0]; stream_descent writes L - 1 to [0] and
+// zeroes the rest; climb_tail reads [0] and adds to [1..4].
 //
 // Depth cut. Level j computes t_{j+1} from t_j; rows is raised to j + 1
 // when some entry differs from t_j, so rows = d - 1 counts the distinct
@@ -100,13 +105,42 @@
 // acquire-release order a block, in place of a fence and an atomic).
 // Without an execution (a free-standing round) nothing is counted.
 //
+// The stream descent (the round when the stack would pass the table
+// budget, ops/elim.py): levels j = 0 .. L-1 in ascending order, each the
+// climb over t_j (cur <- t_j[cur] where that is below hi, cur starting at
+// lo) and, below L-1, the squaring t_{j+1} = t_j[t_j] into the other of
+// two rows (never in place: a slot would read entries already advanced).
+// Both read t_j alone, so one grid barrier a level suffices. The climb
+// writes the climbed positions `pre` at the live slots, which climb_tail
+// reads in place of climbing a stack. In position space a slot's step
+// that does not move is its last (its ancestors at the levels above are
+// higher still), so the descent keeps a mask of the slots still moving,
+// one bit a slot: level 0 streams lo a warp at a time (32 slots a group,
+// kDescentGroups groups in flight) and writes it, the levels above read
+// 4 B of it for 32 slots, climb only the groups with a bit set
+// (kDescentGroups in flight a warp) and clear the bits of the slots that
+// stopped. The levels stop at the first barrier after which no slot is
+// moving, or where the ladder stops: a level t_{j+1} all n (every later
+// one is, and cand = n < hi never holds) or equal to t_j (idempotent:
+// applying it again moves no slot, as in the depth cut above). ctl's rows
+// stay L - 1 however early it stops, so the round log's depth is the
+// reference's L. On a median round (8 live of 2^23 slots) the climb is
+// the 1 MB of mask a level and the squarings stop once those few slots
+// do; at 100% live a level moves hi and pre (12 B a slot with pre's
+// store) of the slots still moving, as climb_level, the kernel this
+// replaced, moved at every slot and every level.
+//
 // climb_jumps runs on the adaptive driver's small buffers (at most 2^14
-// slots after compaction): `jumps` dependent loads a climbing slot, each
-// a random 4-byte read of P, so it is bound by their latency, not by
-// bytes; one thread a slot keeps every slot's chain in flight at once.
-// Its bytes bound: lo in and two outputs back (12 B a slot), hi at the
-// live slots, old_at_lo at the retiring ones, and a sector of P for each
-// step a climbing slot takes.
+// slots after compaction): up to `jumps` dependent loads a climbing slot,
+// each a random 4-byte read of P, so it is bound by their latency, not by
+// bytes; one thread a slot keeps every slot's chain in flight at once. A
+// step that does not move (cand >= hi) leaves cur as it was, so every
+// later step would read the same cand: the chain ends there, exactly.
+// Its bound is the larger of its bytes (lo in and two outputs back, 12 B
+// a slot, hi at the live slots, old_at_lo at the retiring ones, and a
+// sector of P for each step a climbing slot takes) and its chain: the
+// launch floor and the longest chain's dependent loads at the card's
+// latency (chip_smoke.py measures both with `chase`).
 //
 // Bound to PyTorch through plain C functions (loaded with ctypes): the
 // caller passes device pointers and its CUDA stream and gets back the
@@ -114,6 +148,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -137,13 +173,15 @@ constexpr int kLive = sheep::kCtlLive;
 constexpr int kBarCount = 0;
 constexpr int kBarGen = 32;
 constexpr int kBarWords = 64;
-constexpr int kVoteBits = 21;  // a field of the word: up to 2^21 - 1 blocks
+constexpr int kVoteBits = 16;  // a field of the word: up to 2^16 - 1 blocks
 constexpr unsigned long long kField = (1ull << kVoteBits) - 1;
 constexpr unsigned long long kBarrierTimeoutNs = 10000000000ull;
 // the level's shape (PERF.md, section 6): blocks of 1024 threads, two
 // 16-byte loads a thread in flight
 constexpr int kLadderBlock = 1024;
 constexpr int kLadderQuads = 2;
+// the stream descent's climb: groups of 32 slots a warp has in flight
+constexpr int kDescentGroups = 4;
 
 __device__ __forceinline__ unsigned long long arrive(unsigned long long* p,
                                                      unsigned long long v) {
@@ -176,26 +214,30 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 // The barrier after level j, on thread 0 of every block, with the block's
-// votes: some entry changed (diff), some entry written is not n (live).
-// Returns 1 when the ladder stops after this level. The last block to
-// arrive writes rows = j + 1 to ctl if any entry changed.
-__device__ unsigned level_barrier(int32_t* bar, bool diff, bool live, int j,
-                                  int32_t* ctl) {
+// votes: some entry changed (diff), some entry written is not n (live),
+// and (the stream descent's) some slot may climb on (more). Returns 1
+// when the levels stop after this one: no entry changed, none written
+// other than n, or no slot left to climb. The last block to arrive writes
+// rows = j + 1 to ctl (when not null) if any entry changed.
+__device__ unsigned level_barrier(int32_t* bar, bool diff, bool live,
+                                  bool more, int j, int32_t* ctl) {
   auto* count = reinterpret_cast<unsigned long long*>(bar + kBarCount);
   auto* gen = reinterpret_cast<unsigned*>(bar + kBarGen);
   // the generation cannot move before this block arrives
   const unsigned g = *reinterpret_cast<volatile unsigned*>(gen);
   const unsigned long long add = 1ull |
                                  (unsigned long long)diff << kVoteBits |
-                                 (unsigned long long)live << 2 * kVoteBits;
+                                 (unsigned long long)live << 2 * kVoteBits |
+                                 (unsigned long long)more << 3 * kVoteBits;
   __threadfence();  // the block's level, written before bar.sync
   const unsigned long long tot = arrive(count, add) + add;
   if ((tot & kField) == gridDim.x) {
     const bool any_diff = (tot >> kVoteBits) & kField;
     const bool any_live = (tot >> 2 * kVoteBits) & kField;
-    if (any_diff) ctl[kRows] = j + 1;
+    const bool any_more = (tot >> 3 * kVoteBits) & kField;
+    if (any_diff && ctl != nullptr) ctl[kRows] = j + 1;
     *reinterpret_cast<volatile unsigned long long*>(count) = 0;
-    const unsigned stop = any_diff && any_live ? 0u : 1u;
+    const unsigned stop = any_diff && any_live && any_more ? 0u : 1u;
     store_release(gen, ((g & ~1u) + 2u) | stop);
     return stop;
   }
@@ -215,12 +257,70 @@ __device__ __forceinline__ int32_t lift_one(const int32_t* t, int32_t v,
   return v == last ? top : t[clip(v, last)];
 }
 
-// The ladder: levels t_1 .. t_{levels-1} of P into the stack (row k-1
-// holds t_k), each thread kLadderQuads 16-byte loads of the source row in
-// flight an iteration before their gathers, a scalar tail for the last
-// T % 4 entries; a grid barrier after every level. The source rows above
-// P were written in this launch, so they are read with plain (coherent)
+// One squaring level dst = src[src] over T entries, this thread's share
+// of the grid (thread tid of step): kLadderQuads 16-byte loads of the
+// source row in flight an iteration before their gathers, a scalar tail
+// for the last T % 4 entries. Adds the thread's votes to diff (some entry
+// changed) and live (some entry written is not n). The source row may
+// have been written in this launch, so it is read with plain (coherent)
 // loads, never through the read-only path.
+__device__ __forceinline__ void square_level(const int32_t* src,
+                                             int32_t* dst, int64_t T,
+                                             int64_t tid, int64_t step,
+                                             bool& diff, bool& live) {
+  const int32_t last = (int32_t)(T - 1);
+  const int64_t quads = T >> 2;
+  const int4* s4 = reinterpret_cast<const int4*>(src);
+  int4* d4 = reinterpret_cast<int4*>(dst);
+  const int32_t top = src[last];
+  for (int64_t q0 = tid; q0 < quads; q0 += step * kLadderQuads) {
+    int4 v[kLadderQuads], w[kLadderQuads];
+#pragma unroll
+    for (int i = 0; i < kLadderQuads; ++i)
+      if (q0 + i * step < quads) v[i] = s4[q0 + i * step];
+#pragma unroll
+    for (int i = 0; i < kLadderQuads; ++i) {
+      if (q0 + i * step >= quads) continue;
+      w[i].x = lift_one(src, v[i].x, last, top);
+      w[i].y = lift_one(src, v[i].y, last, top);
+      w[i].z = lift_one(src, v[i].z, last, top);
+      w[i].w = lift_one(src, v[i].w, last, top);
+    }
+#pragma unroll
+    for (int i = 0; i < kLadderQuads; ++i) {
+      if (q0 + i * step >= quads) continue;
+      d4[q0 + i * step] = w[i];
+      diff |= (w[i].x != v[i].x) | (w[i].y != v[i].y) |
+              (w[i].z != v[i].z) | (w[i].w != v[i].w);
+      live |= (w[i].x != last) | (w[i].y != last) | (w[i].z != last) |
+              (w[i].w != last);
+    }
+  }
+  const int64_t p = (quads << 2) + tid;
+  if (p < T) {
+    const int32_t v = src[p];
+    const int32_t w = lift_one(src, v, last, top);
+    dst[p] = w;
+    diff |= w != v;
+    live |= w != last;
+  }
+}
+
+// The grid barrier after level j for the whole block: the block's votes
+// gathered, thread 0 at the barrier. Returns whether the levels stop.
+__device__ __forceinline__ bool block_barrier(int32_t* bar, bool diff,
+                                              bool live, bool more, int j,
+                                              int32_t* ctl, unsigned* stop) {
+  diff = __syncthreads_or(diff);
+  live = __syncthreads_or(live);
+  more = __syncthreads_or(more);
+  if (threadIdx.x == 0) *stop = level_barrier(bar, diff, live, more, j, ctl);
+  __syncthreads();
+  return *stop != 0;
+}
+
+// The ladder: levels t_1 .. t_{levels-1} of P into the stack (row k-1
+// holds t_k); a grid barrier after every level.
 __global__ void __launch_bounds__(kLadderBlock)
 lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
             int levels, int32_t* ctl, const int64_t* ex, int32_t* bar) {
@@ -228,54 +328,159 @@ lift_ladder(const int32_t* P, int32_t* stack, int64_t stride, int64_t T,
   if (blockIdx.x == 0 && threadIdx.x == 0)
     for (int w = 0; w < sheep::kCtlWords; ++w) ctl[w] = 0;
   if (sheep::stopped(ex)) return;
-  const int32_t last = (int32_t)(T - 1);
-  const int64_t quads = T >> 2;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
   for (int j = 0; j + 1 < levels; ++j) {
     const int32_t* src = j == 0 ? P : stack + (int64_t)(j - 1) * stride;
-    int32_t* dst = stack + (int64_t)j * stride;
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    const int32_t top = src[last];
     bool diff = false, live = false;
-    for (int64_t q0 = tid; q0 < quads; q0 += step * kLadderQuads) {
-      int4 v[kLadderQuads], w[kLadderQuads];
-#pragma unroll
-      for (int i = 0; i < kLadderQuads; ++i)
-        if (q0 + i * step < quads) v[i] = s4[q0 + i * step];
-#pragma unroll
-      for (int i = 0; i < kLadderQuads; ++i) {
-        if (q0 + i * step >= quads) continue;
-        w[i].x = lift_one(src, v[i].x, last, top);
-        w[i].y = lift_one(src, v[i].y, last, top);
-        w[i].z = lift_one(src, v[i].z, last, top);
-        w[i].w = lift_one(src, v[i].w, last, top);
-      }
-#pragma unroll
-      for (int i = 0; i < kLadderQuads; ++i) {
-        if (q0 + i * step >= quads) continue;
-        d4[q0 + i * step] = w[i];
-        diff |= (w[i].x != v[i].x) | (w[i].y != v[i].y) |
-                (w[i].z != v[i].z) | (w[i].w != v[i].w);
-        live |= (w[i].x != last) | (w[i].y != last) | (w[i].z != last) |
-                (w[i].w != last);
-      }
-    }
-    const int64_t p = (quads << 2) + tid;
-    if (p < T) {
-      const int32_t v = src[p];
-      const int32_t w = lift_one(src, v, last, top);
-      dst[p] = w;
-      diff |= w != v;
-      live |= w != last;
-    }
-    diff = __syncthreads_or(diff);
-    live = __syncthreads_or(live);
-    if (threadIdx.x == 0) stop = level_barrier(bar, diff, live, j, ctl);
-    __syncthreads();
-    if (stop) break;
+    square_level(src, stack + (int64_t)j * stride, T, tid, step, diff, live);
+    if (block_barrier(bar, diff, live, true, j, ctl, &stop)) break;
   }
+}
+
+// The stream descent's level-0 climb over P: each warp takes
+// kDescentGroups groups of 32 slots at once (lo loaded for all of them,
+// then hi and P[lo] for the live ones, before any is looked at), climbs
+// the live lanes one level, pre = P[lo] where that is below hi, else lo,
+// and stores each group's vote of the lanes that moved in mask: a slot
+// that did not move never will (see stream_descent). The loop bound is
+// the warp's, so the votes see the whole warp. Returns whether a slot of
+// this thread moved.
+__device__ __forceinline__ bool descent_first(
+    const int32_t* __restrict__ P, int32_t last, const int32_t* lo,
+    const int32_t* hi, int64_t m, int32_t* pre, unsigned* mask,
+    int64_t warp, int64_t warps, int lane) {
+  const int64_t groups = (m + 31) >> 5;
+  bool more = false;
+  for (int64_t g0 = warp * kDescentGroups; g0 < groups;
+       g0 += warps * kDescentGroups) {
+    int32_t l[kDescentGroups];
+#pragma unroll
+    for (int u = 0; u < kDescentGroups; ++u) {
+      const int64_t s = ((g0 + u) << 5) + lane;
+      l[u] = s < m ? __ldg(lo + s) : last;
+    }
+    int32_t h[kDescentGroups], c[kDescentGroups];
+#pragma unroll
+    for (int u = 0; u < kDescentGroups; ++u) {
+      const int64_t s = ((g0 + u) << 5) + lane;
+      h[u] = l[u] != last ? __ldg(hi + s) : 0;
+      c[u] = l[u] != last ? __ldg(P + clip(l[u], last)) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kDescentGroups; ++u) {
+      const bool up = l[u] != last && c[u] < h[u];
+      const unsigned vote = __ballot_sync(0xffffffffu, up);
+      if (lane == u && g0 + u < groups) mask[g0 + u] = vote;
+      if (l[u] != last) pre[((g0 + u) << 5) + lane] = up ? c[u] : l[u];
+      more |= up;
+    }
+  }
+  return more;
+}
+
+// The climb of a level above 0 over t (written in this launch: plain
+// loads): each warp reads 32 words of mask at once (1024 slots) and
+// climbs the groups with a slot still moving, kDescentGroups at a time;
+// a group whose slots stopped moving gets its word back with their bits
+// cleared. Returns whether a slot of this thread moved.
+__device__ __forceinline__ bool descent_next(
+    const int32_t* t, int32_t last, const int32_t* hi, int64_t m,
+    int32_t* pre, unsigned* mask, int64_t warp, int64_t warps, int lane) {
+  const int64_t groups = (m + 31) >> 5;
+  bool more = false;
+  for (int64_t w0 = warp << 5; w0 < groups; w0 += warps << 5) {
+    const unsigned word = w0 + lane < groups ? mask[w0 + lane] : 0u;
+    unsigned todo = __ballot_sync(0xffffffffu, word != 0);
+    while (todo) {
+      int64_t s[kDescentGroups];
+      int b[kDescentGroups];
+      unsigned bits[kDescentGroups];
+#pragma unroll
+      for (int u = 0; u < kDescentGroups; ++u) {
+        b[u] = todo ? __ffs(todo) - 1 : -1;
+        bits[u] = __shfl_sync(0xffffffffu, word, b[u] < 0 ? 0 : b[u]);
+        if (b[u] < 0) bits[u] = 0;
+        todo &= todo - 1;
+        s[u] = ((w0 + (b[u] < 0 ? 0 : b[u])) << 5) + lane;
+      }
+      int32_t h[kDescentGroups], c[kDescentGroups];
+#pragma unroll
+      for (int u = 0; u < kDescentGroups; ++u) {
+        const bool on = bits[u] >> lane & 1u;
+        h[u] = on ? __ldg(hi + s[u]) : 0;
+        c[u] = on ? pre[s[u]] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kDescentGroups; ++u) {
+        const bool on = bits[u] >> lane & 1u;
+        const int32_t cand = on ? t[clip(c[u], last)] : 0;
+        const bool up = on && cand < h[u];
+        if (up) pre[s[u]] = cand;
+        const unsigned vote = __ballot_sync(0xffffffffu, up);
+        if (lane == 0 && vote != bits[u]) mask[w0 + b[u]] = vote;
+        more |= up;
+      }
+    }
+  }
+  return more;
+}
+
+// The stream descent of one round: ctl set to [levels - 1, 0, 0, 0, 0],
+// then levels 0 .. levels-1, each the climb over t_j (t_0 = P, t_j for j
+// >= 1 in row (j-1) % 2) and, below the last, the squaring into row j % 2
+// and a grid barrier. In position space (P[p] in (p, n], so t_{j+1}[x] =
+// t_j[t_j[x]] >= t_j[x]) a slot whose step at level j does not move
+// (t_j[cur] >= hi) will not move at any level above, where cur's
+// ancestors are higher still: so the mask keeps the slots still moving,
+// and the levels stop at the barrier after which none is, or after the
+// first level squared all n or equal to the one before. Nothing at all
+// once the execution has stopped.
+__global__ void __launch_bounds__(kLadderBlock)
+stream_descent(const int32_t* P, int32_t* rows, int64_t stride, int64_t T,
+               const int32_t* lo, const int32_t* hi, int64_t m,
+               int64_t row_stride, int32_t* pre, unsigned* mask, int levels,
+               int32_t* ctl, const int64_t* ex, int32_t* bar) {
+  __shared__ unsigned stop;
+  if (sheep::stopped(ex)) return;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ctl[kRows] = levels - 1;
+    for (int w = kRows + 1; w < sheep::kCtlWords; ++w) ctl[w] = 0;
+  }
+  const int64_t off = sheep::row_offset(ex, row_stride);
+  lo += off;
+  hi += off;
+  const int32_t last = (int32_t)(T - 1);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  for (int j = 0; j < levels; ++j) {
+    const int32_t* src = j == 0 ? P : rows + (int64_t)((j - 1) & 1) * stride;
+    const bool more =
+        j == 0
+            ? descent_first(P, last, lo, hi, m, pre, mask, tid >> 5,
+                            step >> 5, lane)
+            : descent_next(src, last, hi, m, pre, mask, tid >> 5, step >> 5,
+                           lane);
+    if (j + 1 == levels) break;
+    bool diff = false, live = false;
+    square_level(src, rows + (int64_t)(j & 1) * stride, T, tid, step, diff,
+                 live);
+    if (block_barrier(bar, diff, live, more, j, nullptr, &stop)) break;
+  }
+}
+
+// A pointer chase on one thread of a grid of `blocks` blocks: `steps`
+// dependent loads cur <- t[cur] from `start`, the end written to out; with
+// 0 steps the grid does nothing (an empty kernel: the launch floor). The
+// yardsticks of climb_jumps' chain (chip_smoke.py phase 3e).
+__global__ void __launch_bounds__(kThreads)
+chase(const int32_t* t, int32_t last, int32_t start, int steps,
+      int32_t* out) {
+  if (steps == 0 || blockIdx.x != 0 || threadIdx.x != 0) return;
+  int32_t cur = start;
+  for (int k = 0; k < steps; ++k) cur = __ldg(t + clip(cur, last));
+  *out = cur;
 }
 
 // One row copied (T read, T written) on the ladder's grid: the stream
@@ -334,9 +539,12 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
       } else {  // climb levels d-1 .. 1 of the stack, then P
         int32_t cur = clip(l, n);
         if (kJumps) {
+          // a step that does not move leaves cur, and so every later
+          // step's cand, as it was
           for (int j = 0; j < jumps; ++j) {
             const int32_t cand = __ldg(P + cur);
-            if (cand < h) cur = cand;
+            if (cand >= h) break;
+            cur = cand;
           }
         } else if (pre != nullptr) {
           cur = pre[i];  // the stream descent climbed already
@@ -377,7 +585,7 @@ climb_tail_kernel(const int32_t* lo, const int32_t* hi,
   }
 }
 
-Wave wave_lift, wave_climb, wave_jumps;
+Wave wave_lift, wave_descent, wave_climb, wave_jumps;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -444,6 +652,63 @@ extern "C" int sheep_lift_copy_row(const void* src, void* dst, long long T,
   if (err != cudaSuccess) return (int)err;
   copy_row<<<blocks, kLadderBlock, 0, (cudaStream_t)stream>>>(
       (const int32_t*)src, (int32_t*)dst, T);
+  return (int)cudaGetLastError();
+}
+
+// The stream descent of one round in one cooperative launch: ctl set to
+// [levels - 1, 0, 0, 0, 0], pre (m slots) written at the live slots of lo
+// (lo != T - 1) with their climb over `levels` levels of P, the squared
+// levels in the two rows at rows and rows + stride, the live mask in mask
+// (one bit a slot, (m + 31) / 32 words). ex: the execution's state or
+// null; row_stride: the blocks' row length when lo and hi are [N, C]
+// blocks, else 0; bar: the barrier's scratch, as sheep_lift_stack's. A
+// launch the card refuses (the wave not co-resident) returns its error.
+extern "C" int sheep_stream_descent(const void* P, long long T, void* rows,
+                                    long long stride, const void* lo,
+                                    const void* hi, long long m,
+                                    long long row_stride, void* pre,
+                                    void* mask, int levels, void* ctl,
+                                    const void* ex, void* bar, void* stream) {
+  if (T <= 0 || T > 0x7FFFFFFFLL || levels < 1 || levels > 32 || m <= 0 ||
+      m > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  if (levels > 1 && (stride < T || stride % 4 || !aligned16(P) ||
+                     !aligned16(rows) ||
+                     !aligned16((const int32_t*)rows + stride)))
+    return (int)cudaErrorMisalignedAddress;
+  unsigned blocks = 0;
+  const long long work = std::max((T / 4 + kLadderQuads - 1) / kLadderQuads,
+                                  (m + kDescentGroups - 1) / kDescentGroups);
+  cudaError_t err = wave_blocks(wave_descent, stream_descent, work, &blocks,
+                                kLadderBlock);
+  if (err != cudaSuccess) return (int)err;
+  const int32_t* p = (const int32_t*)P;
+  int32_t* r = (int32_t*)rows;
+  int64_t stride64 = stride, T64 = T, m64 = m, rs = row_stride;
+  const int32_t* l = (const int32_t*)lo;
+  const int32_t* h = (const int32_t*)hi;
+  int32_t* out = (int32_t*)pre;
+  unsigned* mk = (unsigned*)mask;
+  int32_t* c = (int32_t*)ctl;
+  const int64_t* e = (const int64_t*)ex;
+  int32_t* b = (int32_t*)bar;
+  void* args[] = {&p, &r, &stride64, &T64, &l, &h, &m64, &rs,
+                  &out, &mk, &levels, &c, &e, &b};
+  return (int)cudaLaunchCooperativeKernel((const void*)stream_descent,
+                                          dim3(blocks), dim3(kLadderBlock),
+                                          args, 0, (cudaStream_t)stream);
+}
+
+// A pointer chase of `steps` dependent loads over t (T entries) from
+// `start` on one thread of `blocks` blocks of kThreads, its end in out;
+// with 0 steps an empty kernel on that grid.
+extern "C" int sheep_lift_chase(const void* t, long long T, int start,
+                                int steps, void* out, int blocks,
+                                void* stream) {
+  if (T <= 0 || T > 0x7FFFFFFFLL || steps < 0 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  chase<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)t, (int32_t)(T - 1), start, steps, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

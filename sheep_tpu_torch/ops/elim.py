@@ -20,9 +20,11 @@ A round of the exact descent is K1 (:func:`gather_clip`) for the table
 read before the scatter, ``scatter_min`` (``ops/fixpoint.py``), and the
 two kernels of ``ops/lift.py``: ``lift_stack`` squares the table into the
 lifting stack with an on-device depth cut, and ``climb_tail`` climbs,
-retires, counts and ends the round in one pass. The stream descent
-climbs a level at a time (``fixpoint.climb_level``) and squares through
-K1. On CPU tensors each kernel's plain version runs instead.
+retires, counts and ends the round in one pass. A round of the stream
+descent is K1, ``scatter_min``, ``stream_descent`` (the climb level by
+level and the squaring on two rows, in one launch) and ``climb_tail`` on
+its climbed positions: four launches. On CPU tensors each kernel's plain
+version runs instead.
 
 The JAX ``lax.while_loop`` of :func:`batch_segment_fixpoint` becomes an
 execution that the host enqueues whole, ``batch_rounds`` rounds each
@@ -113,13 +115,13 @@ class _pos_round_body:
     ``batch_rounds`` rounds; every step does nothing once the execution
     has stopped, and nothing is read back. Called with 1-D
     ``(lo, hi, P)`` it is one free-standing round and returns ``(out_lo,
-    out_hi, P, changed)``, ``changed`` a 0-d view of ``ctl``. The stack,
-    ``ctl`` and the stream descent's climb buffer are allocated at the
-    first call and reused by every later one."""
+    out_hi, P, changed)``, ``changed`` a 0-d view of ``ctl``. ``ctl`` and
+    the stack, or the stream descent's buffers (``lift.new_descent``), are
+    allocated at the first call and reused by every later one."""
 
     def __init__(self, n: int, lift_levels: int, descent: str):
         self.n, self.lift_levels, self.descent = n, lift_levels, descent
-        self.ctl = self.stack = self.cur = None
+        self.ctl = self.stack = self.scratch = None
 
     def __call__(self, lo, hi, P, state=None, batch_rounds=None):
         if state is None:
@@ -129,14 +131,14 @@ class _pos_round_body:
         if batch_rounds is None:
             raise ValueError("_pos_round_body: an execution state needs its "
                              "budget, batch_rounds")
+        L = self.lift_levels
         if self.ctl is None:
             self.ctl = lift.new_ctl(P.device)
-            exact = self.descent == "exact"
-            self.stack = lift.new_stack(
-                len(P), self.lift_levels if exact else 1, P.device)
-            if not exact:
-                self.cur = torch.empty(lo.shape[-1], dtype=torch.int32,
-                                       device=P.device)
+            if self.descent == "exact":
+                self.stack = lift.new_stack(len(P), L, P.device)
+            else:
+                self.scratch = lift.new_descent(len(P), lo.shape[-1], L,
+                                                P.device)
         old_at_lo = gather_clip(P, lo, state)  # parent position BEFORE
         fixpoint.scatter_min(P, lo, hi, state)
         if self.descent == "exact":
@@ -144,25 +146,11 @@ class _pos_round_body:
             lift.climb_rows(lo, hi, old_at_lo, P, self.stack, self.ctl,
                             state, batch_rounds)
         else:
-            self._stream(lo, hi, P, old_at_lo, state, batch_rounds)
-
-    def _stream(self, loB, hiB, P, old_at_lo, state, batch_rounds):
-        """Stream descent: square in place, one table live, the climb a
-        level at a time (``fixpoint.climb_level``), the squaring through
-        K1; ``ctl`` gets rows L - 1 (depth L) and the counts."""
-        L = self.lift_levels
-        self.ctl.zero_()
-        # a fill kernel: an indexed store of a Python int would copy it
-        # from the host and wait
-        self.ctl.narrow(0, lift.ROWS, 1).fill_(L - 1)
-        t, cur = P, loB
-        for j in range(L):
-            fixpoint.climb_level(t, cur, hiB, self.cur, state)
-            cur = self.cur
-            if j < L - 1:
-                t = gather_clip(t, t, state)
-        lift.climb_rows(loB, hiB, old_at_lo, P, self.stack, self.ctl, state,
-                        batch_rounds, pre=self.cur)
+            # ctl gets rows L - 1 (the reference's depth L), pre the climb
+            pre = lift.stream_descent(P, lo, hi, L, self.scratch, self.ctl,
+                                      state)
+            lift.climb_rows(lo, hi, old_at_lo, P, None, self.ctl, state,
+                            batch_rounds, pre=pre)
 
 
 def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,

@@ -30,7 +30,6 @@ Kernels (``csrc/fixpoint.cu``), each with its plain PyTorch version:
   scatter_min   P[lo] <- min(P[lo], hi) at the live slots (lo != n)
   exec_finish   store the rows that converged all-sentinel and pack
                 sv = int32[4] (segments_done, rounds, live, retired)
-  climb_level   one level of the stream descent's climb
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
 the plain versions, reading the state on the host, so the CPU runs the
@@ -44,7 +43,7 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"scatter_min": 0, "exec_finish": 0, "climb_level": 0}
+LAUNCHES = {"scatter_min": 0, "exec_finish": 0}
 
 (ROW, ROUNDS, RETIRED, DEPTH_SUM, DEPTH_MAX, LIVE_SUM, LIVE_MAX,
  STOP) = range(8)
@@ -154,13 +153,6 @@ def exec_finish_plain(loB: torch.Tensor, hiB: torch.Tensor,
                          int(state[RETIRED])], dtype=torch.int32)
 
 
-def climb_level_plain(t: torch.Tensor, cur: torch.Tensor,
-                      hi: torch.Tensor) -> torch.Tensor:
-    """The plain version of :func:`climb_level` on 1-D slots."""
-    cand = t[cur.clamp(0, len(t) - 1).long()]
-    return torch.where(cand < hi, cand, cur)
-
-
 # -- kernels ---------------------------------------------------------------
 
 _LIB = None
@@ -177,8 +169,7 @@ def _lib():
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn, args in (
                 ("sheep_scatter_min", [p, ll, p, p, ll, p, ll, p]),
-                ("sheep_exec_finish", [p, p, ll, ll, i, p, p, p]),
-                ("sheep_climb_level", [p, ll, p, ll, p, ll, p, ll, p, p])):
+                ("sheep_exec_finish", [p, p, ll, ll, i, p, p, p])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
         lib.sheep_fixpoint_error_string.argtypes = [ctypes.c_int]
@@ -291,32 +282,3 @@ def exec_finish(loB: torch.Tensor, hiB: torch.Tensor, state: torch.Tensor,
             state.data_ptr(), sv.data_ptr())
     return sv
 
-
-def climb_level(t: torch.Tensor, cur: torch.Tensor, hi: torch.Tensor,
-                out: torch.Tensor, state: torch.Tensor = None) -> None:
-    """One level of the stream descent's climb into ``out`` (which may be
-    ``cur``): ``out = t[clip(cur)]`` where that is below ``hi``, else
-    ``cur``. With an execution ``state``: nothing once it has stopped, and
-    an [N, C] block ``cur`` or ``hi`` is read at the execution's row."""
-    fn = "climb_level"
-    _check_vec(fn, "t", t)
-    for name, x in (("cur", cur), ("hi", hi)):
-        _check_vec(fn, name, x, (1, 2) if state is not None else (1,))
-    _check_vec(fn, "out", out)
-    if cur.shape[-1] != len(out) or hi.shape[-1] != len(out):
-        raise ValueError(f"{fn}: cur, hi and out differ in row length")
-    if not 0 < len(t) < 2**31:
-        raise ValueError(f"{fn}: t must hold 1 .. 2^31-1 entries")
-    _check_device(fn, t, cur, hi, out)
-    if state is not None:
-        check_state(fn, state, t.device)
-    if t.device.type == "cpu":
-        if state is not None:
-            if stopped(state):
-                return
-            cur, hi = pick_row(state, cur, hi)
-        out.copy_(climb_level_plain(t, cur, hi))
-        return
-    _launch(fn, t.device, t.data_ptr(), len(t), cur.data_ptr(),
-            _stride(cur), hi.data_ptr(), _stride(hi), out.data_ptr(),
-            len(out), _ptr(state))

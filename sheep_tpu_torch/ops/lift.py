@@ -1,7 +1,8 @@
-"""The exact-descent round's lifting work: the lifting stack and the fused
-climb (counterparts of ``build_lift_tables`` and of ``_pos_round_body``
-after its scatter-min, ``sheep_tpu/ops/elim.py:295`` and ``:158-192``),
-and the jump-mode climb of the adaptive driver's small buffers (of
+"""The round's lifting work: the lifting stack and the fused climb
+(counterparts of ``build_lift_tables`` and of ``_pos_round_body`` after
+its scatter-min, ``sheep_tpu/ops/elim.py:295`` and ``:158-192``), the
+stream descent (that round's stream branch, ``:166-171``), and the
+jump-mode climb of the adaptive driver's small buffers (of
 ``_pos_small_round_body`` after its scatter-min, ``:359``).
 
 ``lift_stack(P, stack, ctl)`` fills the stack with the levels
@@ -13,10 +14,18 @@ barriers (``csrc/lift.cu``).
 round over the slots in one pass: retire, displace, the binary-lifting
 climb over levels d-1 .. 0, and the pass's ``changed`` flag, retired
 count and live count added to ``ctl``. Given ``jumps`` > 0, ``climb_tail`` launches
-its jump-mode kernel, ``climb_jumps``, instead: the climb is ``jumps``
-single steps over P and the stack is not read. On CUDA tensors they
-launch the kernels of ``csrc/lift.cu``; on CPU tensors they run the
-plain PyTorch versions :func:`lift_stack_plain` and
+its jump-mode kernel, ``climb_jumps``, instead: the climb is up to
+``jumps`` single steps over P and the stack is not read.
+``stream_descent(P, lo, hi, levels, scratch, ctl)`` is the
+stream descent's climb, which keeps no stack: levels 0 .. L-1 in
+ascending order over t_0 = P, t_1, ... (``cur <- t_j[cur]`` where below
+hi, from lo), each squared from the one before into the other of two
+rows, up to the first all-n level or the first after which no slot
+moves, the climbed positions into ``scratch.pre`` at the live slots,
+which it returns, and ``ctl`` set to [L - 1, 0, 0, 0, 0]; ``climb_tail``
+then takes ``pre`` in place of a stack. On CUDA tensors they launch the
+kernels of ``csrc/lift.cu``; on CPU tensors they run the plain PyTorch
+versions :func:`lift_stack_plain`, :func:`stream_descent_plain` and
 :func:`climb_tail_plain`. Anything else raises.
 
 **The depth cut is exact.** d counts the distinct levels: the first
@@ -38,7 +47,10 @@ Inputs are the round's state: P int32[T], T = n + 1, with entries in
 lo < hi on a live slot and lo == n only on a dead slot (n, n). The
 kernels clip every table index to [0, n], as K1 does. On such inputs the
 kernel and the plain version agree bit for bit. A dead slot's hi is not
-read: it is n by this contract.
+read: it is n by this contract. The stream descent also needs P in
+position space, P[p] in (p, n], as every round's table is: there a
+slot's step that does not move is its last (``csrc/lift.cu``), and the
+kernel stops climbing it.
 
 The stack is allocated once per fixpoint call (:func:`new_stack`): level
 k >= 1 is row k - 1 of an int32 [L-1, stride] tensor, stride the table
@@ -48,20 +60,22 @@ or above d - 1 are not read. The control word ``ctl`` is int32
 so that zeroing the word starts a round; TICKETS counts the blocks of
 the CUDA ``climb_tail`` that have finished the round.
 
-In a batched fixpoint execution (``ops/fixpoint.py``) both are given the
-execution's state and do nothing once it has stopped (``lift_stack``
-still zeroes ``ctl``); :func:`climb_rows` is ``climb_tail`` on the
-execution's row of the [N, C] blocks, written back in place, and takes
-the stream descent's climbed positions ``pre`` instead of the stack.
+In a batched fixpoint execution (``ops/fixpoint.py``) each is given the
+execution's state and does nothing once it has stopped (``lift_stack``
+still zeroes ``ctl``); ``stream_descent`` reads the execution's row of
+the [N, C] blocks, and :func:`climb_rows` is ``climb_tail`` on that row,
+written back in place, taking the stream descent's ``pre`` instead of
+the stack.
 ``climb_rows`` is the round's last step, so it also ends the round: on
 CUDA in the last block of its kernel, on the CPU by
 ``fixpoint.round_end_plain`` after the plain climb.
 
 ``LAUNCHES`` counts the wrapper calls that launched their kernels: one
 ``lift_stack`` call is one cooperative launch of the whole ladder, which
-also zeroes ``ctl``. Its grid barrier uses a small scratch buffer that
-the wrapper allocates once for each device and stream (:func:`_bar`), so
-two ladders on one stream never share it at once.
+also zeroes ``ctl``, and one ``stream_descent`` call one of the whole
+descent. Their grid barrier uses a small scratch buffer that the wrapper
+allocates once for each device and stream (:func:`_bar`), so two
+launches on one stream never share it at once.
 
 The adaptive driver's stale round (``ops/elim.py``, the counterpart of
 ``_pos_round_body_stale``, ``:222``) calls ``lift_stack`` once a segment
@@ -73,13 +87,15 @@ the stale round, and no kernel of its own is needed.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from sheep_tpu_torch.ops import fixpoint
 from sheep_tpu_torch.ops.gather import gather_clip_plain
 
-LAUNCHES = {"lift_stack": 0, "climb_tail": 0, "climb_jumps": 0}
+LAUNCHES = {"lift_stack": 0, "stream_descent": 0, "climb_tail": 0,
+            "climb_jumps": 0}
 
 ROWS, CHANGED, RETIRED, LIVE, TICKETS = range(5)
 CTL_WORDS = 5
@@ -105,6 +121,28 @@ def new_ctl(device) -> torch.Tensor:
     return torch.zeros(CTL_WORDS, dtype=torch.int32, device=device)
 
 
+class Descent(NamedTuple):
+    """The stream descent's buffers (:func:`new_descent`): ``pre``, the
+    climbed positions int32[C]; ``rows``, the two squaring rows int32[2,
+    stride] (none for one level: nothing is squared); ``mask``, the slots
+    still moving, one bit a slot, int32[ceil(C / 32)]."""
+    pre: torch.Tensor
+    rows: torch.Tensor
+    mask: torch.Tensor
+
+
+def new_descent(T: int, C: int, levels: int, device) -> Descent:
+    """The stream descent's buffers for a table of T entries, rows of C
+    slots and ``levels`` levels. The rows are P's size twice, as the
+    per-level tables they replace were (t_j and t_{j+1} live at a level's
+    turn)."""
+    return Descent(torch.empty(C, dtype=torch.int32, device=device),
+                   torch.empty((2 if levels > 1 else 0, row_stride(T)),
+                               dtype=torch.int32, device=device),
+                   torch.empty(-(-C // 32), dtype=torch.int32,
+                               device=device))
+
+
 def lift_stack_plain(P: torch.Tensor, levels: int):
     """The plain version of :func:`lift_stack`: ``(stack, d)`` with stack
     int32 [levels-1, T], rows 0 .. d-2 holding t_1 .. t_{d-1} and the rest
@@ -124,6 +162,21 @@ def lift_stack_plain(P: torch.Tensor, levels: int):
             return stack, j + 2
         t = t2
     return stack, levels
+
+
+def stream_descent_plain(P: torch.Tensor, lo: torch.Tensor,
+                         hi: torch.Tensor, levels: int) -> torch.Tensor:
+    """The plain version of :func:`stream_descent` on 1-D slots: the
+    reference's stream loop (``sheep_tpu/ops/elim.py:166-171``), every
+    level, no stop. Returns the climbed positions at every slot (a dead
+    slot (n, n) keeps n)."""
+    t, cur = P, lo
+    for j in range(levels):
+        cand = gather_clip_plain(t, cur)
+        cur = torch.where(cand < hi, cand, cur)
+        if j < levels - 1:
+            t = gather_clip_plain(t, t)
+    return cur
 
 
 def climb_tail_plain(lo, hi, old_at_lo, P, stack, d: int, pre=None,
@@ -252,6 +305,11 @@ def _lib():
         lib.sheep_climb_jumps.argtypes = [p, p, p, ll, p, ll, i, p, p, p, p,
                                           ll, ll, ll, p]
         lib.sheep_climb_jumps.restype = ctypes.c_int
+        lib.sheep_stream_descent.argtypes = [p, ll, p, ll, p, p, ll, ll, p,
+                                             p, i, p, p, p, p]
+        lib.sheep_stream_descent.restype = ctypes.c_int
+        lib.sheep_lift_chase.argtypes = [p, ll, i, i, p, i, p]
+        lib.sheep_lift_chase.restype = ctypes.c_int
         lib.sheep_lift_error_string.argtypes = [ctypes.c_int]
         lib.sheep_lift_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -305,6 +363,33 @@ def copy_row(src: torch.Tensor, dst: torch.Tensor) -> None:
     _raise_if(rc, "copy_row")
 
 
+def chase(t: torch.Tensor, start: int, steps: int, out: torch.Tensor,
+          blocks: int = 1) -> None:
+    """``steps`` dependent loads cur <- t[clip(cur)] from ``start`` on one
+    thread, the end into ``out[0]``; with 0 steps an empty kernel of
+    ``blocks`` blocks of 256 threads. The yardsticks of ``climb_jumps``'
+    chain, the launch floor and the latency of a dependent load (a
+    yardstick; no kernel of the path)."""
+    _check_vec("chase: t", t)
+    _check_vec("chase: out", out)
+    if not 0 < len(t) < 2**31 or len(out) < 1 or steps < 0 or blocks < 1 \
+            or out.device != t.device:
+        raise ValueError("chase: a table of 1 .. 2^31-1 entries, steps >= "
+                         "0, blocks >= 1 and out on t's device")
+    if t.device.type == "cpu":
+        cur = int(start)
+        for _ in range(steps):
+            cur = int(t[min(max(cur, 0), len(t) - 1)])
+        if steps:
+            out[0] = cur
+        return
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        rc = _lib().sheep_lift_chase(t.data_ptr(), len(t), int(start), steps,
+                                     out.data_ptr(), blocks, stream)
+    _raise_if(rc, "chase")
+
+
 def lift_stack(P: torch.Tensor, stack: torch.Tensor,
                ctl: torch.Tensor, state: torch.Tensor = None) -> None:
     """Fill ``stack`` with t_1 .. t_{d-1} of P and set ``ctl`` to
@@ -330,6 +415,57 @@ def lift_stack(P: torch.Tensor, stack: torch.Tensor,
             ctl.data_ptr(), ex, _bar(P.device, stream).data_ptr(), stream)
     _raise_if(rc, "lift_stack")
     LAUNCHES["lift_stack"] += 1
+
+
+def stream_descent(P: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   levels: int, scratch: Descent, ctl: torch.Tensor,
+                   state: torch.Tensor = None) -> torch.Tensor:
+    """The stream descent of one round over ``levels`` levels of P:
+    returns ``scratch.pre``, which holds, at each live slot (lo != n), lo
+    climbed level by level (:func:`stream_descent_plain`; a dead slot's
+    ``pre`` is not written on CUDA), and sets ``ctl`` to [levels - 1, 0,
+    0, 0, 0]. ``scratch`` is the kernel's (:func:`new_descent`). With an
+    execution ``state``: [N, C] blocks ``lo``/``hi`` read at its row, and
+    nothing at all once it has stopped."""
+    fn = "stream_descent"
+    _check(fn, P, None, ctl, lo, hi, state=state)
+    C = lo.shape[-1]
+    pre, rows, mask = scratch
+    if not 1 <= levels <= 32:
+        raise ValueError(f"{fn}: levels must be in 1 .. 32, got {levels}")
+    for name, t, size in (("pre", pre, C), ("mask", mask, -(-C // 32))):
+        _check_vec(f"{fn}: {name}", t)
+        if len(t) != size:
+            raise ValueError(f"{fn}: {name} must hold {size} entries")
+    want = (2 if levels > 1 else 0, row_stride(len(P)))
+    if rows.dtype != torch.int32 or tuple(rows.shape) != want or \
+            not rows.is_contiguous():
+        raise ValueError(f"{fn}: rows must be a contiguous int32 {want} "
+                         f"tensor (new_descent)")
+    for t in (pre, rows, mask):
+        if t.device != P.device:
+            raise ValueError(f"{fn}: tensors on {P.device} and {t.device}")
+    if P.device.type == "cpu":
+        if state is not None:
+            if fixpoint.stopped(state):
+                return pre
+            lo, hi = fixpoint.pick_row(state, lo, hi)
+        ctl.zero_()
+        ctl[ROWS] = levels - 1
+        pre.copy_(stream_descent_plain(P, lo, hi, levels))
+        return pre
+    ex = None if state is None else state.data_ptr()
+    with torch.cuda.device(P.device):
+        stream = torch.cuda.current_stream(P.device).cuda_stream
+        rc = _lib().sheep_stream_descent(
+            P.data_ptr(), len(P), rows.data_ptr() if levels > 1 else None,
+            rows.shape[1], lo.data_ptr(), hi.data_ptr(), C,
+            C if lo.dim() == 2 else 0, pre.data_ptr(), mask.data_ptr(),
+            levels, ctl.data_ptr(), ex, _bar(P.device, stream).data_ptr(),
+            stream)
+    _raise_if(rc, fn)
+    LAUNCHES[fn] += 1
+    return pre
 
 
 def climb_tail(lo: torch.Tensor, hi: torch.Tensor, old_at_lo: torch.Tensor,
@@ -365,10 +501,12 @@ def climb_rows(loB: torch.Tensor, hiB: torch.Tensor, old_at_lo: torch.Tensor,
     blocks' N rows with a budget of ``batch_rounds`` rounds); nothing once
     the execution has stopped. ``pre``: the stream descent's climbed
     positions, used instead of climbing the stack; ``jumps`` > 0: the
-    jump-mode climb (``climb_jumps``; ``stack`` may be None)."""
+    jump-mode climb (``climb_jumps``); with either, ``stack`` may be
+    None."""
     slots = (loB, hiB, old_at_lo) + (() if pre is None else (pre,))
-    _check("climb_tail", P, None if jumps > 0 else stack, ctl, *slots,
-           state=state)
+    if pre is not None or jumps > 0:
+        stack = None
+    _check("climb_tail", P, stack, ctl, *slots, state=state)
     N = loB.shape[0]
     fixpoint.check_round_end("climb_tail", state, N, batch_rounds)
     if P.device.type == "cpu":
@@ -407,9 +545,10 @@ def _launch_climb(lo, hi, old_at_lo, P, stack, ctl, out_lo, out_hi,
             return
         rc = lib.sheep_climb_tail(
             lo.data_ptr(), hi.data_ptr(), old_at_lo.data_ptr(),
-            lo.shape[-1], P.data_ptr(), len(P), stack.data_ptr(),
-            stack.shape[1], ctl.data_ptr(), out_lo.data_ptr(),
-            out_hi.data_ptr(), ex, row_stride,
+            lo.shape[-1], P.data_ptr(), len(P),
+            None if stack is None else stack.data_ptr(),
+            0 if stack is None else stack.shape[1], ctl.data_ptr(),
+            out_lo.data_ptr(), out_hi.data_ptr(), ex, row_stride,
             None if pre is None else pre.data_ptr(), N, batch_rounds,
             stream)
     _raise_if(rc, "climb_tail")

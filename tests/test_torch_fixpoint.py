@@ -1,7 +1,9 @@
 """The batched fixpoint execution's kernels (sheep_tpu_torch/ops/fixpoint.py)
 and the guarded round against the JAX package: the scatter-min against
-``P.at[lo].min(hi, mode="drop")``, the stream descent's climb level against
-its ``t[cur]``/``where`` step, and whole executions (``round_end_plain`` and
+``P.at[lo].min(hi, mode="drop")``, the stream descent's climb level (a
+descent of one level, ``lift.stream_descent``; tests/test_torch_descent.py
+holds its deeper ones) against its ``t[cur]``/``where`` step, and whole
+executions (``round_end_plain`` and
 ``exec_finish`` with the round's kernels) against the reference's
 ``fold_segments_batch_pos``, on the same numpy inputs made from fixed
 seeds. Everything is integer, so every comparison is exact. The CPU runs
@@ -89,6 +91,9 @@ def test_scatter_min_matches_jax(n, dead):
 
 
 def test_climb_level_matches_jax():
+    """One level of the stream descent's climb: the descent at L = 1 is
+    exactly the reference's ``t[cur]``/``where`` step, at every slot in
+    the plain version and at the live ones in the wrapper's ``pre``."""
     n = 1 << 11
     rng = np.random.default_rng(3)
     t = _forest(n, rng)
@@ -96,12 +101,15 @@ def test_climb_level_matches_jax():
     cand = jnp.asarray(t)[jnp.asarray(cur)]
     ref = np.asarray(jnp.where(cand < jnp.asarray(hi), cand,
                                jnp.asarray(cur)))
-    out = torch.empty(len(cur), dtype=torch.int32)
-    fixpoint.climb_level(_t(t), _t(cur), _t(hi), out)
-    assert np.array_equal(out.numpy(), ref)
-    inplace = _t(cur)  # out may be cur
-    fixpoint.climb_level(_t(t), inplace, _t(hi), inplace)
-    assert np.array_equal(inplace.numpy(), ref)
+    got = lift.stream_descent_plain(_t(t), _t(cur), _t(hi), 1)
+    assert np.array_equal(got.numpy(), ref)
+    scratch = lift.new_descent(n + 1, len(cur), 1, CPU)
+    ctl = lift.new_ctl(CPU)
+    pre = lift.stream_descent(_t(t), _t(cur), _t(hi), 1, scratch, ctl)
+    assert pre is scratch.pre
+    live = cur != n
+    assert np.array_equal(pre.numpy()[live], ref[live])
+    assert ctl.tolist() == [0, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("descent", ["exact", "stream"])
@@ -176,9 +184,10 @@ def test_stopped_execution_changes_nothing():
     assert not ctl.any()  # the ladder's memset still runs
     ctl[:] = torch.tensor([3, 1, 4, 1, 5], dtype=torch.int32)
     lift.climb_rows(loB, hiB, old, P, stack, ctl, state, 3)
-    cur = torch.full((loB.shape[1],), 7, dtype=torch.int32)
-    fixpoint.climb_level(P, loB, hiB, cur, state)
-    assert (cur == 7).all()
+    scratch = lift.new_descent(n + 1, loB.shape[1], 1, CPU)
+    scratch.pre.fill_(7)
+    lift.stream_descent(P, loB, hiB, 1, scratch, ctl, state)
+    assert (scratch.pre == 7).all()
     for a, b in zip((P, loB, hiB, state), before):
         assert torch.equal(a, b)
     assert ctl.tolist() == [3, 1, 4, 1, 5]
@@ -225,8 +234,10 @@ def test_wrappers_reject_bad_inputs():
         elim._pos_round_body(8, 4, "exact")(lo[None], hi[None], P, state)
     with pytest.raises(ValueError, match="blocks"):
         fixpoint.exec_finish(lo[None], hi[None, :3], state, 8)
-    with pytest.raises(ValueError, match="row length"):
-        fixpoint.climb_level(P, lo, hi, torch.empty(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="pre must hold 4"):
+        lift.stream_descent(P, lo, hi, 1, lift.new_descent(9, 4, 1, CPU)
+                            ._replace(pre=torch.empty(3, dtype=torch.int32)),
+                            lift.new_ctl(CPU))
     with pytest.raises(ValueError, match="1-D"):
         gather.gather_clip(P, lo[None])  # a block needs a state
     with pytest.raises(ValueError, match="block"):
@@ -243,8 +254,9 @@ def test_wrappers_reject_other_devices():
         fixpoint.scatter_min(P, lo[None], hi[None],
                              fixpoint.new_state(2, meta))
     with pytest.raises(ValueError, match="unsupported device"):
-        fixpoint.climb_level(P.to(meta), lo.to(meta), hi.to(meta),
-                             lo.to(meta))
+        lift.stream_descent(P.to(meta), lo.to(meta), hi.to(meta), 1,
+                            lift.new_descent(9, 4, 1, meta),
+                            lift.new_ctl(meta))
 
 
 def test_cpu_path_counts_no_launch():
