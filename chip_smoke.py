@@ -2,6 +2,7 @@
 """Smoke run of sheep_tpu_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded-cards   # phase 5l alone, >= 2 cards
 
 Phases, one result line each; any failure exits non-zero before the last
 line is printed:
@@ -55,8 +56,9 @@ line is printed:
      control word equal;
   3e. the per-segment driver's kernels against their plain versions on
      the card, exactly: ``compact_live`` at C = 2^22 pairs with 50%, 10%
-     and 1% live (with duplicates) into the driver's ``size``, and on the
-     case table ``kernel_cases.compact_cases``; one cooperative launch a
+     and 1% live (with duplicates) into the driver's ``size``, with the
+     duplicates dropped and (the sharded driver's ``dedup=False``) kept,
+     and on the case table ``kernel_cases.compact_cases``; one cooperative launch a
      call (``torch.profiler``'s runtime calls); timed beside the plain
      version, ``torch.unique`` of the packed keys with a masked select,
      and its bytes bound; ``climb_jumps`` (``climb_tail``'s jump mode, up
@@ -234,6 +236,16 @@ line is printed:
      launches, peak memory and the depth of its forest's table; then
      ``stream_descent`` on that forest's table at the build's shapes (L =
      25, rows of 2^22 slots; the median share and 100%), as in 3d;
+  5l. the sharded build (``sheep_tpu_torch/parallel/``): phase 5's graph
+     and k through ``ShardedPipeline`` on a mesh of 4 shards on the one
+     card, per segment (N = 1, D = 1) and batched (N = 4, D = 2), then
+     ``partition(..., backend="torch-sharded")`` on one shard (with more
+     than one card visible, also both runs and the entry point on a mesh
+     of every card, one shard a card; ``--sharded-cards`` runs this
+     phase alone): each forest, assignment, cut, total, comm volume and
+     balance equal to phase 5's; the merge's mode and payload, rounds,
+     host reads, executions, pass seconds, edges/s, each kernel's
+     launches and peak memory;
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
@@ -243,7 +255,7 @@ line is printed:
      from 5 with 5d's beside), ``climb_jumps``'s from the jump-mode fold
      of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
      mode from 5f, and the refinement's kernels from 5g; the delta fold's
-     launches (5j) beside the main path's;
+     launches (5j) and the sharded builds' (5l) beside the main path's;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -1230,6 +1242,16 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
                   for a, b in zip(got, want))
         check(err == 0, f"compact_live at live share {share:g} disagrees "
                         f"with its plain version")
+        # the sharded driver's compaction keeps the duplicates
+        kept = compact.compact_live(lo, hi, n, size, dedup=False)
+        want = compact.compact_live_plain(lo, hi, n, size, dedup=False)
+        torch.cuda.synchronize()
+        kept_err = max(int((a.long() - b.long()).abs().max())
+                       for a, b in zip(kept, want))
+        check(kept_err == 0 and int((kept[0] != n).sum()) == live,
+              f"compact_live(dedup=False) at live share {share:g} "
+              f"disagrees with its plain version")
+        del kept
         packed = (lo.long() << 32) | hi.long()
 
         def library():
@@ -1241,7 +1263,11 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
 
         rec = {"case": f"live{share:g}", "C": C, "T": n + 1, "live": live,
                "distinct": int(library().numel()), "size": size,
-               "max_abs_err": err, "ms": gs.time_ms(kernel),
+               "max_abs_err": err, "kept_dups_max_abs_err": kept_err,
+               "kept_dups_ms": gs.time_ms(
+                   lambda: compact.compact_live(lo, hi, n, size,
+                                                dedup=False)),
+               "ms": gs.time_ms(kernel),
                "device": device_launches(kernel, f"compact_live {share:g}",
                                          [COOPERATIVE]),
                "plain_ms": gs.time_ms(
@@ -1261,8 +1287,15 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
         got = compact.compact_live(lo.to(dev), hi.to(dev), c["n"], c["size"])
         check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
               f"compact_live case {name} disagrees with its plain version")
+        want = compact.compact_live_plain(lo, hi, c["n"], c["size"],
+                                          dedup=False)
+        got = compact.compact_live(lo.to(dev), hi.to(dev), c["n"], c["size"],
+                                   dedup=False)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"compact_live case {name} (dedup=False) disagrees with its "
+              f"plain version")
     print(f"compact-edges {len(kernel_cases.compact_cases())} cases equal to "
-          f"the plain version", flush=True)
+          f"the plain version, duplicates dropped and kept", flush=True)
     return records
 
 
@@ -3429,6 +3462,176 @@ def s24_build(card, counters) -> dict:
     return rec
 
 
+# 5l: the sharded build's runs, (label, dispatch batch, depth) on a mesh of
+# SHARDS shards of the one card, and with more than one card visible on a
+# mesh of every card, one shard a card
+SHARDS = 4
+SHARDED_RUNS = (("per-segment", 1, 1), ("batched", 4, 2))
+# the kernels each sharded run must launch: every run the round's and the
+# chunk synthesis; the per-segment fold also the warm segments' stream
+# descent, the compactions and the jump-mode tail
+SHARDED_PATH = ("gather_clip", "scatter_min", "lift_stack", "climb_tail",
+                "exec_finish", "hash_chunk")
+SHARDED_SEGMENT_PATH = ("stream_descent", "compact_live", "climb_jumps")
+
+
+def sharded_s22(card, ref, counters) -> dict:
+    """Phase 5l: phase 5's graph and k through the sharded build
+    (``ShardedPipeline`` under ``TorchShardedBackend``) on a mesh of
+    ``SHARDS`` shards of the one card (each shard's state on the card,
+    the collectives device copies), per segment and batched, with
+    ``dispatch_batch`` and ``inflight`` given (the auto rule sizes a card
+    for one shard); then ``partition(..., backend="torch-sharded")`` on
+    one shard at its defaults. With more than one card visible, also the
+    same two runs on a mesh of every card, one shard a card (the
+    collectives peer copies), and the entry point on every card at its
+    defaults; each card must have held a shard's state. Each run's
+    forest, assignment, cut, total, comm volume and balance must equal
+    phase 5's (``ref``); its kernels' launches are counted from 0 around
+    it. Returns {label: launches}."""
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.backends.torch_sharded_backend import \
+        TorchShardedBackend
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.parallel.mesh import Mesh, shards_mesh
+
+    def sharded(mesh, nb, depth):
+        return lambda: TorchShardedBackend(
+            mesh=mesh, dispatch_batch=nb, inflight=depth).partition(
+                open_input(S22_SPEC), S22_K, keep_tree=True)
+
+    one_card = Mesh([torch.device("cuda", 0)] * SHARDS)
+    runs = [(label, one_card, sharded(one_card, nb, depth))
+            for label, nb, depth in SHARDED_RUNS]
+    runs.append(("public-d1", Mesh(["cuda:0"]),
+                 lambda: sheep_tpu_torch.partition(
+                     S22_SPEC, S22_K, backend="torch-sharded", n_devices=1,
+                     keep_tree=True)))
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        every = shards_mesh()
+        runs += [(f"cards{cards}-{label}", every, sharded(every, nb, depth))
+                 for label, nb, depth in SHARDED_RUNS]
+        runs.append((f"public-cards{cards}", every,
+                     lambda: sheep_tpu_torch.partition(
+                         S22_SPEC, S22_K, backend="torch-sharded",
+                         keep_tree=True)))
+    else:
+        print("5l: one card visible: the layout of one shard a card runs "
+              "with more than one (chip_smoke.py --sharded-cards)",
+              flush=True)
+    with open_input(S22_SPEC) as stream:
+        chunks = stream.num_chunks(1 << 22)
+    out = {}
+    for label, mesh, run in runs:
+        devices = mesh.distinct()
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+        peaks = [torch.cuda.max_memory_allocated(dev) for dev in devices]
+        what = f"s22 sharded {label}"
+        same_result(res, ref, what, rounds=False)
+        check(res.backend == "torch-sharded:cuda", f"{what}: backend "
+                                                   f"{res.backend}")
+        check(all(p > 0 for p in peaks),
+              f"{what}: a card of the mesh held nothing ({peaks})")
+        d = res.diagnostics
+        path = SHARDED_PATH + (SHARDED_SEGMENT_PATH
+                               if label.endswith("per-segment") else ())
+        for name in path:
+            check(launches[name] > 0, f"{what}: no {name} launch")
+        # each pass synthesizes every chunk on its shard (no chunk cache)
+        check(launches["hash_chunk"] == 3 * chunks,
+              f"{what}: {launches['hash_chunk']} hash_chunk launches for "
+              f"3 passes of {chunks} chunks")
+        if d.get("batch_execs"):
+            check(d["host_syncs"] == d["batch_execs"],
+                  f"{what}: {d['host_syncs']} host reads for "
+                  f"{d['batch_execs']} executions")
+        rec = {"spec": S22_SPEC, "k": S22_K, "shards": len(mesh),
+               "devices": [str(dev) for dev in devices],
+               "dispatch_batch": d.get("dispatch_batch", 1),
+               "inflight": d.get("inflight_depth", 1), "wall_s": wall,
+               "phase_s": res.phase_times,
+               "edges_per_s": res.total_edges / wall,
+               "build_edges_per_s":
+                   res.total_edges / res.phase_times["build+merge"],
+               "edge_cut": res.edge_cut, "total_edges": res.total_edges,
+               "comm_volume": res.comm_volume, "balance": res.balance,
+               "merge_mode": d.get("merge_mode"),
+               "merge_payload_bytes": d.get("merge_payload_bytes", 0),
+               "device_rounds": d["device_rounds"],
+               "host_syncs": d["host_syncs"],
+               "batch_execs": d.get("batch_execs", 0),
+               "inflight_discards": d.get("inflight_discards", 0),
+               "host_blocked_ms": d.get("host_blocked_ms"),
+               "launches": launches, "peak_mem_bytes": max(peaks),
+               "peak_mem_bytes_by_device": peaks, "card": card}
+        print("s22-sharded " + json.dumps(rec), flush=True)
+        out[label] = launches
+    return out
+
+
+def sharded_cards() -> int:
+    """``chip_smoke.py --sharded-cards``: phase 5l alone on a host with
+    more than one card: the build, phase 5's single-device build as the
+    reference, then every 5l run, those on a mesh of every card included.
+    Needs two cards or more; prints the 5l lines and
+    {"ok": true, "mode": "sharded-cards", ...} last."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check",
+              file=sys.stderr)
+        return 2
+    import sheep_tpu_torch
+    from sheep_tpu_torch.ops import (_build, compact, fixpoint, gather, lift,
+                                     refine, synth)
+
+    t_all = time.perf_counter()
+    cards = torch.cuda.device_count()
+    check(cards > 1, f"--sharded-cards needs more than one card, have "
+                     f"{cards}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    names = smi.stdout.strip().splitlines()
+    card = names[0]
+    print(f"cards: {names}", flush=True)
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    # phase 5's build on the first card
+    t0 = time.perf_counter()
+    ref = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
+                                    chunk_edges=1 << 23, dispatch_batch=8,
+                                    keep_tree=True)
+    s22_check(ref, "s22 D=2")
+    print(f"s22 reference: {time.perf_counter() - t0:.2f}s", flush=True)
+    t0 = time.perf_counter()
+    sharded = sharded_s22(card, ref, (gather, lift, fixpoint, compact,
+                                      synth, refine))
+    print(f"5l: {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
+          flush=True)
+    print(json.dumps({"ok": True, "mode": "sharded-cards",
+                      "runs": sorted(sharded), "device": {
+                          "platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": cards}}), flush=True)
+    return 0
+
+
 def s22_check(res, what: str) -> None:
     """The full-size result: valid parts and the JAX package's cut, total
     and comm volume."""
@@ -3917,6 +4120,11 @@ def main() -> int:
     # 5k. R-MAT at scale 24 at the defaults: the batched build on the
     # stream descent
     s24 = s24_build(card, counters)
+    # 5l. the sharded build: 4 shards on the card, per segment and
+    # batched, and the entry point on one shard, each equal to phase 5
+    t0 = time.perf_counter()
+    sharded = sharded_s22(card, res, counters)
+    print(f"5l: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b), stream_descent's the
@@ -4045,7 +4253,7 @@ def main() -> int:
               device_launches_a_call=compact_cases[1]["device_launches"],
               cases={r["case"]: {k: r[k] for k in (
                   "ms", "plain_ms", "library_ms", "bound_ms",
-                  "device_launches", "live", "size")}
+                  "device_launches", "live", "size", "kept_dups_ms")}
                   for r in compact_cases},
               cases_max_abs_err=max(r["max_abs_err"]
                                     for r in compact_cases))]
@@ -4097,10 +4305,15 @@ def main() -> int:
             library_scope=scope, **extra,
             cases={r["case"]: {k: r[k] for k in keys} for r in recs},
             cases_max_abs_err=max(r["max_abs_err"] for r in recs)))
-    # the delta fold's launches (5j, epochs 1-4) beside the main path's
+    # the delta fold's launches (5j, epochs 1-4) and the sharded builds'
+    # (5l) beside the main path's
     for k in kernels:
         if k["name"] in DELTA_KERNELS:
             k["delta_path_launches"] = incr["delta_launches"][k["name"]]
+        name = "hash_chunk" if k["name"] == "hash_chunk<rmat>" else k["name"]
+        if name in SHARDED_PATH + SHARDED_SEGMENT_PATH:
+            k["sharded_launches"] = {label: launched[name] for label,
+                                     launched in sharded.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)
@@ -4111,4 +4324,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sharded_cards() if sys.argv[1:] == ["--sharded-cards"]
+             else main())

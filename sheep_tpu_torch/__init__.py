@@ -42,7 +42,8 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
               comm_volume=True, weights="unit", alpha=1.0, keep_tree=False,
               inflight=0, h2d_ring=0, round_log=None, n_vertices=None,
               refine=0, refine_alpha=1.10, checkpointer=None, resume=False,
-              cache_chunks=True, **build_opts):
+              cache_chunks=True, backend="torch", n_devices=None,
+              **build_opts):
     """Partition the graph at *path* (a file or a synthetic spec of
     :func:`sheep_tpu_torch.io.edgestream.open_input`) into *k* parts with
     the single-device build; returns a
@@ -66,7 +67,16 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
     build every ``checkpointer.every`` chunks, and ``resume`` continues
     from its latest step (the refinement after it is not checkpointed, as
     in the reference); ``cache_chunks`` keeps the chunks on the device
-    across the passes (``SHEEP_CACHE_BYTES`` sets its budget)."""
+    across the passes (``SHEEP_CACHE_BYTES`` sets its budget).
+    ``backend="torch-sharded"`` runs the sharded build
+    (:class:`~sheep_tpu_torch.backends.torch_sharded_backend.
+    TorchShardedBackend`) over ``n_devices`` shards (None: every GPU, or
+    every virtual CPU shard of ``parallel.mesh.force_cpu_devices``); it
+    takes ``segment_rounds``, ``warm_schedule`` and ``lift_levels`` of
+    ``build_opts`` and keeps chunks on the devices only under
+    ``SHEEP_CACHE_BYTES``; it raises ``ValueError`` on ``round_log``, a
+    non-zero ``h2d_ring`` or ``cache_chunks=False``, as the CLI refuses
+    their flags."""
     from sheep_tpu_torch.io.edgestream import open_input
 
     with open_input(path, n_vertices=n_vertices) as stream:
@@ -77,21 +87,27 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
             inflight=inflight, h2d_ring=h2d_ring, round_log=round_log,
             refine=refine, refine_alpha=refine_alpha,
             checkpointer=checkpointer, resume=resume,
-            cache_chunks=cache_chunks, **build_opts)
+            cache_chunks=cache_chunks, backend=backend, n_devices=n_devices,
+            **build_opts)
 
 
 def _partition_stream(stream, k, device=None, chunk_edges=1 << 22,
                       dispatch_batch=0, comm_volume=True, weights="unit",
                       alpha=1.0, keep_tree=False, inflight=0, h2d_ring=0,
                       round_log=None, refine=0, refine_alpha=1.10,
-                      checkpointer=None, resume=False, **build_opts):
+                      checkpointer=None, resume=False, backend="torch",
+                      n_devices=None, **build_opts):
     """:func:`partition` over an open stream (shared with the hierarchy,
     whose parts' subgraphs are streams of their own)."""
+    if backend == "torch-sharded" and round_log is not None:
+        raise ValueError("round_log is not supported with "
+                         "backend='torch-sharded'")
     be = _backend(device, chunk_edges, dispatch_batch, alpha, inflight,
-                  h2d_ring, build_opts)
+                  h2d_ring, build_opts, backend, n_devices)
+    kw = {} if be.name != "torch" else {"round_log": round_log}
     res = be.partition(stream, k, weights=weights, comm_volume=comm_volume,
-                       keep_tree=keep_tree, round_log=round_log,
-                       checkpointer=checkpointer, resume=resume)
+                       keep_tree=keep_tree, checkpointer=checkpointer,
+                       resume=resume, **kw)
     if refine:
         res = refine_result(res, stream, rounds=refine, alpha=refine_alpha,
                             weights=weights, device=be.device)
@@ -101,24 +117,49 @@ def _partition_stream(stream, k, device=None, chunk_edges=1 << 22,
 def partition_multi(path, ks, device=None, chunk_edges=1 << 22,
                     dispatch_batch=0, comm_volume=True, weights="unit",
                     alpha=1.0, inflight=0, h2d_ring=0, n_vertices=None,
-                    **build_opts):
+                    backend="torch", n_devices=None, **build_opts):
     """Like :func:`partition`, but one result per part count in ``ks``
     from one build: the forest does not depend on k, so each further k
     costs a re-split on the host and a share of one more scoring pass.
-    Returns the results in ``ks`` order."""
+    Returns the results in ``ks`` order. ``backend`` and ``n_devices`` as
+    in :func:`partition`."""
     from sheep_tpu_torch.io.edgestream import open_input
 
     be = _backend(device, chunk_edges, dispatch_batch, alpha, inflight,
-                  h2d_ring, build_opts)
+                  h2d_ring, build_opts, backend, n_devices)
     with open_input(path, n_vertices=n_vertices) as stream:
         return be.partition_multi(stream, ks, weights=weights,
                                   comm_volume=comm_volume)
 
 
+BACKENDS = ("torch", "torch-sharded")
+
+
 def _backend(device, chunk_edges, dispatch_batch, alpha, inflight, h2d_ring,
-             build_opts):
+             build_opts, backend="torch", n_devices=None):
     from sheep_tpu_torch.backends.torch_backend import TorchBackend
 
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; the port has "
+                         f"{', '.join(BACKENDS)}")
+    if backend == "torch-sharded":
+        from sheep_tpu_torch.backends.torch_sharded_backend import \
+            TorchShardedBackend
+
+        opts = dict(build_opts)
+        bad = [name for name, on in (
+            ("h2d_ring", h2d_ring), ("cache_chunks=False",
+                                     not opts.pop("cache_chunks", True)))
+               if on]
+        if bad:
+            raise ValueError(f"{', '.join(bad)} not supported with "
+                             f"backend='torch-sharded'")
+        return TorchShardedBackend(
+            chunk_edges=chunk_edges, dispatch_batch=dispatch_batch,
+            alpha=alpha, inflight=inflight, device=device,
+            n_devices=n_devices, **opts)
+    if n_devices is not None:
+        raise ValueError("n_devices needs backend='torch-sharded'")
     return TorchBackend(chunk_edges=chunk_edges,
                         dispatch_batch=dispatch_batch, alpha=alpha,
                         device=device, inflight=inflight, h2d_ring=h2d_ring,

@@ -12,6 +12,8 @@
     python -m sheep_tpu_torch.cli --input rmat-hash:22 --k 64 \
         --trace t.jsonl --heartbeat-secs 1 --metrics-out m.jsonl
     python -m sheep_tpu_torch.cli --input base.bin64 --k 8 --deltas g.dlog
+    python -m sheep_tpu_torch.cli --input rmat-hash:16 --k 8 \
+        --backend torch-sharded --n-devices 8 --device cpu
 
 prints the phase times and scores, then one JSON result line per k (the
 same fields as the reference's) last. ``--trace`` appends the run's
@@ -155,6 +157,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "--checkpoint-dir")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--backend", choices=["torch", "torch-sharded"],
+                   default="torch",
+                   help="torch (default): the single-device build; "
+                        "torch-sharded: the sharded build, edge chunks "
+                        "round-robin over --n-devices shards, their forests "
+                        "merged by a butterfly (one GPU a shard on CUDA, "
+                        "virtual shards with --device cpu)")
+    p.add_argument("--n-devices", type=int, default=None, metavar="D",
+                   help="with --backend torch-sharded: the shards (default: "
+                        "every GPU; with --device cpu, 1)")
     p.add_argument("--output", default=None,
                    help="write the partition map (.parts text or .pbin)")
     p.add_argument("--json", action="store_true",
@@ -199,7 +211,7 @@ def main(argv=None) -> int:
     tracer = obs.install(obs.Tracer(args.trace))
     root = None
     try:
-        obs.emit_manifest(tracer, config=vars(args), backend="torch",
+        obs.emit_manifest(tracer, config=vars(args), backend=args.backend,
                           device=device)
         if args.heartbeat_secs:
             tracer.heartbeat = obs.Heartbeat(
@@ -222,6 +234,10 @@ def _run(p, args) -> int:
     if args.resume and not args.checkpoint_dir:
         p.error("--resume requires --checkpoint-dir")
     opts = _build_options(p, args)
+    if args.backend == "torch-sharded":
+        _sharded_options(p, args, opts)
+    elif args.n_devices is not None:
+        p.error("--n-devices needs --backend torch-sharded")
     if args.k_levels:
         if args.score_only:
             p.error("--k-levels does not combine with --score-only")
@@ -318,7 +334,7 @@ def _run(p, args) -> int:
                weights=args.weights, alpha=args.alpha,
                comm_volume=not args.no_comm_volume, **opts)
     # the manifest records the backend asked for; this event what runs
-    obs.event("backend_resolved", backend="torch", auto=False)
+    obs.event("backend_resolved", backend=args.backend, auto=False)
     t0 = time.perf_counter()
     try:
         with _profiled(args.profile_dir, device):
@@ -416,12 +432,18 @@ def _replay(args, k: int, run: dict):
     --no-comm-volume), as the reference's replay."""
     from sheep_tpu_torch import incremental
     from sheep_tpu_torch.backends.torch_backend import TorchBackend
+    from sheep_tpu_torch.backends.torch_sharded_backend import \
+        TorchShardedBackend
     from sheep_tpu_torch.io.deltalog import DeltaLogReader
     from sheep_tpu_torch.io.edgestream import open_input
 
     opts = dict(run)
     weights, comm_volume = opts.pop("weights"), opts.pop("comm_volume")
-    be = TorchBackend(**opts)
+    if opts.pop("backend", "torch") == "torch-sharded":
+        be = TorchShardedBackend(**opts)
+    else:
+        opts.pop("n_devices", None)
+        be = TorchBackend(**opts)
     with open_input(args.input, n_vertices=args.num_vertices) as es:
         state, _ = incremental.begin_incremental(
             es, k, backend=be, weights=weights, comm_volume=False)
@@ -688,6 +710,37 @@ def _parse_warm_schedule(spec: str, parser) -> tuple:
             parser.error(f"--warm-schedule: R and L must be >= 1 in {part!r}")
         out.append((rounds, levels))
     return tuple(out)
+
+
+def _sharded_options(parser, args, opts: dict) -> None:
+    """Check the flags against --backend torch-sharded and add its
+    keywords to ``opts``: the sharded build takes the batched dispatch's
+    knobs, not the per-segment driver's tail strategies or the staging
+    ring, and does not run the hierarchy or score a map."""
+    bad = [flag for flag, on in (
+        ("--k-levels", args.k_levels), ("--auto-recipe", args.auto_recipe),
+        ("--score-only", args.score_only),
+        ("--host-tail-threshold", args.host_tail_threshold is not None),
+        ("--carry-tail", args.carry_tail),
+        ("--tail-overlap", args.tail_overlap),
+        ("--stale-reuse", args.stale_reuse is not None),
+        ("--h2d-ring", args.h2d_ring is not None),
+        ("--no-cache-chunks", args.no_cache_chunks)) if on]
+    if bad:
+        parser.error(f"{', '.join(bad)} not supported with --backend "
+                     f"torch-sharded")
+    if args.n_devices is not None:
+        if args.n_devices < 1:
+            parser.error("--n-devices must be >= 1")
+        if args.device == "cpu":
+            from sheep_tpu_torch.parallel.mesh import force_cpu_devices
+
+            force_cpu_devices(args.n_devices)
+    # --no-carry-tail / --no-tail-overlap leave a False behind
+    for name in ("carry_tail", "tail_overlap"):
+        opts.pop(name, None)
+    opts["backend"] = "torch-sharded"
+    opts["n_devices"] = args.n_devices
 
 
 def _build_options(parser, args) -> dict:

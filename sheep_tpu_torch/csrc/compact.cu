@@ -1,11 +1,12 @@
 // compact_live: the live-pair compaction of the adaptive fixpoint driver,
 // the counterpart of compact_actives(..., dedup=True)
-// (sheep_tpu/ops/elim.py:1055), its two-key sort included.
+// (sheep_tpu/ops/elim.py:1055), its two-key sort included; with dedup 0,
+// of compact_actives(..., dedup=False), the sharded driver's.
 //
 // Input: the round's (lo, hi) pairs, int32, both in [0, n]. Output:
 // out_lo, out_hi [size]: the pairs that are live (lo != n) and the first
-// of their run of equal pairs, in ascending (lo, hi) order, then (n, n) up
-// to size. A pair past size is dropped, as jnp.nonzero(..., size=size)
+// of their run of equal pairs (every pair with dedup 0), in ascending
+// (lo, hi) order, then (n, n) up to size. A pair past size is dropped, as jnp.nonzero(..., size=size)
 // drops it; the driver sizes size above the live count.
 //
 // Each pair is one key lo << b | hi, b the bits of n, so the keys sort
@@ -34,9 +35,9 @@
 //            the staged keys in runs. Tiles of kTile keys, or of a
 //            half or a quarter of that where one wave of blocks takes
 //            them all.
-//   unique   the sorted keys' first-of-run ones (all are live) written at
-//            their rank below size, the ranks by the same look-back (a
-//            warp reads 32 tiles' words at once).
+//   unique   the sorted keys' first-of-run ones (all are live; every key
+//            with dedup 0) written at their rank below size, the ranks by
+//            the same look-back (a warp reads 32 tiles' words at once).
 // Bound by bytes: lo read (4 B a slot), the 32 B sectors of hi that hold a
 // live slot, and the outputs written (8 B a slot of size). On top: the live keys written by the filter, read and
 // written by each sort pass, read by the compaction (8 B each time; 2b =
@@ -360,12 +361,12 @@ __device__ void pass_tile(const uint64_t* __restrict__ in,
   __syncthreads();  // staged and the tables are read
 }
 
-// One tile of the sorted keys: the first of each run (all are live)
-// written at its rank among them, if below size; the ranks of earlier
-// tiles by look-back.
+// One tile of the sorted keys: the first of each run (all are live; each
+// key without dedup) written at its rank among them, if below size; the
+// ranks of earlier tiles by look-back.
 template <int kIt>
 __device__ void unique_tile(const uint64_t* __restrict__ keys, int b,
-                            int64_t L, int64_t t, uint64_t* look,
+                            int dedup, int64_t L, int64_t t, uint64_t* look,
                             int32_t* __restrict__ out_lo,
                             int32_t* __restrict__ out_hi, int64_t size,
                             PassSmem& sm) {
@@ -383,7 +384,7 @@ __device__ void unique_tile(const uint64_t* __restrict__ keys, int b,
     key[it] = 0;
     if (i < L) {
       key[it] = keys[i];
-      k = i == 0 || keys[i - 1] != key[it];
+      k = !dedup || i == 0 || keys[i - 1] != key[it];
     }
     votes[it] = __ballot_sync(kFull, k);
     kept += __popc(votes[it]);
@@ -424,7 +425,7 @@ compact_kernel(const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
                uint64_t* __restrict__ keys_a, uint64_t* __restrict__ keys_b,
                int32_t* __restrict__ ctl, uint64_t* __restrict__ look,
                int64_t look_stride, int32_t* __restrict__ out_lo,
-               int32_t* __restrict__ out_hi, int64_t size) {
+               int32_t* __restrict__ out_hi, int64_t size, int dedup) {
   __shared__ PassSmem sm;
   cg::grid_group grid = cg::this_grid();
   int32_t* count = reinterpret_cast<int32_t*>(sm.staged);
@@ -480,11 +481,14 @@ compact_kernel(const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
   uint64_t* words = look + passes * look_stride;
   for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
     if (items == 4)
-      unique_tile<4>(sorted, b, L, t, words, out_lo, out_hi, size, sm);
+      unique_tile<4>(sorted, b, dedup, L, t, words, out_lo, out_hi, size,
+                     sm);
     else if (items == 8)
-      unique_tile<8>(sorted, b, L, t, words, out_lo, out_hi, size, sm);
+      unique_tile<8>(sorted, b, dedup, L, t, words, out_lo, out_hi, size,
+                     sm);
     else
-      unique_tile<kItems>(sorted, b, L, t, words, out_lo, out_hi, size, sm);
+      unique_tile<kItems>(sorted, b, dedup, L, t, words, out_lo, out_hi,
+                          size, sm);
   }
 }
 
@@ -506,15 +510,16 @@ extern "C" long long sheep_compact_look_stride(long long m) {
   return tiles * kRadix > 1 ? tiles * kRadix : 1;
 }
 
-// out_lo/out_hi [size] <- the live first-of-run pairs of (lo, hi) [m] in
-// ascending order, then (n, n): one cooperative launch of at most the
+// out_lo/out_hi [size] <- the live first-of-run pairs of (lo, hi) [m]
+// (every live pair with dedup 0) in ascending order, then (n, n): one
+// cooperative launch of at most the
 // blocks the card holds at once. Scratch: keys uint64 [2 max(m, 1)] (two
 // buffers), look uint64 [(passes + 1) * sheep_compact_look_stride(m)],
 // ctl int32 [sheep_compact_ctl_words()].
 extern "C" int sheep_compact_live(const void* lo, const void* hi, long long m,
                                   int n, int b, void* keys, void* look,
                                   void* ctl, void* out_lo, void* out_hi,
-                                  long long size, void* stream) {
+                                  long long size, int dedup, void* stream) {
   if (m < 0 || size < 0 || m > 0x7FFFFFFFLL || n < 0 || b < 1 || b > 31)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
@@ -534,7 +539,7 @@ extern "C" int sheep_compact_live(const void* lo, const void* hi, long long m,
   uint64_t* a = (uint64_t*)keys;
   uint64_t* z = a + (m > 0 ? m : 1);
   void* args[] = {(void*)&lo, (void*)&hi, &m64, &n, &b, &passes, &a, &z,
-                  &ctl, &look, &stride, &out_lo, &out_hi, &size64};
+                  &ctl, &look, &stride, &out_lo, &out_hi, &size64, &dedup};
   return (int)cudaLaunchCooperativeKernel((const void*)compact_kernel,
                                           dim3((unsigned)blocks),
                                           dim3(kThreads), args, 0,

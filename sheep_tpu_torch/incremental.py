@@ -206,11 +206,15 @@ def begin_incremental(input_or_stream, ks, backend=None,
     """Build the base partition and return ``(state, result)``.
     ``input_or_stream`` is anything :func:`open_input` takes (a ``delta:``
     spec resumes at the log's last epoch) or an open stream; ``backend`` a
-    :class:`~sheep_tpu_torch.backends.torch_backend.TorchBackend`, or None
-    (or ``"torch"``) for one made from ``opts`` (``device`` and the
-    constructor's other keywords). The state's ``alpha`` is the backend's,
-    as the reference takes it."""
+    :class:`~sheep_tpu_torch.backends.torch_backend.TorchBackend` or a
+    :class:`~sheep_tpu_torch.backends.torch_sharded_backend.
+    TorchShardedBackend`, or a name, ``"torch"`` (also None) or
+    ``"torch-sharded"``, for one made from ``opts`` (``device``,
+    ``n_devices`` and the constructor's other keywords). The state's
+    ``alpha`` is the backend's, as the reference takes it."""
     from sheep_tpu_torch.backends.torch_backend import TorchBackend
+    from sheep_tpu_torch.backends.torch_sharded_backend import \
+        TorchShardedBackend
     from sheep_tpu_torch.io.edgestream import open_input
 
     if isinstance(ks, int):
@@ -224,9 +228,12 @@ def begin_incremental(input_or_stream, ks, backend=None,
         stream = input_or_stream
     if backend is None or backend == TorchBackend.name:
         be = TorchBackend(**opts)
+    elif backend == TorchShardedBackend.name:
+        be = TorchShardedBackend(**opts)
     elif isinstance(backend, str):
         raise ValueError(f"unknown backend {backend!r}; the port has "
-                         f"{TorchBackend.name!r}")
+                         f"{TorchBackend.name!r} and "
+                         f"{TorchShardedBackend.name!r}")
     else:
         be = backend
     if not getattr(be, "supports_incremental", False):
@@ -506,12 +513,15 @@ def _survivor_arcs_from(state: PartitionState, changed: np.ndarray) -> tuple:
     return src, dst
 
 
-def _rescore_incremental(state: PartitionState, assigns: dict, w) -> dict:
+def _rescore_incremental(state: PartitionState, assigns: dict, w,
+                         backend=None) -> dict:
     """The O(delta) scored refresh: the accumulators carry the multiset's
     change already, so only the moves remain; the arcs of the vertices
     whose part moved are rescored, a k. Returns ``{k: (cut, total,
     balance, None)}`` as a full pass does, the balance from the same
-    ``part_balance`` call."""
+    ``part_balance`` call. A backend with ``_move_rescore`` (the sharded
+    one) rescores every moved k at once over its shards, counted in
+    ``score_distributed``."""
     from sheep_tpu_torch.core import pure
     from sheep_tpu_torch.ops.refine import move_rescore_host
 
@@ -524,8 +534,18 @@ def _rescore_incremental(state: PartitionState, assigns: dict, w) -> dict:
     changed = np.flatnonzero(union)
     if len(changed):
         src, dst = _survivor_arcs_from(state, changed)
-        for k in assigns:
-            if masks[k].any():
+        hook = getattr(backend, "_move_rescore", None)
+        ks_m = [k for k in assigns if masks[k].any()]
+        if hook is not None and ks_m:
+            deltas = hook(src, dst, {k: prev[k] for k in ks_m},
+                          {k: assigns[k] for k in ks_m},
+                          {k: masks[k] for k in ks_m})
+            for k in ks_m:
+                cut[k] += deltas[k]
+            state.stats["score_distributed"] = \
+                state.stats.get("score_distributed", 0) + 1
+        else:
+            for k in ks_m:
                 cut[k] += move_rescore_host(src, dst, prev[k], assigns[k],
                                             masks[k])
     out = {}
@@ -619,7 +639,7 @@ def refresh(backend, state: PartitionState, comm_volume: bool = False):
     t0 = time.perf_counter()
     sc = state._score
     if sc is not None and "prev" in sc and not comm_volume:
-        scored = _rescore_incremental(state, assigns, w)
+        scored = _rescore_incremental(state, assigns, w, backend=backend)
         state.stats["score_incremental"] = \
             state.stats.get("score_incremental", 0) + 1
         if os.environ.get("SHEEP_SCORE_AUDIT", "") not in ("", "0"):

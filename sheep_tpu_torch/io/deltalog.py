@@ -591,10 +591,11 @@ class DeltaLogStream:
             return None
         return base + len(self.adds)
 
-    def clamp_chunk_edges(self, chunk_edges: int, floor: int = 1024) -> int:
+    def clamp_chunk_edges(self, chunk_edges: int, parts: int = 1,
+                          floor: int = 1024) -> int:
         from sheep_tpu_torch.io.edgestream import EdgeStream
 
-        return EdgeStream.clamp_chunk_edges(self, chunk_edges, floor)
+        return EdgeStream.clamp_chunk_edges(self, chunk_edges, parts, floor)
 
     def content_fingerprint(self) -> str:
         st = os.stat(self.path)

@@ -163,11 +163,15 @@ class EdgeStream:
             return (size + 1) // 4
         return size // self._pair_bytes()
 
-    def clamp_chunk_edges(self, chunk_edges: int, floor: int = 1024) -> int:
+    def clamp_chunk_edges(self, chunk_edges: int, parts: int = 1,
+                          floor: int = 1024) -> int:
+        """``chunk_edges`` shrunk for small streams by the O(1) size bound,
+        divided over ``parts`` shards (the reference's rule, so the chunk
+        sizes and the checkpoints' fingerprints agree)."""
         bound = self.num_edges_upper_bound
         if bound is None:
             return chunk_edges
-        return min(chunk_edges, max(floor, bound))
+        return min(chunk_edges, max(floor, -(-bound // parts)))
 
     @property
     def num_vertices(self) -> int:

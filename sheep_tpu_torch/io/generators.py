@@ -262,8 +262,9 @@ class _CounterHashStream:
     def num_vertices(self) -> int:
         return self._n
 
-    def clamp_chunk_edges(self, chunk_edges: int, floor: int = 1024) -> int:
-        return min(chunk_edges, max(floor, self._m))
+    def clamp_chunk_edges(self, chunk_edges: int, parts: int = 1,
+                          floor: int = 1024) -> int:
+        return min(chunk_edges, max(floor, -(-self._m // parts)))
 
     def num_chunks(self, chunk_edges: int) -> int:
         return -(-self._m // int(chunk_edges))

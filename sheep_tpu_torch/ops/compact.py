@@ -5,8 +5,11 @@
 ``compact_live(lo, hi, n, size)`` packs the live (lo, hi) constraints of
 a round's slots into ``size`` slots: duplicate pairs are dropped, the
 rest come in ascending (lo, hi) order, and the slots after them hold the
-inert (n, n). The fixpoint depends only on the set of live constraints,
-so a compacted buffer folds to the same forest. On CUDA tensors it runs
+inert (n, n). With ``dedup=False`` (the sharded driver's compaction,
+``compact_actives(..., dedup=False)``) the duplicates stay, so that the
+live counts after it, which steer the driver, are the reference's. The
+fixpoint depends only on the set of live constraints, so a compacted
+buffer folds to the same forest. On CUDA tensors it runs
 the kernels of ``csrc/compact.cu``: the live pairs packed as keys ``lo <<
 b | hi`` (b the bits of n, where the JAX package's ``lax.sort`` orders
 two keys), a stable radix sort of those keys alone, and the first pair
@@ -35,12 +38,13 @@ def _packed(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def compact_live_plain(lo: torch.Tensor, hi: torch.Tensor, n: int,
-                       size: int):
+                       size: int, dedup: bool = True):
     """The plain version of :func:`compact_live`."""
     key = torch.sort(_packed(lo, hi)).values
     slo, shi = (key >> 32).int(), (key & 0xFFFFFFFF).int()
     first = torch.ones_like(key, dtype=torch.bool)
-    first[1:] = key[1:] != key[:-1]
+    if dedup:
+        first[1:] = key[1:] != key[:-1]
     sel = ((slo != n) & first).nonzero().squeeze(1)[:size]
     out_lo = torch.full((size,), n, dtype=torch.int32, device=lo.device)
     out_hi = torch.full((size,), n, dtype=torch.int32, device=lo.device)
@@ -67,7 +71,7 @@ def _lib():
         lib = _build.load("compact")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sheep_compact_live.argtypes = [p, p, ll, i, i, p, p, p, p, p, ll,
-                                           p]
+                                           i, p]
         lib.sheep_compact_live.restype = i
         lib.sheep_compact_passes.argtypes = [i]
         lib.sheep_compact_passes.restype = i
@@ -102,10 +106,12 @@ def _ctl(dev: torch.device, stream: int) -> torch.Tensor:
     return _CTL[key]
 
 
-def compact_live(lo: torch.Tensor, hi: torch.Tensor, n: int, size: int):
+def compact_live(lo: torch.Tensor, hi: torch.Tensor, n: int, size: int,
+                 dedup: bool = True):
     """``(out_lo, out_hi)`` int32[size]: the distinct live pairs of the
-    1-D slots (lo, hi) in ascending order, then (n, n); pairs past
-    ``size`` are dropped (the caller sizes it above the live count).
+    1-D slots (lo, hi) (all of them without ``dedup``) in ascending order,
+    then (n, n); pairs past ``size`` are dropped (the caller sizes it
+    above the live count).
     Entries must lie in [0, n], lo == n only on a dead slot (n, n)."""
     for name, t in (("lo", lo), ("hi", hi)):
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
@@ -116,7 +122,7 @@ def compact_live(lo: torch.Tensor, hi: torch.Tensor, n: int, size: int):
     if not 0 <= n < 2**31 or size < 0 or len(lo) >= 2**31:
         raise ValueError("compact_live: n, size or the slots out of range")
     if lo.device.type == "cpu":
-        return compact_live_plain(lo, hi, n, size)
+        return compact_live_plain(lo, hi, n, size, dedup)
     if lo.device.type != "cuda":
         raise ValueError(f"compact_live: unsupported device {lo.device}")
     lib = _lib()
@@ -132,7 +138,8 @@ def compact_live(lo: torch.Tensor, hi: torch.Tensor, n: int, size: int):
         _check(lib, lib.sheep_compact_live(
             lo.data_ptr(), hi.data_ptr(), m, n, b, keys.data_ptr(),
             look.data_ptr(), _ctl(dev, stream).data_ptr(),
-            out_lo.data_ptr(), out_hi.data_ptr(), size, stream),
+            out_lo.data_ptr(), out_hi.data_ptr(), size, int(bool(dedup)),
+            stream),
             "compact_live launch")
     LAUNCHES["compact_live"] += 1
     return out_lo, out_hi

@@ -20,9 +20,10 @@ def init_degrees(n: int, device) -> torch.Tensor:
 def degree_chunk(deg: torch.Tensor, edges: torch.Tensor,
                  n: int) -> torch.Tensor:
     """Add the endpoint counts of one (C, 2) chunk into ``deg``
-    (int64[n+1]) in place, and return it."""
+    (int64[n+1], or the sharded driver's int32 partials) in place, and
+    return it."""
     idx = edges.reshape(-1).long().clamp(0, n)
-    return deg.index_add_(0, idx, torch.ones_like(idx))
+    return deg.index_add_(0, idx, torch.ones_like(idx, dtype=deg.dtype))
 
 
 # The quality advisor (the reference's, ``sheep_tpu/ops/degrees.py:39``).

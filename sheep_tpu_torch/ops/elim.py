@@ -178,11 +178,22 @@ def batch_segment_fixpoint(P: torch.Tensor, loB: torch.Tensor,
         batch_rounds = 32 * N
     if state is None:
         state = fixpoint.new_state(batch_rounds, P.device)
-    body = _pos_round_body(n, lift_levels, descent)
-    for _ in range(batch_rounds):
-        body(loB, hiB, P, state, batch_rounds)
+    _enqueue_rounds(_pos_round_body(n, lift_levels, descent), loB, hiB, P,
+                    state, batch_rounds)
     sv = fixpoint.exec_finish(loB, hiB, state, n)
     return loB, hiB, P, sv
+
+
+def _enqueue_rounds(body, loB, hiB, P, state, budget: int) -> None:
+    """``budget`` rounds of ``body`` on one execution. On CUDA every
+    round is enqueued: a stopped execution's launches write nothing, and
+    reading its state would wait for the card. On the CPU the state is
+    read for free, so the loop ends with the execution."""
+    on_cpu = P.device.type == "cpu"
+    for _ in range(budget):
+        if on_cpu and fixpoint.stopped(state):
+            return
+        body(loB, hiB, P, state, budget)
 
 
 def _resolve_batch_rounds(batch_rounds: int, segment_rounds: int,
@@ -230,10 +241,11 @@ class _Readback:
         self.state = torch.empty(state.shape, dtype=state.dtype,
                                  pin_memory=True)
         self.sv = torch.empty(sv.shape, dtype=sv.dtype, pin_memory=True)
-        self.state.copy_(state, non_blocking=True)
-        self.sv.copy_(sv, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record()
+        with torch.cuda.device(state.device):
+            self.state.copy_(state, non_blocking=True)
+            self.sv.copy_(sv, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
 
     def wait(self):
         """The host copies ``(state, sv)``, once the execution is done."""
@@ -479,8 +491,7 @@ def _run_segment(body, P: torch.Tensor, loP: torch.Tensor, hiP: torch.Tensor,
     the live slots left."""
     loB, hiB = loP.view(1, -1), hiP.view(1, -1)
     state = fixpoint.new_state(segment_rounds, P.device)
-    for _ in range(segment_rounds):
-        body(loB, hiB, P, state, segment_rounds)
+    _enqueue_rounds(body, loB, hiB, P, state, segment_rounds)
     sv = fixpoint.exec_finish(loB, hiB, state, n)
     # a one-row execution: done is 1 exactly when a round changed nothing
     return loP, hiP, P, torch.cat((1 - sv[:1], sv[1:3]))

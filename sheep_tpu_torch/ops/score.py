@@ -116,3 +116,68 @@ def edge_effect_host(edges, assignments: dict, n: int) -> tuple:
     cuts = {k: int(np.count_nonzero(a[uc] != a[vc]))
             for k, a in assignments.items()}
     return int(np.count_nonzero(valid)), cuts
+
+
+def move_rescore_sharded(src, dst, prevs: dict, news: dict, masks: dict,
+                         mesh) -> dict:
+    """The cut deltas ``{k: delta}`` of a batch of part moves, every k at
+    once, from per-shard partial sums reduced once over the ``mesh``: the
+    reference's ``move_rescore_sharded`` (``sheep_tpu/ops/score.py:227``),
+    the sharded twin of :func:`~sheep_tpu_torch.ops.refine.
+    move_rescore_host`. The arcs (src, dst) are padded with the sentinel
+    n to a power of two a shard (at least 2^10) and split into contiguous
+    blocks, one a shard; each shard sums, a k, the kept arcs' change of
+    cut where the far end did not move (not-both) and where it did
+    (both), and one ``psum`` adds the shards. The both-moved sum counts
+    each edge from both ends, so it is halved after the reduction, where
+    it is even. ``prevs`` / ``news`` / ``masks`` are ``{k: array[n]}``
+    for the ks whose assignment moved."""
+    import numpy as np
+
+    from sheep_tpu_torch.ops.elim import pow2_at_least
+    from sheep_tpu_torch.parallel.mesh import psum
+
+    ks = list(prevs)
+    out = {k: 0 for k in ks}
+    s = np.asarray(src)
+    d = np.asarray(dst)
+    if not len(s) or not ks:
+        return out
+    n = int(len(next(iter(prevs.values()))))
+    shards = len(mesh)
+    per = pow2_at_least(-(-len(s) // shards), floor=1 << 10)
+    su = np.full(per * shards, n, np.int64)
+    du = np.full(per * shards, n, np.int64)
+    su[:len(s)] = s
+    du[:len(d)] = d
+    kk = len(ks)
+    prev_t = np.zeros((kk, n + 1), np.int32)
+    new_t = np.zeros((kk, n + 1), np.int32)
+    mask_t = np.zeros((kk, n + 1), bool)
+    for i, k in enumerate(ks):
+        prev_t[i, :n] = prevs[k]
+        new_t[i, :n] = news[k]
+        mask_t[i, :n] = masks[k]
+    tables = {}
+    parts = []
+    for i, dev in enumerate(mesh):
+        if dev not in tables:
+            tables[dev] = tuple(torch.from_numpy(t).to(dev)
+                                for t in (prev_t, new_t, mask_t))
+        prev_, new_, mask_ = tables[dev]
+        s_l = torch.from_numpy(su[i * per:(i + 1) * per]).to(dev)
+        d_l = torch.from_numpy(du[i * per:(i + 1) * per]).to(dev)
+        keep = mask_[:, s_l]
+        both = mask_[:, d_l]
+        diff = (new_[:, s_l] != new_[:, d_l]).to(torch.int32) \
+            - (prev_[:, s_l] != prev_[:, d_l]).to(torch.int32)
+        dk = torch.where(keep, diff, 0)
+        s_nb = torch.where(both, 0, dk).sum(1, dtype=torch.int32)
+        s_b = torch.where(both, dk, 0).sum(1, dtype=torch.int32)
+        parts.append(torch.stack([s_nb, s_b], 1))
+    part = psum(parts)[0].cpu().numpy()
+    for i, k in enumerate(ks):
+        s_nb, s_b = int(part[i, 0]), int(part[i, 1])
+        assert s_b % 2 == 0
+        out[k] = s_nb + s_b // 2
+    return out

@@ -62,6 +62,25 @@ class _Entry:
         self.leases = 0
 
 
+def manager_from_env(stats: Optional[dict] = None,
+                     window_fraction: float = 0.25):
+    """A :class:`ResidencyManager` of an explicit ``SHEEP_CACHE_BYTES``
+    budget, or None when it is unset or not positive: the sharded
+    driver's opt-in, as the reference's (the single-device backend sizes
+    its budget from the card's memory; the sharded one keeps chunks on
+    the devices only where the operator set the budget)."""
+    import os
+
+    try:
+        budget = int(os.environ.get("SHEEP_CACHE_BYTES", "0") or "0")
+    except ValueError:
+        budget = 0
+    if budget <= 0:
+        return None
+    return ResidencyManager(budget, stats=stats,
+                            window_fraction=window_fraction)
+
+
 class ResidencyManager:
     """Byte-accounted device residency for streamed chunks.
 

@@ -219,9 +219,10 @@ def recover_device_loss(stats: dict, resume_chunk: int,
                         save_snapshot=None, device=None) -> bool:
     """The device-loss rung: save the build's snapshot first (the
     kill-and-resume contract holds from here even if the device stays
-    dead), then :func:`reinit_devices`, counted in
+    dead), then :func:`reinit_devices` on ``device`` (one device or a
+    sequence: a mesh's distinct devices), counted in
     ``device_loss_recoveries`` and written as the ``device_reinit`` event.
-    Returns whether the device answered."""
+    Returns whether every device answered."""
     if save_snapshot is not None:
         save_snapshot()
     alive = reinit_devices(device)
@@ -233,18 +234,24 @@ def recover_device_loss(stats: dict, resume_chunk: int,
 
 
 def reinit_devices(device=None) -> bool:
-    """Best-effort check of the device after a device-loss fault: wait for
-    its queued work, then run a one-element probe on it. True when it
-    answered (always on the CPU). A CUDA context that a sticky error has
-    killed stays dead in this process, and then this returns False; the
-    snapshot saved before it is the way back."""
+    """Best-effort check of the devices after a device-loss fault: wait
+    for each one's queued work, then run a one-element probe on it.
+    ``device`` is one device (None: the current CUDA device) or a sequence
+    of them. True when every one answered (always on the CPU). A CUDA
+    context that a sticky error has killed stays dead in this process, and
+    then this returns False; the snapshot saved before it is the way
+    back."""
     import torch
 
+    devices = device if isinstance(device, (list, tuple)) else [device]
     try:
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        probe = torch.ones(1, dtype=torch.int32, device=dev)
-        return int(probe.sum()) == 1
+        for d in devices:
+            dev = torch.device("cuda" if d is None else d)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            probe = torch.ones(1, dtype=torch.int32, device=dev)
+            if int(probe.sum()) != 1:
+                return False
+        return True
     except Exception:  # noqa: BLE001, the device's state is the answer
         return False

@@ -181,11 +181,38 @@ def test_port_imports_no_jax():
                    if "_build" not in p.relative_to(REPO).parts)
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    # the sharded build: the mesh, the pipeline, its backend, the watchdog
+    for part in ("parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/pipeline.py",
+                 "backends/torch_sharded_backend.py", "utils/watchdog.py"):
+        assert REPO / "sheep_tpu_torch" / part in files, part
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "sheep_tpu"), \
                 f"{path.relative_to(REPO)} imports {mod}"
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "
+                    "without a GPU")
+def test_sharded_entry_points_need_a_gpu():
+    """Without a GPU the sharded build raises unless the caller asks for
+    the CPU: no mesh of CPU shards stands in for the cards."""
+    from sheep_tpu_torch.backends.torch_sharded_backend import \
+        TorchShardedBackend
+    from sheep_tpu_torch.parallel import mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.shards_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.shards_mesh(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchShardedBackend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sheep_tpu_torch.partition("rmat-hash:8", 2,
+                                  backend="torch-sharded")
+    assert mesh.shards_mesh(device="cpu") == (torch.device("cpu"),) * \
+        mesh.device_count("cpu")
 
 
 def test_text_grammar_partition_matches(tmp_path):
