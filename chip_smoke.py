@@ -2,7 +2,7 @@
 """Smoke run of sheep_tpu_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sharded-cards   # phase 5l alone, >= 2 cards
+    python3 chip_smoke.py --sharded-cards   # phases 5l and 5m, >= 2 cards
 
 Phases, one result line each; any failure exits non-zero before the last
 line is printed:
@@ -93,6 +93,19 @@ line is printed:
      = 1, 3, 7, 64, 257 and 40,000, blocked off a bucket start, ragged
      and misaligned stats tiles, a chunk of invalid edges, a hub vertex;
      the planner's case table ``kernel_cases.plan_cases``);
+  3h. the vertex-sharded build's routed kernels (``csrc/routed.cu``,
+     ``ops/routed.py``, B14) against their plain versions on the card,
+     every output word equal, at bigv's s22 shapes (4 shards on the card,
+     n = 2^22, B = 1,048,577, Q = 2^20 requests a shard), one launch a
+     card serving all four: ``owned_gather`` at width Q with 100%, 10% and
+     1% of the requests live (the rest at the sentinel row n, 1% of the
+     live ones past the table) and at the squaring width B;
+     ``owned_scatter_min`` (three launches in stream order) with every
+     request on one row (a star's hub) and on a random forest's slots;
+     ``routed_step`` (the climb's rewrite, and the plain min of a
+     squaring, beside ``torch.amin``) and ``routed_round_end`` (with its
+     live words) on their answers; each timed beside its plain version,
+     with its bytes bound;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -242,10 +255,29 @@ line is printed:
      ``partition(..., backend="torch-sharded")`` on one shard (with more
      than one card visible, also both runs and the entry point on a mesh
      of every card, one shard a card; ``--sharded-cards`` runs this
-     phase alone): each forest, assignment, cut, total, comm volume and
+     phase and 5m alone): each forest, assignment, cut, total, comm volume and
      balance equal to phase 5's; the merge's mode and payload, rounds,
      host reads, executions, pass seconds, edges/s, each kernel's
      launches and peak memory;
+  5m. the vertex-sharded build (``TorchBigVBackend``, ``parallel/bigv.py``)
+     of phase 5's graph and k at the backend's defaults (chunk 2^20, jumps
+     128, 16 rounds a segment, L = 23, no hoisted stack) on 4 shards of
+     the card, each round one host call (``routed.CardRound``), the
+     segment loop under sync debug mode "error" with one read a segment:
+     forest, assignment, cut, total, comm volume and balance equal to
+     phase 5's, every routed kernel launched; its pass seconds, edges/s,
+     rounds, host reads, compactions, collective counts, launches and
+     peak memory; the launches of one lifting and one tail round; then
+     the hoisted stack (``hoist_bytes=1 << 30``) at rmat-hash:20:16:42
+     against the ``torch`` backend; then ``BIGV_PATHS_SPEC`` on 4 shards of
+     the card both ways, each round one ``CardRound`` and each round
+     through the collectives and the wrappers card after card (the path of
+     a mesh of several cards), equal to each other and to the ``torch``
+     backend, with both build times (``--sharded-cards``: one shard a
+     card, the rounds through the collectives, phase 5's graph for its
+     pace only, stopped after the first batch past ``BIGV_CARDS_BUDGET_S``
+     because all 16 batches do not fit a run, then ``BIGV_PATHS_SPEC`` in
+     full, equal to the ``torch`` backend);
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
@@ -256,6 +288,7 @@ line is printed:
      of 4d, ``hash_chunk``'s R-MAT mode from 5 and its SBM
      mode from 5f, and the refinement's kernels from 5g; the delta fold's
      launches (5j) and the sharded builds' (5l) beside the main path's;
+     the routed kernels with their 5m launches, at their 3h head cases;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -3580,11 +3613,402 @@ def sharded_s22(card, ref, counters) -> dict:
     return out
 
 
+# 3h and 5m: the vertex-sharded build's routed round at bigv's s22 shapes:
+# D shards on the one card, B rows a shard, Q requests a shard
+BIGV_SHARDS = 4
+BIGV_Q = 1 << 20
+# 5m runs this graph on 4 shards of the card both ways: each round one
+# CardRound, and each round through the collectives one card after
+# another, the path of several cards; --sharded-cards runs it one shard a
+# card, checked, after phase 5's graph for at most BIGV_CARDS_BUDGET_S:
+# there the host's ~60 calls a routed lookup, card after card, bound the
+# rounds so far below one card that s22's 16 batches do not fit a run
+# (PERF.md section 5), so that run only reports its pace
+BIGV_PATHS_SPEC = "rmat-hash:18:16:42"
+BIGV_CARDS_BUDGET_S = 60.0
+BIGV_KERNELS = ("owned_gather", "owned_scatter_min", "routed_step",
+                "routed_round_end")
+BIGV_SOURCE = "sheep_tpu_torch/csrc/routed.cu"
+# the JAX package's routed round (XLA under shard_map): the lookup's owner
+# side, the scatter-min's, and the requester's fold and round's end
+BIGV_REPLACES = {"owned_gather": "sheep_tpu/parallel/bigv.py:150",
+                 "owned_scatter_min": "sheep_tpu/parallel/bigv.py:164",
+                 "routed_step": "sheep_tpu/parallel/bigv.py:161",
+                 "routed_round_end": "sheep_tpu/parallel/bigv.py:263"}
+# the one PyTorch call that computes the same function, where there is one
+# (the plain-min fold of the answers is ``torch.amin(dim=0)``)
+BIGV_LIBRARY = {"routed_step": "torch.amin(rep, dim=0)"}
+
+
+def _bigv_table(n: int, D: int, g):
+    """Phase 3c's random position-space forest as a block-sharded (D, B)
+    table, the rows past n the sentinel."""
+    import torch
+
+    B = -(-(n + 1) // D)
+    t = torch.full((D * B,), n, dtype=torch.int32, device=g.device)
+    t[:n + 1] = synthetic_forest(n, 0, g)
+    return t.view(D, B)
+
+
+def _bigv_requests(n: int, rows: int, D: int, W: int, share: float, g):
+    """(D, W) requests: ``share`` of them uniform in [0, n), 1% of those
+    past the table (>= rows), the rest at the sentinel row n."""
+    import torch
+
+    dev = g.device
+    q = torch.randint(0, n, (D, W), device=dev, generator=g)
+    q[torch.rand(D, W, device=dev, generator=g) < 0.01] = rows + 7
+    q[torch.rand(D, W, device=dev, generator=g) >= share] = n
+    return q.int()
+
+
+def _exact(got, want, what: str) -> int:
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    check(err == 0, f"{what}: the kernel disagrees with its plain version")
+    return err
+
+
+def routed_kernels(card, n: int = 1 << 22, D: int = BIGV_SHARDS,
+                   Q: int = BIGV_Q) -> dict:
+    """Phase 3h: the routed round's kernels (``csrc/routed.cu``,
+    ``ops/routed.py``) against their plain versions on the card, every
+    output word equal, at bigv's s22 shapes (D shards on the card, n =
+    2^22, B = ceil((n + 1) / D), Q requests a shard), one launch serving
+    every shard: ``owned_gather`` at width Q with 100%, 10% and 1% of the
+    requests live (the others at the sentinel row, 1% of the live ones
+    past the table) and at the squaring width B (the table's own
+    entries); ``owned_scatter_min`` with every request on one row (a
+    star's hub) and on a random forest's slots; ``routed_step`` (the
+    climb's rewrite, and the plain min of a squaring) and
+    ``routed_round_end`` on the answers of those cases. Each timed beside
+    its plain version (and the one library call where there is one), with
+    its bytes bound: every input read once, every output written once,
+    and the 32-byte table sectors the owned requests reach. Returns
+    {kernel: [records]}."""
+    import torch
+
+    from sheep_tpu_torch.ops import routed
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    table = _bigv_table(n, D, g)
+    B = table.shape[1]
+    rows = D * B
+    out = {name: [] for name in BIGV_KERNELS}
+
+    def reached(q) -> int:
+        ok = (q >= 0) & (q < rows)
+        return 32 * sectors(q[ok].long())
+
+    def record(kernel, case, err, ms, plain_ms, nbytes, **extra):
+        rec = {"kernel": kernel, "case": case, "D": D, "B": B, "n": n,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": extra.pop("library_ms", None),
+               "library": BIGV_LIBRARY.get(kernel, "none"),
+               "bound_ms": gs.bound_ms(nbytes), "bound_by": "bytes",
+               "card": card, **extra}
+        print("routed " + json.dumps(rec), flush=True)
+        out[kernel].append(rec)
+        return rec
+
+    # owned_gather: lookups at width Q, the squaring at width B
+    gathers = {}
+    for case, q in [(f"Q-live{share:g}",
+                     _bigv_requests(n, rows, D, Q, share, g))
+                    for share in (1.0, 0.1, 0.01)] + [("B-square", table)]:
+        got = routed.owned_gather(table, 0, q, n)
+        want = routed.owned_answers_plain(table, 0, q, n)
+        err = _exact(got, want, f"owned_gather {case}")
+        W = q.shape[1]
+        record("owned_gather", case, err,
+               gs.time_ms(lambda: routed.owned_gather(table, 0, q, n)),
+               gs.time_ms(lambda: routed.owned_answers_plain(table, 0, q, n),
+                          iters=5),
+               4 * D * W + 4 * D * D * W + reached(q), width=W,
+               live=int((q < n).sum()))
+        gathers[case] = (q, got)
+
+    # owned_scatter_min: a star's hub, a random forest's slots
+    hub = 12345
+    star_lo = torch.full((D, Q), hub, dtype=torch.int32, device=dev)
+    star_val = torch.randint(hub + 1, n + 1, (D, Q), device=dev,
+                             generator=g, dtype=torch.int32)
+    slots = [synthetic_slots(n, Q, 1.0, g) for _ in range(D)]
+    f_lo = torch.stack([s[0] for s in slots])
+    f_hi = torch.stack([s[1] for s in slots])
+    scattered = {}
+    for case, lo, val in (("star-hub", star_lo, star_val),
+                          ("forest", f_lo, f_hi)):
+        T, ref = table.clone(), table.clone()
+        old, new = routed.owned_scatter_min(T, 0, lo, val, n)
+        w_old, w_new = routed.owned_scatter_min_plain(ref, 0, lo, val, n)
+        err = max(_exact(old, w_old, f"owned_scatter_min {case} old"),
+                  _exact(new, w_new, f"owned_scatter_min {case} new"),
+                  _exact(T, ref, f"owned_scatter_min {case} table"))
+        live = val < n
+        record("owned_scatter_min", case, err,
+               inplace_ms(lambda: T.copy_(table), lambda: routed.
+                          owned_scatter_min(T, 0, lo, val, n)),
+               inplace_ms(lambda: ref.copy_(table), lambda: routed.
+                          owned_scatter_min_plain(ref, 0, lo, val, n),
+                          iters=3),
+               4 * D * Q + 4 * int(live.sum()) + 2 * reached(lo)
+               + 2 * 4 * D * D * Q, launches_a_call=3)
+        scattered[case] = (lo, val, old, new)
+
+    # routed_step: the climb's rewrite on the lookups' answers (owner
+    # axis first: on one card the all-to-all's view is the answers
+    # themselves), the plain min on the squaring's
+    for case, (q, got) in gathers.items():
+        W = q.shape[1]
+        cur = q.clamp(0, n).contiguous()
+        hi = (cur + 1 + torch.randint(0, 64, cur.shape, device=dev,
+                                      generator=g, dtype=torch.int32)
+              ).clamp(max=n)
+        res = torch.empty_like(cur)
+        squaring = case == "B-square"
+        args = dict() if squaring else dict(hi=hi, cur=cur)
+        routed.routed_step(got, res, **args)
+        want, _ = routed.routed_step_plain(got, args.get("hi"),
+                                           args.get("cur"))
+        err = _exact(res, want, f"routed_step {case}")
+        extra = {}
+        if squaring:
+            extra["library_ms"] = gs.time_ms(lambda: torch.amin(got, 0))
+        record("routed_step", case, err,
+               gs.time_ms(lambda: routed.routed_step(got, res, **args)),
+               gs.time_ms(lambda: routed.routed_step_plain(
+                   got, args.get("hi"), args.get("cur")), iters=5),
+               4 * D * D * W + 4 * D * W * (1 if squaring else 3),
+               width=W, mode="min" if squaring else "climb", **extra)
+
+    # routed_round_end on the scatters' answers: the folded post-round
+    # parent, the climb's first step, then the round's end with the
+    # state's live words, each word against the plain version
+    for case, (lo, val, old, new) in scattered.items():
+        nw = routed.routed_fold_plain(new)
+        cur = torch.where(nw < val, nw, lo).contiguous()
+        lo0, hi0 = lo.clone(), val.clone()
+        st = routed.new_state(D, dev)
+        plo, phi = lo.clone(), val.clone()
+        routed.routed_round_end(old, nw, cur, plo, phi, n, 0, st)
+        want_lo, want_hi = routed.round_end_plain(
+            routed.routed_fold_plain(old), nw, cur, lo0, hi0, n)
+        err = max(_exact(plo, want_lo, f"routed_round_end {case} lo"),
+                  _exact(phi, want_hi, f"routed_round_end {case} hi"),
+                  _exact(st[routed.WORDS:],
+                         (want_lo != n).sum(1, dtype=torch.int64),
+                         f"routed_round_end {case} live words"))
+
+        def reset():
+            plo.copy_(lo0)
+            phi.copy_(hi0)
+            st.zero_()
+
+        record("routed_round_end", case, err,
+               inplace_ms(reset, lambda: routed.routed_round_end(
+                   old, nw, cur, plo, phi, n, 0, st)),
+               inplace_ms(reset, lambda: routed.round_end_plain(
+                   routed.routed_fold_plain(old), nw, cur, lo0, hi0, n),
+                   iters=5),
+               4 * D * D * Q + 4 * 4 * D * Q + 2 * 4 * D * Q + 8 * D,
+               live_out=int((want_lo != n).sum()))
+    return out
+
+
+def round_launches(D: int = BIGV_SHARDS, n: int = 1 << 22,
+                   Q: int = BIGV_Q) -> dict:
+    """The kernel launches of one lifting round (width Q, L = 23) and of
+    one tail round (width 2^13, jumps 128) of the vertex-sharded fold on
+    D shards of the card: a segment of two rounds less a segment of one,
+    on a random forest with every slot live (no round stops)."""
+    import torch
+
+    from sheep_tpu_torch.ops import routed
+    from sheep_tpu_torch.parallel.bigv import BigVPipeline
+    from sheep_tpu_torch.parallel.mesh import Mesh
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    # a chain through half the positions: a slot climbs a link a step, so
+    # no round retires every slot
+    B = -(-(n + 1) // D)
+    table = torch.full((D * B,), n, dtype=torch.int32, device="cuda")
+    table[:n + 1] = synthetic_forest(n, n // 2, g)
+    table = table.view(D, B)
+    out = {}
+    for label, W, lift in (("lift", Q, True),
+                           ("tail", BigVPipeline.TAIL_Q, False)):
+        counts = []
+        for seg in (1, 2):
+            pipe = BigVPipeline(n, W, Mesh(["cuda:0"] * D),
+                                segment_rounds=seg)
+            slots = [synthetic_slots(n, W, 1.0, g) for _ in range(D)]
+            lo = torch.stack([s[0] for s in slots])
+            hi = torch.stack([s[1] for s in slots])
+            routed.reset_launches()
+            r, live, _ = pipe.fold_segment([table.clone()], [lo], [hi],
+                                           lift)
+            check(r == seg and live > 0,
+                  f"{label}: a segment of {seg} rounds ran {r}, live {live}")
+            counts.append(dict(routed.LAUNCHES))
+        out[label] = {k: counts[1][k] - counts[0][k] for k in counts[0]}
+        out[label]["total"] = sum(out[label].values())
+    print("bigv-round-launches " + json.dumps(out), flush=True)
+    return out
+
+
+class _OutOfBudget(Exception):
+    """A budgeted build stopped between two batches (``bigv_s22``); the
+    build's retry takes it as fatal."""
+
+    fault_class = "fatal"
+
+
+def bigv_s22(card, ref, counters, mesh=None, label: str = "4-on-1",
+             spec: str = S22_SPEC, card_rounds: bool = True,
+             budget_s: float = 0.0) -> dict:
+    """Phase 5m: phase 5's graph and k through the vertex-sharded build
+    (``TorchBigVBackend`` at its defaults: chunk 2^20, jumps 128, 16 rounds
+    a segment, auto L, no hoisted stack) on ``mesh`` (default: BIGV_SHARDS
+    shards of the one card); the forest, assignment, cut, total, comm
+    volume and balance equal to phase 5's (``ref``), every routed kernel
+    launched. Prints its pass seconds, edges/s, rounds, host reads,
+    compactions, collective counts, launches and peak memory a card.
+    ``card_rounds=False`` drives a one-card mesh's rounds through the
+    collectives and the wrappers card after card, as several cards do.
+    A ``budget_s`` > 0 prints a line after each build batch (its seconds
+    since the start and its rounds) and stops the build after the first
+    batch that ends past it: the run then prints its pace as an
+    ``s22-bigv-partial`` line and checks nothing more."""
+    import torch
+
+    from sheep_tpu_torch.backends.torch_bigv_backend import \
+        TorchBigVBackend
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.ops import routed
+    from sheep_tpu_torch.parallel.mesh import Mesh
+
+    if mesh is None:
+        mesh = Mesh([torch.device("cuda", 0)] * BIGV_SHARDS)
+    devices = mesh.distinct()
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    for c in (*counters, routed):
+        c.reset_launches()
+    be = TorchBigVBackend(mesh=mesh, hoist_bytes=0)
+    make = be._pipe
+
+    def pipe_of(n, cs):
+        pipe = make(n, cs)
+        pipe.card_rounds = pipe.card_rounds and card_rounds
+        step = pipe.build_step
+
+        def logged(*args, **kw):
+            got = step(*args, **kw)
+            batches.append(got[1])
+            spent = time.perf_counter() - t0
+            print(f"bigv {label}: batch {len(batches)} done at "
+                  f"{spent:.2f}s, {got[1]} rounds", flush=True)
+            if spent > budget_s:
+                raise _OutOfBudget
+            return got
+
+        if budget_s > 0:
+            pipe.build_step = logged
+        return pipe
+
+    be._pipe = pipe_of
+    batches: list = []
+    t0 = time.perf_counter()
+    try:
+        with open_input(spec) as stream:
+            res = be.partition(stream, S22_K, keep_tree=True)
+    except _OutOfBudget:
+        rec = {"spec": spec, "k": S22_K, "shards": len(mesh),
+               "devices": [str(dev) for dev in devices], "label": label,
+               "budget_s": budget_s, "seconds": time.perf_counter() - t0,
+               "batches_done": len(batches),
+               "chunks_done": len(batches) * len(mesh),
+               "rounds_by_batch": batches, "rounds": sum(batches),
+               "card": card}
+        print("s22-bigv-partial " + json.dumps(rec), flush=True)
+        return rec
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in (*counters, routed)
+                for k, v in c.LAUNCHES.items()}
+    peaks = [torch.cuda.max_memory_allocated(dev) for dev in devices]
+    what = f"{spec} bigv {label}"
+    same_result(res, ref, what, rounds=False)
+    check(res.backend == "torch-bigv:cuda", f"{what}: backend {res.backend}")
+    for name in BIGV_KERNELS:
+        check(launches[name] > 0, f"{what}: no {name} launch")
+    d = res.diagnostics
+    rec = {"spec": spec, "k": S22_K, "shards": len(mesh),
+           "devices": [str(dev) for dev in devices], "label": label,
+           "card_rounds": card_rounds and len(devices) == 1,
+           "wall_s": wall,
+           "phase_s": res.phase_times,
+           "edges_per_s": res.total_edges / wall,
+           "build_edges_per_s": res.total_edges / res.phase_times["build"],
+           "chunk_edges": d["chunk_edges_effective"],
+           "fixpoint_rounds": d["fixpoint_rounds"],
+           "host_syncs": d["host_syncs"],
+           "compactions": d.get("compactions", 0),
+           "collective_ops": d["collective_ops"],
+           "collective_bytes": d["collective_bytes"],
+           "q_rounds": d["q_rounds"],
+           "launches": {k: launches[k] for k in BIGV_KERNELS
+                        + ("compact_live", "hash_chunk")},
+           "peak_mem_bytes": max(peaks), "peak_mem_bytes_by_device": peaks,
+           "card": card}
+    print("s22-bigv " + json.dumps(rec), flush=True)
+    return rec
+
+
+def bigv_hoisted(card) -> dict:
+    """Phase 5m's second run: the hoisted lifting stack (``hoist_bytes=1 <<
+    30``: L - 1 levels built once a segment) on rmat-hash:20:16:42, k = 64,
+    4 shards of the card, against the port's ``torch`` backend on the same
+    graph on the card: forest, assignment and scores equal."""
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.backends.torch_bigv_backend import \
+        TorchBigVBackend
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.parallel.mesh import Mesh
+
+    spec = "rmat-hash:20:16:42"
+    single = sheep_tpu_torch.partition(spec, 64, device="cuda",
+                                       keep_tree=True)
+    t0 = time.perf_counter()
+    with open_input(spec) as stream:
+        res = TorchBigVBackend(mesh=Mesh(["cuda:0"] * BIGV_SHARDS),
+                               hoist_bytes=1 << 30).partition(
+            stream, 64, keep_tree=True)
+    wall = time.perf_counter() - t0
+    same_result(res, single, f"{spec} bigv hoisted", rounds=False)
+    d = res.diagnostics
+    rec = {"spec": spec, "k": 64, "hoist_bytes": 1 << 30, "wall_s": wall,
+           "phase_s": res.phase_times, "edge_cut": res.edge_cut,
+           "fixpoint_rounds": d["fixpoint_rounds"],
+           "host_syncs": d["host_syncs"],
+           "collective_ops": d["collective_ops"],
+           "collective_bytes": d["collective_bytes"], "card": card}
+    print("s20-bigv-hoisted " + json.dumps(rec), flush=True)
+    return rec
+
+
 def sharded_cards() -> int:
-    """``chip_smoke.py --sharded-cards``: phase 5l alone on a host with
+    """``chip_smoke.py --sharded-cards``: phases 5l and 5m on a host with
     more than one card: the build, phase 5's single-device build as the
-    reference, then every 5l run, those on a mesh of every card included.
-    Needs two cards or more; prints the 5l lines and
+    reference, then every 5l run, those on a mesh of every card included,
+    and the vertex-sharded build one shard a card: phase 5's graph within
+    ``BIGV_CARDS_BUDGET_S`` (its pace), then ``BIGV_PATHS_SPEC`` checked.
+    Needs two cards or more; prints the 5l and 5m lines and
     {"ok": true, "mode": "sharded-cards", ...} last."""
     import torch
 
@@ -3622,6 +4046,20 @@ def sharded_cards() -> int:
     sharded = sharded_s22(card, ref, (gather, lift, fixpoint, compact,
                                       synth, refine))
     print(f"5l: {time.perf_counter() - t0:.1f}s", flush=True)
+    # 5m on every card, one shard a card: the routed round through the
+    # collectives (peer copies); phase 5's graph for its pace within the
+    # budget, then BIGV_PATHS_SPEC in full, equal to the torch backend
+    t0 = time.perf_counter()
+    from sheep_tpu_torch.parallel.mesh import shards_mesh
+
+    counters = (gather, lift, fixpoint, compact, synth, refine)
+    bigv_s22(card, ref, counters, mesh=shards_mesh(), label=f"cards{cards}",
+             budget_s=BIGV_CARDS_BUDGET_S)
+    small = sheep_tpu_torch.partition(BIGV_PATHS_SPEC, S22_K, device="cuda",
+                                      keep_tree=True)
+    bigv_s22(card, small, counters, mesh=shards_mesh(),
+             label=f"cards{cards}", spec=BIGV_PATHS_SPEC)
+    print(f"5m: {time.perf_counter() - t0:.1f}s", flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)
     print(json.dumps({"ok": True, "mode": "sharded-cards",
@@ -3736,6 +4174,9 @@ def main() -> int:
     synth_cases = hash_chunks(card)
     # 3g. the refinement's kernels against their plain versions
     refine_cases = refine_kernels(card)
+    # 3h. the vertex-sharded build's routed kernels against their plain
+    # versions
+    routed_cases = routed_kernels(card)
 
     # 4. the port on CUDA (auto depth: 2) against the port on the CPU at
     # depths 1 (its auto) and 2
@@ -4125,6 +4566,22 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded = sharded_s22(card, res, counters)
     print(f"5l: {time.perf_counter() - t0:.1f}s", flush=True)
+    # 5m. the vertex-sharded build: 4 shards on the card at the backend's
+    # defaults, equal to phase 5; a lifting and a tail round's launches;
+    # the hoisted stack at s20 against the torch backend
+    t0 = time.perf_counter()
+    bigv = bigv_s22(card, res, counters)
+    bigv["round_launches"] = round_launches()
+    bigv_hoisted(card)
+    # the one card's two round paths on one graph, against the torch
+    # backend: one CardRound a round, and the collectives card after card
+    small = sheep_tpu_torch.partition(BIGV_PATHS_SPEC, S22_K, device="cuda",
+                                      keep_tree=True)
+    for one_call in (True, False):
+        bigv_s22(card, small, counters, spec=BIGV_PATHS_SPEC,
+                 card_rounds=one_call,
+                 label="4-on-1" if one_call else "4-on-1-collectives")
+    print(f"5m: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b), stream_descent's the
@@ -4314,6 +4771,24 @@ def main() -> int:
         if name in SHARDED_PATH + SHARDED_SEGMENT_PATH:
             k["sharded_launches"] = {label: launched[name] for label,
                                      launched in sharded.items()}
+    # the routed round (B14): launches from 5m, each at its head case of
+    # 3h with the others beside it
+    for name, head in (("owned_gather", "Q-live1"),
+                       ("owned_scatter_min", "forest"),
+                       ("routed_step", "Q-live1"),
+                       ("routed_round_end", "forest")):
+        recs = routed_cases[name]
+        kernels.append(entry(
+            name, BIGV_SOURCE, BIGV_REPLACES[name],
+            next(r for r in recs if r["case"] == head),
+            bigv["launches"][name], replaces_kind="XLA program",
+            library_scope=BIGV_LIBRARY.get(name, "none"),
+            lift_round_launches=bigv["round_launches"]["lift"][name],
+            tail_round_launches=bigv["round_launches"]["tail"][name],
+            cases={r["case"]: {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")}
+                for r in recs},
+            cases_max_abs_err=max(r["max_abs_err"] for r in recs)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)

@@ -38,7 +38,7 @@ def partition_hierarchical(path, k_levels, **kw):
     return ph(path, k_levels, **kw)
 
 
-def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
+def partition(path, k, device=None, chunk_edges=None, dispatch_batch=0,
               comm_volume=True, weights="unit", alpha=1.0, keep_tree=False,
               inflight=0, h2d_ring=0, round_log=None, n_vertices=None,
               refine=0, refine_alpha=1.10, checkpointer=None, resume=False,
@@ -47,7 +47,9 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
     """Partition the graph at *path* (a file or a synthetic spec of
     :func:`sheep_tpu_torch.io.edgestream.open_input`) into *k* parts with
     the single-device build; returns a
-    :class:`~sheep_tpu_torch.types.PartitionResult`. ``dispatch_batch``
+    :class:`~sheep_tpu_torch.types.PartitionResult`. ``chunk_edges`` are
+    the edges a chunk (None, the default: the backend's own, 2^22, and
+    2^20 for ``torch-bigv``, as the reference's backends take theirs). ``dispatch_batch``
     (chunks an execution), ``inflight`` (the fixpoint pipeline's depth) and
     ``h2d_ring`` (file chunks staged ahead) of 0 are auto: N from the
     card's memory on CUDA and 1 on the CPU, D 2 on CUDA and 1 on the CPU;
@@ -76,7 +78,12 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
     ``build_opts`` and keeps chunks on the devices only under
     ``SHEEP_CACHE_BYTES``; it raises ``ValueError`` on ``round_log``, a
     non-zero ``h2d_ring`` or ``cache_chunks=False``, as the CLI refuses
-    their flags."""
+    their flags. ``backend="torch-bigv"`` runs the vertex-sharded build
+    (:class:`~sheep_tpu_torch.backends.torch_bigv_backend.
+    TorchBigVBackend`: every vertex table block-sharded over the
+    ``n_devices`` shards, one distributed forest); it takes ``jumps``,
+    ``hoist_bytes``, ``segment_rounds`` and ``lift_levels`` of
+    ``build_opts`` and refuses the batched dispatch's knobs as well."""
     from sheep_tpu_torch.io.edgestream import open_input
 
     with open_input(path, n_vertices=n_vertices) as stream:
@@ -91,7 +98,7 @@ def partition(path, k, device=None, chunk_edges=1 << 22, dispatch_batch=0,
             **build_opts)
 
 
-def _partition_stream(stream, k, device=None, chunk_edges=1 << 22,
+def _partition_stream(stream, k, device=None, chunk_edges=None,
                       dispatch_batch=0, comm_volume=True, weights="unit",
                       alpha=1.0, keep_tree=False, inflight=0, h2d_ring=0,
                       round_log=None, refine=0, refine_alpha=1.10,
@@ -99,9 +106,9 @@ def _partition_stream(stream, k, device=None, chunk_edges=1 << 22,
                       n_devices=None, **build_opts):
     """:func:`partition` over an open stream (shared with the hierarchy,
     whose parts' subgraphs are streams of their own)."""
-    if backend == "torch-sharded" and round_log is not None:
-        raise ValueError("round_log is not supported with "
-                         "backend='torch-sharded'")
+    if backend in SHARDED_BACKENDS and round_log is not None:
+        raise ValueError(f"round_log is not supported with "
+                         f"backend={backend!r}")
     be = _backend(device, chunk_edges, dispatch_batch, alpha, inflight,
                   h2d_ring, build_opts, backend, n_devices)
     kw = {} if be.name != "torch" else {"round_log": round_log}
@@ -114,7 +121,7 @@ def _partition_stream(stream, k, device=None, chunk_edges=1 << 22,
     return res
 
 
-def partition_multi(path, ks, device=None, chunk_edges=1 << 22,
+def partition_multi(path, ks, device=None, chunk_edges=None,
                     dispatch_batch=0, comm_volume=True, weights="unit",
                     alpha=1.0, inflight=0, h2d_ring=0, n_vertices=None,
                     backend="torch", n_devices=None, **build_opts):
@@ -132,7 +139,13 @@ def partition_multi(path, ks, device=None, chunk_edges=1 << 22,
                                   comm_volume=comm_volume)
 
 
-BACKENDS = ("torch", "torch-sharded")
+BACKENDS = ("torch", "torch-sharded", "torch-bigv")
+# the backends over a mesh of shards (``n_devices``)
+SHARDED_BACKENDS = ("torch-sharded", "torch-bigv")
+
+
+# the build options the vertex-sharded backend takes
+_BIGV_OPTS = ("jumps", "hoist_bytes", "segment_rounds", "lift_levels")
 
 
 def _backend(device, chunk_edges, dispatch_batch, alpha, inflight, h2d_ring,
@@ -142,6 +155,11 @@ def _backend(device, chunk_edges, dispatch_batch, alpha, inflight, h2d_ring,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port has "
                          f"{', '.join(BACKENDS)}")
+    if backend == "torch-bigv":
+        return _bigv_backend(device, chunk_edges, dispatch_batch, alpha,
+                             inflight, h2d_ring, build_opts, n_devices)
+    if chunk_edges is None:
+        chunk_edges = 1 << 22
     if backend == "torch-sharded":
         from sheep_tpu_torch.backends.torch_sharded_backend import \
             TorchShardedBackend
@@ -159,11 +177,34 @@ def _backend(device, chunk_edges, dispatch_batch, alpha, inflight, h2d_ring,
             alpha=alpha, inflight=inflight, device=device,
             n_devices=n_devices, **opts)
     if n_devices is not None:
-        raise ValueError("n_devices needs backend='torch-sharded'")
+        raise ValueError("n_devices needs backend='torch-sharded' or "
+                         "'torch-bigv'")
     return TorchBackend(chunk_edges=chunk_edges,
                         dispatch_batch=dispatch_batch, alpha=alpha,
                         device=device, inflight=inflight, h2d_ring=h2d_ring,
                         **build_opts)
+
+
+def _bigv_backend(device, chunk_edges, dispatch_batch, alpha, inflight,
+                  h2d_ring, build_opts, n_devices):
+    """The ``torch-bigv`` backend of :func:`partition`: the batched
+    dispatch's knobs, the staging ring and ``cache_chunks=False`` raise,
+    as the CLI refuses their flags."""
+    from sheep_tpu_torch.backends.torch_bigv_backend import TorchBigVBackend
+
+    opts = dict(build_opts)
+    bad = [name for name, on in (
+        ("dispatch_batch", dispatch_batch), ("inflight", inflight),
+        ("h2d_ring", h2d_ring),
+        ("cache_chunks=False", not opts.pop("cache_chunks", True)),
+        *((name, True) for name in opts if name not in _BIGV_OPTS)) if on]
+    if bad:
+        raise ValueError(f"{', '.join(bad)} not supported with "
+                         f"backend='torch-bigv'")
+    if chunk_edges is not None:
+        opts["chunk_edges"] = chunk_edges
+    return TorchBigVBackend(alpha=alpha, device=device, n_devices=n_devices,
+                            **opts)
 
 
 def comm_volume_of(assignment, stream, n, k, chunk_edges=1 << 22,

@@ -14,6 +14,9 @@
     python -m sheep_tpu_torch.cli --input base.bin64 --k 8 --deltas g.dlog
     python -m sheep_tpu_torch.cli --input rmat-hash:16 --k 8 \
         --backend torch-sharded --n-devices 8 --device cpu
+    python -m sheep_tpu_torch.cli --input rmat-hash:16 --k 8 \
+        --backend torch-bigv --n-devices 8 --jumps 64 --device cpu
+    python -m sheep_tpu_torch.cli --list-backends
 
 prints the phase times and scores, then one JSON result line per k (the
 same fields as the reference's) last. ``--trace`` appends the run's
@@ -30,6 +33,8 @@ import os
 import sys
 import time
 from contextlib import contextmanager
+
+from sheep_tpu_torch import BACKENDS, SHARDED_BACKENDS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -100,7 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the communication-volume count")
     p.add_argument("--num-vertices", type=int, default=None,
                    help="vertex count if known (skips a counting pass)")
-    p.add_argument("--chunk-edges", type=int, default=1 << 22)
+    p.add_argument("--chunk-edges", type=int, default=None,
+                   help="edges a streamed chunk (default 2^22; 2^20 with "
+                        "--backend torch-bigv)")
     p.add_argument("--dispatch-batch", type=int, default=None, metavar="N",
                    help="chunks folded by one fixpoint execution (0 = "
                         "auto, the default: sized from the card's memory "
@@ -142,6 +149,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "segment)")
     p.add_argument("--lift-levels", type=int, default=None,
                    help="binary-lifting depth of the climb (0 = auto)")
+    p.add_argument("--jumps", type=int, default=None,
+                   help="torch-bigv: single-step climbs a tail round "
+                        "(default 128)")
+    p.add_argument("--hoist-bytes", type=int, default=None,
+                   help="torch-bigv: a shard's device bytes for the "
+                        "lifting stack built once a segment (0 = squaring "
+                        "every round, the default)")
     p.add_argument("--h2d-ring", type=int, default=None, metavar="D",
                    help="file chunks staged to the device ahead of use "
                         "(0 = auto: 2 on CUDA, 1 on the CPU)")
@@ -157,16 +171,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "--checkpoint-dir")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
-    p.add_argument("--backend", choices=["torch", "torch-sharded"],
-                   default="torch",
-                   help="torch (default): the single-device build; "
+    p.add_argument("--backend", choices=list(BACKENDS), default=None,
+                   help="torch (the default): the single-device build; "
                         "torch-sharded: the sharded build, edge chunks "
                         "round-robin over --n-devices shards, their forests "
-                        "merged by a butterfly (one GPU a shard on CUDA, "
-                        "virtual shards with --device cpu)")
+                        "merged by a butterfly; torch-bigv: the "
+                        "vertex-sharded build, every vertex table "
+                        "block-sharded over --n-devices shards, one "
+                        "distributed forest (one GPU a shard on CUDA, "
+                        "virtual shards with --device cpu). Left out: "
+                        "torch, or torch-bigv on CUDA when the graph's "
+                        "vertices pass what the card's memory holds "
+                        "replicated")
     p.add_argument("--n-devices", type=int, default=None, metavar="D",
-                   help="with --backend torch-sharded: the shards (default: "
-                        "every GPU; with --device cpu, 1)")
+                   help="with --backend torch-sharded or torch-bigv: the "
+                        "shards (default: every GPU; with --device cpu, "
+                        "1)")
+    p.add_argument("--list-backends", action="store_true",
+                   help="list the backends and exit")
+    from sheep_tpu_torch import __version__
+
+    p.add_argument("--version", action="version",
+                   version=f"sheep_tpu_torch {__version__}")
     p.add_argument("--output", default=None,
                    help="write the partition map (.parts text or .pbin)")
     p.add_argument("--json", action="store_true",
@@ -211,7 +237,10 @@ def main(argv=None) -> int:
     tracer = obs.install(obs.Tracer(args.trace))
     root = None
     try:
-        obs.emit_manifest(tracer, config=vars(args), backend=args.backend,
+        # the backend asked for, torch when left out (the
+        # backend_resolved event says which runs)
+        obs.emit_manifest(tracer, config=vars(args),
+                          backend=args.backend or "torch",
                           device=device)
         if args.heartbeat_secs:
             tracer.heartbeat = obs.Heartbeat(
@@ -228,16 +257,23 @@ def main(argv=None) -> int:
 
 
 def _run(p, args) -> int:
+    if args.list_backends:
+        print(" ".join(BACKENDS))
+        return 0
     if args.input is None or (args.k is None and not args.score_only
                               and not args.k_levels):
         p.error("--input and --k are required")
     if args.resume and not args.checkpoint_dir:
         p.error("--resume requires --checkpoint-dir")
     opts = _build_options(p, args)
-    if args.backend == "torch-sharded":
+    if args.backend in SHARDED_BACKENDS:
         _sharded_options(p, args, opts)
-    elif args.n_devices is not None:
-        p.error("--n-devices needs --backend torch-sharded")
+    elif args.backend is not None:
+        _single_options(p, args)
+    # the vertex-sharded build's own default, unless given
+    chunk_given = args.chunk_edges is not None
+    if not chunk_given and args.backend != "torch-bigv":
+        args.chunk_edges = 1 << 22
     if args.k_levels:
         if args.score_only:
             p.error("--k-levels does not combine with --score-only")
@@ -330,11 +366,23 @@ def _run(p, args) -> int:
                   file=sys.stderr)
             args.refine_alpha = args.balance
     device = resolve_device(args.device)
+    # auto: the card's memory picked the vertex-sharded build (left out,
+    # the backend is otherwise torch, the default)
+    auto = False
+    if args.backend is None:
+        args.backend = _auto_backend(args, device)
+        auto = args.backend == "torch-bigv"
+        if auto:
+            if not chunk_given:
+                args.chunk_edges = None
+            _sharded_options(p, args, opts)
+        else:
+            _single_options(p, args)
     run = dict(device=device, chunk_edges=args.chunk_edges,
                weights=args.weights, alpha=args.alpha,
                comm_volume=not args.no_comm_volume, **opts)
     # the manifest records the backend asked for; this event what runs
-    obs.event("backend_resolved", backend=args.backend, auto=False)
+    obs.event("backend_resolved", backend=args.backend, auto=auto)
     t0 = time.perf_counter()
     try:
         with _profiled(args.profile_dir, device):
@@ -432,6 +480,7 @@ def _replay(args, k: int, run: dict):
     --no-comm-volume), as the reference's replay."""
     from sheep_tpu_torch import incremental
     from sheep_tpu_torch.backends.torch_backend import TorchBackend
+    from sheep_tpu_torch.backends.torch_bigv_backend import TorchBigVBackend
     from sheep_tpu_torch.backends.torch_sharded_backend import \
         TorchShardedBackend
     from sheep_tpu_torch.io.deltalog import DeltaLogReader
@@ -439,8 +488,13 @@ def _replay(args, k: int, run: dict):
 
     opts = dict(run)
     weights, comm_volume = opts.pop("weights"), opts.pop("comm_volume")
-    if opts.pop("backend", "torch") == "torch-sharded":
+    backend = opts.pop("backend", "torch")
+    if backend == "torch-sharded":
         be = TorchShardedBackend(**opts)
+    elif backend == "torch-bigv":
+        if opts["chunk_edges"] is None:
+            del opts["chunk_edges"]
+        be = TorchBigVBackend(**opts)
     else:
         opts.pop("n_devices", None)
         be = TorchBackend(**opts)
@@ -712,11 +766,52 @@ def _parse_warm_schedule(spec: str, parser) -> tuple:
     return tuple(out)
 
 
+def _single_options(parser, args) -> None:
+    """The flags of the sharded backends, refused by the single-device
+    build."""
+    bad = [flag for flag, on in (("--n-devices", args.n_devices),
+                                 ("--jumps", args.jumps),
+                                 ("--hoist-bytes", args.hoist_bytes))
+           if on is not None]
+    if bad:
+        parser.error(f"{', '.join(bad)} need --backend "
+                     + ("torch-bigv" if bad != ["--n-devices"] else
+                        "torch-sharded or torch-bigv"))
+
+
+def _auto_backend(args, device) -> str:
+    """--backend left out: ``torch``, or ``torch-bigv`` on CUDA when the
+    input's vertices pass ``membudget.max_vertices_for`` at 0.9 of the
+    card's memory and the chunk width (the reference's selection, with a
+    note on stderr). The vertex count, when counted here, is kept in
+    ``args.num_vertices`` for the run."""
+    if device.type != "cuda":
+        return "torch"
+    from sheep_tpu_torch.backends.torch_backend import device_memory_bytes
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.utils.membudget import max_vertices_for
+
+    with open_input(args.input, n_vertices=args.num_vertices) as es:
+        n = es.num_vertices
+    if args.num_vertices is None and not args.input.startswith("delta:"):
+        args.num_vertices = n
+    cs = args.chunk_edges or (1 << 22)
+    if n <= max_vertices_for(int(0.9 * device_memory_bytes(device)), cs):
+        return "torch"
+    print(f"note: V={n:,} exceeds the replicated-table ceiling for this "
+          f"card's memory; auto-selected the vertex-sharded torch-bigv "
+          f"backend", file=sys.stderr)
+    return "torch-bigv"
+
+
 def _sharded_options(parser, args, opts: dict) -> None:
-    """Check the flags against --backend torch-sharded and add its
-    keywords to ``opts``: the sharded build takes the batched dispatch's
-    knobs, not the per-segment driver's tail strategies or the staging
-    ring, and does not run the hierarchy or score a map."""
+    """Check the flags against --backend torch-sharded or torch-bigv and
+    add their keywords to ``opts``: the sharded build takes the batched
+    dispatch's knobs, the vertex-sharded build --jumps, --hoist-bytes,
+    --segment-rounds and --lift-levels; neither takes the per-segment
+    driver's tail strategies or the staging ring, runs the hierarchy or
+    scores a map."""
+    bigv = args.backend == "torch-bigv"
     bad = [flag for flag, on in (
         ("--k-levels", args.k_levels), ("--auto-recipe", args.auto_recipe),
         ("--score-only", args.score_only),
@@ -725,10 +820,23 @@ def _sharded_options(parser, args, opts: dict) -> None:
         ("--tail-overlap", args.tail_overlap),
         ("--stale-reuse", args.stale_reuse is not None),
         ("--h2d-ring", args.h2d_ring is not None),
-        ("--no-cache-chunks", args.no_cache_chunks)) if on]
+        ("--no-cache-chunks", args.no_cache_chunks),
+        ("--jumps", not bigv and args.jumps is not None),
+        ("--hoist-bytes", not bigv and args.hoist_bytes is not None),
+        ("--dispatch-batch", bigv and args.dispatch_batch is not None),
+        ("--inflight", bigv and args.inflight is not None),
+        ("--warm-schedule", bigv and args.warm_schedule is not None))
+        if on]
     if bad:
         parser.error(f"{', '.join(bad)} not supported with --backend "
-                     f"torch-sharded")
+                     f"{args.backend}")
+    for name, flag, low in (("jumps", "--jumps", 1),
+                            ("hoist_bytes", "--hoist-bytes", 0)):
+        value = getattr(args, name)
+        if value is not None:
+            if value < low:
+                parser.error(f"{flag} must be >= {low}")
+            opts[name] = value
     if args.n_devices is not None:
         if args.n_devices < 1:
             parser.error("--n-devices must be >= 1")
@@ -739,7 +847,7 @@ def _sharded_options(parser, args, opts: dict) -> None:
     # --no-carry-tail / --no-tail-overlap leave a False behind
     for name in ("carry_tail", "tail_overlap"):
         opts.pop(name, None)
-    opts["backend"] = "torch-sharded"
+    opts["backend"] = args.backend
     opts["n_devices"] = args.n_devices
 
 

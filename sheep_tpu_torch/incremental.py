@@ -208,11 +208,14 @@ def begin_incremental(input_or_stream, ks, backend=None,
     spec resumes at the log's last epoch) or an open stream; ``backend`` a
     :class:`~sheep_tpu_torch.backends.torch_backend.TorchBackend` or a
     :class:`~sheep_tpu_torch.backends.torch_sharded_backend.
-    TorchShardedBackend`, or a name, ``"torch"`` (also None) or
-    ``"torch-sharded"``, for one made from ``opts`` (``device``,
-    ``n_devices`` and the constructor's other keywords). The state's
-    ``alpha`` is the backend's, as the reference takes it."""
+    TorchShardedBackend` or a :class:`~sheep_tpu_torch.backends.
+    torch_bigv_backend.TorchBigVBackend`, or a name, ``"torch"`` (also
+    None), ``"torch-sharded"`` or ``"torch-bigv"``, for one made from
+    ``opts`` (``device``, ``n_devices`` and the constructor's other
+    keywords). The state's ``alpha`` is the backend's, as the reference
+    takes it."""
     from sheep_tpu_torch.backends.torch_backend import TorchBackend
+    from sheep_tpu_torch.backends.torch_bigv_backend import TorchBigVBackend
     from sheep_tpu_torch.backends.torch_sharded_backend import \
         TorchShardedBackend
     from sheep_tpu_torch.io.edgestream import open_input
@@ -230,10 +233,13 @@ def begin_incremental(input_or_stream, ks, backend=None,
         be = TorchBackend(**opts)
     elif backend == TorchShardedBackend.name:
         be = TorchShardedBackend(**opts)
+    elif backend == TorchBigVBackend.name:
+        be = TorchBigVBackend(**opts)
     elif isinstance(backend, str):
         raise ValueError(f"unknown backend {backend!r}; the port has "
-                         f"{TorchBackend.name!r} and "
-                         f"{TorchShardedBackend.name!r}")
+                         f"{TorchBackend.name!r}, "
+                         f"{TorchShardedBackend.name!r} and "
+                         f"{TorchBigVBackend.name!r}")
     else:
         be = backend
     if not getattr(be, "supports_incremental", False):

@@ -16,7 +16,10 @@ shards of one device by a copy on that device. ``ppermute`` gives a shard
 with no partner zeros, as ``lax.ppermute`` does; ``psum``, ``pmax`` and
 ``pmin`` reduce per-shard scalars or small vectors and hand every shard
 the result on its own device (shards of one device share the tensor; it
-is read, never written).
+is read, never written). ``all_gather`` and ``all_to_all`` (the
+vertex-sharded build's routing) give the shards of one device views of
+one buffer, and copy nothing when every shard lies on one device and the
+inputs are the rows of one buffer.
 """
 
 from __future__ import annotations
@@ -116,3 +119,65 @@ def pmax(xs: Sequence[torch.Tensor]) -> list:
 def pmin(xs: Sequence[torch.Tensor]) -> list:
     """``lax.pmin`` of per-shard tensors of one shape."""
     return _reduce(xs, lambda t: t.amin(0))
+
+
+def stacked_view(ts: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The tensors of ``ts`` as one (len(ts), ...) view when they are
+    consecutive equal-shaped contiguous blocks of one storage (the rows of
+    one buffer); None otherwise."""
+    t0 = ts[0]
+    step = t0.numel()
+    if not t0.is_contiguous():
+        return None
+    ptr = t0.untyped_storage().data_ptr()
+    for i, t in enumerate(ts):
+        if (t.device != t0.device or t.dtype != t0.dtype
+                or t.shape != t0.shape or not t.is_contiguous()
+                or t.untyped_storage().data_ptr() != ptr
+                or t.storage_offset() != t0.storage_offset() + i * step):
+            return None
+    return t0.as_strided((len(ts),) + tuple(t0.shape),
+                         (step,) + tuple(t0.stride()))
+
+
+def all_gather(xs: Sequence[torch.Tensor]) -> list:
+    """``lax.all_gather(x, SHARD_AXIS)``: every shard receives the (D, ...)
+    stack of all shards' tensors, on its own device. Shards of one device
+    share one buffer; when every shard lies on one device and the tensors
+    are the rows of one buffer, that buffer is the result and nothing is
+    copied."""
+    devs = {x.device for x in xs}
+    if len(devs) == 1:
+        view = stacked_view(xs)
+        if view is not None:
+            return [view] * len(xs)
+    on: dict = {}
+    for x in xs:
+        if x.device not in on:
+            on[x.device] = torch.stack([y.to(x.device) for y in xs])
+    return [on[x.device] for x in xs]
+
+
+def all_to_all(xs: Sequence[torch.Tensor]) -> list:
+    """``lax.all_to_all(x, SHARD_AXIS, 0, 0)``: shard j holds a (D, ...)
+    block whose row s goes to shard s; shard s receives the (D, ...) stack
+    of row s of every shard's block, on its own device. The results of one
+    device's shards are views of one (D, shards of the device, ...)
+    buffer; when every shard lies on one device and the blocks are the
+    rows of one (D, D, ...) buffer, the results are views of that buffer
+    and nothing is copied."""
+    d = len(xs)
+    devs = {x.device for x in xs}
+    if len(devs) == 1:
+        view = stacked_view(xs)
+        if view is not None:
+            return [view.select(1, s) for s in range(d)]
+    out: list = [None] * d
+    for dev in dict.fromkeys(x.device for x in xs):
+        mine = [s for s in range(d) if xs[s].device == dev]
+        # rows picked on the sender's device: no index crosses the host
+        buf = torch.stack([torch.stack([x[s] for s in mine]).to(dev)
+                           for x in xs])
+        for i, s in enumerate(mine):
+            out[s] = buf.select(1, i)
+    return out

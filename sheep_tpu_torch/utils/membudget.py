@@ -123,3 +123,13 @@ def degraded_dispatch(n: int, chunk_edges: int, dispatch_batch: int,
                      (batch, depth, ring // 2)))
     best = min(cand, key=lambda c: c[0])[1]
     return best if ring is not None else best[:2]
+
+
+def max_vertices_for(hbm_bytes: int, chunk_edges: int) -> int:
+    """Largest power-of-two vertex count whose build phase fits
+    ``hbm_bytes`` by :func:`build_phase_bytes` (the ceiling past which
+    the CLI picks the vertex-sharded build)."""
+    v = 1
+    while build_phase_bytes(2 * v, chunk_edges)["total_bytes"] <= hbm_bytes:
+        v *= 2
+    return v

@@ -182,9 +182,12 @@ def test_port_imports_no_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     # the sharded build: the mesh, the pipeline, its backend, the watchdog
+    # and the vertex-sharded build: its pipeline, kernels and backend
     for part in ("parallel/__init__.py", "parallel/mesh.py",
                  "parallel/pipeline.py",
-                 "backends/torch_sharded_backend.py", "utils/watchdog.py"):
+                 "backends/torch_sharded_backend.py", "utils/watchdog.py",
+                 "parallel/bigv.py", "ops/routed.py",
+                 "backends/torch_bigv_backend.py"):
         assert REPO / "sheep_tpu_torch" / part in files, part
     for path in files:
         for mod in _imports(path):
@@ -287,8 +290,11 @@ def test_default_chunk_edges_is_the_reference(monkeypatch):
         "chunk_edges"].default
     assert inspect.signature(TorchBackend.__init__).parameters[
         "chunk_edges"].default == ref
-    assert inspect.signature(sheep_tpu_torch.partition).parameters[
-        "chunk_edges"].default == ref
+    # partition's default (None) is each backend's own, the reference's
+    default = inspect.signature(sheep_tpu_torch.partition).parameters[
+        "chunk_edges"].default
+    assert sheep_tpu_torch._backend("cpu", default, 0, 1.0, 0, 0, {}) \
+        .chunk_edges == ref
     assert TorchBackend(device="cpu").chunk_edges == ref
     seen = {}
 
