@@ -100,12 +100,19 @@ line is printed:
      card serving all four: ``owned_gather`` at width Q with 100%, 10% and
      1% of the requests live (the rest at the sentinel row n, 1% of the
      live ones past the table) and at the squaring width B;
-     ``owned_scatter_min`` (three launches in stream order) with every
+     ``owned_scatter_min`` (answers mode: three launches in stream
+     order; card mode: one cooperative launch, beside the yardstick
+     ``torch.take`` + ``scatter_reduce_`` + ``torch.take``) with every
      request on one row (a star's hub) and on a random forest's slots;
      ``routed_step`` (the climb's rewrite, and the plain min of a
-     squaring, beside ``torch.amin``) and ``routed_round_end`` (with its
-     live words) on their answers; each timed beside its plain version,
-     with its bytes bound;
+     squaring, beside ``torch.amin``, also on rows that start off 16
+     bytes) and ``routed_round_end`` (with its live words) on their
+     answers; the card forms ``routed_climb`` (a tail round's whole jump
+     climb at 2^13 slots a shard on the random and a chain forest at
+     100%, 10% and 1% live, with its chain bound on the random forest; a
+     lifting round's first launch at width Q) and ``routed_square``
+     (width B, beside ``torch.take``); each timed beside its plain
+     version, with its bytes bound;
   4. the port on CUDA at its auto pipeline depth (2) against the port on
      the CPU at depths 1 and 2, rmat-hash:16:16:7, k=64: forest,
      assignment and scores exactly equal, and device rounds at depth 2;
@@ -262,12 +269,17 @@ line is printed:
   5m. the vertex-sharded build (``TorchBigVBackend``, ``parallel/bigv.py``)
      of phase 5's graph and k at the backend's defaults (chunk 2^20, jumps
      128, 16 rounds a segment, L = 23, no hoisted stack) on 4 shards of
-     the card, each round one host call (``routed.CardRound``), the
-     segment loop under sync debug mode "error" with one read a segment:
-     forest, assignment, cut, total, comm volume and balance equal to
-     phase 5's, every routed kernel launched; its pass seconds, edges/s,
-     rounds, host reads, compactions, collective counts, launches and
-     peak memory; the launches of one lifting and one tail round; then
+     the card, each round one host call (``routed.CardRound``: the
+     card-mode scatter, ``routed_climb`` and ``routed_square`` launches,
+     the round's end), the segment loop under sync debug mode "error"
+     with one read a segment: forest, assignment, cut, total, comm volume
+     and balance equal to phase 5's, its rounds, host reads, compactions,
+     q_rounds and collective counts equal to ``BIGV_S22_COUNTS``, every
+     routed kernel launched; its pass seconds, edges/s, launches by
+     kernel and peak memory; the launches of one lifting and one tail
+     round (at most 3 + 2L and 5, what ``CardRound`` counts, and the
+     runtime's calls of one round: one cooperative launch and the rest
+     kernel launches); then
      the hoisted stack (``hoist_bytes=1 << 30``) at rmat-hash:20:16:42
      against the ``torch`` backend; then ``BIGV_PATHS_SPEC`` on 4 shards of
      the card both ways, each round one ``CardRound`` and each round
@@ -3626,18 +3638,39 @@ BIGV_Q = 1 << 20
 # (PERF.md section 5), so that run only reports its pace
 BIGV_PATHS_SPEC = "rmat-hash:18:16:42"
 BIGV_CARDS_BUDGET_S = 60.0
-BIGV_KERNELS = ("owned_gather", "owned_scatter_min", "routed_step",
-                "routed_round_end")
+# the routed kernels of the path of several cards (and of the CPU), and
+# of one card that holds every shard (CardRound: no owned_gather or
+# routed_step in its rounds, but in the build's orient and score lookups)
+BIGV_CARDS_KERNELS = ("owned_gather", "owned_scatter_min", "routed_step",
+                      "routed_round_end")
+BIGV_KERNELS = BIGV_CARDS_KERNELS + ("routed_climb", "routed_square")
 BIGV_SOURCE = "sheep_tpu_torch/csrc/routed.cu"
 # the JAX package's routed round (XLA under shard_map): the lookup's owner
-# side, the scatter-min's, and the requester's fold and round's end
+# side, the scatter-min's, the requester's fold and round's end, the jump
+# climb of the fold program and its routed squaring
 BIGV_REPLACES = {"owned_gather": "sheep_tpu/parallel/bigv.py:150",
                  "owned_scatter_min": "sheep_tpu/parallel/bigv.py:164",
                  "routed_step": "sheep_tpu/parallel/bigv.py:161",
-                 "routed_round_end": "sheep_tpu/parallel/bigv.py:263"}
+                 "routed_round_end": "sheep_tpu/parallel/bigv.py:263",
+                 "routed_climb": "sheep_tpu/parallel/bigv.py:318",
+                 "routed_square": "sheep_tpu/parallel/bigv.py:348"}
 # the one PyTorch call that computes the same function, where there is one
-# (the plain-min fold of the answers is ``torch.amin(dim=0)``)
-BIGV_LIBRARY = {"routed_step": "torch.amin(rep, dim=0)"}
+# (the plain-min fold of the answers is ``torch.amin(dim=0)``, the
+# squaring on one card ``torch.take(t, t)``)
+BIGV_LIBRARY = {"routed_step": "torch.amin(rep, dim=0)",
+                "routed_square": "torch.take(t.view(-1), t)"}
+# the jumps of a tail round and the tail's width a shard (BigVPipeline's
+# defaults), the levels of a lifting round at s22
+BIGV_JUMPS = 128
+BIGV_TAIL_Q = 1 << 13
+BIGV_LEVELS = 23
+# 5m's counters at s22 on 4 shards of the card, as recorded in PERF.md
+# section 5 (the reference's cost model, so no redesign of a kernel may
+# move them)
+BIGV_S22_COUNTS = {"fixpoint_rounds": 14654, "host_syncs": 924,
+                   "compactions": 64, "q_rounds": 285645824,
+                   "collective_ops": 3699452,
+                   "collective_bytes": 625095529472}
 
 
 def _bigv_table(n: int, D: int, g):
@@ -3815,7 +3848,175 @@ def routed_kernels(card, n: int = 1 << 22, D: int = BIGV_SHARDS,
                    iters=5),
                4 * D * D * Q + 4 * 4 * D * Q + 2 * 4 * D * Q + 8 * D,
                live_out=int((want_lo != n).sum()))
+
+    # routed_step's min on answer rows that start off 16 bytes (a view one
+    # answer in: the scalar head, the vector body, the tail)
+    q, got = gathers["B-square"]
+    view = got[:, :, 1:]
+    res = torch.empty((D, B - 1), dtype=torch.int32, device=dev)
+    routed.routed_step(view, res)
+    want, _ = routed.routed_step_plain(view)
+    record("routed_step", "B-square-offset", _exact(
+               res, want, "routed_step B-square-offset"),
+           gs.time_ms(lambda: routed.routed_step(view, res)),
+           gs.time_ms(lambda: routed.routed_step_plain(view), iters=5),
+           4 * D * D * (B - 1) + 4 * D * (B - 1), width=B - 1, mode="min",
+           library_ms=gs.time_ms(lambda: torch.amin(view, 0)))
+
+    # the card forms (first 0, every shard on the card, so the owners'
+    # folded answer to q is the table's entry at q)
+    # a star's hub and a forest's slots at width Q (whose values seldom
+    # lower a row), values 1-40 above lo (which lower most rows), and a
+    # forest's slots at the tail's width
+    near = (f_lo + torch.randint(1, 41, f_lo.shape, device=dev,
+                                 generator=g, dtype=torch.int32)).clamp(
+        max=n).masked_fill_(f_lo == n, n)
+    tail = [synthetic_slots(n, BIGV_TAIL_Q, 1.0, g) for _ in range(D)]
+    card_forms(card, table, (("star-hub", star_lo, star_val),
+                             ("forest", f_lo, f_hi),
+                             ("forest-lowering", f_lo, near),
+                             ("forest-tail", torch.stack([s[0] for s in tail]),
+                              torch.stack([s[1] for s in tail]))),
+               record, reached)
     return out
+
+
+def card_forms(card, table, scatters, record, reached,
+               jumps: int = BIGV_JUMPS, TQ: int = BIGV_TAIL_Q,
+               Q: int = BIGV_Q) -> None:
+    """Phase 3h's card forms, each against its plain version, every output
+    word equal: ``owned_scatter_min``'s card mode (one cooperative launch,
+    the runtime's calls the witness) on ``scatters``' requests, beside the
+    yardstick of three library calls (``torch.take``, ``scatter_reduce_``,
+    ``torch.take``), with its bytes bound (lo and val read, the 32-byte
+    sectors of the table that the requests reach read and those of the
+    rows they lower written, the folded old written); ``routed_climb``
+    over a tail round's whole jump climb (the round's first step and
+    ``jumps - 1`` lookups of P, D x TQ slots) on the random and on a chain
+    forest at 100%, 10% and 1% live, and the first launch of a lifting
+    round (two steps, D x Q slots), with its bytes bound (16 bytes a slot
+    and each sector of the table that a step loads, the steps up to the
+    first that does not move) and, on the random forest, its chain bound
+    (``chain_floor``'s launch floor on the tail's grid and the longest
+    chain's dependent loads at the load latency of a random chase; on the
+    chain forest consecutive parents share sectors, so its loads are
+    faster than that latency and no chain bound is given);
+    ``routed_square`` at width B on both forests, beside ``torch.take(t,
+    t)``, bound by t read and out written."""
+    import torch
+
+    from sheep_tpu_torch.ops import routed
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    dev = table.device
+    D, B = table.shape
+    n = int(table.view(-1)[-1])
+    rows = D * B
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    for case, lo, val in scatters:
+        m = lo.numel()
+        T, ref, lib = (table.clone() for _ in range(3))
+        old = routed.owned_scatter_min(T, 0, lo, val, n, fold=True)
+        w_old, _ = routed.owned_scatter_min_plain(ref, 0, lo, val, n,
+                                                  fold=True)
+        lo64, flat, v = lo.long().view(-1), lib.view(-1), val.view(-1)
+
+        def yardstick():
+            torch.take(flat, lo64)
+            flat.scatter_reduce_(0, lo64, v, reduce="amin")
+
+        yardstick()
+        err = max(_exact(old, w_old, f"owned_scatter_min card-{case} old"),
+                  _exact(T, ref, f"owned_scatter_min card-{case} table"),
+                  _exact(lib, ref, f"the yardstick card-{case}"))
+        lowered = (T.view(-1) != table.view(-1)).nonzero().view(-1)
+        record("owned_scatter_min", f"card-{case}", err,
+               inplace_ms(lambda: T.copy_(table), lambda: routed.
+                          owned_scatter_min(T, 0, lo, val, n, fold=True)),
+               inplace_ms(lambda: ref.copy_(table), lambda: routed.
+                          owned_scatter_min_plain(ref, 0, lo, val, n,
+                                                  fold=True), iters=3),
+               8 * m + reached(lo) + 32 * sectors(lowered) + 4 * m,
+               launches_a_call=1, mode="card",
+               yardstick="torch.take + scatter_reduce_(amin)",
+               yardstick_ms=inplace_ms(lambda: lib.copy_(table), yardstick),
+               rows_lowered=int(lowered.numel()),
+               device=device_launches(lambda: routed.owned_scatter_min(
+                   T, 0, lo, val, n, fold=True),
+                   f"owned_scatter_min card-{case}", [COOPERATIVE]))
+
+    forests = {"random": table,
+               "chain": _bigv_forest(n, D, synthetic_forest(n, n // 2, g))}
+    yard = chain_floor(D * TQ, rows)
+    cases = [(f"tail-{kind}-live{share:g}", kind, TQ, jumps, share)
+             for kind in forests for share in (1.0, 0.1, 0.01)]
+    cases.append(("lift-random-live1", "random", Q, 2, 1.0))
+    for case, kind, W, steps, share in cases:
+        P = forests[kind]
+        slots = [synthetic_slots(n, W, share, g) for _ in range(D)]
+        lo = torch.stack([s[0] for s in slots])
+        hi = torch.stack([s[1] for s in slots])
+        runs = [(P, steps)]
+        out, new = torch.empty_like(lo), torch.empty_like(lo)
+        routed.routed_climb(lo, hi, runs, n, out, new=new)
+        want, first = routed.climb_runs_plain(lo, hi, runs, n)
+        err = max(_exact(out, want, f"routed_climb {case}"),
+                  _exact(new, first, f"routed_climb {case} new"))
+        # the table entries the steps load: each slot's steps up to the
+        # first that does not move it
+        cur, h = lo.view(-1).clone(), hi.view(-1)
+        going = torch.ones_like(cur, dtype=torch.bool)
+        loads = torch.zeros_like(cur)
+        reads = []
+        for _ in range(steps):
+            reads.append(cur[going])
+            loads += going.int()
+            cand = routed.take_plain(P, cur, n)
+            going = going & (cand < h) & (cand != cur)
+            cur = torch.where(going, cand, cur)
+        chain_loads = 1 + int(loads.max())
+        # the launch floor on the tail's grid: no more blocks than any
+        # case's (the kernel's grid is at most one wave); the load latency
+        # is a random chase's, so the chain bound holds on the random
+        # forest only
+        floor = yard["floor_ms"]
+        chain = dict(chain_bound_ms=floor + chain_loads *
+                     yard["load_latency_ms"], floor_ms=floor,
+                     load_latency_ms=yard["load_latency_ms"]) \
+            if kind == "random" else {}
+        record("routed_climb", case, err,
+               gs.time_ms(lambda: routed.routed_climb(
+                   lo, hi, runs, n, out, new=new)),
+               gs.time_ms(lambda: routed.climb_runs_plain(lo, hi, runs, n),
+                          iters=3),
+               16 * lo.numel() + 32 * sectors(torch.cat(reads).long()),
+               width=W, steps=steps, live=int((lo != n).sum()),
+               chain_loads=chain_loads,
+               steps_loaded_mean=float(loads.float().mean()), **chain)
+
+    for kind, t in forests.items():
+        sq = torch.empty_like(t)
+        routed.routed_square(t, n, sq)
+        flat, t64 = t.view(-1), t.view(-1).long()
+        record("routed_square", f"B-{kind}", _exact(
+                   sq, routed.routed_square_plain(t, n),
+                   f"routed_square {kind}"),
+               gs.time_ms(lambda: routed.routed_square(t, n, sq)),
+               gs.time_ms(lambda: routed.routed_square_plain(t, n), iters=5),
+               8 * rows, width=B,
+               library_ms=gs.time_ms(lambda: torch.take(flat, t64)))
+
+
+def _bigv_forest(n: int, D: int, forest):
+    """A position-space forest of n + 1 entries as a block-sharded (D, B)
+    table, the rows past n the sentinel."""
+    import torch
+
+    B = -(-(n + 1) // D)
+    t = torch.full((D * B,), n, dtype=torch.int32, device=forest.device)
+    t[:n + 1] = forest
+    return t.view(D, B)
 
 
 def round_launches(D: int = BIGV_SHARDS, n: int = 1 << 22,
@@ -3823,7 +4024,12 @@ def round_launches(D: int = BIGV_SHARDS, n: int = 1 << 22,
     """The kernel launches of one lifting round (width Q, L = 23) and of
     one tail round (width 2^13, jumps 128) of the vertex-sharded fold on
     D shards of the card: a segment of two rounds less a segment of one,
-    on a random forest with every slot live (no round stops)."""
+    on a random forest with every slot live (no round stops). Each must
+    be what ``CardRound.launches`` counts for its program
+    (``routed.round_launches``), at most 5 a tail round and 3 + 2L a
+    lifting round, and one round's runtime calls (``torch.profiler``) must
+    be one cooperative launch (the scatter) and that many less one
+    kernel launches."""
     import torch
 
     from sheep_tpu_torch.ops import routed
@@ -3833,10 +4039,7 @@ def round_launches(D: int = BIGV_SHARDS, n: int = 1 << 22,
     g = torch.Generator(device="cuda").manual_seed(31)
     # a chain through half the positions: a slot climbs a link a step, so
     # no round retires every slot
-    B = -(-(n + 1) // D)
-    table = torch.full((D * B,), n, dtype=torch.int32, device="cuda")
-    table[:n + 1] = synthetic_forest(n, n // 2, g)
-    table = table.view(D, B)
+    table = _bigv_forest(n, D, synthetic_forest(n, n // 2, g))
     out = {}
     for label, W, lift in (("lift", Q, True),
                            ("tail", BigVPipeline.TAIL_Q, False)):
@@ -3853,8 +4056,26 @@ def round_launches(D: int = BIGV_SHARDS, n: int = 1 << 22,
             check(r == seg and live > 0,
                   f"{label}: a segment of {seg} rounds ran {r}, live {live}")
             counts.append(dict(routed.LAUNCHES))
-        out[label] = {k: counts[1][k] - counts[0][k] for k in counts[0]}
-        out[label]["total"] = sum(out[label].values())
+        got = {k: counts[1][k] - counts[0][k] for k in counts[0]}
+        total = sum(got.values())
+        bufs = [[torch.empty_like(table)] for _ in range(2)] if lift \
+            else None
+        P = table.clone()
+        prog = [(step[0], *[t[0] for t in step[1:]])
+                for step in pipe._program([P], bufs, None)]
+        rnd = routed.CardRound(P, lo, hi, n, prog, routed.new_state(
+            D, "cuda"), 16)
+        check({k: v for k, v in got.items() if v} ==
+              {k: v for k, v in rnd.launches.items() if v},
+              f"{label} round: launches {got}, CardRound counts "
+              f"{rnd.launches}")
+        cap = 3 + 2 * pipe.lift_levels if lift else 5
+        check(total <= cap, f"{label} round: {total} launches > {cap}")
+        runtime = device_launches(rnd, f"{label} round",
+                                  [COOPERATIVE] + ["cudaLaunchKernel"]
+                                  * (total - 1))
+        out[label] = dict(got, total=total, cap=cap,
+                          runtime_calls=len(runtime["api"]))
     print("bigv-round-launches " + json.dumps(out), flush=True)
     return out
 
@@ -3943,12 +4164,17 @@ def bigv_s22(card, ref, counters, mesh=None, label: str = "4-on-1",
     what = f"{spec} bigv {label}"
     same_result(res, ref, what, rounds=False)
     check(res.backend == "torch-bigv:cuda", f"{what}: backend {res.backend}")
-    for name in BIGV_KERNELS:
+    one_call = card_rounds and len(devices) == 1
+    for name in BIGV_KERNELS if one_call else BIGV_CARDS_KERNELS:
         check(launches[name] > 0, f"{what}: no {name} launch")
     d = res.diagnostics
+    if spec == S22_SPEC and len(mesh) == BIGV_SHARDS:
+        for key, want in BIGV_S22_COUNTS.items():
+            check(d.get(key, 0) == want,
+                  f"{what}: {key} {d.get(key, 0)} != {want}")
     rec = {"spec": spec, "k": S22_K, "shards": len(mesh),
            "devices": [str(dev) for dev in devices], "label": label,
-           "card_rounds": card_rounds and len(devices) == 1,
+           "card_rounds": one_call,
            "wall_s": wall,
            "phase_s": res.phase_times,
            "edges_per_s": res.total_edges / wall,
@@ -3962,6 +4188,8 @@ def bigv_s22(card, ref, counters, mesh=None, label: str = "4-on-1",
            "q_rounds": d["q_rounds"],
            "launches": {k: launches[k] for k in BIGV_KERNELS
                         + ("compact_live", "hash_chunk")},
+           "launches_total": sum(launches[k] for k in BIGV_KERNELS
+                                 + ("compact_live",)),
            "peak_mem_bytes": max(peaks), "peak_mem_bytes_by_device": peaks,
            "card": card}
     print("s22-bigv " + json.dumps(rec), flush=True)
@@ -4772,21 +5000,28 @@ def main() -> int:
             k["sharded_launches"] = {label: launched[name] for label,
                                      launched in sharded.items()}
     # the routed round (B14): launches from 5m, each at its head case of
-    # 3h with the others beside it
+    # 3h with the others beside it (the scatter's answers mode, that of
+    # several cards, among them); the climb's chain bound and the
+    # scatter's yardstick of three library calls beside the head's
     for name, head in (("owned_gather", "Q-live1"),
-                       ("owned_scatter_min", "forest"),
-                       ("routed_step", "Q-live1"),
+                       ("owned_scatter_min", "card-forest"),
+                       ("routed_step", "B-square"),
+                       ("routed_climb", "tail-random-live1"),
+                       ("routed_square", "B-random"),
                        ("routed_round_end", "forest")):
         recs = routed_cases[name]
+        rec = next(r for r in recs if r["case"] == head)
         kernels.append(entry(
-            name, BIGV_SOURCE, BIGV_REPLACES[name],
-            next(r for r in recs if r["case"] == head),
+            name, BIGV_SOURCE, BIGV_REPLACES[name], rec,
             bigv["launches"][name], replaces_kind="XLA program",
             library_scope=BIGV_LIBRARY.get(name, "none"),
             lift_round_launches=bigv["round_launches"]["lift"][name],
             tail_round_launches=bigv["round_launches"]["tail"][name],
-            cases={r["case"]: {k: r[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms")}
+            **{k: rec[k] for k in ("chain_bound_ms", "yardstick_ms")
+               if k in rec},
+            cases={r["case"]: {k: r.get(k) for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms",
+                "chain_bound_ms", "yardstick_ms")}
                 for r in recs},
             cases_max_abs_err=max(r["max_abs_err"] for r in recs)))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,10 +26,14 @@ trees are merged. A fixpoint round, on every shard at once:
 
 A card holds the blocks of its shards as one (S, B) buffer (the shards of
 one device are consecutive in the mesh), and each routed kernel is one
-launch a card for all of them. On one card the collectives copy nothing:
-the gathered requests are the card's (D, W) buffer itself and the
-all-to-all hands each requester a view of the answers; across cards they
-are device copies.
+launch a card for all of them. Across cards the collectives are device
+copies. On one card that holds every shard its (D, B) buffer is the whole
+table, so the min over the owners' answers to a request is the table's
+own entry: a round there is one host call (``routed.CardRound``) of a
+cooperative scatter-min, ``routed_climb`` launches that read the card's
+tables (a tail round's whole jump climb in one), ``routed_square``
+launches for the squarings, and the round's end: 4 launches a tail round,
+2L + 2 a lifting round of L levels.
 
 The host drives the fixpoint in segments of at most ``segment_rounds``
 rounds: it enqueues the segment's whole budget of rounds, every kernel of
@@ -45,6 +49,7 @@ the next slice (``parallel/pipeline.py`` raises for it).
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Optional
@@ -84,7 +89,10 @@ class BigVPipeline:
     ``lift_levels`` levels (0: n.bit_length()). ``hoist_bytes``: the
     device bytes a shard may spend on a lifting stack built once a
     segment (``SHEEP_BIGV_HOIST_BYTES`` is the default's fallback, 0 the
-    per-round squaring)."""
+    per-round squaring). ``card_rounds``: each fixpoint round one
+    :class:`~sheep_tpu_torch.ops.routed.CardRound`, which needs one device
+    that holds every shard; None, the default, takes it on one CUDA card
+    (True on a one-device CPU mesh runs its plain version)."""
 
     # the compaction's floor and the width below which rounds climb by
     # jumps (the reference's constants)
@@ -94,7 +102,8 @@ class BigVPipeline:
     def __init__(self, n: int, chunk_edges: int, mesh, jumps: int = 128,
                  max_rounds: int = 1 << 20, segment_rounds: int = 16,
                  dedup_compact: bool = True, lift_levels: int = 0,
-                 hoist_bytes: Optional[int] = None):
+                 hoist_bytes: Optional[int] = None,
+                 card_rounds: Optional[bool] = None):
         self.mesh = Mesh(mesh)
         d = len(self.mesh)
         self.n = n
@@ -128,9 +137,12 @@ class BigVPipeline:
             else:
                 cards.append([dev, s, 1])
         self.cards = [tuple(c) for c in cards]
-        # one CUDA card holds every shard: a round is one CardRound
-        self.card_rounds = len(self.cards) == 1 and \
-            self.home.type == "cuda"
+        one = len(self.cards) == 1
+        if card_rounds and not one:
+            raise ValueError("card_rounds needs one device that holds "
+                             "every shard")
+        self.card_rounds = one and self.home.type == "cuda" \
+            if card_rounds is None else card_rounds
 
     # -- the collectives over the cards' buffers ---------------------------
     def _shards(self, blocks: list) -> list:
@@ -251,40 +263,48 @@ class BigVPipeline:
                 keys.append(torch.unique(got).to(self.home))
         return psum(parts)[0]
 
-    def _program(self, P: list, t_buf, stack) -> list:
-        """The climb of a round as (kind, per-card tables) steps:
-        ``jumps - 1`` lookups of P (tail); L lookups with a squaring into
-        ``t_buf`` between two (bulk); or P, the hoisted stack's levels,
-        then the levels past the cap squared each round from the deepest
-        hoisted table (``stack``, built once a segment)."""
+    def _program(self, P: list, bufs, stack) -> list:
+        """The climb of a round as steps over per-card tables: (CLIMB, t)
+        a lookup of t at the slots' cur and the rewrite below hi; (SQUARE,
+        src, dst) dst = src[src]. ``jumps - 1`` lookups of P (tail); L
+        lookups with a squaring between two (bulk); or P, the hoisted
+        stack's levels, then the levels past the cap squared each round
+        from the deepest hoisted table (``stack``, built once a segment).
+        The squarings alternate between the two ``bufs``, so none reads
+        the buffer it writes."""
         C, S = routed.CLIMB, routed.SQUARE
-        if t_buf is None:
+        if bufs is None:
             return [(C, P)] * (self.jumps - 1)
         if stack is None:
             prog, t = [], P
             for j in range(self.lift_levels):
                 prog.append((C, t))
                 if j < self.lift_levels - 1:
-                    prog.append((S, t))
-                    t = t_buf
+                    prog.append((S, t, bufs[j % 2]))
+                    t = bufs[j % 2]
             return prog
         prog = [(C, t) for t in [P] + stack]
         t = stack[-1]
-        for _ in range(self.hoist_levels + 1, self.lift_levels):
-            prog += [(S, t), (C, t_buf)]
-            t = t_buf
+        for j in range(self.lift_levels - 1 - self.hoist_levels):
+            prog += [(S, t, bufs[j % 2]), (C, bufs[j % 2])]
+            t = bufs[j % 2]
         return prog
 
     def _hoist(self, P) -> list:
         """The stale lifting stack of a segment: ``hoist_levels`` routed
-        squarings of the table."""
+        squarings of the table (on one card that holds every shard, each a
+        ``routed_square`` of the card's table)."""
         stack, t = [], P
         for _ in range(self.hoist_levels):
-            nxt = []
-            for rep, (dev, _, S) in zip(self._lookup(t, t), self.cards):
-                out = torch.empty((S, self.B), dtype=torch.int32, device=dev)
-                routed.routed_step(rep, out)
-                nxt.append(out)
+            if self.card_rounds:
+                nxt = [routed.routed_square(t[0], self.n)]
+            else:
+                nxt = []
+                for rep, (dev, _, S) in zip(self._lookup(t, t), self.cards):
+                    out = torch.empty((S, self.B), dtype=torch.int32,
+                                      device=dev)
+                    routed.routed_step(rep, out)
+                    nxt.append(out)
             stack.append(nxt)
             t = nxt
         return stack
@@ -296,45 +316,44 @@ class BigVPipeline:
         rounds after the segment stopped do nothing. Returns (rounds, live,
         max_live), the segment state's one read: the rounds run, the psum
         of the live slots after the last round, the pmax of a shard's.
-        With ``card_rounds`` (one CUDA card holds every shard) each round
-        is one :class:`~sheep_tpu_torch.ops.routed.CardRound`; otherwise
-        (several cards, or the CPU) the collectives move the requests and
-        answers between the cards."""
+        With ``card_rounds`` each round is one
+        :class:`~sheep_tpu_torch.ops.routed.CardRound`, which reads the
+        card's own table and moves no answers; otherwise the collectives
+        move the requests and answers between the cards."""
         n, d, seg = self.n, self.n_devices, self.segment_rounds
         st = [routed.new_state(d, dev) for dev, _, _ in self.cards]
         stack = self._hoist(P) if lift and self.hoist_levels else None
-        t_buf = [torch.empty((S, self.B), dtype=torch.int32, device=dev)
-                 for dev, _, S in self.cards] if lift else None
-        program = self._program(P, t_buf, stack)
+        bufs = [[torch.empty((S, self.B), dtype=torch.int32, device=dev)
+                 for dev, _, S in self.cards] for _ in range(2)] \
+            if lift else None
+        program = self._program(P, bufs, stack)
         for s, lo_c, (_, first, _) in zip(st, lo, self.cards):
             routed.count_live(lo_c, n, first, s)
         self._share_words(st)
         for s, (_, first, S) in zip(st, self.cards):
             routed.account(s, first, S, seg, start=True)
+        # on the CPU the host reads the state for free: the rounds after
+        # the stop are skipped there
+        cpu = self.home.type == "cpu"
         if self.card_rounds:
-            with torch.cuda.device(self.home):
-                rnd = routed.CardRound(
-                    P[0], lo[0], hi[0], n,
-                    [(kind, t[0]) for kind, t in program], st[0], seg,
-                    t_buf[0] if t_buf else None)
-                for _ in range(seg):
-                    rnd()
+            rnd = routed.CardRound(
+                P[0], lo[0], hi[0], n,
+                [(step[0], *[t[0] for t in step[1:]]) for step in program],
+                st[0], seg)
         else:
-            # on the CPU the host reads the state for free: the rounds
-            # after the stop are skipped there
-            cpu = self.home.type == "cpu"
-            cur = [torch.empty_like(x) for x in lo]
-            new = [torch.empty_like(x) for x in lo]
-            for _ in range(seg):
-                self._round(P, lo, hi, cur, new, t_buf, program, st)
-                if cpu and bool(st[0][routed.STOP]):
-                    break
+            rnd = functools.partial(
+                self._round, P, lo, hi, [torch.empty_like(x) for x in lo],
+                [torch.empty_like(x) for x in lo], program, st)
+        for _ in range(seg):
+            rnd()
+            if cpu and bool(st[0][routed.STOP]):
+                break
         # the designed read of the segment
         host, _ = _Readback(st[0], st[0]).wait()
         return (int(host[routed.ROUNDS]), int(host[routed.LIVE]),
                 int(host[routed.MAX_LIVE]))
 
-    def _round(self, P, lo, hi, cur, new, t_buf, program, st) -> None:
+    def _round(self, P, lo, hi, cur, new, program, st) -> None:
         """One round through the collectives, card after card: the
         scatter-min, the climb's first step from its post-round answers,
         the climb ``program``, the round's end, the live words shared and
@@ -344,14 +363,15 @@ class BigVPipeline:
         for c, rep in enumerate(rep_new):
             routed.routed_step(rep, cur[c], hi[c], lo[c], store=new[c],
                                state=st[c])
-        for kind, t in program:
-            if kind == routed.CLIMB:
-                for c, rep in enumerate(self._lookup(t, cur, st)):
+        for step in program:
+            if step[0] == routed.CLIMB:
+                for c, rep in enumerate(self._lookup(step[1], cur, st)):
                     routed.routed_step(rep, cur[c], hi[c], cur[c],
                                        state=st[c])
             else:
-                for c, rep in enumerate(self._lookup(t, t, st)):
-                    routed.routed_step(rep, t_buf[c], state=st[c])
+                _, src, dst = step
+                for c, rep in enumerate(self._lookup(src, src, st)):
+                    routed.routed_step(rep, dst[c], state=st[c])
         for c, (_, first, _) in enumerate(self.cards):
             routed.routed_round_end(rep_old[c], new[c], cur[c], lo[c], hi[c],
                                     n, first, st[c])

@@ -422,12 +422,12 @@ def test_wrappers_raise_off_cpu_and_cuda():
         routed.owned_gather(torch.zeros((2, 4), dtype=torch.int32), 0,
                             torch.zeros((2, 3), dtype=torch.int32), 5,
                             routed.new_state(3, "cpu"))
-    # the one-call round is a CUDA kernel sequence with no CPU path
-    P = torch.zeros((2, 4), dtype=torch.int32)
-    slots = torch.zeros((2, 3), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
+    # the one-call round runs its plain version on the CPU only
+    P = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    slots = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
         routed.CardRound(P, slots, slots.clone(), 5, [], routed.new_state(
-            2, "cpu"), 4)
+            2, "meta"), 4)
 
 
 @pytest.mark.parametrize("d", [3, 8])
