@@ -16,13 +16,18 @@ line is printed:
      its time, the plain version's, ``torch.take``'s (timed only, as a
      yardstick) and the bytes bound (``gather_smoke.Probe``);
   3b. gather forms: what the probe tool lacks, in the same way: K3 on a
-     row wider than a block's shared memory (R = 65,536), and ragged
-     out-of-range cases of K2 and K3 on their scalar paths; then the
-     port's probe tool ``gather_smoke``, variants 1-3 with ``--perf``,
-     in-process, with the kernels' launches counted: each of its records
-     (forms A-E, the P2 legs, the eight P3 widths) holds its kernel
-     exactly against the plain version and is timed, and every record
-     must be ok;
+     row wider than a block's shared memory (R = 65,536), ragged
+     out-of-range cases of K2 and K3, and the cases of their redesign:
+     K2 in bulk (2^16 random rows of P2's (8192, 128) table, 32 MiB
+     written), K3 on axis 1 at R = 16384 and 32768, views that start at
+     element 1 (t, x, idx or out) and odd widths, each one launch a call
+     and with its chain bound (an empty kernel launched as K2 and K3 are,
+     on the plan's grid, plus two dependent loads) beside its bytes bound;
+     then the port's probe tool ``gather_smoke``, variants 1-3 with
+     ``--perf``, in-process, with the kernels' launches counted: each of
+     its records (forms A-E, the P2 legs, the eight P3 widths) holds its
+     kernel exactly against the plain version and is timed, and every
+     record must be ok;
   3c. the round's lifting kernels (``ops/lift.py``): ``lift_stack`` and
      ``climb_tail`` against their plain PyTorch versions on the card,
      exactly (stack levels, depth, outputs and the control word), at the
@@ -434,6 +439,7 @@ def gathers(card):
        1300)
     k3("K3-axis1-wide-ragged-out-of-range", (5, 60001), (5, 1003), 1, 0,
        -300, 70000)
+    redesign_cases(p, ints, passed)
 
     # the probe tool, the path of K2 and K3: its launches are counted
     gather.reset_launches()
@@ -453,6 +459,90 @@ def gathers(card):
         "records": len(records), "all_ok": True, "launches": launches,
         "s": time.perf_counter() - t0, "card": card}), flush=True)
     return {r["form"]: r for r in p.records + records}, launches
+
+
+def redesign_cases(p, ints, passed):
+    """Phase 3b, the cases of K2's and K3's redesign: K2 in bulk (P2's
+    (8192, 128) table, 2^16 random rows, 32 MiB written), K3 on axis 1 at
+    R = 16384 and 32768 (R = 65536 beside them), and views that start at
+    element 1 (t, x, idx or out) and odd widths on both kernels. Each is
+    exact against its plain version, makes one launch a call
+    (``gather2d.LAUNCHES``), and carries its chain bound
+    (``gather_smoke.chain_bound_ms``) beside its bytes bound; K3's the
+    bytes of the 32-byte sectors its lookups reach (``gather_smoke.Probe``
+    adds both)."""
+    import torch
+
+    from sheep_tpu_torch.ops import gather2d
+    from sheep_tpu_torch.tools import gather_smoke as gs
+
+    sms = gather2d.sms("cuda")
+
+    def one_launch(fn, key):
+        n0 = gather2d.LAUNCHES[key]
+        fn()
+        torch.cuda.synchronize()
+        check(gather2d.LAUNCHES[key] == n0 + 1,
+              f"{key}: {gather2d.LAUNCHES[key] - n0} launches a call")
+
+    def k2(name, t, i, out_at=0):
+        out = gs.view_at(torch.empty((len(i), t.shape[1]),
+                                     dtype=torch.int32, device="cuda"),
+                         out_at)
+        port = lambda: gather2d.take_rows(t, i, out=out)  # noqa: E731
+        one_launch(port, "take_rows")
+        lib = None
+        if int(i.min()) >= 0 and int(i.max()) < t.shape[0]:
+            i64 = i.long()
+            lib = lambda: torch.index_select(t, 0, i64)  # noqa: E731
+        return passed(p.case(
+            name, port, lambda: gather2d.take_rows_plain(t, i), None,
+            gs.rows_bytes(t, i), i.numel() * t.shape[1], library=lib,
+            kernel="K2", plan=lambda: gather2d.plan_take_rows(
+                t.shape[1], len(i), t.data_ptr(), out.data_ptr(), sms)))
+
+    def k3(name, x, i, axis, shift=0, out_at=0):
+        out = gs.view_at(torch.empty_like(i), out_at)
+        port = lambda: gather2d.take_along(x, i, axis, shift,  # noqa: E731
+                                           out=out)
+        one_launch(port, "take_along")
+        lib = None
+        if not shift and int(i.min()) >= 0 and int(i.max()) < x.shape[axis]:
+            i64 = i.long()
+            lib = lambda: torch.gather(x, axis, i64)  # noqa: E731
+        return passed(p.case(
+            name, port, lambda: gather2d.take_along_plain(x, i, axis, shift),
+            None, gs.along_bytes(x, i, axis, shift), i.numel(), library=lib,
+            kernel="K3", axis=axis, shift=shift,
+            plan=lambda: gather2d.plan_take_along(*i.shape, sms),
+            sector_bytes=gs.sector_bytes(x, i, axis, shift)))
+
+    tb = ints(0, 1 << 30, (1 << 13, 128))
+    k2("K2-bulk", tb, ints(0, 1 << 13, (1 << 16,)))
+    k2("K2-t-at-1", gs.view_at(tb, 1), ints(0, 1 << 13, (1 << 16,)))
+    k2("K2-idx-at-1", tb, gs.view_at(ints(0, 1 << 13, (1 << 16,)), 1))
+    k2("K2-out-at-1", tb, ints(0, 1 << 13, (1 << 16,)), out_at=1)
+    k2("K2-odd-w37-out-at-1", ints(0, 1 << 30, (1001, 37)),
+       ints(-500, 1500, (3001,)), out_at=1)
+    for R in (1 << 14, 1 << 15):
+        k3(f"K3-axis1-R{R}", ints(0, 1 << 30, (8, R)), ints(0, R, (8, R)), 1)
+    x32 = ints(0, 1 << 30, (8, 1 << 15))
+    i32 = ints(0, 1 << 15, (8, 1 << 15))
+    k3("K3-axis1-x-at-1", gs.view_at(x32, 1), i32, 1)
+    k3("K3-axis1-idx-at-1", x32, gs.view_at(i32, 1), 1)
+    k3("K3-axis1-out-at-1", x32, ints(0, 1 << 15, (8, 1 << 15)), 1,
+       out_at=1)
+    lanes = torch.arange(128, dtype=torch.int32, device="cuda")[None, :]
+    e = ints(0, 1 << 13, ((1 << 20) // 128, 128)) * 128 + lanes
+    k3("K3-axis0-idx-at-1", tb, gs.view_at(e, 1), 0, 7)
+    k3("K3-axis0-x-at-1", gs.view_at(tb, 1), e, 0, 7)
+    k3("K3-axis0-odd-w37-out-at-1", ints(0, 1 << 30, (1001, 37)),
+       ints(-8000, 16000, (513, 37)), 0, 3, out_at=1)
+    k3("K3-axis1-odd-w1001-idx-at-1", ints(0, 1 << 30, (7, 999)),
+       gs.view_at(ints(-300, 1300, (7, 1001)), 1), 1)
+    # more tiles of rows than a grid's 65,535 y blocks: the kernel strides
+    k3("K3-axis0-rows-past-grid-y", ints(0, 1 << 30, (1000, 1)),
+       ints(-10, 1010, ((1 << 24) + 3, 1)), 0)
 
 
 def climb_bytes(lo, hi, P, st, d: int, n: int) -> int:
@@ -1346,33 +1436,14 @@ def compactions(card, shares=(0.5, 0.1, 0.01), n: int = 1 << 22,
 
 def chain_floor(C: int = 1 << 14, T: int = (1 << 22) + 1,
                 steps: int = 4096):
-    """The yardsticks of ``climb_jumps``' chain on the card, by
-    ``lift.chase``: the launch floor (an empty kernel on ``climb_jumps``'
-    grid, C slots a thread each in blocks of 256) and the latency of one
-    dependent load (a chase of ``steps`` loads, one thread, over a random
-    cycle through T entries, warm in L2 after the warm-up call, less the
-    empty one-block kernel, over the steps)."""
-    import torch
-
-    from sheep_tpu_torch.ops import lift
+    """The yardsticks of ``climb_jumps``' chain on the card
+    (``gather_smoke.chase_yardsticks``): the launch floor (an empty kernel
+    on ``climb_jumps``' grid, C slots a thread each in blocks of 256) and
+    the latency of one dependent load (a chase of ``steps`` loads, one
+    thread, over a random cycle through T entries, warm in L2)."""
     from sheep_tpu_torch.tools import gather_smoke as gs
 
-    g = torch.Generator(device="cuda").manual_seed(47)
-    order = torch.randperm(T, device="cuda", generator=g)
-    t = torch.empty(T, dtype=torch.int32, device="cuda")
-    t[order] = torch.roll(order, -1).int()
-    out = torch.zeros(1, dtype=torch.int32, device="cuda")
-    blocks = -(-C // 256)
-    floor = gs.time_ms(lambda: lift.chase(t, 0, 0, out, blocks))
-    empty = gs.time_ms(lambda: lift.chase(t, 0, 0, out))
-    chased = gs.time_ms(lambda: lift.chase(t, 0, steps, out), iters=10)
-    torch.cuda.synchronize()
-    at = int((order == 0).nonzero()[0, 0])
-    check(int(out[0]) == int(order[(at + steps) % T]),
-          "chase: the chain did not end where the cycle says")
-    return {"floor_ms": floor, "empty_one_block_ms": empty,
-            "chase_ms": chased, "chase_steps": steps,
-            "load_latency_ms": max(chased - empty, 0.0) / steps}
+    return gs.chase_yardsticks(-(-C // 256), T, steps)
 
 
 def jump_climbs(card, n: int = 1 << 22, C: int = 1 << 14, jumps: int = 16,
@@ -3846,7 +3917,9 @@ def routed_kernels(card, n: int = 1 << 22, D: int = BIGV_SHARDS,
                inplace_ms(reset, lambda: routed.round_end_plain(
                    routed.routed_fold_plain(old), nw, cur, lo0, hi0, n),
                    iters=5),
-               4 * D * D * Q + 4 * 4 * D * Q + 2 * 4 * D * Q + 8 * D,
+               # the old answers, nw, hi and cur read, lo and hi written
+               # (FOLD reads no lo), the state's words
+               4 * D * D * Q + 3 * 4 * D * Q + 2 * 4 * D * Q + 8 * D,
                live_out=int((want_lo != n).sum()))
 
     # routed_step's min on answer rows that start off 16 bytes (a view one
@@ -4824,6 +4897,14 @@ def main() -> int:
                 "library_ms": rec["library_ms"],
                 "case": rec.get("form", rec.get("case")), **extra}
 
+    def gather_cases(kernel):
+        return {name: {k: r.get(k) for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "chain_bound_ms",
+            "sector_bytes")}
+            for name, r in cases.items() if r["kernel"] == kernel
+            and r.get("form") not in ("P2_E_with_router",
+                                      "P2_E_router_unroute")}
+
     def max_err(kernel):
         return max(r["max_abs_err"] for r in cases.values()
                    if r["kernel"] == kernel)
@@ -4844,15 +4925,21 @@ def main() -> int:
               square_ms=square["ms"], square_bound_ms=square["bound_ms"],
               tool_launches=tool_launches["K1"],
               cases_max_abs_err=max_err("K1")),
+        # K2 at its bulk case, K3 at P2's kernel leg; the probe forms and
+        # the redesign's cases beside them, each with its chain bound
         entry("take_rows", "sheep_tpu_torch/csrc/gather2d.cu",
-              "tools/pallas_smoke.py:166", cases["A_row_take"],
-              tool_launches["K2"], cases_max_abs_err=max_err("K2")),
+              "tools/pallas_smoke.py:166", cases["K2-bulk"],
+              tool_launches["K2"], cases_max_abs_err=max_err("K2"),
+              chain_bound_ms=cases["K2-bulk"]["chain_bound_ms"],
+              cases=gather_cases("K2")),
         entry("take_along", "sheep_tpu_torch/csrc/gather2d.cu",
               "tools/pallas_smoke.py:336", cases["P2_E_kernel_only"],
               tool_launches["K3"],
               also_replaces=["tools/pallas_smoke.py:166 (forms B, C, E)",
                              "tools/pallas_smoke.py:420"],
-              cases_max_abs_err=max_err("K3"))]
+              chain_bound_ms=cases["P2_E_kernel_only"]["chain_bound_ms"],
+              sector_bytes=cases["P2_E_kernel_only"]["sector_bytes"],
+              cases_max_abs_err=max_err("K3"), cases=gather_cases("K3"))]
     # launches from the main path (phase 5), the per-segment build's (5d:
     # lift_stack once a stale segment, a warm segment none) beside them
     kernels += lift_entries(main_case, lift_cases + [main_case],

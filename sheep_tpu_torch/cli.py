@@ -237,10 +237,9 @@ def main(argv=None) -> int:
     tracer = obs.install(obs.Tracer(args.trace))
     root = None
     try:
-        # the backend asked for, torch when left out (the
-        # backend_resolved event says which runs)
-        obs.emit_manifest(tracer, config=vars(args),
-                          backend=args.backend or "torch",
+        # the backend asked for (null when left out, as the reference
+        # records it; the backend_resolved event says which runs)
+        obs.emit_manifest(tracer, config=vars(args), backend=args.backend,
                           device=device)
         if args.heartbeat_secs:
             tracer.heartbeat = obs.Heartbeat(
@@ -366,13 +365,12 @@ def _run(p, args) -> int:
                   file=sys.stderr)
             args.refine_alpha = args.balance
     device = resolve_device(args.device)
-    # auto: the card's memory picked the vertex-sharded build (left out,
-    # the backend is otherwise torch, the default)
-    auto = False
-    if args.backend is None:
+    # auto: --backend left out, resolved here (torch, or the vertex-sharded
+    # build where the card's memory picks it), as the reference marks it
+    auto = args.backend is None
+    if auto:
         args.backend = _auto_backend(args, device)
-        auto = args.backend == "torch-bigv"
-        if auto:
+        if args.backend == "torch-bigv":
             if not chunk_given:
                 args.chunk_edges = None
             _sharded_options(p, args, opts)

@@ -31,7 +31,12 @@ ahead: the host's launch time where it exceeds the device's), ``melems``
 (M elements/s at ``ms``), ``bound_ms`` (the bytes the function must
 move over an H100's 3.35 TB/s: idx in, out back, and each table element
 that this run's lookups reach read once) and ``library_ms`` (one PyTorch
-call that computes the same function, device time). The tool runs on
+call that computes the same function, device time). K2's and K3's
+records on CUDA add ``plan`` (the launch plan, ``ops/gather2d.py``) and
+``chain_bound_ms`` (an empty kernel launched as they are, on the plan's
+grid, plus two dependent loads at the card's measured load latency), and
+K3's ``sector_bytes`` (the 32-byte sectors each warp-wide load of 32
+consecutive lookups reaches, summed: the L2's traffic). The tool runs on
 CUDA; ``--device cpu`` runs the plain versions for their semantics only,
 with no time. The exit code is 0 only when every record is ``ok``.
 """
@@ -39,6 +44,7 @@ with no time. The exit code is 0 only when every record is ``ok``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -80,6 +86,63 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def chase_yardsticks(blocks: int = 1, T: int = (1 << 22) + 1,
+                     steps: int = 4096) -> dict:
+    """Chain yardsticks on the card, by ``lift.chase``: the launch floor
+    (an empty kernel of ``blocks`` blocks of 256 threads) and the latency
+    of one dependent load (a chase of ``steps`` loads on one thread over a
+    random cycle through ``T`` entries, warm in L2 after the warm-up call,
+    less the empty one-block kernel, over the steps)."""
+    from sheep_tpu_torch.ops import lift
+
+    g = torch.Generator(device="cuda").manual_seed(47)
+    order = torch.randperm(T, device="cuda", generator=g)
+    t = torch.empty(T, dtype=torch.int32, device="cuda")
+    t[order] = torch.roll(order, -1).int()
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    floor = time_ms(lambda: lift.chase(t, 0, 0, out, blocks))
+    empty = time_ms(lambda: lift.chase(t, 0, 0, out))
+    chased = time_ms(lambda: lift.chase(t, 0, steps, out), iters=10)
+    torch.cuda.synchronize()
+    at = int((order == 0).nonzero()[0, 0])
+    if int(out[0]) != int(order[(at + steps) % T]):
+        raise RuntimeError("chase: the chain did not end where the cycle "
+                           "says")
+    return {"floor_ms": floor, "empty_one_block_ms": empty,
+            "chase_ms": chased, "chase_steps": steps,
+            "load_latency_ms": max(chased - empty, 0.0) / steps}
+
+
+def chain_bound_ms(plan, latency_ms: float) -> float:
+    """The chain bound of a K2 or K3 launch plan: an empty kernel launched
+    as they are on the plan's grid and blocks, plus two dependent loads
+    (idx, then the table entry) at ``latency_ms``."""
+    from sheep_tpu_torch.ops import gather2d
+
+    grid = getattr(plan, "grid", None) or (plan.blocks, 1)
+    return time_ms(lambda: gather2d.launch_empty(
+        "cuda", grid, plan.threads)) + 2 * latency_ms
+
+
+def sector_bytes(x: torch.Tensor, idx: torch.Tensor, axis: int,
+                 shift: int = 0) -> int:
+    """K3: the L2's sector traffic, in bytes: for each run of 32
+    consecutive lookups (one warp-wide load), the 32-byte sectors of ``x``
+    it reaches, summed. Where the lookups scatter, each is a sector of its
+    own, and this, not the bytes the function must move, is what the L2
+    sends the SMs."""
+    j = (idx >> shift).clamp(0, x.shape[axis] - 1).long()
+    other = torch.arange(idx.shape[1 - axis], device=idx.device)
+    lin = (j * x.shape[1] + other if axis == 0
+           else other[:, None] * x.shape[1] + j)
+    sec = ((lin + x.storage_offset()) // 8).reshape(-1)
+    pad = -sec.numel() % 32
+    if pad:  # repeat the last lookup: no new sector
+        sec = torch.cat([sec, sec[-1:].expand(pad)])
+    runs = sec.view(-1, 32).sort(dim=1).values
+    return 32 * (runs.shape[0] + int((runs[:, 1:] != runs[:, :-1]).sum()))
+
+
 # The bytes a gather must move on this run's data: idx read once, out
 # written once, and each table element the lookups reach (after the shift
 # and the clip) read once; never more of the table than the lookups can
@@ -109,6 +172,29 @@ def along_bytes(x: torch.Tensor, idx: torch.Tensor, axis: int,
     lin = (j * x.shape[1] + other if axis == 0
            else other[:, None] * x.shape[1] + j)
     return 8 * idx.numel() + 4 * _distinct(lin)
+
+
+def view_at(a: torch.Tensor, at: int) -> torch.Tensor:
+    """``a``'s values in a contiguous view that starts ``at`` elements into
+    a larger buffer (off a 16-byte boundary for at % 4 != 0)."""
+    buf = torch.empty(a.numel() + at, dtype=a.dtype, device=a.device)
+    v = buf[at:].view(a.shape)
+    v.copy_(a)
+    return v
+
+
+def _rows_plan(t: torch.Tensor, idx: torch.Tensor):
+    """K2's plan for a fresh (16-byte aligned) output."""
+    from sheep_tpu_torch.ops import gather2d
+
+    return gather2d.plan_take_rows(t.shape[1], len(idx), t.data_ptr(), 0,
+                                   gather2d.sms(t.device))
+
+
+def _along_plan(idx: torch.Tensor):
+    from sheep_tpu_torch.ops import gather2d
+
+    return gather2d.plan_take_along(*idx.shape, gather2d.sms(idx.device))
 
 
 def route(t2: torch.Tensor, i: torch.Tensor):
@@ -143,15 +229,25 @@ class Probe:
         self.dev = resolve_device(device)
         self.cuda = self.dev.type == "cuda"
         self.records: list = []
+        self._latency = None
+
+    def latency_ms(self) -> float:
+        """One dependent load's latency (:func:`chase_yardsticks`),
+        measured once."""
+        if self._latency is None:
+            self._latency = chase_yardsticks()["load_latency_ms"]
+        return self._latency
 
     def tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
 
     def case(self, form, port, plain, expect, nbytes, n, library=None,
-             **extra) -> dict:
+             plan=None, **extra) -> dict:
         """Run ``port``, check it exactly against ``plain`` and the numpy
         ``expect`` (None: ``plain`` only); on CUDA time it, ``plain`` and
-        ``library``; print the record."""
+        ``library``, and with ``plan`` (a callable giving K2's or K3's
+        launch plan) add the plan and its chain bound; print the
+        record."""
         rec = {"form": form, "n": n, **extra}
         try:
             out = port()
@@ -180,6 +276,11 @@ class Probe:
             rec["melems"] = n / rec["ms"] / 1e3
             if library is not None:
                 rec["library_ms"] = time_ms(library)
+            if plan is not None:
+                plan = plan()
+                rec["plan"] = dataclasses.asdict(plan)
+                rec["chain_bound_ms"] = chain_bound_ms(plan,
+                                                       self.latency_ms())
         rec["bound_ms"] = bound_ms(nbytes)
         self._emit(rec)
         return rec
@@ -219,7 +320,8 @@ def variant2(p: Probe, perf: bool) -> None:
     p.case("A_row_take", lambda: gather2d.take_rows(t, a),
            lambda: gather2d.take_rows_plain(t, a), tnp[a_np],
            rows_bytes(t, a), B * 128,
-           library=lambda: torch.index_select(t, 0, a), kernel="K2")
+           library=lambda: torch.index_select(t, 0, a), kernel="K2",
+           plan=lambda: _rows_plan(t, a))
 
     b_np = rng.integers(0, R, (8, 128), dtype=np.int32)
     b = p.tensor(b_np)
@@ -227,7 +329,8 @@ def variant2(p: Probe, perf: bool) -> None:
     p.case("B_sublane_gather", lambda: gather2d.take_along(t, b, 0),
            lambda: gather2d.take_along_plain(t, b, 0),
            np.take_along_axis(tnp, b_np, axis=0), along_bytes(t, b, 0),
-           b.numel(), library=lambda: torch.gather(t, 0, b64), kernel="K3")
+           b.numel(), library=lambda: torch.gather(t, 0, b64), kernel="K3",
+           plan=lambda: _along_plan(b), sector_bytes=sector_bytes(t, b, 0))
 
     x8_np = rng.integers(0, 1 << 30, (8, 128), dtype=np.int32)
     c_np = rng.integers(0, 128, (8, 128), dtype=np.int32)
@@ -237,7 +340,8 @@ def variant2(p: Probe, perf: bool) -> None:
            lambda: gather2d.take_along_plain(x8, c, 1),
            np.take_along_axis(x8_np, c_np, axis=1),
            along_bytes(x8, c, 1), c.numel(),
-           library=lambda: torch.gather(x8, 1, c64), kernel="K3", axis=1)
+           library=lambda: torch.gather(x8, 1, c64), kernel="K3", axis=1,
+           plan=lambda: _along_plan(c), sector_bytes=sector_bytes(x8, c, 1))
 
     S = 64
     d_np = rng.integers(0, R * 128, (S, 8), dtype=np.int32)
@@ -259,7 +363,8 @@ def variant2(p: Probe, perf: bool) -> None:
     p.case("E_lane_routed_bulk", lambda: gather2d.take_along(t, e, 0, 7),
            lambda: gather2d.take_along_plain(t, e, 0, 7),
            tnp.reshape(-1)[e_np], along_bytes(t, e, 0, 7), e.numel(),
-           library=lambda: torch.take(t, e64), kernel="K3")
+           library=lambda: torch.take(t, e64), kernel="K3",
+           plan=lambda: _along_plan(e), sector_bytes=sector_bytes(t, e, 0, 7))
 
     if perf:
         _perf2(p, rng)
@@ -296,7 +401,9 @@ def _perf2(p: Probe, rng) -> None:
     p.case("P2_E_kernel_only", lambda: gather2d.take_along(t2, e, 0, 7),
            lambda: gather2d.take_along_plain(t2, e, 0, 7),
            tnp.reshape(-1)[e_np], along_bytes(t2, e, 0, 7), NI,
-           library=lambda: torch.take(t2, e64), kernel="K3")
+           library=lambda: torch.take(t2, e64), kernel="K3",
+           plan=lambda: _along_plan(e),
+           sector_bytes=sector_bytes(t2, e, 0, 7))
 
     order_np = np.argsort(i_np & 127, kind="stable")
     order = p.tensor(order_np)
@@ -320,7 +427,9 @@ def variant3(p: Probe) -> None:
                lambda: gather2d.take_along_plain(x, i, 1),
                np.take_along_axis(x_np, i_np, axis=1), along_bytes(x, i, 1),
                x.numel(), library=lambda: torch.gather(x, 1, i64),
-               kernel="K3", lane_extent=R, axis=1)
+               kernel="K3", lane_extent=R, axis=1,
+               plan=lambda: _along_plan(i),
+               sector_bytes=sector_bytes(x, i, 1))
 
 
 def run(variant: int, perf: bool = False, device=None) -> list:

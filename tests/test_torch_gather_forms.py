@@ -321,3 +321,299 @@ def test_kernels_match_plain_on_card():
     torch.cuda.synchronize()
     assert gather2d.LAUNCHES["take_rows"] == n0["take_rows"] + 1
     assert gather2d.LAUNCHES["take_along"] == n0["take_along"] + 2
+
+
+# -- the redesign's shapes and launch plans -----------------------------------
+
+def rows_cover(plan, b: int, w: int):
+    """Replay K2's mapping (``take_rows_kernel``) on the host: (writes,
+    source) of shape (b, w), the times each output element is written and
+    the output row whose index its value was read by (-1: never)."""
+    writes = np.zeros((b, w), np.int64)
+    source = np.full((b, w), -1, np.int64)
+    flat_w, flat_s = writes.reshape(-1), source.reshape(-1)
+    unit, rpw = 4 if plan.vec else 1, 1 << plan.log_rows
+    nq = w // unit
+    batch = 32 * gather2d.BATCH
+    lanes, offs = np.arange(32), np.arange(unit)
+    for warp in range(plan.blocks * (plan.threads // 32)):
+        r0 = warp * rpw
+        if r0 >= b:
+            break
+        total = min(rpw, b - r0) * nq
+        # the kernel's incremental (row, q), the 32 lanes at once: lane / nq
+        # once, then 32 units a step, a batch's steps whether in range or not
+        row, q = lanes // nq, lanes % nq
+        r_step, q_step = 32 // nq, 32 % nq
+        for k0 in range(0, -(-total // batch) * batch, 32):
+            k = k0 + lanes
+            live = k < total
+            assert (q[live] == k[live] % nq).all()
+            e = (r0 * w + k[live] * unit)[:, None] + offs
+            flat_w[e] += 1
+            flat_s[e] = (r0 + row[live])[:, None]
+            q = q + q_step
+            row = row + r_step
+            wrap = q >= nq
+            q[wrap] -= nq
+            row[wrap] += 1
+    return writes, source
+
+
+def along_cover(plan, ir: int, ic: int):
+    """Replay K3's mapping (``take_along_kernel``) on the host: the times
+    each (ir, ic) element is written."""
+    writes = np.zeros((ir, ic), np.int64)
+    tpr = 1 << plan.log_tpr
+    rpb = plan.threads // tpr
+    gx, gy = plan.grid
+    for by in range(gy):
+        for lr in range(rpb):
+            for r in range(by * rpb + lr, ir, gy * rpb):
+                for bx in range(gx):
+                    for t in range(tpr):
+                        c0 = bx * tpr * gather2d.UNITS + t
+                        for g in range(gather2d.UNITS):
+                            if c0 + g * tpr < ic:
+                                writes[r, c0 + g * tpr] += 1
+    return writes
+
+
+def _at(a: torch.Tensor, at: int) -> torch.Tensor:
+    """``a``'s values in a contiguous view ``at`` elements into a larger
+    buffer (off a 16-byte boundary for at % 4 != 0)."""
+    buf = torch.empty(a.numel() + at, dtype=a.dtype)
+    v = buf[at:].view(a.shape)
+    v.copy_(a)
+    return v
+
+
+def _routed(rng, rows, sb):
+    return (_ints(rng, 0, rows, (sb, 128)) * 128
+            + np.arange(128, dtype=np.int32)[None, :])
+
+
+# chip_smoke.py phase 3b's cases at small stand-in sizes: (Pallas form, its
+# inputs, the port's call on them with (first input, index, out) views
+# starting at the given elements)
+REDESIGN = {
+    "A-odd-w37-out-at-1": (
+        "A_row_take", lambda rng: [_ints(rng, 0, 1 << 30, (101, 37)),
+                                   _ints(rng, -50, 150, (301,))],
+        (0, 0, 1)),
+    "A-t-at-1": (
+        "A_row_take", lambda rng: [_ints(rng, 0, 1 << 30, (64, 128)),
+                                   _ints(rng, 0, 64, (512,))],
+        (1, 0, 0)),
+    "A-idx-at-1": (
+        "A_row_take", lambda rng: [_ints(rng, 0, 1 << 30, (64, 128)),
+                                   _ints(rng, 0, 64, (512,))],
+        (0, 1, 0)),
+    "B-odd-w37-idx-at-1": (
+        "B_sublane_gather", lambda rng: [_ints(rng, 0, 1 << 30, (101, 37)),
+                                         _ints(rng, 0, 101, (9, 37))],
+        (0, 1, 1)),
+    "C-wide-4096-x-at-1": (
+        "C_lane_gather", lambda rng: [_ints(rng, 0, 1 << 30, (8, 4096)),
+                                      _ints(rng, 0, 4096, (8, 4096))],
+        (1, 0, 0)),
+    "C-odd-w999-out-at-1": (
+        "C_lane_gather", lambda rng: [_ints(rng, 0, 1 << 30, (7, 999)),
+                                      _ints(rng, 0, 999, (7, 1001))],
+        (0, 0, 1)),
+    "E-idx-at-1": (
+        "E_lane_routed_bulk", lambda rng: [_ints(rng, 0, 1 << 30, (64, 128)),
+                                           _routed(rng, 64, 33)],
+        (0, 1, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REDESIGN))
+def test_redesign_shapes_match_pallas_interpret(probe, case):
+    """The plain versions at phase 3b's new shapes (odd widths, views from
+    element 1, a wide row) equal the probe's Pallas form in interpret mode
+    and numpy, through the wrappers and their ``out=``."""
+    form, make, (t_at, i_at, o_at) = REDESIGN[case]
+    kernel, _, port, numpy_ref = FORMS[form]
+    arrays = make(np.random.default_rng(sorted(REDESIGN).index(case)))
+    want = numpy_ref(*[np.clip(a, 0, arrays[0].shape[0] - 1)
+                       if k and form == "A_row_take" else a
+                       for k, a in enumerate(arrays)])
+    t = _at(torch.from_numpy(arrays[0]), t_at)
+    i = _at(torch.from_numpy(arrays[1]), i_at)
+    out = _at(torch.full(want.shape, -1, dtype=torch.int32), o_at)
+    if form == "A_row_take":
+        got = gather2d.take_rows(t, i, out=out)
+    else:
+        axis = 1 if form == "C_lane_gather" else 0
+        got = gather2d.take_along(t, i, axis, 7 if form[0] == "E" else 0,
+                                  out=out)
+    assert got is out and np.array_equal(out.numpy(), want)
+    assert np.array_equal(port(t, i).numpy(), want)
+    rec = probe.try_form(
+        form, kernel, [jnp.asarray(a) for a in arrays],
+        jax.ShapeDtypeStruct(want.shape, jnp.int32),
+        check=lambda o: np.array_equal(o, want))
+    assert rec.get("lowered") and rec.get("ok"), rec
+
+
+def _along_plan(ir, ic, threads):
+    """The default K3 plan (``threads`` None), else the grid of blocks of
+    ``threads`` that covers the idx."""
+    if threads is None:
+        return gather2d.plan_take_along(ir, ic, 132)
+    return gather2d.AlongPlan.covering(ir, ic, threads)
+
+
+@pytest.mark.parametrize("ir,ic", [(1, 1), (3, 2), (7, 37), (8, 128),
+                                   (4, 1001), (3, 4099), (70, 4), (513, 37)])
+@pytest.mark.parametrize("threads", [None, 32, 64, 256])
+def test_take_along_plan_covers_every_element_once(ir, ic, threads):
+    plan = _along_plan(ir, ic, threads)
+    assert (along_cover(plan, ir, ic) == 1).all()
+    tpr = 1 << plan.log_tpr
+    assert tpr <= plan.threads <= gather2d.THREADS
+    assert plan.grid[1] <= gather2d.GRID_Y
+
+
+@pytest.mark.parametrize("w,b", [(1, 1), (37, 301), (4, 100), (128, 1024),
+                                 (8, 777), (2048, 70), (4100, 5)])
+@pytest.mark.parametrize("t_off,out_off", [(0, 0), (4, 0), (0, 4)])
+@pytest.mark.parametrize("log_rows", [None, 0, 3, 5])
+def test_take_rows_plan_covers_every_element_once(w, b, t_off, out_off,
+                                                  log_rows):
+    """Every output element written once, from its own row's index: the
+    kernel's incremental (row, column) walk replayed."""
+    plan = gather2d.plan_take_rows(w, b, 4096 + t_off, 8192 + out_off, 132)
+    if log_rows is not None:
+        plan = gather2d.RowsPlan.covering(plan.vec, log_rows, b)
+    writes, source = rows_cover(plan, b, w)
+    assert (writes == 1).all()
+    assert (source == np.arange(b)[:, None]).all()
+
+
+def test_misaligned_views_take_the_scalar_path():
+    """K2 moves 16-byte units only for W % 4 == 0 with t and out 16-byte
+    aligned; a view from element 1 of either, or an odd width, takes the
+    4-byte units. K3 has one element-wise path: its plan reads no
+    address, so a misaligned view gets the aligned plan."""
+    t = torch.zeros((64, 128), dtype=torch.int32)
+    assert gather2d.plan_take_rows(128, 64, t.data_ptr(), 0).vec
+    for t_addr, out_addr, w in ((4, 0, 128), (0, 4, 128), (0, 0, 37),
+                                (8, 8, 128), (0, 12, 4)):
+        assert not gather2d.plan_take_rows(w, 64, 4096 + t_addr,
+                                           4096 + out_addr).vec
+    assert gather2d.plan_take_rows(128, 64, 4096 + 16, 4096 + 32).vec
+    import inspect
+    assert not any("addr" in p for p in
+                   inspect.signature(gather2d.plan_take_along).parameters)
+
+
+def test_plans_at_the_probe_shapes():
+    """The plan's choices at the shapes PERF.md times: small shapes spread
+    over 32-thread blocks, P2 and the wide P3 rows in 256-thread blocks;
+    K2 in bulk takes 16 rows a warp (16 units a lane), P1-A one, and the
+    4-byte units of a misaligned bulk case 4."""
+    P = gather2d.plan_take_along
+    assert P(8, 128) == gather2d.AlongPlan(5, 32, (1, 8))
+    assert P(64, 128) == gather2d.AlongPlan(5, 32, (1, 64))
+    assert P(8192, 128) == gather2d.AlongPlan(5, 256, (1, 1024))
+    assert P(8, 32768) == gather2d.AlongPlan(8, 256, (32, 8))
+    for ir, ic in ((8, 4096), (8, 16384), (8, 65536), (513, 37)):
+        plan = P(ir, ic)
+        blocks = plan.grid[0] * plan.grid[1]
+        assert blocks >= 33 or plan.threads == 32
+    assert gather2d.plan_take_rows(128, 1024, 0, 0) == \
+        gather2d.RowsPlan(True, 0, 256, 128)
+    assert gather2d.plan_take_rows(128, 1 << 16, 0, 0) == \
+        gather2d.RowsPlan(True, 4, 256, 512)
+    assert gather2d.plan_take_rows(128, 1 << 16, 4, 0) == \
+        gather2d.RowsPlan(False, 2, 256, 2048)
+    assert gather2d.plan_take_rows(37, 3001, 0, 0).log_rows == 1
+    # past 65,535 tiles of rows the grid strides in y
+    assert P(1 << 25, 4).grid[1] == gather2d.GRID_Y
+
+
+@pytest.mark.parametrize("ir,ic,threads", [(70, 4, 32), (513, 37, 64),
+                                           (9, 300, None)])
+def test_take_along_plan_strides_rows_past_the_grid(monkeypatch, ir, ic,
+                                                    threads):
+    """With fewer y blocks than tiles of rows (the kernel's stride past
+    65,535), every element is still written once."""
+    monkeypatch.setattr(gather2d, "GRID_Y", 3)
+    plan = _along_plan(ir, ic, threads)
+    assert plan.grid[1] == 3
+    assert (along_cover(plan, ir, ic) == 1).all()
+
+
+def test_out_argument_checked():
+    t = torch.arange(64 * 8, dtype=torch.int32).reshape(64, 8)
+    i1 = torch.arange(16, dtype=torch.int32)
+    i2 = torch.zeros((4, 8), dtype=torch.int32)
+    out = torch.empty((16, 8), dtype=torch.int32)
+    assert gather2d.take_rows(t, i1, out=out) is out
+    assert torch.equal(out, t[:16])
+    with pytest.raises(ValueError, match="shape"):
+        gather2d.take_rows(t, i1, out=torch.empty((16, 7), dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        gather2d.take_along(t, i2, 0, out=torch.empty((4, 8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        gather2d.take_along(t, i2, 0,
+                            out=torch.empty((8, 4), dtype=torch.int32).T)
+    with pytest.raises(ValueError, match="several devices"):
+        gather2d.take_along(t, i2, 0, out=torch.empty(
+            (4, 8), dtype=torch.int32, device="meta"))
+
+
+PLANLESS_DECLARATIONS = """
+extern "C" int sheep_take_rows(const void* t, long long rows, long long w,
+                               const void* idx, void* out, long long b,
+                               void* stream) {
+extern "C" int sheep_take_along(const void* x, long long xr, long long xc,
+                                const void* idx, void* out, long long ir,
+                                long long ic, int axis, int shift,
+                                void* stream) {
+"""
+
+
+@pytest.mark.parametrize("case", ["this tree", "planless", "one more",
+                                  "one fewer", "missing"])
+def test_gather_turns_calls_only_an_interface_it_knows(case):
+    """The turns tool calls another gather2d.cu through the interface that
+    source declares: this tree's, or the one before the launch plans moved
+    to Python; any other declaration is refused before anything is
+    compiled or called."""
+    from sheep_tpu_torch.tools import gather_turns
+
+    this = (pathlib.Path(gather2d.__file__).parent.parent / "csrc"
+            / "gather2d.cu").read_text()
+    sources = {
+        "this tree": this,
+        "planless": PLANLESS_DECLARATIONS,
+        "one more": this.replace("long long blocks, void* stream",
+                                 "long long blocks, int pdl, void* stream"),
+        "one fewer": PLANLESS_DECLARATIONS.replace("int shift,\n", ""),
+        "missing": this.replace("sheep_take_along(", "sheep_take_cols("),
+    }
+    src = sources[case]
+    assert src != this or case == "this tree"
+    if case in ("this tree", "planless"):
+        assert gather_turns.interface_of(src) == (
+            "plans" if case == "this tree" else "planless")
+    else:
+        with pytest.raises(ValueError):
+            gather_turns.interface_of(src)
+
+
+def test_sector_bytes_count_each_warp_run():
+    """The L2's sector traffic: a run of 32 consecutive lookups reaches each
+    of its distinct 32-byte sectors once."""
+    x = torch.zeros((4, 64), dtype=torch.int32)
+    assert gather_smoke.sector_bytes(
+        x, torch.zeros((4, 64), dtype=torch.int32), 1) == 8 * 32
+    spread = torch.arange(64, dtype=torch.int32).repeat(4, 1)
+    assert gather_smoke.sector_bytes(x, spread, 1) == 8 * 4 * 32
+    # axis 0, form E: the column is the lane, the row the index >> 7
+    t = torch.zeros((16, 128), dtype=torch.int32)
+    e = torch.arange(128, dtype=torch.int32)[None, :].repeat(2, 1)
+    assert gather_smoke.sector_bytes(t, e, 0, 7) == 8 * 4 * 32

@@ -455,7 +455,9 @@ def test_cli_refuses_as_jax(argv, capsys):
 
 
 def _port(args, capsys):
-    assert cli.main(args + ["--device", "cpu"]) == 0
+    # the backend named, as _jax names the reference's (a left-out one is
+    # recorded apart: test_cli_left_out_backend_recorded_as_jax)
+    assert cli.main(args + ["--device", "cpu", "--backend", "torch"]) == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
@@ -617,6 +619,53 @@ def test_cli_trace_matches_jax(case, tmp_path, capsys):
             "k_levels": "hier_spill"}[case]
     assert want in spans
     assert obs.get_tracer() is None and jobs.get_tracer() is None
+
+
+def test_cli_left_out_backend_recorded_as_jax(tmp_path, capsys):
+    """With --backend left out both CLIs record it as the reference does:
+    no backend in the manifest (a null one in its config), and one
+    backend_resolved event marked auto with the backend that ran (torch
+    here; the reference's first available). trace_report reads the
+    port's manifest line as the resolved backend, auto."""
+    from sheep_tpu.backends import list_backends
+
+    t, jt = str(tmp_path / "t.jsonl"), str(tmp_path / "jt.jsonl")
+    args = ["--input", "rmat-hash:9:8:3", "--k", "4", "--chunk-edges",
+            "1024", "--heartbeat-secs", "0.2", "--json"]
+    assert cli.main(args + ["--trace", t, "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jcli.main(args + ["--trace", jt]) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("edge_cut", "total_edges", "comm_volume", "balance"):
+        assert line[key] == ref[key]
+    resolved = []
+    for path in (t, jt):
+        (run,) = _runs(path)
+        m = run[0]
+        # no backend key: the manifest records none
+        assert m["event"] == "manifest" and "backend" not in m
+        assert m["config"]["backend"] is None
+        events = [r for r in run if r["event"] == "backend_resolved"]
+        assert len(events) == 1 and events[0]["auto"] is True
+        resolved.append(events[0])
+    assert set(resolved[0]) == set(resolved[1])
+    assert resolved[0]["backend"] == "torch"
+    assert resolved[1]["backend"] == next(
+        b for b in ("tpu", "cpu", "pure") if b in list_backends())
+    r = subprocess.run([sys.executable, os.path.join(REPO, "tools",
+                                                     "trace_report.py"),
+                        "--check", t], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "backend=torch (auto)" in r.stdout
+    # named, the backend is recorded as named and not auto
+    assert cli.main(args + ["--trace", t, "--device", "cpu", "--backend",
+                            "torch"]) == 0
+    capsys.readouterr()
+    named = _runs(t)[-1]
+    assert named[0]["backend"] == "torch"
+    assert [r["auto"] for r in named
+            if r["event"] == "backend_resolved"] == [False]
 
 
 def test_cli_trace_score_only_matches_jax(tmp_path, capsys):
