@@ -2,7 +2,8 @@
 """Smoke run of sheep_tpu_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sharded-cards   # phases 5l and 5m, >= 2 cards
+    python3 chip_smoke.py --sharded-cards   # phases 5l, 5m, 5n, >= 2 cards
+    python3 chip_smoke.py --multiprocess    # phase 5n and its references
 
 Phases, one result line each; any failure exits non-zero before the last
 line is printed:
@@ -295,6 +296,23 @@ line is printed:
      pace only, stopped after the first batch past ``BIGV_CARDS_BUDGET_S``
      because all 16 batches do not fit a run, then ``BIGV_PATHS_SPEC`` in
      full, equal to the ``torch`` backend);
+  5n. multi-process runs on ``torch.distributed``: two processes started
+     with ``python -m sheep_tpu_torch.tools.mp_rank``, each holding two
+     shards of the card over gloo with host staging (NCCL refuses two
+     ranks on one card): phase 5's graph through ``torch-sharded`` per
+     segment and batched (N = 4, D = 2), equal to phase 5;
+     ``BIGV_PATHS_SPEC`` through ``torch-bigv``, as plain text through
+     byte-range spans, and killed at ``build:2`` on both ranks then
+     resumed from their checkpoints, each equal to the single-device
+     build; every rank's forest and assignment digests and scores equal,
+     and the ranks' non-time diagnostics equal; each rank hashes its own
+     chunks on the card (``hash_chunk``) except for the text; one
+     ``s22-multiprocess`` line a run with its ranks, shards, transport,
+     seconds, edges/s, rounds, host reads, merge payload, each rank's peak
+     memory and launches, and the card; then ``BIGV_PATHS_SPEC`` through
+     ``python -m sheep_tpu_torch`` with the three flags, process 0's map
+     and scores equal to the single-device build's (``--sharded-cards``:
+     the same over NCCL, one rank a card, one shard a rank);
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
@@ -4302,14 +4320,263 @@ def bigv_hoisted(card) -> dict:
     print("s20-bigv-hoisted " + json.dumps(rec), flush=True)
     return rec
 
+# 5n: multi-process runs on torch.distributed: RANKS processes started by
+# the smoke (``python -m sheep_tpu_torch.tools.mp_rank``), each holding
+# MP_SHARDS shards; on one card gloo with host staging (NCCL refuses two
+# ranks on one card), with --sharded-cards NCCL one rank a card
+MP_RANKS, MP_SHARDS = 2, 2
+MP_TIMEOUT_S = 600
+
+
+def multiprocess_runs(card, ref, small, transport: str = "gloo",
+                      ranks: int = MP_RANKS, shards: int = MP_SHARDS,
+                      s22_spec: str = S22_SPEC, device: str = "cuda") -> dict:
+    """Phase 5n: ``ranks`` processes of the port's sharded builds, each
+    with ``shards`` shards of its card (``local_card``), over the
+    ``transport``: phase 5's graph through ``torch-sharded`` per segment
+    and batched (equal to phase 5's ``ref``); ``BIGV_PATHS_SPEC`` through
+    ``torch-bigv``, as plain text through ``torch-sharded`` (byte-range
+    spans), and through ``torch-sharded`` killed at ``build:2`` on every
+    rank and resumed from the ranks' checkpoints (each equal to the
+    single-device ``small``). Every rank's forest and assignment digests,
+    cut, total, comm volume and balance equal the reference's, and every
+    rank's non-time diagnostics equal every other's. Then the same ranks
+    through the CLI (``python -m sheep_tpu_torch`` and its three flags)
+    on ``BIGV_PATHS_SPEC``: process 0's map and scores equal ``small``'s.
+    One ``s22-multiprocess`` line a run; returns {label: its line}.
+    ``device="cpu"`` rehearses the phase on CPU shards."""
+    import shutil
+
+    import numpy as np
+
+    from sheep_tpu_torch.io import formats
+    from sheep_tpu_torch.io.edgestream import open_input
+    from sheep_tpu_torch.tools.mp_rank import digest
+
+    scratch = tempfile.mkdtemp(prefix="sheep_5n_")
+    try:
+        text = os.path.join(scratch, "s18.edges")
+        with open_input(BIGV_PATHS_SPEC) as stream:
+            formats.write_edges(text, stream.read_all())
+        ck = os.path.join(scratch, "ck")
+        n18 = len(small.assignment)
+        # chunks of n edges: 16 chunks, 4 batches of the 4 shards, so
+        # that the kill at build:2 comes after the first checkpoint
+        s18 = {"k": S22_K}
+        fault_cs = n18
+        runs = [
+            {"label": "s22-per-segment", "spec": s22_spec, "k": S22_K},
+            {"label": "s22-batched", "spec": s22_spec, "k": S22_K,
+             "dispatch_batch": 4, "inflight": 2},
+            {"label": "s18-bigv", "spec": BIGV_PATHS_SPEC,
+             "backend": "torch-bigv", **s18},
+            {"label": "s18-text", "spec": text, "n_vertices": n18, **s18},
+            {"label": "s18-fault", "spec": BIGV_PATHS_SPEC,
+             "chunk_edges": fault_cs, "checkpoint_dir": ck, "every": 4,
+             "fault": "build:2", **s18},
+            {"label": "s18-resume", "spec": BIGV_PATHS_SPEC,
+             "chunk_edges": fault_cs, "checkpoint_dir": ck, "every": 4,
+             "resume": True, **s18}]
+        outs = [os.path.join(scratch, f"rank{r}.json")
+                for r in range(ranks)]
+        _run_ranks(ranks, scratch, "mp_rank", lambda rank, addr: [
+            "-m", "sheep_tpu_torch.tools.mp_rank", "--coordinator", addr,
+            "--num-processes", str(ranks), "--process-id", str(rank),
+            "--dist-backend", transport, "--shards", str(shards),
+            "--runs", json.dumps(runs), "--out", outs[rank],
+            "--device", device])
+        recs = [json.load(open(o)) for o in outs]
+        want = {"s22": ref, "s18": small}
+        got = {}
+        for run in runs:
+            label = run["label"]
+            per = [r["runs"][label] for r in recs]
+            what = f"5n {label} ({ranks} ranks over {transport})"
+            if run.get("fault"):
+                check(all(x["outcome"] == "fault" for x in per),
+                      f"{what}: {[x['outcome'] for x in per]}")
+                continue
+            base = want[label.split("-")[0]]
+            for rank, x in enumerate(per):
+                where = f"{what}, rank {rank}"
+                check(x["outcome"] == "ok", f"{where}: {x['outcome']}")
+                check(x["parent_sha1"] == digest(base.tree["parent"]),
+                      f"{where}: the forest differs")
+                check(x["assignment_sha1"] == digest(base.assignment),
+                      f"{where}: the assignment differs")
+                for key in ("edge_cut", "total_edges", "comm_volume",
+                            "balance"):
+                    check(x[key] == getattr(base, key),
+                          f"{where}: {key} {x[key]} != "
+                          f"{getattr(base, key)}")
+                check(x["diagnostics"] == per[0]["diagnostics"],
+                      f"{where}: diagnostics differ from rank 0's")
+                check(x["launches"] == per[0]["launches"],
+                      f"{where}: launches differ from rank 0's")
+                # every rank's shards went through the path's kernels,
+                # each rank hashing its own chunks on its card (plain
+                # text is read on the host: no hash_chunk there); CPU
+                # shards launch none
+                path = () if device == "cpu" else \
+                    BIGV_CARDS_KERNELS + ("hash_chunk",) \
+                    if run.get("backend") == "torch-bigv" else tuple(
+                        k for k in SHARDED_PATH
+                        if k != "hash_chunk" or label != "s18-text")
+                for name in path:
+                    check(x["launches"][name] > 0,
+                          f"{where}: no {name} launch")
+            d = per[0]["diagnostics"]
+            line = {"run": label, "spec": run["spec"] if label != "s18-text"
+                    else f"{BIGV_PATHS_SPEC} as text",
+                    "backend": run.get("backend", "torch-sharded"),
+                    "ranks": ranks, "shards_a_rank": shards,
+                    "transport": transport,
+                    "devices": sorted({r["device"] for r in recs}),
+                    "wall_s": max(x["wall_s"] for x in per),
+                    "phase_s": per[0]["phase_s"],
+                    "edges_per_s": per[0]["total_edges"]
+                    / max(x["wall_s"] for x in per),
+                    "device_rounds": d.get("device_rounds"),
+                    "host_syncs": d.get("host_syncs"),
+                    "merge_mode": d.get("merge_mode"),
+                    "merge_payload_bytes": d.get("merge_payload_bytes"),
+                    "peak_mem_bytes_a_rank": [x["peak_mem_bytes"]
+                                              for x in per],
+                    "launches_a_rank": [x["launches"] for x in per],
+                    "edge_cut": per[0]["edge_cut"], "card": card}
+            print("s22-multiprocess " + json.dumps(line), flush=True)
+            got[label] = line
+        # the user's launch: the same ranks through the CLI (its bring-up,
+        # its default backend torch-sharded, process 0 alone reporting and
+        # writing the map), equal to the single-device s18
+        parts = os.path.join(scratch, "s18-cli.parts")
+        t0 = time.perf_counter()
+        logs = _run_ranks(ranks, scratch, "cli", lambda rank, addr: [
+            "-m", "sheep_tpu_torch", "--input", BIGV_PATHS_SPEC,
+            "--k", str(S22_K), "--n-devices", str(ranks * shards),
+            "--coordinator", addr, "--num-processes", str(ranks),
+            "--process-id", str(rank), "--dist-backend", transport,
+            "--device", device, "--json", "--output", parts])
+        wall = time.perf_counter() - t0
+        what = f"5n s18-cli ({ranks} ranks over {transport})"
+        lines = [[ln for ln in lg.splitlines() if ln.startswith("{")]
+                 for lg in logs]
+        check(len(lines[0]) == 1 and not any(lines[1:]),
+              f"{what}: not process 0 alone reported: {lines}")
+        summary = json.loads(lines[0][0])
+        check(summary["backend"].startswith("torch-sharded"),
+              f"{what}: backend {summary['backend']}")
+        check(np.array_equal(formats.read_partition(parts),
+                             small.assignment),
+              f"{what}: the map differs from the single-device s18's")
+        for key in ("edge_cut", "total_edges", "comm_volume", "balance"):
+            check(summary[key] == getattr(small, key),
+                  f"{what}: {key} {summary[key]} != {getattr(small, key)}")
+        line = {"run": "s18-cli", "spec": BIGV_PATHS_SPEC,
+                "backend": summary["backend"], "ranks": ranks,
+                "shards_a_rank": shards, "transport": transport,
+                "wall_s": wall, "run_wall_s": summary["wall_seconds"],
+                "phase_s": summary["phase_times"],
+                "edge_cut": summary["edge_cut"], "card": card}
+        print("s22-multiprocess " + json.dumps(line), flush=True)
+        got["s18-cli"] = line
+        return got
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def _run_ranks(ranks: int, scratch: str, tag: str, argv) -> list:
+    """``ranks`` processes of ``python argv(rank, coordinator)``, each with
+    its ``LOCAL_RANK`` and its log in ``scratch``, waited for within
+    ``MP_TIMEOUT_S`` (every one killed past it); checks that each exits 0
+    and returns each log."""
+    logs, procs = [], []
+    addr = f"127.0.0.1:{_free_port()}"
+    for rank in range(ranks):
+        logs.append(os.path.join(scratch, f"{tag}{rank}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable] + argv(rank, addr), stdout=log,
+                stderr=subprocess.STDOUT,
+                env={**os.environ, "LOCAL_RANK": str(rank)}))
+    try:
+        rcs = [p.wait(timeout=MP_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = [open(lg).read() for lg in logs]
+    tails = [t[-3000:] for t in texts]
+    for rank, tail in enumerate(tails):
+        print(f"5n {tag} rank {rank} log: " + " | ".join(
+            ln for ln in tail.splitlines()
+            if ln.endswith("s") and ": " in ln), flush=True)
+    check(rcs is not None, f"5n {tag}: the ranks did not finish within "
+                           f"{MP_TIMEOUT_S}s: {tails}")
+    check(rcs == [0] * ranks, f"5n {tag}: rank exit codes {rcs}: {tails}")
+    return texts
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multiprocess_only() -> int:
+    """``chip_smoke.py --multiprocess``: phase 5n alone, with the
+    references it needs (phase 5's build and the single-device s18)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check",
+              file=sys.stderr)
+        return 2
+    import sheep_tpu_torch
+    from sheep_tpu_torch.ops import _build
+
+    t_all = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    libs = _build.build_all()
+    print(f"build: {sorted(libs)}", flush=True)
+    ref = sheep_tpu_torch.partition(S22_SPEC, S22_K, device="cuda",
+                                    chunk_edges=1 << 23, dispatch_batch=8,
+                                    keep_tree=True)
+    s22_check(ref, "s22")
+    small = sheep_tpu_torch.partition(BIGV_PATHS_SPEC, S22_K, device="cuda",
+                                      keep_tree=True)
+    t0 = time.perf_counter()
+    multiprocess_runs(card, ref, small)
+    print(f"5n: {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
+          flush=True)
+    print(json.dumps({"ok": True, "mode": "multiprocess", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 
 def sharded_cards() -> int:
-    """``chip_smoke.py --sharded-cards``: phases 5l and 5m on a host with
-    more than one card: the build, phase 5's single-device build as the
+    """``chip_smoke.py --sharded-cards``: phases 5l, 5m and 5n on a host
+    with more than one card: the build, phase 5's single-device build as the
     reference, then every 5l run, those on a mesh of every card included,
     and the vertex-sharded build one shard a card: phase 5's graph within
-    ``BIGV_CARDS_BUDGET_S`` (its pace), then ``BIGV_PATHS_SPEC`` checked.
-    Needs two cards or more; prints the 5l and 5m lines and
+    ``BIGV_CARDS_BUDGET_S`` (its pace), then ``BIGV_PATHS_SPEC`` checked;
+    then 5n over NCCL, one process a card, one shard a process.
+    Needs two cards or more; prints the 5l, 5m and 5n lines and
     {"ok": true, "mode": "sharded-cards", ...} last."""
     import torch
 
@@ -4361,6 +4628,11 @@ def sharded_cards() -> int:
     bigv_s22(card, small, counters, mesh=shards_mesh(),
              label=f"cards{cards}", spec=BIGV_PATHS_SPEC)
     print(f"5m: {time.perf_counter() - t0:.1f}s", flush=True)
+    # 5n over NCCL, one rank a card, one shard a rank
+    t0 = time.perf_counter()
+    multiprocess_runs(card, ref, small, transport="nccl", ranks=cards,
+                      shards=1)
+    print(f"5n: {time.perf_counter() - t0:.1f}s", flush=True)
     print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
           flush=True)
     print(json.dumps({"ok": True, "mode": "sharded-cards",
@@ -4883,6 +5155,12 @@ def main() -> int:
                  card_rounds=one_call,
                  label="4-on-1" if one_call else "4-on-1-collectives")
     print(f"5m: {time.perf_counter() - t0:.1f}s", flush=True)
+    # 5n. two processes on the card (gloo with host staging), two shards
+    # each: the s22 sharded build per segment and batched, s18 through
+    # bigv, as text by byte spans, and killed then resumed
+    t0 = time.perf_counter()
+    multiprocess_runs(card, res, small)
+    print(f"5n: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b), stream_descent's the
@@ -5122,4 +5400,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(sharded_cards() if sys.argv[1:] == ["--sharded-cards"]
+             else multiprocess_only() if sys.argv[1:] == ["--multiprocess"]
              else main())

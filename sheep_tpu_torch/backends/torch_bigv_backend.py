@@ -20,7 +20,8 @@ from sheep_tpu_torch.backends.torch_backend import TorchBackend, pad_chunk
 from sheep_tpu_torch.device import resolve_device
 from sheep_tpu_torch.parallel.bigv import BigVPipeline
 from sheep_tpu_torch.parallel.mesh import shards_mesh
-from sheep_tpu_torch.types import PartitionResult, check_vertex_range
+from sheep_tpu_torch.types import (PartitionResult, check_vertex_range,
+                                   refuse_anchored)
 
 
 class TorchBigVBackend:
@@ -66,13 +67,14 @@ class TorchBigVBackend:
                   resume: bool = False, **opts) -> PartitionResult:
         """``keep_tree=True`` keeps the forest (``tree``: parent, pos,
         degrees), which ``partition_multi`` re-splits at every k."""
+        mesh = self.mesh()
+        refuse_anchored(stream, mesh)
         n = stream.num_vertices
         check_vertex_range(n)
-        mesh = self.mesh()
         cs = self.chunk_edges
         m_cheap = stream.num_edges_cheap
         if m_cheap is not None:
-            cs = min(cs, max(1024, -(-m_cheap // len(mesh))))
+            cs = min(cs, max(1024, -(-m_cheap // mesh.size)))
         pipe = self._pipe(n, cs)
         timings: dict = {}
         out = pipe.run(stream, k, alpha=self.alpha, weights=weights,

@@ -21,7 +21,8 @@ from sheep_tpu_torch.backends.torch_backend import (
 from sheep_tpu_torch.device import resolve_device
 from sheep_tpu_torch.parallel.mesh import shards_mesh
 from sheep_tpu_torch.parallel.pipeline import ShardedPipeline
-from sheep_tpu_torch.types import PartitionResult, check_vertex_range
+from sheep_tpu_torch.types import (PartitionResult, check_vertex_range,
+                                   refuse_anchored)
 
 
 class TorchShardedBackend:
@@ -65,10 +66,11 @@ class TorchShardedBackend:
                   resume: bool = False, **opts) -> PartitionResult:
         """``keep_tree=True`` keeps the forest (``tree``: parent, pos,
         degrees) for a re-split at another k."""
+        mesh = self.mesh()
+        refuse_anchored(stream, mesh)
         n = stream.num_vertices
         check_vertex_range(n)
-        mesh = self.mesh()
-        cs = stream.clamp_chunk_edges(self.chunk_edges, parts=len(mesh))
+        cs = stream.clamp_chunk_edges(self.chunk_edges, parts=mesh.size)
         inflight = resolve_inflight(self.inflight, self.device)
         # the folds update their buffers in place: the memory model's
         # donation

@@ -17,12 +17,24 @@
     python -m sheep_tpu_torch.cli --input rmat-hash:16 --k 8 \
         --backend torch-bigv --n-devices 8 --jumps 64 --device cpu
     python -m sheep_tpu_torch.cli --list-backends
+    python -m sheep_tpu_torch --input g.edges --k 8 --device cpu \
+        --n-devices 4 --coordinator 127.0.0.1:29500 --num-processes 2 \
+        --process-id 0     (and --process-id 1 in a second process)
 
 prints the phase times and scores, then one JSON result line per k (the
 same fields as the reference's) last. ``--trace`` appends the run's
 manifest, span tree, heartbeats and scores as JSONL (render it with
 ``tools/trace_report.py``); ``--profile-dir`` writes a ``torch.profiler``
 Chrome trace of the partition.
+
+``--coordinator``/``--num-processes``/``--process-id`` run one process of a
+multi-process build (the reference's multi-host flags): every process is
+launched with the same flags and its own id, the backend defaults to
+``torch-sharded`` (``--n-devices`` counts every process's shards), and
+process 0 alone writes the trace, the metrics, the partition map and the
+result lines. ``--dist-backend`` names the transport (default: nccl on
+CUDA, one card a process; gloo on the CPU; gloo on CUDA lets several
+processes share one card).
 """
 
 from __future__ import annotations
@@ -193,6 +205,21 @@ def build_parser() -> argparse.ArgumentParser:
 
     p.add_argument("--version", action="version",
                    version=f"sheep_tpu_torch {__version__}")
+    mh = p.add_argument_group("multi-process (the reference's multi-host "
+                              "flags)")
+    mh.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="rendezvous address; launch every process with "
+                         "the same value")
+    mh.add_argument("--num-processes", type=int, default=None,
+                    help="processes in the run")
+    mh.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank in [0, num_processes)")
+    mh.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default=None,
+                    help="the processes' transport (default: nccl on "
+                         "CUDA, gloo on the CPU; gloo on CUDA stages each "
+                         "collective through host memory and lets "
+                         "processes share a card)")
     p.add_argument("--output", default=None,
                    help="write the partition map (.parts text or .pbin)")
     p.add_argument("--json", action="store_true",
@@ -226,7 +253,53 @@ def main(argv=None) -> int:
                     "trace records)")
         if args.heartbeat_secs <= 0:
             p.error("--heartbeat-secs must be > 0")
-    if args.trace is None:
+    if not _multi_process(args):
+        if args.dist_backend is not None:
+            p.error("--dist-backend needs --coordinator or "
+                    "--num-processes")
+        return _traced(p, args)
+    from sheep_tpu_torch.parallel.mesh import shutdown_distributed
+
+    _multihost_setup(p, args)
+    try:
+        return _traced(p, args)
+    finally:
+        shutdown_distributed()
+
+
+def _multi_process(args) -> bool:
+    return bool(args.coordinator or args.num_processes)
+
+
+def _is_main() -> bool:
+    """Process 0 of the run (the only process of a single-process one)."""
+    from sheep_tpu_torch.parallel.mesh import host_shard_info
+
+    return host_shard_info()[0] == 0
+
+
+def _multihost_setup(p, args) -> None:
+    """The processes' bring-up, shared by the flat and --k-levels paths
+    (the reference's ``_multihost_setup``): join the group, and default
+    --backend to the sharded build."""
+    from sheep_tpu_torch.parallel.mesh import init_distributed
+
+    if args.deltas:
+        p.error("--coordinator/--num-processes not supported with --deltas "
+                "(the incremental replay is flat, single-k, "
+                "single-process)")
+    if args.num_processes is not None and args.num_processes < 1:
+        p.error("--num-processes must be >= 1")
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     backend=args.dist_backend, device=args.device)
+    if args.backend is None:
+        args.backend = "torch-sharded"
+
+
+def _traced(p, args) -> int:
+    """The run, traced by process 0 when --trace is given (the other
+    processes run untraced: the trace is one file)."""
+    if args.trace is None or not _is_main():
         return _run(p, args)
 
     from sheep_tpu_torch import obs
@@ -269,6 +342,9 @@ def _run(p, args) -> int:
         _sharded_options(p, args, opts)
     elif args.backend is not None:
         _single_options(p, args)
+        if _multi_process(args):
+            p.error(f"--backend {args.backend} runs in one process; several "
+                    f"take torch-sharded or torch-bigv")
     # the vertex-sharded build's own default, unless given
     chunk_given = args.chunk_edges is not None
     if not chunk_given and args.backend != "torch-bigv":
@@ -390,6 +466,9 @@ def _run(p, args) -> int:
         return 2
     wall = time.perf_counter() - t0
     res = results[0]
+    if not _is_main():
+        # process 0 writes the map, the metrics and the result lines
+        return 0
 
     def out_path(k: int) -> str:
         if len(ks) == 1:
@@ -461,7 +540,8 @@ def _flat(args, ks: list, run: dict) -> list:
     res = sheep_tpu_torch.partition(
         args.input, ks[0], n_vertices=args.num_vertices,
         **_checkpoint_options(args), **run)
-    if args.refine:
+    if args.refine and _is_main():
+        # process 0 alone reports, so it alone refines
         # the partition knows n: the stream need not count it again
         with open_input(args.input, n_vertices=len(res.assignment)) as es:
             res = sheep_tpu_torch.refine_result(
@@ -554,7 +634,8 @@ _BUILD_FLAGS = (("--metrics-out", "metrics_out"),
                 ("--stale-reuse", "stale_reuse"),
                 ("--dispatch-batch", "dispatch_batch"),
                 ("--inflight", "inflight"), ("--h2d-ring", "h2d_ring"),
-                ("--lift-levels", "lift_levels"), ("--deltas", "deltas"))
+                ("--lift-levels", "lift_levels"), ("--deltas", "deltas"),
+                ("--jumps", "jumps"), ("--hoist-bytes", "hoist_bytes"))
 
 
 def _build_flags(args) -> list:
@@ -565,13 +646,16 @@ def _build_flags(args) -> list:
 
 def _checkpoint_options(args) -> dict:
     """``checkpointer`` and ``resume`` from --checkpoint-dir,
-    --checkpoint-every and --resume (none without a directory)."""
+    --checkpoint-every and --resume (none without a directory); each
+    process keeps its own manifest in the directory."""
     if not args.checkpoint_dir:
         return {}
+    from sheep_tpu_torch.parallel.mesh import host_shard_info
     from sheep_tpu_torch.utils.checkpoint import Checkpointer
 
     return {"checkpointer": Checkpointer(args.checkpoint_dir,
-                                         every=args.checkpoint_every),
+                                         every=args.checkpoint_every,
+                                         process=host_shard_info()[0]),
             "resume": args.resume}
 
 
@@ -597,6 +681,14 @@ def _k_levels(parser, args) -> int:
     if not levels or any(k < 1 for k in levels):
         parser.error(f"--k-levels must be a comma list of positive ints "
                      f"(got {args.k_levels!r})")
+    sharded = {}
+    if args.backend in SHARDED_BACKENDS:
+        # every level through the sharded build; several processes
+        # reconcile a resume collectively
+        from sheep_tpu_torch.parallel.mesh import host_shard_info
+
+        sharded = {"backend": args.backend, "n_devices": args.n_devices,
+                   "nprocs": host_shard_info()[1]}
     t0 = time.perf_counter()
     res = sheep_tpu_torch.partition_hierarchical(
         args.input, levels, device=args.device,
@@ -606,9 +698,11 @@ def _k_levels(parser, args) -> int:
         balance=args.balance, final_refine=args.final_refine or 0,
         spill_dir=args.spill_dir, n_vertices=args.num_vertices,
         refine_budget_bytes=int(args.refine_budget_gb * (1 << 30)),
-        **_checkpoint_options(args),
+        **_checkpoint_options(args), **sharded,
         **({} if args.balance is not None else {"alpha": args.alpha}))
     wall = time.perf_counter() - t0
+    if not _is_main():
+        return 0
     if args.output:
         formats.write_partition(args.output, res.assignment)
     summary = res.summary()
@@ -663,13 +757,15 @@ def _advise(parser, args, k: int):
         flags = f"--k-levels {lv} --final-refine {fr} --balance {bal}"
         if args.refine is not None:
             flags += f" --refine {args.refine}"
-        print(f"note: quality advisor: intra-degree/k signal "
-              f"{advice['signal']:.2f} < {advice['threshold']:.2f} at "
-              f"k={k} — flat label propagation stalls below the signal "
-              f"threshold (BASELINE.md 'SBM quality'); recommended "
-              f"recipe: {flags}"
-              + ("" if args.auto_recipe else
-                 "  (pass --auto-recipe to apply)"), file=sys.stderr)
+        # the note is process 0's; every process applies the recipe
+        if _is_main():
+            print(f"note: quality advisor: intra-degree/k signal "
+                  f"{advice['signal']:.2f} < {advice['threshold']:.2f} at "
+                  f"k={k} — flat label propagation stalls below the signal "
+                  f"threshold (BASELINE.md 'SBM quality'); recommended "
+                  f"recipe: {flags}"
+                  + ("" if args.auto_recipe else
+                     "  (pass --auto-recipe to apply)"), file=sys.stderr)
         if args.auto_recipe:
             args.k_levels = lv
             args.k = None
@@ -687,11 +783,12 @@ def _advise(parser, args, k: int):
         else:
             why = (f"signal {advice['signal']:.2f} is low but k={k} has no "
                    f"usable level split (prime past the per-level cap)")
-        print(f"note: quality advisor: {why}; running the flat path as "
-              f"asked"
-              + (" (--final-refine only applies when the advisor selects a "
-                 "hierarchy; ignored)" if args.final_refine else ""),
-              file=sys.stderr)
+        if _is_main():
+            print(f"note: quality advisor: {why}; running the flat path "
+                  f"as asked"
+                  + (" (--final-refine only applies when the advisor "
+                     "selects a hierarchy; ignored)"
+                     if args.final_refine else ""), file=sys.stderr)
     return None
 
 
@@ -807,11 +904,12 @@ def _sharded_options(parser, args, opts: dict) -> None:
     add their keywords to ``opts``: the sharded build takes the batched
     dispatch's knobs, the vertex-sharded build --jumps, --hoist-bytes,
     --segment-rounds and --lift-levels; neither takes the per-segment
-    driver's tail strategies or the staging ring, runs the hierarchy or
-    scores a map."""
+    driver's tail strategies or the staging ring, or scores a map (with
+    --k-levels every level runs through the backend). With several
+    processes --n-devices counts every process's shards: on the CPU each
+    process fakes its share."""
     bigv = args.backend == "torch-bigv"
     bad = [flag for flag, on in (
-        ("--k-levels", args.k_levels), ("--auto-recipe", args.auto_recipe),
         ("--score-only", args.score_only),
         ("--host-tail-threshold", args.host_tail_threshold is not None),
         ("--carry-tail", args.carry_tail),
@@ -839,9 +937,11 @@ def _sharded_options(parser, args, opts: dict) -> None:
         if args.n_devices < 1:
             parser.error("--n-devices must be >= 1")
         if args.device == "cpu":
-            from sheep_tpu_torch.parallel.mesh import force_cpu_devices
+            from sheep_tpu_torch.parallel.mesh import (force_cpu_devices,
+                                                       host_shard_info)
 
-            force_cpu_devices(args.n_devices)
+            # an uneven count raises in shards_mesh, as the reference's
+            force_cpu_devices(max(1, args.n_devices // host_shard_info()[1]))
     # --no-carry-tail / --no-tail-overlap leave a False behind
     for name in ("carry_tail", "tail_overlap"):
         opts.pop(name, None)

@@ -27,8 +27,16 @@ the partial final one and the manifest of the spill shards, which then
 live under ``<checkpoint dir>/hier_spill_p<process>``, are kept on a fault
 and reused on resume; ``level`` is the injection point, a part). A shard
 missing or torn on resume rebuilds the level from scratch, with a
-warning. The reference's multi-process option is not ported (ROADMAP
-Queue 1 item 7); this signature does not take it.
+warning.
+
+Several processes (``backend="torch-sharded"`` or ``"torch-bigv"`` over a
+mesh of several processes, ``nprocs`` of them): every level's partition
+runs through that backend across the processes, and every process spills
+its own copy of the shards and replays the same recursion, so the
+collectives stay in lockstep. A resume agrees on one level-boundary step
+(``utils/checkpoint.reconcile_multihost_resume``), and the spill-damage
+verdict is allgathered: one process rebuilding level 0 alone would cross
+the others' collectives.
 """
 
 from __future__ import annotations
@@ -168,12 +176,13 @@ def _spill_manifest_problem(level_dir, names, sizes, parts_done):
 
 def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
                  tmpdir, opts, timings=None, spill_bytes=None, depth=0,
-                 checkpointer=None, resume=False, meta=None):
+                 checkpointer=None, resume=False, meta=None, nprocs=1):
     """The assignment of ``stream`` at k = prod(k_levels), recursing.
     ``timings`` gathers ``level{d}_partition`` / ``level{d}_spill``
     seconds, ``spill_bytes`` the ``level{d}_spill_bytes``.
     ``checkpointer`` (depth 0 only) arms the recovery of the module
-    docstring; ``meta`` is the fingerprint its saves carry."""
+    docstring; ``meta`` is the fingerprint its saves carry; ``nprocs`` >
+    1 makes the resume and the spill verdict collective."""
     from sheep_tpu_torch import _partition_stream
     from sheep_tpu_torch.io.edgestream import EdgeStream
     from sheep_tpu_torch.utils import checkpoint as ckpt_mod
@@ -186,7 +195,11 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
     n = stream.num_vertices
     k1 = k_levels[0]
     k_sub = int(np.prod(k_levels[1:])) if len(k_levels) > 1 else 1
-    state = ckpt_mod.resume_state(checkpointer, meta, resume)
+    state = ckpt_mod.resume_state(checkpointer, meta, resume,
+                                  raise_on_mismatch=nprocs == 1)
+    if nprocs > 1 and checkpointer is not None and resume:
+        state = ckpt_mod.reconcile_multihost_resume(checkpointer, state,
+                                                    meta)
     level_dir = None
     if checkpointer is not None:
         # the shards' home, the same across resumes; the inner levels'
@@ -206,6 +219,15 @@ def _hier_assign(stream, k_levels, refine, refine_alpha, chunk_edges,
                                  np.int64).copy()
         problem = _spill_manifest_problem(level_dir, spill_names,
                                           spill_sizes, parts_done)
+        if nprocs > 1:
+            # a rebuild adds collective work: every process rebuilds, or
+            # none (the reconcile agreed on the step, so all reach this)
+            from sheep_tpu_torch.parallel.mesh import process_allgather
+
+            bad = process_allgather(
+                np.array([1 if problem is not None else 0], np.int64))
+            if bad.any() and problem is None:
+                problem = "a peer process reported spill damage"
         if problem is not None:
             ckpt_mod._warn(f"hierarchy resume: {problem}; rebuilding the "
                            f"level from scratch")
@@ -337,7 +359,8 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
                            spill_dir: str | None = None,
                            n_vertices: int | None = None,
                            refine_budget_bytes: int = 4 << 30,
-                           checkpointer=None, resume: bool = False, **opts):
+                           checkpointer=None, resume: bool = False,
+                           nprocs: int = 1, **opts):
     """Partition into prod(k_levels) parts, one level at a time, as the
     reference's ``partition_hierarchical``. ``refine`` rounds run at every
     level; ``balance=BETA`` sets each level's split alpha to
@@ -346,15 +369,20 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
     adds warm-start rounds at the full k, capped at ``balance`` (or
     ``refine_alpha``), with ``refine_budget_bytes`` for its histogram.
     ``opts`` are :func:`sheep_tpu_torch.partition`'s (``weights``,
-    ``alpha``, ``comm_volume`` and the build's knobs); any other raises
-    ``TypeError``. ``checkpointer``/``resume`` make the run recoverable
-    (module docstring); a run that succeeds clears its checkpoint, the
-    level-0 domain and the spill shards. Runs on ``device`` (None: CUDA).
+    ``alpha``, ``comm_volume``, ``backend``, ``n_devices`` and the
+    build's knobs); any other raises ``TypeError``. Every level's
+    partition runs through ``backend``; the scores, the refinement and
+    the ledger run on ``device``. ``checkpointer``/``resume`` make the run
+    recoverable (module docstring); a run that succeeds clears its
+    checkpoint, the level-0 domain and the spill shards. ``nprocs`` > 1:
+    the processes of a multi-process mesh, which reconcile a resume's
+    step collectively. Runs on ``device`` (None: CUDA).
     Returns a PartitionResult over the full stream with its backend tagged
     ``+hier[...]``, the level seconds in ``phase_times`` and the ledger in
     ``diagnostics``."""
     import dataclasses
 
+    import sheep_tpu_torch
     from sheep_tpu_torch import comm_volume_of, refine_result
     from sheep_tpu_torch.backends.torch_backend import TorchBackend
     from sheep_tpu_torch.io.edgestream import open_input
@@ -366,7 +394,12 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
         raise ValueError(f"k_levels must be positive ints, got {k_levels}")
     k_total = int(np.prod(k_levels))
     build = {key: v for key, v in opts.items()
-             if key not in ("weights", "alpha", "comm_volume")}
+             if key not in ("weights", "alpha", "comm_volume", "backend",
+                            "n_devices")}
+    inner = opts.get("backend", "torch")
+    if inner not in sheep_tpu_torch.BACKENDS:
+        raise ValueError(f"unknown backend {inner!r}; the port has "
+                         f"{', '.join(sheep_tpu_torch.BACKENDS)}")
     # the build's options are checked, and the device resolved, up front
     be = TorchBackend(chunk_edges=chunk_edges, device=device, **build)
     opts = {**opts, "device": be.device}
@@ -405,12 +438,12 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
                     alpha=opts.get("alpha", 1.0), comm_volume=comm_volume,
                     state_format="hier", k_levels=k_levels,
                     refine=int(refine), refine_alpha=float(refine_alpha),
-                    final_refine=int(final_refine), inner_backend=be.name)
+                    final_refine=int(final_refine), inner_backend=inner)
             final = _hier_assign(es, k_levels, refine, refine_alpha,
                                  chunk_edges, tmp_root, dict(opts),
                                  timings=timings, spill_bytes=spill_bytes,
                                  checkpointer=checkpointer, resume=resume,
-                                 meta=meta)
+                                 meta=meta, nprocs=nprocs)
             w = None
             if weights == "degree":
                 # balance is scored with the weights the levels used
@@ -430,7 +463,7 @@ def partition_hierarchical(path, k_levels, device=None, refine=8,
                 comm_volume=comm_volume and not final_refine,
                 weights=w)[k_total]
             timings["score"] = round(time.perf_counter() - t0, 3)
-            tag = f"{be.name}:{be.device.type}+hier{k_levels}"
+            tag = f"{inner}:{be.device.type}+hier{k_levels}"
             res = PartitionResult(
                 assignment=final, k=k_total, edge_cut=cut,
                 total_edges=total, cut_ratio=cut / max(total, 1),

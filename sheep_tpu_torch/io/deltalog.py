@@ -622,7 +622,8 @@ class DeltaLogStream:
         return self.base
 
     def chunks(self, chunk_edges: int = 1 << 22, start_chunk: int = 0,
-               shard: int = 0, num_shards: int = 1) -> Iterator[np.ndarray]:
+               shard: int = 0, num_shards: int = 1,
+               byte_range: bool = False) -> Iterator[np.ndarray]:
         if num_shards != 1:
             raise NotImplementedError("delta: inputs stream as one shard")
         idx = 0

@@ -190,32 +190,122 @@ class EdgeStream:
             self._n_vertices = m + 1
         return self._n_vertices
 
-    def chunks(self, chunk_edges: int = 1 << 22,
-               start_chunk: int = 0) -> Iterator[np.ndarray]:
+    @property
+    def num_edges(self) -> int:
+        """The exact edge count: O(1) where ``num_edges_cheap`` has it,
+        else one counting pass, kept (the lockstep batch count of a
+        multi-process run over text or an unsized generator)."""
+        cheap = self.num_edges_cheap
+        if cheap is not None:
+            return cheap
+        if getattr(self, "_counted", None) is None:
+            self._counted = sum(len(c) for c in self.chunks(1 << 22))
+        return self._counted
+
+    def chunks(self, chunk_edges: int = 1 << 22, start_chunk: int = 0,
+               shard: int = 0, num_shards: int = 1,
+               byte_range: bool = False) -> Iterator[np.ndarray]:
         """Chunks ``start_chunk``, ``start_chunk + 1``, ... of ``chunk_edges``
-        edges (the global chunk index of a checkpoint)."""
+        edges (the global chunk index of a checkpoint). ``shard`` of
+        ``num_shards`` keeps chunk i when ``i % num_shards == shard``
+        (round robin over the workers); ``byte_range`` (plain text only)
+        parses only the worker's byte span of the file instead, its local
+        chunk j carrying the global index ``j * num_shards + shard``
+        (the reference's ``chunks``; binary, memory and gzip streams
+        ignore the flag)."""
         cs = int(chunk_edges)
         start = int(start_chunk)
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"bad shard {shard}/{num_shards}")
+        if num_shards == 1:
+            own = None
+        else:
+            def own(idx):
+                return _owns(idx, shard, num_shards, start)
         if self._factory is not None:
-            yield from _regroup(self._factory(), cs, start)
+            yield from _regroup(self._factory(), cs, start, own)
         elif self._edges is not None:
-            for off in range(start * cs, len(self._edges), cs):
-                yield self._edges[off:off + cs]
+            for idx, off in enumerate(range(start * cs, len(self._edges),
+                                            cs), start):
+                if own is None or own(idx):
+                    yield self._edges[off:off + cs]
+        elif self.fmt == "text" and byte_range:
+            yield from self._chunks_text_span(cs, shard, num_shards, start)
         elif self.fmt == "text":
             yield from _regroup(_text_blocks(lambda: open(self.path, "rb")),
-                                cs, start)
+                                cs, start, own)
         elif self.fmt == "text-gz":
+            # one sequential gzip member: every worker decompresses it and
+            # keeps its round-robin chunks
             yield from _regroup(
-                _text_blocks(lambda: gzip.open(self.path, "rb")), cs, start)
+                _text_blocks(lambda: gzip.open(self.path, "rb")), cs, start,
+                own)
         elif self.fmt == "csr":
-            yield from self._chunks_csr(cs, start)
+            yield from self._chunks_csr(cs, start, own)
         else:
-            yield from self._chunks_binary(cs, start)
+            yield from self._chunks_binary(cs, start, own)
 
-    def _chunks_binary(self, cs: int, start: int):
+    def count_edges_in_span(self, shard: int, num_shards: int) -> int:
+        """Edges in worker ``shard``'s byte span of a text file (one pass
+        over the span, kept): what the processes of a byte-range run
+        allgather to agree on their batch count."""
+        key = (shard, num_shards)
+        if not hasattr(self, "_span_counts"):
+            self._span_counts: dict = {}
+        if key not in self._span_counts:
+            self._span_counts[key] = sum(
+                len(c) for c in self.chunks(1 << 22, shard=shard,
+                                            num_shards=num_shards,
+                                            byte_range=True))
+        return self._span_counts[key]
+
+    def _chunks_text_span(self, cs: int, shard: int, num_shards: int,
+                          start: int):
+        """Only this worker's byte span [size * shard / P, size * (shard
+        + 1) / P) of a text file, parsed by the native parser (the
+        reference's ``_chunks_text_span``). A line belongs to the span of
+        its first byte: a span entered mid-line skips to the next line,
+        and a line that straddles the span's end is finished past it.
+        Local chunk j is kept when its global index ``j * P + shard``
+        is at least ``start``."""
+        from sheep_tpu_torch.core import native
+
+        size = os.path.getsize(self.path)
+        lo = size * shard // num_shards
+        hi = size * (shard + 1) // num_shards
+
+        def spans():
+            with open(self.path, "rb") as f:
+                if lo > 0:
+                    f.seek(lo - 1)
+                    if f.read(1) != b"\n":
+                        f.readline()  # the previous span's line
+                tail = b""
+                while f.tell() < hi:
+                    block = f.read(min(TEXT_BLOCK_BYTES, hi - f.tell()))
+                    if not block:
+                        break
+                    data = tail + block
+                    edges, consumed = native.parse_text(data)
+                    tail = data[consumed:]
+                    if len(edges):
+                        yield edges
+                if tail:  # the line over the span's end, or EOF's
+                    data = tail + f.readline()
+                    if not data.endswith(b"\n"):
+                        data += b"\n"
+                    edges, _ = native.parse_text(data)
+                    if len(edges):
+                        yield edges
+
+        yield from _regroup(spans(), cs, 0,
+                            lambda j: j * num_shards + shard >= start)
+
+    def _chunks_binary(self, cs: int, start: int, own=None):
         """Validated reads under the read retry: a torn trailing record and
         a short read go through the IO policy; ``"read"`` is the injection
-        point, counted a physical read."""
+        point, counted a physical read. ``own(i)``: keep chunk i (None:
+        every chunk)."""
         from sheep_tpu_torch.utils import fault
 
         dtype = np.dtype("<u4") if self.fmt == "bin32" else np.dtype("<u8")
@@ -232,7 +322,11 @@ class EdgeStream:
         total = size // pair
         with _retrying(policy, lambda: open(self.path, "rb"),
                        f"open {self.path}") as f:
-            for reads, off in enumerate(range(start * cs, total, cs), 1):
+            reads = 0
+            for off in range(start * cs, total, cs):
+                if own is not None and not own(off // cs):
+                    continue
+                reads += 1
                 count = min(cs, total - off)
 
                 def _read(off=off, count=count, reads=reads):
@@ -258,7 +352,7 @@ class EdgeStream:
                     return
                 yield flat.reshape(-1, 2).astype(np.int64)
 
-    def _chunks_csr(self, cs: int, start: int):
+    def _chunks_csr(self, cs: int, start: int, own=None):
         """Chunk i is the edge ids [i*cs, (i+1)*cs) of the file, as the
         reference's ``_chunks_csr`` cuts them."""
         from sheep_tpu_torch.io import csr
@@ -267,15 +361,26 @@ class EdgeStream:
         try:
             total = g.n_edges
             for off in range(start * cs, total, cs):
-                yield g.edge_slice(off, min(off + cs, total))
+                if own is None or own(off // cs):
+                    yield g.edge_slice(off, min(off + cs, total))
         finally:
             g.close()
 
 
-def _regroup(blocks, cs: int, start: int = 0):
+def _owns(idx: int, shard: int, num_shards: int, start: int) -> bool:
+    """Chunk ``idx`` is worker ``shard``'s: at or past ``start`` and its
+    turn of the round robin."""
+    return idx >= start and idx % num_shards == shard
+
+
+def _regroup(blocks, cs: int, start: int = 0, own=None):
     """Variable-size (c, 2) edge blocks regrouped into chunks of ``cs``
-    edges and a last, shorter one, from chunk ``start`` on (the
-    reference's ``EdgeStream._regroup``)."""
+    edges and a last, shorter one, from chunk ``start`` on, or those
+    chunks i with ``own(i)`` when given (the reference's
+    ``EdgeStream._regroup``)."""
+    if own is None:
+        def own(idx):
+            return idx >= start
     pend: list = []
     pend_n = 0
     idx = 0
@@ -285,12 +390,12 @@ def _regroup(blocks, cs: int, start: int = 0):
         pend_n += len(block)
         while pend_n >= cs:
             cat = np.concatenate(pend)
-            if idx >= start:
+            if own(idx):
                 yield cat[:cs]
             pend = [cat[cs:]]
             pend_n = len(pend[0])
             idx += 1
-    if pend_n and idx >= start:
+    if pend_n and own(idx):
         yield np.concatenate(pend)
 
 

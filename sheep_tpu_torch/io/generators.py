@@ -269,10 +269,29 @@ class _CounterHashStream:
     def num_chunks(self, chunk_edges: int) -> int:
         return -(-self._m // int(chunk_edges))
 
-    def chunks(self, chunk_edges: int = 1 << 22, start_chunk: int = 0):
+    def chunks(self, chunk_edges: int = 1 << 22, start_chunk: int = 0,
+               shard: int = 0, num_shards: int = 1,
+               byte_range: bool = False):
+        """Chunk i by direct range hashing, so a worker skips straight to
+        its own: chunks i >= ``start_chunk`` with ``i % num_shards ==
+        shard`` (``byte_range`` means nothing here)."""
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"bad shard {shard}/{num_shards}")
         cs = int(chunk_edges)
-        for i in range(int(start_chunk), self.num_chunks(cs)):
+        first = int(start_chunk)
+        first += (shard - first) % num_shards
+        for i in range(first, self.num_chunks(cs), num_shards):
             yield self._range(i * cs, min(cs, self._m - i * cs))
+
+    def count_edges_in_span(self, shard: int, num_shards: int) -> int:
+        """The edges of worker ``shard``'s round-robin chunks at the
+        default width, by arithmetic (the reference's count)."""
+        cs = 1 << 22
+        n_chunks = -(-self._m // cs)
+        total = len(range(shard, n_chunks, num_shards)) * cs
+        if n_chunks and (n_chunks - 1) % num_shards == shard:
+            total -= n_chunks * cs - self._m  # the short last chunk
+        return total
 
     def read_all(self) -> np.ndarray:
         return self._range(0, self._m)

@@ -72,7 +72,16 @@ def _smi_line(index: int) -> str:
 def collect_manifest(config: Optional[dict] = None,
                      backend: Optional[str] = None, device=None) -> dict:
     """The manifest record's body for a run on ``device`` (None: CUDA, as
-    the entry points default)."""
+    the entry points default). In a multi-process run each device entry
+    also names its process (this one's rank)."""
+    rec = _collect(config, backend, device)
+    if rec["process_count"] > 1:
+        for dev in rec.get("devices") or ():
+            dev["process"] = rec["process_index"]
+    return rec
+
+
+def _collect(config, backend, device) -> dict:
     import platform as _platform
 
     import numpy as np
@@ -89,9 +98,12 @@ def collect_manifest(config: Optional[dict] = None,
         "numpy_version": np.__version__,
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
-        "process_index": 0,
-        "process_count": 1,
     }
+    # this process's rank in a multi-process run, and its devices' process
+    from sheep_tpu_torch.parallel.mesh import host_shard_info
+
+    rank, world = host_shard_info()
+    rec["process_index"], rec["process_count"] = rank, world
     if backend is not None:
         rec["backend"] = backend
     if config is not None:

@@ -43,8 +43,14 @@ copies), and it reads the state once a segment, under torch.cuda's sync
 debug mode "error". The elimination order and the split run on the host
 over O(n) arrays, as in the reference.
 
-Single process only: a multi-process mesh on ``torch.distributed`` is
-the next slice (``parallel/pipeline.py`` raises for it).
+Several processes (``torch.distributed``): process p holds the blocks of
+its ``n_local`` contiguous shards, the collectives cross the processes
+(the live words of a round by one all-gather), the host tables are
+assembled by an allgather of the processes' blocks, checkpoints hold each
+process's own blocks, and a round never runs as one ``CardRound`` (no
+card holds every shard). Each process synthesizes its own round-robin
+chunks of a device stream on its cards; the residency manager and the
+in-process retry are single-process only, as in the reference.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ from sheep_tpu_torch.io.devicestream import is_device_stream
 from sheep_tpu_torch.ops import compact as compact_ops
 from sheep_tpu_torch.ops import routed
 from sheep_tpu_torch.ops.elim import _Readback, pow2_at_least, sync_debug
-from sheep_tpu_torch.parallel.mesh import Mesh, all_gather, all_to_all, psum
+from sheep_tpu_torch.parallel.mesh import (Mesh, all_gather, all_to_all,
+                                           process_allgather, psum)
 
 
 def _card_view(views: list) -> torch.Tensor:
@@ -105,7 +112,7 @@ class BigVPipeline:
                  hoist_bytes: Optional[int] = None,
                  card_rounds: Optional[bool] = None):
         self.mesh = Mesh(mesh)
-        d = len(self.mesh)
+        d = self.mesh.size
         self.n = n
         self.cs = chunk_edges
         self.n_devices = d
@@ -123,12 +130,15 @@ class BigVPipeline:
             else int(os.environ.get("SHEEP_BIGV_HOIST_BYTES", "0"))
         self.hoist_levels = min(self.lift_levels - 1,
                                 max(0, self.hoist_bytes // (4 * self.B)))
-        self.procs, self.proc, self.n_local = 1, 0, d
+        # this process holds n_local contiguous shards, the first global
+        # shard index base
+        self.procs, self.proc = self.mesh.procs, self.mesh.proc
+        self.n_local, self.base = len(self.mesh), self.mesh.base
         self.home = self.mesh[0]
-        # the cards: (device, first shard, shards), each device's shards
-        # consecutive in the mesh
+        # the cards: (device, first global shard, shards), each device's
+        # shards consecutive in the mesh
         cards: list = []
-        for s, dev in enumerate(self.mesh):
+        for s, dev in enumerate(self.mesh, self.base):
             if cards and cards[-1][0] == dev:
                 cards[-1][2] += 1
             elif any(c[0] == dev for c in cards):
@@ -137,7 +147,7 @@ class BigVPipeline:
             else:
                 cards.append([dev, s, 1])
         self.cards = [tuple(c) for c in cards]
-        one = len(self.cards) == 1
+        one = len(self.cards) == 1 and self.procs == 1
         if card_rounds and not one:
             raise ValueError("card_rounds needs one device that holds "
                              "every shard")
@@ -153,14 +163,14 @@ class BigVPipeline:
     def _gather(self, blocks: list) -> list:
         """The all-gather of the shards' rows of per-card (S, W) buffers:
         one (D, W) block a card."""
-        got = all_gather(self._shards(blocks))
-        return [got[first] for _, first, _ in self.cards]
+        got = all_gather(self._shards(blocks), self.mesh)
+        return [got[first - self.base] for _, first, _ in self.cards]
 
     def _exchange(self, answers: list) -> list:
         """The all-to-all of per-card (S, D, W) answers: one (D, S, W)
         view a card, its requesters' answers from every owner."""
-        got = all_to_all(self._shards(answers))
-        return [_card_view(got[first:first + S])
+        got = all_to_all(self._shards(answers), self.mesh)
+        return [_card_view(got[first - self.base:first - self.base + S])
                 for _, first, S in self.cards]
 
     def _lookup(self, tables: list, reqs: list, states=None) -> list:
@@ -175,7 +185,19 @@ class BigVPipeline:
     def _scatter_min(self, P: list, lo: list, hi: list, states) -> tuple:
         """``_scatter_min``: every shard's (lo -> hi) requests folded into
         the block-sharded P (in place); each card's (D, S, Q) answers
-        before and after the fold to its shards' requests."""
+        before and after the fold to its shards' requests. Across
+        processes the requests cross as one (lo | hi) gather and the
+        answers as one (old | new) exchange: two collectives, not four."""
+        if self.procs > 1:
+            q = lo[0].shape[-1]
+            g = self._gather([torch.cat([a, b], dim=-1)
+                              for a, b in zip(lo, hi)])
+            answers = [routed.owned_scatter_min(
+                t, first, x[:, :q].contiguous(), x[:, q:].contiguous(),
+                self.n, s) for t, x, s, (_, first, _) in
+                zip(P, g, states, self.cards)]
+            both = self._exchange([torch.cat(a, dim=-1) for a in answers])
+            return [x[..., :q] for x in both], [x[..., q:] for x in both]
         glo, ghi = self._gather(lo), self._gather(hi)
         answers = [routed.owned_scatter_min(t, first, a, b, self.n, s)
                    for t, a, b, s, (_, first, _) in
@@ -194,10 +216,19 @@ class BigVPipeline:
 
     def _share_words(self, states: list) -> None:
         """Every card's live words copied into every other card's state
-        (device copies: the psum's inputs)."""
+        (device copies: the psum's inputs); across processes, one
+        all-gather of the words."""
+        W = routed.WORDS
+        if self.procs > 1:
+            words = [st[W + first + i:W + first + i + 1]
+                     for st, (_, first, S) in zip(states, self.cards)
+                     for i in range(S)]
+            got = all_gather(words, self.mesh)
+            for st, (_, first, _) in zip(states, self.cards):
+                st[W:].copy_(got[first - self.base].reshape(-1))
+            return
         if len(self.cards) == 1:
             return
-        W = routed.WORDS
         for st, (_, first, S) in zip(states, self.cards):
             mine = st[W + first:W + first + S]
             for other in states:
@@ -261,7 +292,7 @@ class BigVPipeline:
                 got = torch.cat([u[cut].long() * k + av[cut].long(),
                                  v[cut].long() * k + au[cut].long()])
                 keys.append(torch.unique(got).to(self.home))
-        return psum(parts)[0]
+        return psum(parts, self.mesh)[0]
 
     def _program(self, P: list, bufs, stack) -> list:
         """The climb of a round as steps over per-card tables: (CLIMB, t)
@@ -433,7 +464,7 @@ class BigVPipeline:
         stats["collective_bytes"] = stats.get("collective_bytes", 0) \
             + 4 * 4 * self.n_devices * size
         stats["folded_bytes"] = stats.get("folded_bytes", 0) \
-            + sum(int(b.numel()) for b in batch) * 4
+            + sum(int(b.numel()) for b in batch) * 4 * self.procs
         total = 0
         with sync_debug(self.home, "error"):
             while True:
@@ -462,12 +493,13 @@ class BigVPipeline:
     def _put(self, batch) -> list:
         """A host (D, C, 2) batch, or per-shard device tensors (device
         synthesis), as one (S, C, 2) int32 tensor a card."""
+        base = self.base
         if isinstance(batch, (list, tuple)):
-            return [torch.stack(list(batch[first:first + S])).to(dev)
-                    for dev, first, S in self.cards]
+            return [torch.stack(list(batch[f - base:f - base + S])).to(dev)
+                    for dev, f, S in self.cards]
         return [torch.from_numpy(np.ascontiguousarray(
-            batch[first:first + S], dtype=np.int32)).to(dev)
-            for dev, first, S in self.cards]
+            batch[f - base:f - base + S], dtype=np.int32)).to(dev)
+            for dev, f, S in self.cards]
 
     def _local_span(self):
         """This process's row span of a (rows,) block-sharded table."""
@@ -480,16 +512,19 @@ class BigVPipeline:
                                for b, (_, _, S) in zip(blocks, self.cards)])
 
     def _allgather_table(self, local: np.ndarray) -> np.ndarray:
-        """The full (rows,) host table from the processes' local blocks
-        (one process: its own)."""
-        return local
+        """The full (rows,) host table from the processes' local blocks:
+        one allgather, the same table on every process (one process: its
+        own)."""
+        if self.procs == 1:
+            return local
+        return process_allgather(local).reshape(-1)
 
     def _place(self, local: np.ndarray) -> list:
         """A (rows,) host table as its per-card (S, B) blocks."""
-        B = self.B
+        B, base = self.B, self.base
         return [torch.from_numpy(np.ascontiguousarray(
-            local[first * B:(first + S) * B], dtype=np.int32)
-            .reshape(S, B)).to(dev) for dev, first, S in self.cards]
+            local[(f - base) * B:(f - base + S) * B], dtype=np.int32)
+            .reshape(S, B)).to(dev) for dev, f, S in self.cards]
 
     def _shard_table(self, host_table: np.ndarray) -> list:
         """An int32[n + 1] host table padded to (rows,) with the sentinel
@@ -519,7 +554,7 @@ class BigVPipeline:
         from sheep_tpu_torch.ops.split import tree_split_host
         from sheep_tpu_torch.parallel.pipeline import (
             _PassThrough, device_lockstep_batches, iter_batches_lockstep,
-            use_byte_range)
+            union_key_count, use_byte_range)
         from sheep_tpu_torch.utils import checkpoint as ckpt
         from sheep_tpu_torch.utils import retry as retry_mod
         from sheep_tpu_torch.utils import watchdog as wd_mod
@@ -531,9 +566,13 @@ class BigVPipeline:
         home = self.home
         policy = retry_mod.RetryPolicy()
         bkinds = ("kill", "stall")
-        okinds = ("oom",)
+        # the in-process retry runs in one process only: a retry on one
+        # rank would skew the collectives
+        okinds = ("oom",) if self.procs == 1 else ()
 
         def _guarded(fn, where, stats):
+            if self.procs > 1:
+                return fn()
             while True:
                 try:
                     return fn()
@@ -550,7 +589,8 @@ class BigVPipeline:
             if is_device_stream(src):
                 return _PassThrough(device_lockstep_batches(
                     src, cs, self.n_local, n, self.mesh,
-                    start_chunk=start_chunk, stats=build_stats))
+                    start_chunk=start_chunk, stats=build_stats,
+                    proc=self.proc, procs=self.procs))
             return prefetch(iter_batches_lockstep(
                 src, cs, self.n_local, n, self.proc, self.procs,
                 start_chunk=start_chunk,
@@ -563,7 +603,11 @@ class BigVPipeline:
                                 devices=d, procs=self.procs,
                                 text_byte_range=use_byte_range(
                                     stream, self.procs))
-        state = ckpt.resume_state(checkpointer, meta, resume)
+        state = ckpt.resume_state(checkpointer, meta, resume,
+                                  raise_on_mismatch=self.procs == 1)
+        if self.procs > 1 and checkpointer is not None and resume:
+            state = ckpt.reconcile_multihost_resume(checkpointer, state,
+                                                    meta)
         from_phase = ckpt.phase_index(state.phase) if state else 0
 
         root_sp = obs.begin("partition", backend="torch-bigv", k=int(k),
@@ -578,7 +622,7 @@ class BigVPipeline:
         # an explicit SHEEP_CACHE_BYTES budget keeps the build's host
         # batches on the cards for the score pass and for retries
         rm = None
-        if not is_device_stream(stream):
+        if self.procs == 1 and not is_device_stream(stream):
             from sheep_tpu_torch.utils.residency import manager_from_env
             rm = manager_from_env(stats=build_stats)
         # a delta: stream's order comes from its base segment's degrees;
@@ -774,7 +818,12 @@ class BigVPipeline:
                     if rm is not None:
                         rm.boundary(start + nb * d)
         cut, total = (int(x) for x in acc.tolist())
-        cv = score_ops.comm_volume(cv_chunks) if comm_volume else None
+        cv = None
+        if comm_volume and self.procs > 1:
+            cv = union_key_count(
+                score_ops.comm_volume_keys(cv_chunks).cpu().numpy(), home)
+        elif comm_volume:
+            cv = score_ops.comm_volume(cv_chunks)
         balance = pure.part_balance(
             assign_host, k, deg_host if weights == "degree" else None)
         t["score"] = time.perf_counter() - t0

@@ -32,8 +32,18 @@ The port folds in place where the reference donates its buffers: a
 discarded speculative execution ran on drained (all-sentinel) blocks and
 changed nothing, and a group's blocks are made fresh for it.
 
-Single process only: a multi-process mesh on ``torch.distributed`` is the
-next slice, and its entry points here raise ``NotImplementedError``.
+Several processes (``torch.distributed``, ``parallel/mesh.py``): each
+holds ``n_local`` contiguous shards of the mesh, chunks go round robin
+over the processes first (``iter_batches_lockstep``; plain text by byte
+span), every process yields the same number of batches (stragglers pad
+with all-sentinel ones), the collectives cross the processes, and the
+merged forest is global shard 0's, broadcast. A device stream's chunks
+are synthesized by each process on its own shards, its round-robin share
+(``device_lockstep_batches``). The residency manager and the in-process
+retry are single-process only, as in the reference: a fault kills every
+process and the run resumes from its checkpoints, the processes agreeing
+on one step first
+(``utils/checkpoint.reconcile_multihost_resume``).
 """
 
 from __future__ import annotations
@@ -54,24 +64,25 @@ from sheep_tpu_torch.ops import degrees as degrees_ops
 from sheep_tpu_torch.ops import elim as elim_ops
 from sheep_tpu_torch.ops import order as order_ops
 from sheep_tpu_torch.ops import score as score_ops
-from sheep_tpu_torch.parallel.mesh import Mesh, pmax, pmin, ppermute, psum
-
-_MULTI_PROCESS = ("multi-process sharded runs (torch.distributed) are not "
-                  "ported yet; run one process")
+from sheep_tpu_torch.parallel.mesh import (Mesh, pmax, pmin, ppermute, psum,
+                                           shard0)
 
 
 def chunk_batches(stream, chunk_edges: int, n_devices: int, n: int,
                   shard: int = 0, num_shards: int = 1, start_chunk: int = 0,
                   byte_range: bool = False):
     """Group the chunk stream into (D, C, 2) int32 host batches, one chunk
-    a shard, padded with the sentinel vertex n. Yields (batch, count)."""
+    a shard, padded with the sentinel vertex n: worker ``shard`` of
+    ``num_shards`` takes its chunks of the stream (``EdgeStream.chunks``).
+    Yields (batch, count)."""
     from sheep_tpu_torch.backends.torch_backend import pad_chunk
 
-    if num_shards != 1 or shard != 0 or byte_range:
-        raise NotImplementedError(_MULTI_PROCESS)
     batch = np.full((n_devices, chunk_edges, 2), n, dtype=np.int32)
     filled = 0
-    for chunk in stream.chunks(chunk_edges, start_chunk=start_chunk):
+    for chunk in stream.chunks(chunk_edges, shard=shard,
+                               num_shards=num_shards,
+                               start_chunk=start_chunk,
+                               byte_range=byte_range):
         batch[filled] = pad_chunk(chunk, chunk_edges, n)
         filled += 1
         if filled == n_devices:
@@ -92,31 +103,99 @@ def use_byte_range(stream, procs: int) -> bool:
 def iter_batches_lockstep(stream, cs: int, rows: int, n: int, proc: int,
                           procs: int, start_chunk: int = 0,
                           byte_range: bool = False):
-    """(rows, C, 2) host batches of this process's share of the stream.
-    One process owns every chunk; more raise ``NotImplementedError``."""
-    if procs != 1:
-        raise NotImplementedError(_MULTI_PROCESS)
-    yield from (b for b, _ in chunk_batches(
+    """(rows, C, 2) host batches of process ``proc``'s share of the
+    stream. With several processes every one yields the same number of
+    batches, so the per-batch collectives stay in lockstep: stragglers pad
+    with all-sentinel batches. The count comes from the stream's length
+    (chunk i is process i % procs's), or, for byte spans, from one
+    allgather of every process's own chunk count (local chunk j of
+    process p is global chunk j * procs + p, so ``start_chunk`` skips as
+    in the round-robin case)."""
+    gen = (b for b, _ in chunk_batches(
         stream, cs, rows, n, shard=proc, num_shards=procs,
         start_chunk=start_chunk, byte_range=byte_range))
+    if procs == 1:
+        yield from gen
+        return
+    if byte_range:
+        from sheep_tpu_torch.parallel.mesh import process_allgather
+
+        mine = -(-stream.count_edges_in_span(proc, procs) // cs)
+        counts = process_allgather(
+            np.array([mine], dtype=np.int64)).reshape(-1)
+
+        def owned(p):
+            done = max(0, (start_chunk - p + procs - 1) // procs)
+            return max(0, int(counts[p]) - done)
+    else:
+        total = -(-stream.num_edges // cs)
+
+        def owned(p):  # chunks i in [start_chunk, total), i % procs == p
+            full = max(0, (total - p + procs - 1) // procs)
+            done = max(0, (start_chunk - p + procs - 1) // procs)
+            return full - done
+
+    nb = max(-(-owned(p) // rows) for p in range(procs))
+    produced = 0
+    for b in gen:
+        yield b
+        produced += 1
+    empty = np.full((rows, cs, 2), n, np.int32)
+    for _ in range(nb - produced):
+        yield empty
+
+
+def union_key_count(keys: np.ndarray, device=None) -> int:
+    """The distinct comm-volume keys over every process, each of which saw
+    its own chunks' cut edges: one padded allgather of the local keys (the
+    reference's), then their union counted by ``torch.unique`` on
+    ``device`` (None: the CPU): on an H100 machine's host, numpy's
+    ``np.unique`` (its hashing path) took 17.2 s over the two processes'
+    keys of the s22 build, most of that build's wall."""
+    import torch
+
+    from sheep_tpu_torch.parallel.mesh import process_allgather
+
+    keys = np.asarray(keys, np.int64)
+    lens = process_allgather(np.array([len(keys)], np.int64))
+    pad = np.full(max(1, int(lens.max())), -1, np.int64)
+    pad[:len(keys)] = keys
+    every = process_allgather(pad)
+    every = torch.from_numpy(every[every >= 0]).to(
+        "cpu" if device is None else device)
+    return int(torch.unique(every).numel())
 
 
 def device_lockstep_batches(stream, cs: int, rows: int, n: int, mesh,
-                            start_chunk: int = 0, stats=None):
+                            start_chunk: int = 0, stats=None,
+                            proc: int = 0, procs: int = 1):
     """Batches synthesized on the shards' devices from a device stream
-    (``io/devicestream.py``): batch b is a list whose row j is global
-    chunk ``start_chunk + b * rows + j`` made by the stream's
-    ``device_chunk`` (``hash_chunk``) on shard j's device. An index past
-    the stream's end synthesizes the all-sentinel chunk, so the batches
-    equal the host path's padded ones; no host bytes cross. Only the real
-    chunks of a partial last batch are counted."""
+    (``io/devicestream.py``): batch b is a list whose row j is made by the
+    stream's ``device_chunk`` (``hash_chunk``) on local shard j's device.
+    That row is process ``proc``'s local chunk ``b * rows + j`` of the
+    round robin, global chunk ``first + (b * rows + j) * procs`` where
+    ``first`` is its first chunk at or past ``start_chunk``; with one
+    process, global chunk ``start_chunk + b * rows + j``. Every process
+    yields the same number of batches, and an index past the stream's end
+    synthesizes the all-sentinel chunk, so the batches equal the host
+    path's padded ones (:func:`iter_batches_lockstep`); no host bytes
+    cross. Only real chunks are counted, those of every process, so each
+    one reports the run's total."""
     total = stream.num_chunks(cs)
-    n_batches = max(0, -(-(total - start_chunk) // rows))
+
+    def owned(p):  # chunks i in [start_chunk, total), i % procs == p
+        return len(range(start_chunk + (p - start_chunk) % procs, total,
+                         procs))
+
+    first = start_chunk + (proc - start_chunk) % procs
+    counts = [owned(p) for p in range(procs)]
+    n_batches = max(-(-c // rows) for c in counts)
     for b in range(n_batches):
-        first = start_chunk + b * rows
-        shards = [stream.device_chunk(first + j, cs, n, dev)
+        shards = [stream.device_chunk(first + (b * rows + j) * procs, cs,
+                                      n, dev)
                   for j, dev in enumerate(mesh)]
-        note_device_chunks(stats, min(rows, total - first))
+        note_device_chunks(stats, sum(min(rows, max(0, c - b * rows))
+                                      for c in counts))
         yield shards
 
 
@@ -182,10 +261,12 @@ class ShardedPipeline:
         self.inflight = int(inflight)
         self.segment_rounds = segment_rounds
         self.warm_schedule = tuple(warm_schedule)
-        d = len(self.mesh)
+        # this process holds n_local contiguous shards of the d of the mesh
+        d = self.mesh.size
         self.n_devices = d
         self.rounds = max(1, math.ceil(math.log2(d))) if d > 1 else 0
-        self.procs, self.proc, self.n_local = 1, 0, d
+        self.procs, self.proc = self.mesh.procs, self.mesh.proc
+        self.n_local = len(self.mesh)
         self.home = self.mesh[0]
         self._warm = [(wr, wl) for wr, wl in self.warm_schedule]
 
@@ -230,7 +311,7 @@ class ShardedPipeline:
     def deg_reduce(self, deg_all: list) -> torch.Tensor:
         """The shards' int32 partial counts summed (int32, on the home
         device; the flush cadence keeps every sum below 2^31)."""
-        return psum(deg_all)[0]
+        return psum(deg_all, self.mesh)[0]
 
     def make_order(self, deg_total: list):
         """(pos, order), each replicated, from the int32 totals."""
@@ -248,7 +329,7 @@ class ShardedPipeline:
         changed, max rounds, max live), int32[3] on the home device."""
         n, seg = self.n, self.segment_rounds
         svs = []
-        for i in range(self.n_devices):
+        for i in range(self.n_local):
             if kind == "small":
                 lo2, hi2, Pn, sv = elim_ops.fold_segment_small_pos(
                     P_all[i], lo_all[i], hi_all[i], n,
@@ -264,12 +345,12 @@ class ShardedPipeline:
                     segment_rounds=wr, descent="stream")
             P_all[i], lo_all[i], hi_all[i] = Pn, lo2, hi2
             svs.append(sv)
-        return pmax(svs)[0]
+        return pmax(svs, self.mesh)[0]
 
     def live_count(self, lo_all: list) -> torch.Tensor:
         """The largest live count of the shards' buffers (0-d int32)."""
         return pmax([(lo != self.n).sum(dtype=torch.int32)
-                     for lo in lo_all])[0]
+                     for lo in lo_all], self.mesh)[0]
 
     def compact_step(self, lo_all: list, hi_all: list, to_size: int):
         """Every shard's live pairs packed into ``to_size`` slots by
@@ -309,9 +390,9 @@ class ShardedPipeline:
                 payload.append(torch.stack([sel, table[sel.long()]]))
             else:
                 payload.append(table)
-        recv = ppermute(payload, perm)
+        recv = ppermute(payload, perm, self.mesh)
         lo_all, hi_all = [], []
-        for i, got in enumerate(recv):
+        for i, got in enumerate(recv, self.mesh.base):
             if (i ^ (1 << r)) >= d:
                 got.fill_(n)
             if compact:
@@ -336,14 +417,14 @@ class ShardedPipeline:
     def max_occupancy(self, P_all: list) -> torch.Tensor:
         """The largest count of non-sentinel forest entries of a shard."""
         return pmax([(P[:self.n] != self.n).sum(dtype=torch.int32)
-                     for P in P_all])[0]
+                     for P in P_all], self.mesh)[0]
 
     def score_step(self, batch_dev: list, assign: list) -> torch.Tensor:
         """(cut, total) of one batch summed over the shards, int64[2] on
         the home device."""
         parts = [torch.stack(score_ops.score_chunk(c, a, self.n))
                  for c, a in zip(batch_dev, assign)]
-        return psum(parts)[0]
+        return psum(parts, self.mesh)[0]
 
     def orient_batch_step(self, blocks_dev: list, pos: list):
         out = [elim_ops.orient_chunks_batch_pos(b, p, self.n)
@@ -363,10 +444,11 @@ class ShardedPipeline:
                 P, loB, hiB, self.n, lift_levels=self.lift_levels,
                 batch_rounds=br)
             svs.append(sv)
-        return torch.stack([pmin([s[0] for s in svs])[0],
-                            pmax([s[1] for s in svs])[0],
-                            pmax([s[2] for s in svs])[0],
-                            psum([s[3] for s in svs])[0]])
+        m = self.mesh
+        return torch.stack([pmin([s[0] for s in svs], m)[0],
+                            pmax([s[1] for s in svs], m)[0],
+                            pmax([s[2] for s in svs], m)[0],
+                            psum([s[3] for s in svs], m)[0]])
 
     # -- the drivers -----------------------------------------------------
     def build_step_batch(self, P_all: list, blocks_dev: list, pos: list,
@@ -384,7 +466,7 @@ class ShardedPipeline:
         if stats is not None:
             elim_ops._seed_ms_counters(stats)
             stats["folded_bytes"] = stats.get("folded_bytes", 0) \
-                + sum(int(b.numel()) for b in blocks_dev) * 4
+                + sum(int(b.numel()) for b in blocks_dev) * 4 * self.procs
         fifo: deque = deque()
         idle_since = None
         issued = 0
@@ -394,8 +476,11 @@ class ShardedPipeline:
                     # the dispatch's injection point: its fault unwinds
                     # the group with executions in flight
                     issued += 1
+                    # recoverable kinds only in one process: a retry on
+                    # one rank would skew the collectives
                     fault.maybe_fail("dispatch", issued,
-                                     kinds=("oom", "device"))
+                                     kinds=("oom", "device")
+                                     if self.procs == 1 else ())
                     if idle_since is not None and stats is not None:
                         elim_ops._t_ms(stats, "device_gap_ms",
                                        time.perf_counter() - idle_since)
@@ -470,13 +555,14 @@ class ShardedPipeline:
         lo_all, hi_all = self.orient_step(batch_dev, pos)
         if stats is not None:
             stats["folded_bytes"] = stats.get("folded_bytes", 0) \
-                + sum(int(b.numel()) for b in batch_dev) * 4
+                + sum(int(b.numel()) for b in batch_dev) * 4 * self.procs
         return self._fold_actives(P_all, lo_all, hi_all, stats=stats)
 
     def merge(self, P_all: list, stats: Optional[dict] = None,
               consume: bool = False) -> torch.Tensor:
-        """The global forest (position space, on the home device) from the
-        shards' forests, by the butterfly: log2(D) exchange rounds, each
+        """The global forest (position space, on the home device: global
+        shard 0's, broadcast to every process) from the shards' forests,
+        by the butterfly: log2(D) exchange rounds, each
         followed by the adaptive fold of what was received, right-sized
         first from its live count. One occupancy read picks the payload:
         compact pairs at capacity ``pow2_at_least(max occupancy, 1024)``
@@ -515,14 +601,14 @@ class ShardedPipeline:
             stats["merge_payload_bytes"] = \
                 stats.get("merge_payload_bytes", 0) + total
             stats["merge_mode"] = "compact" if cap0 else "dense"
-        return P_all[0]
+        return shard0(P_all, self.mesh)
 
     # -- batch supply ----------------------------------------------------
     def _use_byte_range(self, stream) -> bool:
         return use_byte_range(stream, self.procs)
 
     def _device_synth(self, stream) -> bool:
-        return self.procs == 1 and is_device_stream(stream)
+        return is_device_stream(stream)
 
     def iter_batches(self, stream, start_chunk: int = 0, stats=None):
         """Host (D, C, 2) batches, or per-shard device lists from a
@@ -530,7 +616,8 @@ class ShardedPipeline:
         if self._device_synth(stream):
             yield from device_lockstep_batches(
                 stream, self.cs, self.n_local, self.n, self.mesh,
-                start_chunk=start_chunk, stats=stats)
+                start_chunk=start_chunk, stats=stats, proc=self.proc,
+                procs=self.procs)
             return
         yield from iter_batches_lockstep(
             stream, self.cs, self.n_local, self.n, self.proc, self.procs,
@@ -566,10 +653,13 @@ class ShardedPipeline:
         reference's ``ShardedPipeline.run``. ``timings`` gets each pass's
         seconds; ``checkpointer`` saves every ``checkpointer.every``
         chunks (the merged forest, not the per-shard stack), ``resume``
-        restarts from its latest step. The build is one retryable attempt
+        restarts from its latest step (with several processes, the step
+        they agree on). In one process the build is one retryable attempt
         from its last snapshot (``utils/retry.py``: an out-of-memory
         fault spills the cached batches or halves the dispatch knobs, a
-        device loss saves the snapshot and checks the device)."""
+        device loss saves the snapshot and checks the device); with
+        several, a fault raises on its process and the watchdog ends the
+        others."""
         from sheep_tpu_torch.backends.torch_backend import LAUNCH_KEYS
         from sheep_tpu_torch.core import pure
         from sheep_tpu_torch.ops import (fixpoint as fixpoint_ops,
@@ -590,7 +680,14 @@ class ShardedPipeline:
                                 state_format="sharded", devices=d,
                                 procs=self.procs,
                                 text_byte_range=self._use_byte_range(stream))
-        state = ckpt.resume_state(checkpointer, meta, resume)
+        # several processes: a mismatch raises on all of them, in the
+        # reconcile, and a one-step skew of their saves resumes at the
+        # step they share
+        state = ckpt.resume_state(checkpointer, meta, resume,
+                                  raise_on_mismatch=self.procs == 1)
+        if self.procs > 1 and checkpointer is not None and resume:
+            state = ckpt.reconcile_multihost_resume(checkpointer, state,
+                                                    meta)
         from_phase = ckpt.phase_index(state.phase) if state else 0
 
         root_sp = obs.begin("partition", backend="torch-sharded", k=int(k),
@@ -677,7 +774,10 @@ class ShardedPipeline:
                     fixpoint_ops.LAUNCHES, compact_ops.LAUNCHES)
         launches0 = {key: v for c in counters for key, v in c.items()}
         merge_stats: dict = {}
-        bkinds = ("kill", "oom", "device", "stall")
+        # the in-process retry runs in one process only: more keep the
+        # kill and resume contract (and the watchdog's stall)
+        bkinds = ("kill", "oom", "device", "stall") if self.procs == 1 \
+            else ("kill", "stall")
         if state and from_phase >= 2:
             merged_minp = torch.from_numpy(
                 np.asarray(state.arrays["merged"], np.int32)).to(home)
@@ -702,7 +802,8 @@ class ShardedPipeline:
 
             def build_attempt():
                 fa = np.full((self.n_local, n + 1), n, np.int32)
-                if snap["merged"] is not None:
+                # the snapshot seeds global shard 0 alone
+                if snap["merged"] is not None and self.proc == 0:
                     fa[0] = np.asarray(snap["merged"],
                                        dtype=np.int32)[order_host]
                 P_all = self._rows(fa)
@@ -817,6 +918,8 @@ class ShardedPipeline:
                     P_all = build_attempt()
                     break
                 except Exception as exc:  # noqa: BLE001, classified there
+                    if self.procs > 1:
+                        raise
                     retry_mod.handle_build_fault(
                         policy, exc, "sharded.build", build_stats,
                         on_resource=on_resource,
@@ -905,7 +1008,12 @@ class ShardedPipeline:
                     if rm is not None:
                         rm.boundary(start + batches * d)
         cut, total = (int(x) for x in acc.tolist())
-        cv = score_ops.comm_volume(cv_chunks) if comm_volume else None
+        cv = None
+        if comm_volume and self.procs > 1:
+            cv = union_key_count(
+                score_ops.comm_volume_keys(cv_chunks).cpu().numpy(), home)
+        elif comm_volume:
+            cv = score_ops.comm_volume(cv_chunks)
         balance = pure.part_balance(assign_host, k,
                                     deg_host if weights == "degree"
                                     else None)

@@ -20,6 +20,18 @@ class UnsupportedGraphError(ValueError):
     """Graph outside the port's envelope, raised before any streaming pass."""
 
 
+def refuse_anchored(stream, mesh) -> None:
+    """A ``delta:`` input streams as one shard: a mesh of several processes
+    cannot split an anchored log, so the sharded backends refuse it there
+    (the reference's refusal)."""
+    if getattr(stream, "order_anchor", False) and \
+            getattr(mesh, "procs", 1) > 1:
+        raise UnsupportedGraphError(
+            "delta: inputs stream single-shard; a multi-process mesh "
+            "cannot split an anchored log — run the delta build in one "
+            "process or with --backend torch")
+
+
 def check_vertex_range(n: int) -> None:
     if n > MAX_DEVICE_VERTICES:
         raise UnsupportedGraphError(

@@ -217,6 +217,20 @@ class Checkpointer:
               f"{self.process}); resuming as a clean start")
         return None
 
+    def load_at(self, phase: str,
+                chunk_idx: int) -> Optional[CheckpointState]:
+        """The step (``phase``, ``chunk_idx``) when it is the latest or the
+        kept previous one; None otherwise."""
+        manifest = self._read_manifest()
+        if manifest is None:
+            return None
+        meta = manifest.get("meta", {})
+        for entry in (manifest, manifest.get("previous")):
+            if entry and entry["phase"] == phase \
+                    and int(entry["chunk_idx"]) == int(chunk_idx):
+                return self._load_entry(entry, meta)
+        return None
+
     def clear(self, force: bool = False) -> None:
         """Drop this process's checkpoint (with ``auto_clear=False`` only
         when ``force``)."""
@@ -311,17 +325,27 @@ def save_score_state(checkpointer: Checkpointer, chunk_idx: int, cut: int,
     return [keys] if comm_volume else []
 
 
+# what resume_state(raise_on_mismatch=False) returns for a checkpoint
+# of another run: a multi-process caller hands it to
+# reconcile_multihost_resume, which raises on every process (one process
+# raising alone would leave the others waiting in their first collective)
+MISMATCHED = object()
+
+
 def resume_state(checkpointer: Optional[Checkpointer], meta: Dict,
-                 resume: bool) -> Optional[CheckpointState]:
+                 resume: bool, raise_on_mismatch: bool = True):
     """The state to resume from: None without a checkpointer, without
     ``resume`` or with nothing saved; a ``ValueError`` when the saved
-    fingerprint is not this run's."""
+    fingerprint is not this run's, or :data:`MISMATCHED` instead when not
+    ``raise_on_mismatch``."""
     if checkpointer is None or not resume:
         return None
     state = checkpointer.load()
     if state is None:
         return None
     if not state.matches(meta):
+        if not raise_on_mismatch:
+            return MISMATCHED
         raise ValueError(
             "checkpoint does not match this run "
             f"(saved {state.meta}, current {meta}); "
@@ -334,3 +358,43 @@ def resume_state(checkpointer: Optional[Checkpointer], meta: Dict,
     obs.event("resume", phase=state.phase, chunk_idx=int(state.chunk_idx),
               process=checkpointer.process)
     return state
+
+
+def reconcile_multihost_resume(checkpointer: Checkpointer, state,
+                               meta: Dict) -> Optional[CheckpointState]:
+    """One resume step for every process (the reference's
+    ``reconcile_multihost_resume``). A crash between two processes' saves
+    leaves their manifests one step apart; resuming from different steps
+    would desynchronize the collectives. The processes allgather their
+    latest (phase, chunk) and fall back to the least, which each holds as
+    its latest or its kept previous step; a process with no checkpoint
+    means a fresh start for all. Whether every process can load that
+    step is allgathered too, so a step that is gone, or a fingerprint
+    mismatch on one process (``state is MISMATCHED``), raises
+    ``ValueError`` on every process."""
+    from sheep_tpu_torch.parallel.mesh import process_allgather
+
+    mismatched = state is MISMATCHED
+    own = ((phase_index(state.phase), state.chunk_idx)
+           if state and not mismatched else (-1, -1))
+    steps = process_allgather(np.array(own, dtype=np.int64))
+    lo_phase, lo_chunk = sorted(map(tuple, steps.reshape(-1, 2).tolist()))[0]
+    fresh = lo_phase < 0
+    candidate: Optional[CheckpointState] = None
+    if not fresh:
+        if (lo_phase, lo_chunk) == own:
+            candidate = state
+        else:
+            candidate = checkpointer.load_at(PHASES[lo_phase], lo_chunk)
+        if candidate is not None and not candidate.matches(meta):
+            candidate = None
+    ok = (fresh or candidate is not None) and not mismatched
+    every = process_allgather(np.array([1 if ok else 0], dtype=np.int64))
+    if not every.all():
+        raise ValueError(
+            f"cannot resume: common step {(lo_phase, lo_chunk)} is not "
+            f"retained, does not match this run, or a local checkpoint "
+            f"fingerprint-mismatched on some process "
+            f"(this process has {own}, ok={ok}, mismatched={mismatched}); "
+            "pass a fresh --checkpoint-dir or drop --resume")
+    return None if fresh else candidate

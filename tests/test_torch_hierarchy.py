@@ -104,11 +104,14 @@ def test_arguments_refused_as_the_reference_does():
     with pytest.raises(ValueError, match="positive"):
         sheep_tpu_torch.partition_hierarchical("rmat-hash:8", [2, 0],
                                                device="cpu")
-    # processes are not ported: not silently ignored (the checkpointer
-    # is ported: tests/test_torch_checkpoint.py)
-    with pytest.raises(TypeError):
-        sheep_tpu_torch.partition_hierarchical("rmat-hash:8", [2, 2],
-                                               device="cpu", nprocs=2)
+    # nprocs is taken as the reference takes it: in one process, with no
+    # checkpointer to reconcile, the run is the plain one
+    # (tests/test_torch_multiprocess.py runs it over several processes)
+    ref = sheep_tpu.partition_hierarchical("rmat-hash:8", [2, 2],
+                                           backend="cpu", nprocs=2)
+    got = sheep_tpu_torch.partition_hierarchical("rmat-hash:8", [2, 2],
+                                                 device="cpu", nprocs=2)
+    _same(got, ref)
 
 
 @pytest.mark.parametrize("levels", [[4, 4], [2, 1, 4], [16]])
