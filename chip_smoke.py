@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-cards   # phases 5l, 5m, 5n, >= 2 cards
     python3 chip_smoke.py --multiprocess    # phase 5n and its references
+    python3 chip_smoke.py --served          # phase 5o and its references
 
 Phases, one result line each; any failure exits non-zero before the last
 line is printed:
@@ -313,6 +314,19 @@ line is printed:
      ``python -m sheep_tpu_torch`` with the three flags, process 0's map
      and scores equal to the single-device build's (``--sharded-cards``:
      the same over NCCL, one rank a card, one shard a rank);
+  5o. the served engine: the port's daemon (``python -m
+     sheep_tpu_torch.cli serve``) in a subprocess on the card, on a unix
+     socket in a temporary directory: phase 5's graph submitted by the
+     port's client (scores equal to the JAX package's, forest and every
+     served kernel's launches equal to the CLI build's at the daemon's
+     pipeline depth 1), the same request again (``jit_compiles`` 0), two
+     ``rmat-hash:20`` jobs interleaved, each equal to its solo build, and
+     a third killed with ``kill -9`` mid-build, the daemon started again
+     on the same state directory and the job resumed from its checkpoint,
+     equal to its solo build; SIGTERM then drains the daemon to exit 0.
+     One ``s22-served`` line with each job's seconds, queue wait and
+     edges/s, the launches, the daemon's peak memory and the card
+     (``--served``: this phase alone);
   6. one JSON line listing every kernel with its numbers, the lifting
      kernels and the scatter at the case of 5b, the round's end as folded
      into ``climb_tail`` (no launches of its own; its time the fused
@@ -324,6 +338,7 @@ line is printed:
      mode from 5f, and the refinement's kernels from 5g; the delta fold's
      launches (5j) and the sharded builds' (5l) beside the main path's;
      the routed kernels with their 5m launches, at their 3h head cases;
+     the served job's launches (5o) beside the main path's;
   7. the last line, {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -4528,6 +4543,283 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+# 5o: the served engine. The daemon (``python -m sheep_tpu_torch.cli
+# serve``) in a subprocess on the card, on a unix socket in a temporary
+# directory, with no result store (so a repeat request builds again, on
+# loaded kernels) and the default checkpoint cadence (16 chunks or groups)
+SERVED_S20 = ("rmat-hash:20:16:1", "rmat-hash:20:16:2")
+SERVED_KILL_SPEC = "rmat-hash:20:16:3"
+# the s20 jobs: 16 chunks of 2^20 edges in groups of 2 (the kill's job:
+# 256 chunks of 2^16, one a group, so a kill lands well inside its build)
+SERVED_S20_OPTS = {"chunk_edges": 1 << 20, "dispatch_batch": 2}
+SERVED_KILL_OPTS = {"chunk_edges": 1 << 16, "dispatch_batch": 1}
+SERVED_KILL_CHUNKS = 256
+SERVED_WAIT_S = 300
+
+
+def _daemon(sock: str, state: str, log):
+    """The port's daemon on the card, its output to ``log``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "sheep_tpu_torch.cli", "serve", "--socket",
+         sock, "--state-dir", state, "--result-cache-bytes", "0"],
+        stdout=log, stderr=log)
+
+
+def _up(sock: str, proc, what: str) -> None:
+    """Wait until the daemon answers on ``sock`` (a killed daemon's
+    socket file stays behind until the next one replaces it)."""
+    import socket
+
+    deadline = time.monotonic() + 120
+    while True:
+        check(proc.poll() is None, f"{what}: the daemon exited "
+                                   f"({proc.returncode})")
+        check(time.monotonic() < deadline, f"{what}: no daemon in 120 s")
+        probe = socket.socket(socket.AF_UNIX)
+        try:
+            probe.connect(sock)
+            return
+        except OSError:
+            time.sleep(0.05)
+        finally:
+            probe.close()
+
+
+def _served_job(c, spec: str, k: int, opts: dict, tenant: str):
+    """Submit, wait, and return (descriptor, seconds from submit to the
+    answer, assignment)."""
+    from sheep_tpu_torch.server.protocol import decode_assignment
+
+    t0 = time.perf_counter()
+    jid = c.submit(spec, k=[k], tenant=tenant, comm_volume=True,
+                   return_assignment=True, **opts)["job_id"]
+    desc = c.wait(jid, timeout_s=SERVED_WAIT_S)
+    wall = time.perf_counter() - t0
+    check(desc["state"] == "done",
+          f"5o {spec} ({tenant}): {desc['state']} {desc.get('error')}")
+    return desc, wall, decode_assignment(desc["results"][0]["assignment"])
+
+
+def _job_line(desc, wall: float, total_edges: int) -> dict:
+    row = desc["results"][0]
+    return {"job": desc["job_id"], "seconds": wall,
+            "queue_wait_s": desc["start_t"] - desc["submit_t"],
+            "job_wall_s": desc["wall_s"],
+            "edges_per_s": total_edges / desc["wall_s"],
+            "steps": desc["steps"], "jit_compiles": desc["jit_compiles"],
+            "device_rounds": row["diagnostics"]["device_rounds"],
+            "phase_s": row["phase_times"]}
+
+
+def _same_served(row, assign, ref, what: str) -> None:
+    import numpy as np
+
+    check(np.array_equal(assign, ref.assignment),
+          f"{what}: assignment differs from the in-process build")
+    for key in ("edge_cut", "total_edges", "comm_volume"):
+        check(row[key] == getattr(ref, key),
+              f"{what}: {key} {row[key]} != {getattr(ref, key)}")
+
+
+def served(card, counters) -> dict:
+    """Phase 5o: phase 5's graph served by the port's daemon, equal to
+    the JAX package's scores and, launch for launch, to the port's CLI
+    build at the daemon's settings (pipeline depth 1); a warm repeat; two
+    s20 jobs interleaved, each equal to its solo build; a job killed
+    mid-build with ``kill -9`` and resumed bit-identically by a restarted
+    daemon. Prints the ``s22-served`` line and returns the s22 job's
+    launches by kernel."""
+    import torch
+
+    import sheep_tpu_torch
+    from sheep_tpu_torch.obs.metrics import parse_prometheus
+    from sheep_tpu_torch.server.client import SheepClient
+    from sheep_tpu_torch.server.engine import SERVED_LAUNCH_KEYS
+    from sheep_tpu_torch.server.protocol import decode_assignment
+
+    s22_opts = {"chunk_edges": 1 << 23, "dispatch_batch": 8}
+
+    def solo(spec, opts, k=S22_K):
+        return sheep_tpu_torch.partition(spec, k, device="cuda", inflight=1,
+                                         **opts)
+
+    # the CLI build at the daemon's settings, its launches counted
+    torch.cuda.empty_cache()
+    for counter in counters:
+        counter.reset_launches()
+    t0 = time.perf_counter()
+    cli = solo(S22_SPEC, s22_opts)
+    cli_wall = time.perf_counter() - t0
+    cli_launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    s22_check(cli, "5o CLI build at depth 1")
+    refs = {spec: solo(spec, SERVED_S20_OPTS) for spec in SERVED_S20}
+    kill_ref = solo(SERVED_KILL_SPEC, SERVED_KILL_OPTS)
+    torch.cuda.empty_cache()
+    line = {"spec": S22_SPEC, "k": S22_K, **s22_opts, "card": card,
+            "cli_wall_s": cli_wall, "cli_phase_s": cli.phase_times}
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = os.path.join(tmp, "d.sock")
+        state = os.path.join(tmp, "state")
+        logs = []
+        procs = []
+
+        def start(what):
+            log = open(os.path.join(tmp, f"daemon{len(logs)}.log"), "w+")
+            logs.append(log)
+            t0 = time.perf_counter()
+            procs.append(_daemon(sock, state, log))
+            _up(sock, procs[-1], what)
+            return procs[-1], time.perf_counter() - t0
+
+        try:
+            daemon, line["daemon_start_s"] = start("5o start")
+            with SheepClient(sock, timeout_s=SERVED_WAIT_S) as c:
+                # 1. phase 5's graph, and 2. the same request again
+                desc, wall, assign = _served_job(c, S22_SPEC, S22_K,
+                                                 s22_opts, "s22")
+                row = desc["results"][0]
+                _same_served(row, assign, cli, "5o s22")
+                check(row["edge_cut"] == S22_EDGE_CUT and
+                      row["total_edges"] == S22_TOTAL_EDGES and
+                      row["comm_volume"] == S22_COMM_VOLUME,
+                      "5o s22: scores differ from the JAX package's")
+                diag = row["diagnostics"]
+                launched = {name: int(diag[key]) for key, name in
+                            SERVED_LAUNCH_KEYS.items()}
+                for key, name in SERVED_LAUNCH_KEYS.items():
+                    check(launched[name] == cli_launches[name],
+                          f"5o s22: {name} launched {launched[name]} "
+                          f"times, the CLI build {cli_launches[name]}")
+                for name in ("gather_clip", "scatter_min", "climb_tail",
+                             "exec_finish", "hash_chunk"):
+                    check(launched[name] > 0, f"5o: no {name} launch")
+                check(diag["device_rounds"] ==
+                      cli.diagnostics["device_rounds"],
+                      "5o s22: device rounds differ from the CLI build's")
+                line["s22"] = _job_line(desc, wall, row["total_edges"])
+                line["launches"] = launched
+                again, wall2, assign2 = _served_job(c, S22_SPEC, S22_K,
+                                                    s22_opts, "repeat")
+                _same_served(again["results"][0], assign2, cli,
+                             "5o repeat")
+                check(again["jit_compiles"] == 0,
+                      f"5o repeat: {again['jit_compiles']} libraries "
+                      f"built or loaded")
+                line["s22_repeat"] = _job_line(again, wall2,
+                                               row["total_edges"])
+                # 3. two s20 jobs interleaved, each equal to its solo build
+                jids = [c.submit(spec, k=[S22_K], tenant=f"s20-{i}",
+                                 comm_volume=True, return_assignment=True,
+                                 **SERVED_S20_OPTS)["job_id"]
+                        for i, spec in enumerate(SERVED_S20)]
+                t0 = time.perf_counter()
+                descs = [c.wait(j, timeout_s=SERVED_WAIT_S) for j in jids]
+                wall = time.perf_counter() - t0
+                for spec, d in zip(SERVED_S20, descs):
+                    check(d["state"] == "done", f"5o {spec}: {d['state']}")
+                    _same_served(d["results"][0], decode_assignment(
+                        d["results"][0]["assignment"]), refs[spec],
+                        f"5o interleaved {spec}")
+                a, b = descs
+                check(a["start_t"] < b["end_t"] and
+                      b["start_t"] < a["end_t"],
+                      "5o: the s20 jobs did not interleave")
+                line["s20_interleaved"] = {
+                    spec: _job_line(d, wall, d["results"][0]["total_edges"])
+                    for spec, d in zip(SERVED_S20, descs)}
+                text = c.metrics()
+            peak = parse_prometheus(text).get(
+                "sheepd_device_peak_bytes_in_use", [({}, None)])[0][1]
+            line["daemon_peak_mem_bytes"] = peak
+            # 4. kill -9 mid-build, restart on the same state, resume
+            with SheepClient(sock, timeout_s=SERVED_WAIT_S) as c:
+                jid = c.submit(SERVED_KILL_SPEC, k=[S22_K], tenant="kill",
+                               comm_volume=True, return_assignment=True,
+                               **SERVED_KILL_OPTS)["job_id"]
+                deadline = time.monotonic() + SERVED_WAIT_S
+                while True:
+                    d = c.status(jid)
+                    check(d["state"] in ("queued", "running"),
+                          f"5o kill: the job ended before the kill "
+                          f"({d['state']})")
+                    # past two of the build's checkpoints (every 16 groups)
+                    if d.get("phase") == "build" and \
+                            d["steps"] >= SERVED_KILL_CHUNKS + 1 + 40:
+                        break
+                    check(time.monotonic() < deadline,
+                          "5o kill: the build never started")
+                    time.sleep(0.01)
+            daemon.kill()
+            daemon.wait(timeout=60)
+            killed_at = d["steps"]
+            daemon, line["restart_s"] = start("5o restart")
+            with SheepClient(sock, timeout_s=SERVED_WAIT_S) as c:
+                t0 = time.perf_counter()
+                d = c.wait(jid, timeout_s=SERVED_WAIT_S)
+                resume_s = time.perf_counter() - t0
+                check(d["state"] == "done", f"5o resumed: {d['state']} "
+                                            f"{d.get('error')}")
+                rrow = d["results"][0]
+                _same_served(rrow, decode_assignment(rrow["assignment"]),
+                             kill_ref, "5o resumed")
+                rdiag = rrow["diagnostics"]
+                check(rdiag.get("journal_resumed") == 1 and
+                      rdiag.get("resume_phase_idx") == 1.0,
+                      f"5o resumed: not a build resume ({rdiag})")
+                line["resume"] = {"spec": SERVED_KILL_SPEC,
+                                  "killed_at_step": killed_at,
+                                  "resumed_at_chunk":
+                                      rdiag.get("resume_chunk_idx"),
+                                  "resume_s": resume_s,
+                                  "steps_after_restart": d["steps"]}
+            # the graceful drain: SIGTERM, exit 0
+            daemon.terminate()
+            check(daemon.wait(timeout=120) == 0,
+                  f"5o: SIGTERM exit {daemon.returncode}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            tails = []
+            for log in logs:
+                log.seek(0)
+                tails.append(log.read()[-800:])
+                log.close()
+            print("5o daemon logs: " + " | ".join(
+                t.replace("\n", " / ") for t in tails), flush=True)
+    print("s22-served " + json.dumps(line), flush=True)
+    return line["launches"]
+
+
+def served_only() -> int:
+    """``chip_smoke.py --served``: phase 5o alone, after the build."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check",
+              file=sys.stderr)
+        return 2
+    from sheep_tpu_torch.ops import _build, compact, fixpoint, gather, lift
+    from sheep_tpu_torch.ops import refine, synth
+
+    t_all = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    print(f"build: {sorted(_build.build_all())}", flush=True)
+    served(card, (gather, lift, fixpoint, compact, synth, refine))
+    print(f"card: {card}  total {time.perf_counter() - t_all:.1f}s",
+          flush=True)
+    print(json.dumps({"ok": True, "mode": "served", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def multiprocess_only() -> int:
     """``chip_smoke.py --multiprocess``: phase 5n alone, with the
     references it needs (phase 5's build and the single-device s18)."""
@@ -5161,6 +5453,11 @@ def main() -> int:
     t0 = time.perf_counter()
     multiprocess_runs(card, res, small)
     print(f"5n: {time.perf_counter() - t0:.1f}s", flush=True)
+    # 5o. the served engine: phase 5's graph through the daemon, a warm
+    # repeat, two interleaved s20 jobs, a kill -9 mid-build and its resume
+    t0 = time.perf_counter()
+    served_launches = served(card, counters)
+    print(f"5o: {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 6. every kernel: the launches are the main path's (phase 5); K2's
     # and K3's the probe tool's (phase 3b), stream_descent's the
@@ -5364,6 +5661,11 @@ def main() -> int:
         if name in SHARDED_PATH + SHARDED_SEGMENT_PATH:
             k["sharded_launches"] = {label: launched[name] for label,
                                      launched in sharded.items()}
+    # the served job's launches (5o) beside the main path's
+    for k in kernels:
+        name = "hash_chunk" if k["name"] == "hash_chunk<rmat>" else k["name"]
+        if name in served_launches:
+            k["served_launches"] = served_launches[name]
     # the routed round (B14): launches from 5m, each at its head case of
     # 3h with the others beside it (the scatter's answers mode, that of
     # several cards, among them); the climb's chain bound and the
@@ -5401,4 +5703,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit(sharded_cards() if sys.argv[1:] == ["--sharded-cards"]
              else multiprocess_only() if sys.argv[1:] == ["--multiprocess"]
+             else served_only() if sys.argv[1:] == ["--served"]
              else main())

@@ -158,17 +158,124 @@ def _residency_chunks(stream, cs: int, n: int, device, rm, start_chunk: int,
             rm.release(leased)
 
 
+class _ChunkCache:
+    """A prefix of a stream's padded chunks kept on the device within
+    ``budget`` bytes (the reference's ``_ChunkCache``): the served
+    engine's cache, shared by the jobs of one input. Chunk i is cached
+    only once chunks [0, i) are, so the cache is always a prefix of the
+    stream; ``complete`` once it holds the whole stream."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = budget_bytes
+        self.used = 0
+        self.chunks: list = []
+        self.complete = False
+
+
+class _ChunkCacheReader:
+    """A read-only view of another job's :class:`_ChunkCache` (the
+    reference's ``_ChunkCacheReader``): it serves the cached prefix and
+    never appends, so a cache has one writer and any number of readers.
+    Its budget of -1 stops :func:`_device_chunks` from growing it at the
+    first chunk; a reader that outruns the writer streams the rest
+    itself. The daemon's one dispatch thread makes every access, so no
+    lock is needed."""
+
+    budget = -1
+
+    def __init__(self, cache: _ChunkCache):
+        self._cache = cache
+
+    @property
+    def chunks(self):
+        return self._cache.chunks
+
+    @property
+    def used(self):
+        return self._cache.used
+
+    @property
+    def complete(self):
+        return self._cache.complete
+
+
 def _device_chunks(stream, cs: int, n: int, device, cache, start_chunk: int,
                    ring: int = 1, stats=None):
     """Padded (cs, 2) int32 chunks on the device from ``start_chunk``,
-    through ``cache``: a :class:`ResidencyManager`, or None (the
-    reference's ``_device_chunks``)."""
-    if cache is None:
-        yield from device_chunks(stream, cs, n, device, ring, stats,
-                                 start_chunk)
-    else:
+    through ``cache`` (the reference's ``_device_chunks``): a
+    :class:`ResidencyManager`, a prefix :class:`_ChunkCache` or a
+    :class:`_ChunkCacheReader` of one, or None. A prefix cache serves and
+    fills only from the stream's head."""
+    if isinstance(cache, ResidencyManager):
         yield from _residency_chunks(stream, cs, n, device, cache,
                                      start_chunk, ring, stats)
+        return
+    if cache is None or start_chunk != 0:
+        yield from device_chunks(stream, cs, n, device, ring, stats,
+                                 start_chunk)
+        return
+    yield from cache.chunks
+    if cache.complete:
+        return
+    grow = True
+    for d in device_chunks(stream, cs, n, device, ring, stats,
+                           len(cache.chunks)):
+        nb = _nbytes(d)
+        if grow and cache.used + nb <= cache.budget:
+            cache.chunks.append(d)
+            cache.used += nb
+        else:
+            grow = False
+        yield d
+    if grow:
+        cache.complete = True
+
+
+def _grouped(blocks, batch: int):
+    """Host (cs, 2) blocks stacked ``batch`` at a time into (g, cs, 2)
+    blocks, the last one short."""
+    group: list = []
+    for b in blocks:
+        group.append(b)
+        if len(group) == batch:
+            yield np.stack(group)
+            group = []
+    if group:
+        yield np.stack(group)
+
+
+def _device_chunk_groups(stream, cs: int, n: int, device, cache,
+                         start_chunk: int, batch: int, ring: int = 1,
+                         stats=None):
+    """Lists of up to ``batch`` padded (cs, 2) int32 chunks on the device,
+    the served engine's staged groups (the reference's
+    ``_device_chunk_groups``). A host stream read past any cache is
+    read, padded and stacked a whole group at a time on a worker thread
+    and staged through the :class:`H2DRing`, ``ring`` groups ahead;
+    device streams and cached chunks are grouped from the chunk
+    iterator."""
+    if batch <= 1:
+        for d in _device_chunks(stream, cs, n, device, cache, start_chunk,
+                                ring, stats):
+            yield [d]
+        return
+    if cache is None and not is_device_stream(stream):
+        with prefetch(_grouped((pad_chunk(c, cs, n) for c in stream.chunks(
+                cs, start_chunk=start_chunk)), batch)) as pf, \
+                H2DRing(pf, device, depth=max(1, ring),
+                        stats=stats) as staged:
+            for block in staged:
+                yield list(block.unbind(0))
+        return
+    group: list = []
+    for d in _device_chunks(stream, cs, n, device, cache, start_chunk, ring,
+                            stats):
+        group.append(d)
+        if len(group) == batch:
+            yield group
+            group = []
+    if group:
+        yield group
 
 
 def resolve_inflight(inflight: int, device) -> int:

@@ -20,6 +20,11 @@
     python -m sheep_tpu_torch --input g.edges --k 8 --device cpu \
         --n-devices 4 --coordinator 127.0.0.1:29500 --num-processes 2 \
         --process-id 0     (and --process-id 1 in a second process)
+    python -m sheep_tpu_torch.cli serve --socket s.sock --state-dir S \
+        [--device cpu]
+    python -m sheep_tpu_torch.cli submit --server s.sock \
+        --input rmat-hash:16 --k 8 --wait
+    python -m sheep_tpu_torch.cli update JOB --server s.sock --deltas g.dlog
 
 prints the phase times and scores, then one JSON result line per k (the
 same fields as the reference's) last. ``--trace`` appends the run's
@@ -35,6 +40,10 @@ process 0 alone writes the trace, the metrics, the partition map and the
 result lines. ``--dist-backend`` names the transport (default: nccl on
 CUDA, one card a process; gloo on the CPU; gloo on CUDA lets several
 processes share one card).
+
+The verbs ``serve``, ``submit`` and ``update`` are the served engine's
+(``sheep_tpu_torch/server/``): the daemon, and its client's submit and
+resident-update calls; ``top`` comes with the fleet slice.
 """
 
 from __future__ import annotations
@@ -244,7 +253,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _verb(argv):
+    """The served engine's verbs, dispatched before the flat grammar as
+    the reference's CLI dispatches them: ``serve`` runs the daemon,
+    ``submit`` talks to one, ``update JOB ...`` is ``submit --update
+    JOB ...``. Returns the exit code, or None for a flat run."""
+    verb = argv[0] if argv else None
+    if verb == "serve":
+        from sheep_tpu_torch.server.daemon import main as daemon_main
+
+        return daemon_main(argv[1:])
+    if verb in ("submit", "update"):
+        from sheep_tpu_torch.server.client import main as submit_main
+
+        rest = list(argv[1:])
+        if verb == "update" and rest and not rest[0].startswith("-"):
+            rest = ["--update", rest[0]] + rest[1:]
+        return submit_main(rest)
+    if verb == "top":
+        print("top: the live console comes with the fleet slice of the "
+              "port; use `submit --metrics` or GET /metrics meanwhile",
+              file=sys.stderr)
+        return 2
+    return None
+
+
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    rc = _verb(argv)
+    if rc is not None:
+        return rc
     p = build_parser()
     args = p.parse_args(argv)
     if args.heartbeat_secs is not None:

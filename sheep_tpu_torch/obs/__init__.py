@@ -30,9 +30,10 @@ instrumentation point never reads the device.
             obs.chunk_progress(i + 1, chunk_edges)
             sp.end(rounds=r)
 
-The reference's flight recorder, metric registry and federation serve its
-daemon, which the port does not have yet; :func:`flight_job` and
-:func:`flight_job_context` stand for them as no-ops.
+The served engine's planes live beside it: the flight recorder
+(``obs/flightrec.py``, bounded per-job rings that :func:`event` feeds
+once one is installed) and the metric registry (``obs/metrics.py``).
+The reference's fleet federation is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from __future__ import annotations
 from contextlib import contextmanager, nullcontext
 from typing import IO, Optional, Union
 
+from sheep_tpu_torch.obs.flightrec import FlightRecorder  # noqa: F401
 from sheep_tpu_torch.obs.heartbeat import Heartbeat  # noqa: F401
 from sheep_tpu_torch.obs.manifest import (collect_manifest,  # noqa: F401
                                           emit_manifest)
@@ -48,16 +50,43 @@ from sheep_tpu_torch.obs.tracer import (NULL_SPAN, NULL_STATS,  # noqa: F401
                                         StatsAccumulator, Tracer)
 
 _TRACER: Optional[Tracer] = None
+_FLIGHT: Optional[FlightRecorder] = None
+
+
+def install_flight(recorder: FlightRecorder) -> FlightRecorder:
+    """Make ``recorder`` the process-wide flight recorder: every
+    :func:`event` also lands in its bounded rings (one deque append an
+    event, no I/O until a dump)."""
+    global _FLIGHT
+    _FLIGHT = recorder
+    return recorder
+
+
+def uninstall_flight() -> Optional[FlightRecorder]:
+    global _FLIGHT
+    fr, _FLIGHT = _FLIGHT, None
+    return fr
+
+
+def get_flight() -> Optional[FlightRecorder]:
+    return _FLIGHT
 
 
 def flight_job() -> Optional[str]:
-    """The calling thread's flight-recorder job: None, there is none."""
-    return None
+    """The calling thread's flight-recorder job (None without a recorder
+    or outside any job): capture it before starting a worker thread and
+    enter it there with :func:`flight_job_context`."""
+    f = _FLIGHT
+    return f.current_job() if f is not None else None
 
 
 def flight_job_context(job_id: Optional[str]):
-    """A no-op context (no flight recorder in the port yet)."""
-    return nullcontext()
+    """Enter ``job_id`` as the calling thread's flight context (a no-op
+    context without a recorder or a job)."""
+    f = _FLIGHT
+    if f is None or job_id is None:
+        return nullcontext()
+    return f.job_context(job_id)
 
 
 def install(tracer: Tracer) -> Tracer:
@@ -166,10 +195,14 @@ def chunk_progress(idx: int, chunk_edges: int, edges_total=None) -> None:
 
 def event(name: str, **fields) -> None:
     """A free-form record through the active tracer (a no-op while
-    tracing is off)."""
+    tracing is off), and into the installed flight recorder's rings (a
+    no-op without one)."""
     t = _TRACER
     if t is not None:
         t.emit(name, **fields)
+    f = _FLIGHT
+    if f is not None:
+        f.record(name, fields)
 
 
 @contextmanager

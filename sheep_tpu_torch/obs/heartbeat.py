@@ -30,12 +30,16 @@ class Heartbeat:
     """Daemon thread writing ``heartbeat`` records through ``tracer``
     every ``interval_s`` seconds until :meth:`stop`. ``device``, the run's
     device, adds its allocator's counters as ``memory`` on CUDA; on the
-    CPU (or None) there is none and ``torch.cuda`` is not touched."""
+    CPU (or None) there is none and ``torch.cuda`` is not touched.
+    ``service``, a callable returning a dict, adds its fields to each beat
+    (the daemon's queue depth and active jobs)."""
 
-    def __init__(self, tracer, interval_s: float, device=None):
+    def __init__(self, tracer, interval_s: float, device=None,
+                 service=None):
         self.tracer = tracer
         self.interval = max(0.05, float(interval_s))
         self._device = device
+        self._service = service
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run,
                                         name="sheep-heartbeat", daemon=True)
@@ -85,6 +89,13 @@ class Heartbeat:
                     if isinstance(total, (int, float)) and total >= edges:
                         rec["eta_s"] = round((total - edges) / rate, 1)
             self._last = (now, edges)
+        if self._service is not None:
+            try:
+                svc = self._service()
+            except Exception:  # noqa: BLE001
+                svc = None  # a wedged sampler must not kill the beat
+            if svc:
+                rec.update(svc)
         counters = tr.counters.snapshot()
         if counters:
             rec["counters"] = counters

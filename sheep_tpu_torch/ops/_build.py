@@ -32,6 +32,9 @@ CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _libs: dict = {}
+# libraries compiled by build_all and loaded by load in this process: the
+# served engine's warm-state evidence (a repeat job adds to neither)
+COUNTS = {"built": 0, "loaded": 0}
 
 
 def _sources() -> dict:
@@ -102,6 +105,7 @@ def build_all(names=None) -> dict:
                           f"(rc={p.returncode}):\n{se}{so}")
         else:
             os.replace(tmp, libs[name])
+            COUNTS["built"] += 1
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs
@@ -114,4 +118,5 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(build_all([name])[name])
             _libs[name] = lib
+            COUNTS["loaded"] += 1
         return lib

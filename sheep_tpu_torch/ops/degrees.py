@@ -26,6 +26,28 @@ def degree_chunk(deg: torch.Tensor, edges: torch.Tensor,
     return deg.index_add_(0, idx, torch.ones_like(idx, dtype=deg.dtype))
 
 
+def flush_every_for(chunk_edges: int) -> int:
+    """Chunks between flushes of a device accumulator into int64 host
+    totals, before any vertex could reach 2^31 endpoints (the
+    reference's ``flush_every_for``). The served engine flushes on this
+    cadence, as the reference's does; its device accumulator is int64,
+    so the flush is exact either way."""
+    return max(1, (2**31 - 1) // max(2 * chunk_edges, 1))
+
+
+def rank_clip_i32(deg_host):
+    """int64 host degree totals -> int32-safe sort keys: totals past
+    int32 range are replaced by their stable ranks (double argsort),
+    below it they pass unchanged (the reference's ``rank_clip_i32``).
+    Degrees matter only by their order, so the elimination order of the
+    keys is that of the totals."""
+    import numpy as np
+
+    if deg_host.size == 0 or deg_host.max() < 2**31:
+        return deg_host
+    return np.argsort(np.argsort(deg_host, kind="stable"), kind="stable")
+
+
 # The quality advisor (the reference's, ``sheep_tpu/ops/degrees.py:39``).
 # Label-propagation refinement recovers community structure only while the
 # average intra-community degree a part stays at or above about 1 (the JAX
